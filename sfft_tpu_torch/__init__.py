@@ -1,0 +1,40 @@
+"""sfft_tpu_torch — the PyTorch / CUDA port of sfft_tpu.
+
+Fourier-space astronomical image subtraction (SFFT; Hu et al. 2022, ApJ 936,
+157): solve a spatially-varying PSF-matching kernel K_xy plus a spatially-
+varying differential background B_xy such that J ~= I (*) K_xy + B_xy, and
+emit the difference D = J - (I (*) K_xy + B_xy).
+
+The package keeps sfft_tpu's module paths and public names so each piece
+has a visible counterpart. It imports torch and numpy, never jax or
+sfft_tpu. Plain tensor code is PyTorch; the stages that sfft_tpu ran as TPU
+kernels are hand-written CUDA kernels for Hopper (sm_90a) under csrc/,
+built with nvcc at their first use on a CUDA tensor (see _kernels.py). On
+CPU tensors every kernel wrapper runs its plain PyTorch twin.
+
+Ported so far: the 'fft' and 'peeled' greek backends, the 'fft' and 'fft32'
+difference backends, the 'lu', 'cho' and 'refined' solvers, polynomial
+ENTANGLED / SEPARATE configs, and the customized packets.
+"""
+
+from sfft_tpu_torch.config import SFFTConfig, make_config
+from sfft_tpu_torch.core.engine import (
+    ElementalSFFT,
+    GeneralSFFT,
+    elemental_subtract,
+    general_subtract,
+)
+from sfft_tpu_torch.api.customized import CustomizedPacket, PureTorchCustomizedPacket
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SFFTConfig",
+    "make_config",
+    "ElementalSFFT",
+    "GeneralSFFT",
+    "elemental_subtract",
+    "general_subtract",
+    "CustomizedPacket",
+    "PureTorchCustomizedPacket",
+]

@@ -1,0 +1,239 @@
+"""The SFFT engine: solve & subtract (counterpart of sfft_tpu/core/engine.py).
+
+Maps to the reference call stack ElementalSFFTSubtract.ESS /
+GeneralSFFTSubtract.GSS (sfft/sfftcore/SFFTSubtract.py:8-475, 823-923).
+PyTorch runs eagerly, so the JAX package's per-config jit cache has no
+counterpart: the functions below run directly on tensors, on the device the
+input images lie on. Every entry point takes ``plain`` (default False):
+True keeps the hand kernels (K1, K3) out and runs their plain twins, which
+the tests and chip_smoke.py use as an independent cross-check.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core.assemble import GreekTables, assemble_system, entangled_tables
+from sfft_tpu_torch.core.basis import basis_planes
+from sfft_tpu_torch.core.fdiff import fdiff
+from sfft_tpu_torch.core.greek import greek_tables
+from sfft_tpu_torch.core.regularize import regularization_terms
+from sfft_tpu_torch.core.solve import solve_system
+
+
+def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None):
+    """SI = I * kernel-basis planes (reference SPixA_Iij); ST = background basis
+    planes (reference SPixA_Tpq); SSc = I * scaling-basis planes, zero-padded to
+    Fij, for SEPARATE-VARYING (reference ScaSPixA_Iij)."""
+    dt = torch_dtype(cfg.dtype if dtype is None else dtype)
+    dev = I.device
+    Bk = basis_planes(cfg.kernel_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
+    ST = basis_planes(cfg.bg_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
+    SI = I[None, :, :].to(dt) * Bk
+    SSc = None
+    if cfg.scaling_mode == "SEPARATE-VARYING":
+        Bs = basis_planes(cfg.scaling_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
+        SSc = I[None, :, :].to(dt) * Bs
+        if SSc.shape[0] < cfg.Fij:
+            pad = torch.zeros((cfg.Fij - SSc.shape[0], cfg.N0, cfg.N1), dtype=dt, device=dev)
+            SSc = torch.cat([SSc, pad], dim=0)
+    return SI, ST, SSc
+
+
+def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
+                           plain: bool = False):
+    """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
+    masked pair — everything `_solve_impl` does short of the solve (reference
+    LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383)."""
+    dt = torch_dtype(cfg.dtype)
+    mI = mI.to(dt)
+    mJ = mJ.to(dt)
+    s = cfg.SCALE
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+
+    if cfg.greek_backend == "peeled":
+        from sfft_tpu_torch.core.peel import peeled_greek_tables
+
+        out = peeled_greek_tables(mI, mJ, cfg, plain=plain)
+        extra = out[5] if separate_varying else None
+    elif cfg.greek_backend == "fft":
+        if separate_varying:
+            raise NotImplementedError(
+                "SEPARATE-VARYING scaling with the 'fft' greek backend needs "
+                "greek_tables_separate (ROADMAP queue 1, v2 engine); "
+                "the 'peeled' backend covers polynomial scaling bases")
+        SI, ST, _ = _plane_stacks(cfg, mI)
+        out = greek_tables(SI, ST, mJ, cfg.w0, cfg.w1, backend="fft",
+                           chunk=cfg.greek_chunk, plain=plain)
+        extra = None
+    else:
+        raise NotImplementedError(
+            f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
+            "yet (ROADMAP queue 1, TPU-precision engines); use 'fft' or 'peeled'")
+    Comg, Cgam, Cthe, Cphi, Cdel = out[:5]
+    tables = entangled_tables(
+        cfg, (s**3) * Comg, (s**2) * Cgam, (s**2) * Cthe, s * Cphi, s * Cdel
+    )
+    if extra is not None:
+        Pbs, Pss, Pgs, Pts = extra
+        tables = GreekTables(
+            Pbb=tables.Pbb, Pbs=(s**3) * Pbs, Pss=(s**3) * Pss,
+            Pgb=tables.Pgb, Pgs=(s**2) * Pgs,
+            Ptb=tables.Ptb, Pts=(s**2) * Pts,
+            Pphi=tables.Pphi, Pdel=tables.Pdel,
+        )
+    return assemble_system(cfg, tables, reg_terms=regularization_terms(cfg))
+
+
+def normal_equations_fn(cfg: SFFTConfig):
+    """(mI, mJ) -> (lhs, rhs), for residual certificates of candidate
+    solutions."""
+
+    def tables(mI, mJ, plain: bool = False):
+        return _normal_equations_impl(cfg, mI, mJ, plain=plain)
+
+    return tables
+
+
+def _solve_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
+                plain: bool = False) -> torch.Tensor:
+    dt = torch_dtype(cfg.dtype)
+    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain)
+    return solve_system(cfg, lhs, rhs).to(dt)
+
+
+def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
+                   solution: torch.Tensor) -> torch.Tensor:
+    # fft32: the difference is computed in f32/c64 anyway — build the basis
+    # plane stacks directly in f32
+    dt = torch_dtype("float32" if cfg.fdiff_backend == "fft32" else cfg.dtype)
+    I = I.to(dt)
+    J = J.to(dt)
+    SI, ST, SSc = _plane_stacks(cfg, I, dtype=dt)
+    return fdiff(cfg, solution.to(dt), SI, ST, J, SSc)
+
+
+def solve_and_subtract_fn(cfg: SFFTConfig):
+    """One solve+subtract step: solve on the masked pair (mI, mJ), apply to
+    the unmasked pair (I, J). Returns (solution, difference)."""
+
+    def step(I, J, mI, mJ, plain: bool = False):
+        sol = _solve_impl(cfg, mI, mJ, plain=plain)
+        return sol, _subtract_impl(cfg, I, J, sol)
+
+    return step
+
+
+def solve_and_subtract_same_fn(cfg: SFFTConfig):
+    """The step for the masked == unmasked special case (2 array inputs).
+    The 'fft'-type backends share no plane spectra between solve and
+    difference, so this only selects the code path, as in sfft_tpu."""
+    step = solve_and_subtract_fn(cfg)
+
+    def step_same(I, J, plain: bool = False):
+        return step(I, J, I, J, plain=plain)
+
+    return step_same
+
+
+def _as_tensor(x, device=None) -> torch.Tensor:
+    """Tensor view of an image: tensors stay where they are (moved only when
+    `device` names another device); numpy arrays go to `device` (CPU if None)."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    a = np.asarray(x)
+    if not a.flags.writeable:  # torch tensors cannot view read-only memory
+        a = a.copy()
+    return torch.as_tensor(a, device=device)
+
+
+def _check_device(t: torch.Tensor):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sfft_tpu_torch runs on cpu or cuda tensors, not {t.device}")
+
+
+class ElementalSFFT:
+    """Reference ElementalSFFTSubtract.ESS equivalent (array-in/array-out)."""
+
+    @staticmethod
+    def ESS(
+        PixA_I,
+        PixA_J,
+        cfg: SFFTConfig,
+        SFFTSolution=None,
+        Subtract: bool = False,
+        plain: bool = False,
+    ):
+        """Solve (unless SFFTSolution is given) and optionally subtract.
+        Runs on the device of PixA_I (CPU for numpy input); returns tensors
+        there."""
+        if tuple(PixA_I.shape) != (cfg.N0, cfg.N1) or tuple(PixA_J.shape) != (cfg.N0, cfg.N1):
+            raise ValueError(
+                f"input images must have shape ({cfg.N0}, {cfg.N1}); "
+                f"got {tuple(PixA_I.shape)} / {tuple(PixA_J.shape)}"
+            )
+        I = _as_tensor(PixA_I)
+        _check_device(I)
+        J = _as_tensor(PixA_J, I.device)
+        solution = SFFTSolution
+        if solution is None:
+            solution = _solve_impl(cfg, I, J, plain=plain)
+        else:
+            solution = _as_tensor(solution, I.device)
+        diff = None
+        if Subtract:
+            diff = _subtract_impl(cfg, I, J, solution)
+        return solution, diff
+
+
+def elemental_subtract(PixA_I, PixA_J, cfg, solution=None, subtract=False, plain=False):
+    return ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, subtract, plain=plain)
+
+
+class GeneralSFFT:
+    """Reference GeneralSFFTSubtract.GSS equivalent: solve on the masked pair,
+    apply to the unmasked pair, optionally propagate a contamination mask by
+    convolving it with the fitted kernel (threshold -0.001;
+    sfft/sfftcore/SFFTSubtract.py:906-921)."""
+
+    @staticmethod
+    def GSS(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg: SFFTConfig, ContamMask_I=None,
+            plain: bool = False):
+        shapes = {
+            tuple(PixA_I.shape),
+            tuple(PixA_J.shape),
+            tuple(PixA_mI.shape),
+            tuple(PixA_mJ.shape),
+        }
+        if len(shapes) > 1:
+            raise ValueError("input images must share one shape")
+
+        if PixA_I is PixA_mI and PixA_J is PixA_mJ and ContamMask_I is None:
+            # masked == unmasked (the same arrays): the two-input step
+            I = _as_tensor(PixA_I)
+            _check_device(I)
+            solution, diff = solve_and_subtract_same_fn(cfg)(
+                I, _as_tensor(PixA_J, I.device), plain=plain)
+            return solution, diff, None
+
+        solution, _ = ElementalSFFT.ESS(PixA_mI, PixA_mJ, cfg, None, Subtract=False,
+                                        plain=plain)
+        _, diff = ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, Subtract=True)
+
+        contam_out = None
+        if ContamMask_I is not None:
+            tsol = solution.clone()
+            tsol[-cfg.Fpq :] = 0.0
+            tI = _as_tensor(ContamMask_I, diff.device).to(torch_dtype(cfg.dtype))
+            tJ = torch.zeros_like(tI)
+            _, tD = ElementalSFFT.ESS(tI, tJ, cfg, tsol, Subtract=True)
+            contam_out = tD < -0.001
+        return solution, diff, contam_out
+
+
+def general_subtract(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg, contam_mask_I=None,
+                     plain=False):
+    return GeneralSFFT.GSS(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg, contam_mask_I,
+                           plain=plain)

@@ -1,0 +1,469 @@
+"""Smooth/fluctuation-peeled Greek assembly (counterpart of
+sfft_tpu/core/peel.py), polynomial bases.
+
+Each input image splits exactly as I = P_I + F_I, with P_I a low-degree
+polynomial fit. Every Greek correlation CC(I*beta_a, I*beta_b)[lag] expands
+into
+
+  poly x poly   -> closed form in static grid power sums            [exact f64]
+  poly x fluct  -> weighted moments of the fluctuation image        [exact f64]
+  fluct x fluct -> windowed FFT correlation of small-magnitude data [fluct dtype]
+
+so only fluct x fluct carries finite FFT precision, and its error stays at
+the scale of the cancelled normal-equation entries. Circular wrap-around of
+shifted polynomials is exact: lags are bounded by 2*w, so wrap corrections
+involve moments over boundary bands and corners only. Everything
+data-dependent on the f64 side reduces to one moment set per input image,
+whose full-image moments are the skinny f64 contraction of the K3 kernel
+(core/moments.py); fluct x fluct goes through core/greek.corr_window_fft,
+which runs K1 on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core.greek import corr_window_fft
+from sfft_tpu_torch.core.indices import ref_basis_exponents
+from sfft_tpu_torch.core.moments import moments
+
+
+def _exact_skinny_matmul(P0: torch.Tensor, G: torch.Tensor,
+                         plain: bool = False) -> torch.Tensor:
+    """P0 @ G to full f64 accuracy: every f64 product goes through the
+    moments wrapper (K3 on CUDA tensors, whatever the size; W @ G on CPU
+    tensors). plain=True, or a non-f64 G, takes the plain matmul."""
+    if G.dtype == torch.float64 and not plain:
+        return moments(P0.contiguous(), G.contiguous())
+    return P0 @ G
+
+
+# --------------------------------------------------------------------------
+# static host-side tensors (exact numpy, cached per geometry)
+# --------------------------------------------------------------------------
+
+
+class AxisStatic(NamedTuple):
+    c: np.ndarray        # (N,) scaled coords (x+1)/N
+    ps: np.ndarray       # (EMAX+1,) power sums  sum_x c^a
+    pref: np.ndarray     # (wmax+1, EMAX+1) prefix sums over x <  r
+    suff: np.ndarray     # (wmax+1, EMAX+1) suffix sums over x >= N-r
+    S: np.ndarray        # (R, SP, SP) shift matrices for main term
+    D: np.ndarray        # (R, SP, SP) wrap-correction delta shift matrices
+    lags: np.ndarray     # (R,) lag values -w..w
+
+
+def _shiftmat(h: float, SP: int) -> np.ndarray:
+    """M[s, a] = binom(s, a) * h^(s-a): coeffs of P(c + h) from coeffs of P(c)."""
+    from math import comb
+
+    M = np.zeros((SP, SP))
+    for s in range(SP):
+        for a in range(s + 1):
+            M[s, a] = comb(s, a) * h ** (s - a)
+    return M
+
+
+@lru_cache(maxsize=128)
+def axis_static(N: int, w: int, SP: int, EMAX: int) -> AxisStatic:
+    c = (np.arange(N, dtype=np.float64) + 1.0) / N
+    powers = np.stack([c**a for a in range(EMAX + 1)])  # (EMAX+1, N)
+    ps = powers.sum(axis=1)
+    pref = np.zeros((w + 1, EMAX + 1))
+    suff = np.zeros((w + 1, EMAX + 1))
+    for r in range(1, w + 1):
+        pref[r] = powers[:, :r].sum(axis=1)
+        suff[r] = powers[:, N - r :].sum(axis=1)
+    lags = np.arange(-w, w + 1)
+    S = np.stack([_shiftmat(-l / N, SP) for l in lags])
+    D = np.zeros_like(S)
+    for k, l in enumerate(lags):
+        if l > 0:
+            D[k] = _shiftmat(-l / N + 1.0, SP) - S[k]
+        elif l < 0:
+            D[k] = _shiftmat(-l / N - 1.0, SP) - S[k]
+    return AxisStatic(c=c, ps=ps, pref=pref, suff=suff, S=S, D=D, lags=lags)
+
+
+# --------------------------------------------------------------------------
+# device-side moment sets
+# --------------------------------------------------------------------------
+
+
+class MomentSet(NamedTuple):
+    """Exact f64 moment data of one image G, sufficient to evaluate
+    CC(P, G)[rho, eps] for any poly P with per-axis degree < SP and
+    |rho| <= w0, |eps| <= w1."""
+
+    M: torch.Tensor    # (SG, SG) full moments sum cx^a cy^b G
+    RS: torch.Tensor   # (R0, SG, SG) row-strip moments per rho (0 at rho=0)
+    CS: torch.Tensor   # (R1, SG, SG) col-strip moments per eps
+    CNR: torch.Tensor  # (R0, R1, SG, SG) corner moments
+
+
+def _t(x, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Host array -> tensor on `like`'s device (dtype defaults to like's)."""
+    return torch.as_tensor(np.asarray(x), dtype=dtype or like.dtype, device=like.device)
+
+
+def _powmat(ax: AxisStatic, SG: int, like: torch.Tensor) -> torch.Tensor:
+    return _t(np.stack([ax.c**a for a in range(SG)]), like)  # (SG, N)
+
+
+def moment_set(
+    G: torch.Tensor, N0: int, N1: int, w0: int, w1: int, SG: int,
+    ax0: AxisStatic, ax1: AxisStatic, plain: bool = False,
+) -> MomentSet:
+    """Compute the moment set of image G on its device (exact f64)."""
+    dt, dev = G.dtype, G.device
+    P0 = _powmat(ax0, SG, G)  # (SG, N0)
+    P1 = _powmat(ax1, SG, G)  # (SG, N1)
+    R0, R1 = 2 * w0 + 1, 2 * w1 + 1
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    # full moments: (SG, N0) @ (N0, N1) @ (N1, SG)
+    M = _exact_skinny_matmul(P0, G, plain) @ P1.T
+
+    # row strips: rows [0, w0) and [N0-w0, N0)
+    rowmom_top = G[:w0] @ P1.T if w0 else zeros(0, SG)      # (w0, SG)
+    rowmom_bot = G[N0 - w0 :] @ P1.T if w0 else zeros(0, SG)
+    cx_top = _t(np.stack([ax0.c[:w0] ** a for a in range(SG)]), G)        # (SG, w0)
+    cx_bot = _t(np.stack([ax0.c[N0 - w0 :] ** a for a in range(SG)]), G)
+    top_terms = cx_top[:, :, None] * rowmom_top[None, :, :]   # (SG, w0, SG)
+    bot_terms = cx_bot[:, :, None] * rowmom_bot[None, :, :]
+    top_pref = torch.cumsum(top_terms, dim=1)                   # sum_{x<rho}
+    bot_suff = torch.cumsum(torch.flip(bot_terms, dims=(1,)), dim=1)  # sum_{x>=N0-|rho|}
+    RS = zeros(R0, SG, SG)
+    if w0:
+        # rho = 1..w0 -> index w0+rho ; strip x in [0, rho)
+        RS[w0 + 1 :] = top_pref.movedim(1, 0)
+        # rho = -1..-w0 -> index w0+rho ; strip x in [N0-|rho|, N0)
+        RS[:w0] = torch.flip(bot_suff.movedim(1, 0), dims=(0,))
+
+    colmom_l = (P0 @ G[:, :w1]) if w1 else zeros(SG, 0)          # (SG, w1)
+    colmom_r = (P0 @ G[:, N1 - w1 :]) if w1 else zeros(SG, 0)
+    cy_l = _t(np.stack([ax1.c[:w1] ** b for b in range(SG)]), G)
+    cy_r = _t(np.stack([ax1.c[N1 - w1 :] ** b for b in range(SG)]), G)
+    l_terms = colmom_l[:, None, :] * cy_l[None, :, :]         # (SG, SG, w1)
+    r_terms = colmom_r[:, None, :] * cy_r[None, :, :]
+    l_pref = torch.cumsum(l_terms, dim=2)
+    r_suff = torch.cumsum(torch.flip(r_terms, dims=(2,)), dim=2)
+    CS = zeros(R1, SG, SG)
+    if w1:
+        CS[w1 + 1 :] = l_pref.movedim(2, 0)
+        CS[:w1] = torch.flip(r_suff.movedim(2, 0), dims=(0,))
+
+    # corners: region x in strip(rho), y in strip(eps) — four corner blocks
+    CNR = zeros(R0, R1, SG, SG)
+    if w0 and w1:
+        blocks = {
+            (False, False): G[:w0, :w1],
+            (False, True): G[:w0, N1 - w1 :],
+            (True, False): G[N0 - w0 :, :w1],
+            (True, True): G[N0 - w0 :, N1 - w1 :],
+        }
+        for (f0, f1), blk in blocks.items():
+            cxp = cx_bot if f0 else cx_top
+            cyp = cy_r if f1 else cy_l
+            # T[a, x, y, b], then a 2D prefix over the strip rows / cols
+            T = cxp[:, :, None, None] * blk[None, :, :, None] * cyp.T[None, None, :, :]
+            if f0:
+                T = torch.flip(T, dims=(1,))
+            if f1:
+                T = torch.flip(T, dims=(2,))
+            pre = torch.cumsum(torch.cumsum(T, dim=1), dim=2)   # (SG, w0, w1, SG)
+            # pre[a, k0, k1, b] = moments over |strip|=k0+1, |strip|=k1+1
+            sub = pre.movedim((1, 2), (0, 1))  # (w0, w1, SG, SG)
+            # lag index of strip depth k: w+1+k for positive lags, w-1-k for
+            # negative ones (a reversed range: flip the depth axis)
+            if f0:
+                sub = torch.flip(sub, dims=(0,))
+            if f1:
+                sub = torch.flip(sub, dims=(1,))
+            rows = slice(0, w0) if f0 else slice(w0 + 1, R0)
+            cols = slice(0, w1) if f1 else slice(w1 + 1, R1)
+            CNR[rows, cols] = sub
+    return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
+
+
+def poly_moment_set(
+    Q: torch.Tensor, w0: int, w1: int, SP: int, SG: int,
+    ax0: AxisStatic, ax1: AxisStatic,
+) -> MomentSet:
+    """MomentSet of a *polynomial* plane with coeff stack Q[..., u2, v2]
+    (exponents < SP), from static power/prefix sums — no grid work.
+
+    Supports a leading batch axis on Q.
+    """
+    idx = np.arange(SG)[:, None] + np.arange(SP)[None, :]
+    ps0 = _t(ax0.ps[idx], Q)          # (SG, SP)
+    ps1 = _t(ax1.ps[idx], Q)
+    R0, R1 = 2 * w0 + 1, 2 * w1 + 1
+    pr0 = np.zeros((R0, SG, SP))
+    for k, l in enumerate(range(-w0, w0 + 1)):
+        if l > 0:
+            pr0[k] = ax0.pref[l][idx]
+        elif l < 0:
+            pr0[k] = ax0.suff[-l][idx]
+    pr1 = np.zeros((R1, SG, SP))
+    for k, l in enumerate(range(-w1, w1 + 1)):
+        if l > 0:
+            pr1[k] = ax1.pref[l][idx]
+        elif l < 0:
+            pr1[k] = ax1.suff[-l][idx]
+    pr0 = _t(pr0, Q)
+    pr1 = _t(pr1, Q)
+
+    M = torch.einsum("...uv,au,bv->...ab", Q, ps0, ps1)
+    RS = torch.einsum("...uv,rau,bv->...rab", Q, pr0, ps1)
+    CS = torch.einsum("...uv,au,ebv->...eab", Q, ps0, pr1)
+    CNR = torch.einsum("...uv,rau,ebv->...reab", Q, pr0, pr1)
+    return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
+
+
+def polycorr(
+    P: torch.Tensor, mom: MomentSet, ax0: AxisStatic, ax1: AxisStatic
+) -> torch.Tensor:
+    """CC(poly(P), G)[rho, eps] from G's moment set. Batched:
+    P: (..., SP, SP) poly coeffs; mom tensors may carry their own leading batch
+    axis ('b'). Returns (...P-batch, ...mom-batch, R0, R1)."""
+    S0 = _t(ax0.S, P)
+    D0 = _t(ax0.D, P)
+    S1 = _t(ax1.S, P)
+    D1 = _t(ax1.D, P)
+    Mm, RS, CS, CNR = mom
+    squeeze = Mm.dim() == 2
+    if squeeze:  # add singleton mom batch
+        Mm, RS, CS, CNR = Mm[None], RS[None], CS[None], CNR[None]
+    # moment sets may carry more exponents (SG) than the poly side needs (SP)
+    SP = S0.shape[1]
+    Mm = Mm[..., :SP, :SP]
+    RS = RS[..., :SP, :SP]
+    CS = CS[..., :SP, :SP]
+    CNR = CNR[..., :SP, :SP]
+    out = (
+        torch.einsum("ast,rsu,etv,buv->abre", P, S0, S1, Mm)
+        + torch.einsum("ast,rsu,etv,bruv->abre", P, D0, S1, RS)
+        + torch.einsum("ast,rsu,etv,beuv->abre", P, S0, D1, CS)
+        + torch.einsum("ast,rsu,etv,breuv->abre", P, D0, D1, CNR)
+    )
+    if squeeze:
+        out = out[:, 0]
+    return out
+
+
+def shift_moment_set(mom: MomentSet, exps: np.ndarray, SP: int) -> MomentSet:
+    """Moment sets of G*beta_k planes from the moment set of G:
+    moments of cx^i cy^j G are exponent-shifted moments of G.
+    exps: (F, 2) monomial exponents. Output tensors gain leading F axis,
+    truncated to SP exponent entries."""
+    M = torch.stack([mom.M[i : i + SP, j : j + SP] for (i, j) in exps])
+    RS = torch.stack([mom.RS[:, i : i + SP, j : j + SP] for (i, j) in exps])
+    CS = torch.stack([mom.CS[:, i : i + SP, j : j + SP] for (i, j) in exps])
+    CNR = torch.stack([mom.CNR[:, :, i : i + SP, j : j + SP] for (i, j) in exps])
+    return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
+
+
+def fit_poly_coeffs(
+    M: torch.Tensor, deg: int, ax0: AxisStatic, ax1: AxisStatic, ridge: float = 1e-9
+) -> torch.Tensor:
+    """Least-squares polynomial fit of an image from its exact moments.
+
+    Solves the tiny normal system Gram @ m = rhs where Gram[st, uv] =
+    sum cx^(s+u) cy^(t+v) (static, inverted on the host) and rhs = M[s, t]
+    (on the device; no host round trip). Exactness of the peel does NOT
+    depend on fit quality, so a small ridge keeps the (Hilbert-like) system
+    tame. Returns (deg+1, deg+1) tensor coeffs (total-degree mask)."""
+    exps = [(s, t) for s in range(deg + 1) for t in range(deg + 1 - s)]
+    n = len(exps)
+    G = np.zeros((n, n))
+    for a, (s, t) in enumerate(exps):
+        for b, (u, v) in enumerate(exps):
+            G[a, b] = ax0.ps[s + u] * ax1.ps[t + v]
+    d = np.sqrt(np.diag(G))
+    Gn = G / np.outer(d, d) + ridge * np.eye(n)
+    Gn_inv = np.linalg.inv(Gn)
+    dd = _t(d, M)
+    rhs = torch.stack([M[s, t] for (s, t) in exps]) / dd
+    sol = (_t(Gn_inv, M) @ rhs) / dd
+    out = torch.zeros((deg + 1, deg + 1), dtype=M.dtype, device=M.device)
+    si = torch.as_tensor([s for s, _ in exps], device=M.device)
+    ti = torch.as_tensor([t for _, t in exps], device=M.device)
+    out[si, ti] = sol
+    return out
+
+
+# --------------------------------------------------------------------------
+# the peeled Greek backend
+# --------------------------------------------------------------------------
+
+
+def peeled_greek_tables(
+    I: torch.Tensor,
+    J: torch.Tensor,
+    cfg: SFFTConfig,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """(Comg, Cgam, Cthe, Cphi, Cdel) unscaled CC tables, mixed-precision:
+    exact f64 for every term touching smooth/polynomial content, fluct x fluct
+    via FFT in cfg.fluct_dtype. SEPARATE-VARYING adds a sixth entry
+    (Pbs, Pss, Pgs, Pts). plain=True keeps K3 and K1 out (plain twins)."""
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    if (cfg.kernel_basis.kind != "polynomial"
+            or cfg.bg_basis.kind != "polynomial"
+            or (separate_varying and cfg.scaling_basis.kind != "polynomial")):
+        raise NotImplementedError(
+            "peeled tables for B-spline bases (sfft_tpu/core/peel_pw.py) are not "
+            "ported to sfft_tpu_torch yet (ROADMAP queue 1, TPU-precision engines)")
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dmu = cfg.peel_degree
+    dk = cfg.kernel_basis.degree
+    ds = cfg.scaling_basis.degree if separate_varying else 0
+    db = cfg.bg_basis.degree
+    SP = dmu + max(dk, ds) + 1         # poly-side exponents (S_a = mu * beta_a)
+    SG = SP + max(dk, ds, db)          # moment exponents (F_b = Ftil * beta_b)
+    EMAX = 2 * SG + 2
+    fd = torch_dtype(cfg.fluct_dtype)
+    dt = torch_dtype(cfg.dtype)
+    dev = I.device
+
+    exps_k = ref_basis_exponents(cfg.kernel_basis)   # (Fij, 2)
+    exps_b = ref_basis_exponents(cfg.bg_basis)       # (Fpq, 2)
+    Fk_only = len(exps_k)
+    if separate_varying:
+        # the union of kernel and scaling basis functions: its correlation
+        # tables hold the beta-beta, beta-sigma and sigma-sigma blocks
+        exps_s = ref_basis_exponents(cfg.scaling_basis)
+        exps_k = np.concatenate([exps_k, exps_s], axis=0)
+    Fij, Fpq = len(exps_k), len(exps_b)
+
+    ax0o = axis_static(N0, 2 * w0, SP, EMAX)   # OMG window +-2w
+    ax1o = axis_static(N1, 2 * w1, SP, EMAX)
+    ax0g = axis_static(N0, w0, SP, EMAX)       # GAM/THE window +-w
+    ax1g = axis_static(N1, w1, SP, EMAX)
+
+    I = I.to(dt)
+    J = J.to(dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    # --- exact moment sets of raw images ------------------------------
+    momI_o = moment_set(I, N0, N1, 2 * w0, 2 * w1, SG, ax0o, ax1o, plain)
+    # the +-w window set is a central slice of the +-2w one
+    momI_g = MomentSet(
+        M=momI_o.M,
+        RS=momI_o.RS[w0 : 3 * w0 + 1],
+        CS=momI_o.CS[w1 : 3 * w1 + 1],
+        CNR=momI_o.CNR[w0 : 3 * w0 + 1, w1 : 3 * w1 + 1],
+    )
+    momJ_g = moment_set(J, N0, N1, w0, w1, SG, ax0g, ax1g, plain)
+
+    # --- polynomial peels ----------------------------------------------
+    mI = fit_poly_coeffs(momI_o.M, dmu, ax0o, ax1o)          # (dmu+1, dmu+1)
+    mJ = fit_poly_coeffs(momJ_g.M, dmu, ax0g, ax1g)
+
+    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings, (Fij, SP, SP)
+    PA = zeros(Fij, SP, SP)
+    for k, (i, j) in enumerate(exps_k):
+        PA[k, i : i + dmu + 1, j : j + dmu + 1] = mI
+    mJ_pad = zeros(1, SP, SP)
+    mJ_pad[0, : dmu + 1, : dmu + 1] = mJ
+    # background basis coeffs (static monomials), (Fpq, SP, SP)
+    TQ = zeros(Fpq, SP, SP)
+    for k, (p, q) in enumerate(exps_b):
+        TQ[k, p, q] = 1.0
+
+    # --- fluctuation moment sets (pure algebra, no grid) ---------------
+    def fluct_mom(momG: MomentSet, mcoef, ax0, ax1) -> MomentSet:
+        Q = zeros(SP, SP)
+        Q[: dmu + 1, : dmu + 1] = mcoef
+        pm = poly_moment_set(
+            Q, (ax0.S.shape[0] - 1) // 2, (ax1.S.shape[0] - 1) // 2, SP, SG, ax0, ax1)
+        return MomentSet(
+            M=momG.M - pm.M, RS=momG.RS - pm.RS,
+            CS=momG.CS - pm.CS, CNR=momG.CNR - pm.CNR,
+        )
+
+    momFI_o = fluct_mom(momI_o, mI, ax0o, ax1o)
+    momFI_g = fluct_mom(momI_g, mI, ax0g, ax1g)
+
+    # per-basis fluct moment sets: F_b = Ftil * beta_b
+    momFb_o = shift_moment_set(momFI_o, exps_k, SP)
+    momFa_g = shift_moment_set(momFI_g, exps_k, SP)
+
+    # --- OMG: (Fij, Fij, R0o, R1o) --------------------------------------
+    momSb_o = poly_moment_set(PA, 2 * w0, 2 * w1, SP, SG, ax0o, ax1o)
+    SS = polycorr(PA, momSb_o, ax0o, ax1o)            # CC(S_a, S_b)
+    SF = polycorr(PA, momFb_o, ax0o, ax1o)            # CC(S_a, F_b)
+    FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))  # CC(F_a, S_b)
+
+    # fluct planes in fluct dtype for the FFT part
+    U = _t(np.stack([ax0o.c**s for s in range(dmu + 1)]), I, fd)  # (dmu+1, N0)
+    V = _t(np.stack([ax1o.c**t for t in range(dmu + 1)]), I, fd)
+    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
+    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
+    FIf = I.to(fd) - smoothI
+    FJf = J.to(fd) - smoothJ
+    Uk = _t(np.stack([ax0o.c ** int(i) for i in exps_k[:, 0]]), I, fd)
+    Vk = _t(np.stack([ax1o.c ** int(j) for j in exps_k[:, 1]]), I, fd)
+    Fplanes = FIf[None] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, N0, N1)
+
+    stack = torch.cat([FJf[None], Fplanes], dim=0)
+    specs = torch.fft.rfft2(stack)
+    specJ = specs[0:1]
+    specF = specs[1:]
+    FF = corr_window_fft(specF, specF, N0, N1, 2 * w0, 2 * w1,
+                         chunk=cfg.greek_chunk, symmetric=True, plain=plain).to(dt)
+    Comg = SS + SF + FS + FF
+
+    # --- GAM: (Fij, Fpq, R0g, R1g) — fully exact ------------------------
+    momTq = poly_moment_set(TQ, w0, w1, SP, SG, ax0g, ax1g)
+    SS_gam = polycorr(PA, momTq, ax0g, ax1g)          # CC(S_a, T_q)
+    FT = polycorr(TQ, momFa_g, ax0g, ax1g)            # CC(T_q, F_a)
+    FS_gam = torch.flip(FT.permute(1, 0, 2, 3), dims=(2, 3))
+    Cgam = SS_gam + FS_gam
+
+    # --- THE: (Fij, R0g, R1g) -------------------------------------------
+    SJ = polycorr(PA, momJ_g, ax0g, ax1g)             # CC(S_a, J) exact
+    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[0], dims=(1, 2))  # CC(F_a, S_J)
+    FFJwin = corr_window_fft(specF, specJ, N0, N1, w0, w1,
+                             chunk=cfg.greek_chunk, plain=plain)[:, 0].to(dt)
+    Cthe = SJ + FSJ + FFJwin
+
+    # --- PHI / DEL: closed form from static sums / moments --------------
+    Cphi = _t(np.array([[float(ax0g.ps[i1 + i2] * ax1g.ps[j1 + j2])
+                         for (i2, j2) in exps_b] for (i1, j1) in exps_b]), I, dt)
+    Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
+
+    if not separate_varying:
+        return Comg, Cgam, Cthe, Cphi, Cdel
+
+    # --- slice the union tables into the SEPARATE-VARYING blocks --------
+    Fk = Fk_only
+    Fs = Fij - Fk  # actual scaling dof (engine pads placeholders with zeros)
+    win0 = slice(w0, 3 * w0 + 1)
+    win1 = slice(w1, 3 * w1 + 1)
+    Pbs = Comg[:Fk, Fk:, win0, win1]          # CC(I*beta_a, I*sigma_b), +-w
+    Pss = Comg[Fk:, Fk:, 2 * w0, 2 * w1]      # lag 0
+    Pgs = Cgam[Fk:, :, w0, w1]                # CC(I*sigma, T)[0]
+    Pts = Cthe[Fk:, w0, w1]                   # CC(I*sigma, J)[0]
+
+    def pad_k(x, axes):
+        shape = list(x.shape)
+        for ax in axes:
+            shape[ax] = Fk
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out[tuple(slice(0, n) for n in x.shape)] = x
+        return out
+
+    extra = (pad_k(Pbs, [1]), pad_k(Pss, [0, 1]), pad_k(Pgs, [0]),
+             pad_k(Pts, [0]))
+    return Comg[:Fk, :Fk], Cgam[:Fk], Cthe[:Fk], Cphi, Cdel, extra
