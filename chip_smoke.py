@@ -4,19 +4,47 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
-against its plain PyTorch twin on the card, then drives the port's main path
-once at full size: a 4096^2 pair (the benchmark pair's generator) through
-PureTorchCustomizedPacket.PCP -> GeneralSFFT.GSS with the 'fast' backends
-(peeled tables, fft32 difference, refined solve), KerHW=8, poly2/poly2
-(NEQ = 1740). It checks that the path went through both kernels, that the
-difference is finite with the pair's noise level, and that it agrees with the
-port's f64 fft/fft/lu path run on the plain twins only.
+against its plain PyTorch twin on the card (K3 moments, K1 windowed
+correlation, K4 integer slicer: bit for bit), then drives the port's two
+paths at full size on a 4096^2 pair (the benchmark pair's generator), KerHW=8,
+poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
+GeneralSFFT.GSS:
+
+  * the 'fast' slice (peeled tables, fft32 difference, refined solve), which
+    runs K3 and K1;
+  * the 'contract' path (pexact tables and difference at pexact_prof
+    (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
+    K3 and K4; and once with the 'exact' solver.
+
+Each path is driven with the launch counts set to 0 just before it and read
+just after, and must have launched its kernels. One more contract step, with
+the static-table caches emptied, holds every K4 launch of the step (the
+static tables' and the data's, at the shapes, depths and vector widths the
+path gives it) bit for bit against the twin on the same inputs, and times K4
+and the twin on each distinct launch's inputs. Both are held to the port's
+f64 path on the plain twins: the fast difference to the fft/fft/lu
+difference within 0.05 RMS; the contract difference to the fft/fft/exact
+difference (the f64 tables solved by the refined 'exact' solver) within
+1e-6 RMS, and its solution to 1e-6 of that solution's maximum. Each
+difference must have the pair's noise level.
 
 Every phase prints one line; any failure raises, so the process exits
 non-zero and prints no result. The last three lines are the kernel report
 (one JSON object), the card's name and power limit, and
 {"ok": true, "device": {...}}. Needs a CUDA device and nvcc; imports
-nothing of JAX.
+nothing of JAX. Takes ~2 min on an H100.
+
+    python3 chip_smoke.py --profile OUT_DIR
+
+builds the kernels and profiles one step of each path instead (device busy
+time, idle share, top operations; the full tables go to OUT_DIR).
+
+    python3 chip_smoke.py --steady PAIRS
+
+builds the kernels and times the fast slice at steady state instead: two
+warm-ups each way, then PAIRS pairs of one step with the kernels and one on
+the plain twins, in alternating order (KP, PK, ...); prints the medians and
+the number of pairs in which the kernels were faster.
 """
 
 import json
@@ -31,6 +59,18 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 4096
 KERHW = 8
+# H100 SXM datasheet peaks (NVIDIA's data sheet, dense rates at the 700 W
+# limit): HBM3, and FP32 / FP64 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
+
+
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def log(msg):
@@ -115,7 +155,7 @@ def phase_build():
 
 def phase_kernels():
     import torch
-    from sfft_tpu_torch.core import greek, moments
+    from sfft_tpu_torch.core import exact_fft, greek, moments
 
     dev = torch.device("cuda")
     report = {}
@@ -136,9 +176,13 @@ def phase_kernels():
         if (S, N0, N1) == (8, N, N):
             k3 = dict(max_abs_err=float((out - ref).abs().max()),
                       ms=cuda_ms(lambda: moments.moments(W, G)),
-                      plain_ms=cuda_ms(lambda: moments.moments_plain(W, G)))
+                      plain_ms=cuda_ms(lambda: moments.moments_plain(W, G)),
+                      library_ms=cuda_ms(lambda: torch.matmul(W, G)))
+            k3["bound_ms"], k3["bound_by"] = bound(8 * (S * N0 + N0 * N1 + S * N1),
+                                                   2 * S * N0 * N1, FP64_FLOP_PER_S)
     log(f"phase 3 K3 moments (8, {N}, {N}) f64: kernel {k3['ms']:.4f} ms, "
-        f"plain W @ G {k3['plain_ms']:.4f} ms")
+        f"plain W @ G {k3['plain_ms']:.4f} ms, library torch.matmul {k3['library_ms']:.4f} ms, "
+        f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
     report["moments"] = k3
 
     # K1 at the slice's two shapes in c64: 6 fluctuation spectra (N, N/2+1);
@@ -154,7 +198,13 @@ def phase_kernels():
                                                method=m, symmetric=True),
         "the": lambda m: greek.corr_window_fft(specF, specJ, N, N, KERHW, KERHW, method=m),
     }
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    # bounds: stage 1 forms the Hadamard product (6 flops) and contracts it
+    # with E1 (8 flops per complex MAC and window column); stage 2 contracts
+    # the (pairs, N0, R1) result with E0; the spectra are read once
+    N1h = N // 2 + 1
+    shapes = {"omg": (21, 4 * KERHW + 1, 6), "the": (6, 2 * KERHW + 1, 7)}
+    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+              bound_by="operations")
     for name, call in calls.items():
         out = call("kernel")
         torch.cuda.synchronize()
@@ -163,11 +213,17 @@ def phase_kernels():
         assert err <= 1e-5, f"K1 c64 {name}: rel err {err:.3e} > 1e-5"
         ms = cuda_ms(lambda: call("kernel"))
         pms = cuda_ms(lambda: call("matmul"))
+        npairs, R, nspec = shapes[name]
+        bms, by = bound(8 * nspec * N * N1h + 4 * npairs * R * R,
+                        npairs * N * N1h * (6 + 8 * R) + 8 * npairs * R * N * R,
+                        FP32_FLOP_PER_S)
         k1["max_abs_err"] = max(k1["max_abs_err"], float((out - ref).abs().max()))
         k1["ms"] += ms
         k1["plain_ms"] += pms
+        k1["bound_ms"] += bms
         log(f"phase 3 K1 corr_window c64 {name} {tuple(out.shape)}: max|d|/max|ref| = "
-            f"{err:.3e} (bound 1e-5); kernel {ms:.4f} ms, plain matmul twin {pms:.4f} ms")
+            f"{err:.3e} (bound 1e-5); kernel {ms:.4f} ms, plain matmul twin {pms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}); no single PyTorch call computes it")
     report["corr_window"] = k1
     del specs, specJ, specF
 
@@ -184,7 +240,99 @@ def phase_kernels():
             assert err <= 1e-11, f"K1 c128 {kw}: rel err {err:.3e} > 1e-11"
             log(f"phase 3 K1 corr_window c128 512^2 {kw}: max|d|/max|ref| = {err:.3e} "
                 f"(bound 1e-11)")
+    del A, spec
+
+    # K4: bit for bit against the twin (slices and scales), rowwise and
+    # global, on wide-range values: odd widths (the scalar path: a row
+    # width or size not a multiple of 4) and widths that are (the float4
+    # path, as the contract path's padded operands). phase 6 repeats the
+    # check on every launch of a contract step, on the path's own inputs
+    ndiff = 0
+    for shape in [(64, 384), (3, 40, 256), (130, 120), (7, 33), (1001,), (N, N1h),
+                  (3, N, N1h + 7), (N, 64, 64)]:
+        v = rng.normal(0, 7.3, shape) * np.exp(rng.normal(0, 4, shape))
+        h = torch.as_tensor(v.astype(np.float32), device=dev)
+        lo = torch.as_tensor((v - v.astype(np.float32)).astype(np.float32), device=dev)
+        for rowwise in (True, False):
+            for nsl in (6, 7, 8, 9):
+                sl, s = exact_fft._slice_pair_real(h, lo, nsl, rowwise)
+                torch.cuda.synchronize()
+                ref, sref = exact_fft._slice_pair_real(h, lo, nsl, rowwise, plain=True)
+                ndiff += int((sl != ref).sum()) + int((s != sref).sum())
+        assert ndiff == 0, f"K4 {shape}: {ndiff} slices or scales differ from the twin"
+    log(f"phase 3 K4 slice_pair: 0 slices or scales differ from the twin over 8 shapes x "
+        f"(rowwise, global) x nsl (6, 7, 8, 9)")
     return report
+
+
+def k4_bound(shape, nsl, rowwise):
+    """K4's bound: read (hi, lo) f32 and the scales, write nsl int8 planes;
+    ~6 operations for the TwoSum and 4 per slice."""
+    n = int(np.prod(shape))
+    nscale = n // shape[-1] if rowwise else 1
+    return bound(n * (8 + nsl) + 4 * nscale, n * (6 + 4 * nsl), FP32_FLOP_PER_S)
+
+
+def phase_k4_on_path(I, J, cfg):
+    """Two contract steps with every K4 launch checked: its output against
+    slice_pair_plain on the same inputs, bit for bit. The first runs with
+    the static-table caches emptied, so the big static tables are sliced
+    again; the second is a steady-state step. Then K4 and the twin are timed
+    on the first inputs of each distinct launch signature (shape, rowwise,
+    nsl, vector width), and summed over the steady step's launches (the
+    per-step time, plain time and bound of the report)."""
+    import torch
+    from sfft_tpu_torch import PureTorchCustomizedPacket
+    from sfft_tpu_torch.core import exact_fft, slicing
+
+    launch = slicing._launch
+    inputs = {}
+    counts = [{}, {}]
+
+    def checked(hi, lo, s, nsl):
+        out = launch(hi, lo, s, nsl)
+        ref = slicing.slice_pair_plain(hi, lo, s, nsl)
+        sig = (tuple(hi.shape), s.dim() > 0, nsl, slicing._vec_width(hi, lo, s))
+        nd = int((out != ref).sum())
+        assert nd == 0, f"K4 on the contract path {sig}: {nd} slices differ from the twin"
+        if sig not in inputs:
+            inputs[sig] = (hi.clone(), lo.clone(), s.clone())
+        counts[run][sig] = counts[run].get(sig, 0) + 1
+        return out
+
+    exact_fft._static_slices_for.cache_clear()
+    exact_fft._stacked.cache_clear()
+    slicing._launch = checked
+    try:
+        for run in (0, 1):
+            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+            torch.cuda.synchronize()
+    finally:
+        slicing._launch = launch
+    k4 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
+    t_bytes = t_ops = 0.0
+    for sig, (h, lo, s) in sorted(inputs.items()):
+        shape, rowwise, nsl, vec = sig
+        ms = cuda_ms(lambda: slicing.slice_pair(h, lo, s, nsl))
+        pms = cuda_ms(lambda: slicing.slice_pair_plain(h, lo, s, nsl))
+        bms, by = k4_bound(shape, nsl, rowwise)
+        count = counts[1].get(sig, 0)
+        k4["ms"] += count * ms
+        k4["plain_ms"] += count * pms
+        k4["bound_ms"] += count * bms
+        t_bytes += count * bms * (by == "bytes")
+        t_ops += count * bms * (by == "operations")
+        log(f"phase 6 K4 on the contract path {shape} rowwise={rowwise} nsl={nsl} vec={vec}: "
+            f"{counts[0].get(sig, 0)} launches at first use, {count} per steady step, 0 "
+            f"differing slices; kernel {ms:.4f} ms, plain twin {pms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    k4["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    n0, n1 = (sum(c.values()) for c in counts)
+    log(f"phase 6 K4 on the contract path: {n0} launches at first use and {n1} per steady "
+        f"step, {len(inputs)} signatures, all bit-identical to the twin; per steady step "
+        f"kernel {k4['ms']:.4f} ms, plain twin {k4['plain_ms']:.4f} ms, bound "
+        f"{k4['bound_ms']:.4f} ms ({k4['bound_by']}); no single PyTorch call computes it")
+    return k4
 
 
 def run_pcp(I, J, cfg, plain, reps):
@@ -238,13 +386,162 @@ def phase_f64(I, J, diff_fast):
 
     cfg = make_config(N, N, KERHW)
     assert (cfg.greek_backend, cfg.fdiff_backend, cfg.solver) == ("fft", "fft", "lu")
-    _, diff64, step_s = run_pcp(I, J, cfg, plain=True, reps=1)
+    sol64, diff64, step_s = run_pcp(I, J, cfg, plain=True, reps=1)
     assert bool(torch.isfinite(diff64).all())
     rms = float(torch.sqrt(torch.mean((diff_fast - diff64) ** 2)))
     assert rms < 0.05, f"fast vs f64 difference RMS {rms:.4e} >= 0.05"
     log(f"phase 5 f64 fft/fft/lu on the plain twins: step {step_s * 1e3:.1f} ms; "
         f"RMS(diff_fast - diff_f64) = {rms:.4e} (bound 0.05)")
-    return rms
+    # the contract's yardstick: the same f64 tables solved by the refined
+    # 'exact' solver. At this conditioning an unrefined f64 LU lands
+    # anywhere in the cond * eps64 band in near-null directions (sfft_tpu's
+    # bench.py cpu_oracle makes the same choice)
+    xcfg = make_config(N, N, KERHW, solver="exact")
+    solx, diffx, xstep_s = run_pcp(I, J, xcfg, plain=True, reps=1)
+    assert bool(torch.isfinite(diffx).all())
+    lu_rms = float(torch.sqrt(torch.mean((diff64 - diffx) ** 2)))
+    lu_rel = float((sol64 - solx).abs().max() / solx.abs().max())
+    log(f"phase 5 f64 fft/fft/exact on the plain twins: step {xstep_s * 1e3:.1f} ms; "
+        f"lu vs exact solver: RMS(diff) = {lu_rms:.3e}, max-rel solution {lu_rel:.3e}")
+    return solx, diffx, rms
+
+
+def phase_contract(I, J, sol64, diff64):
+    """The contract path (pexact / pexact / transformed at (8, 7, 6)) with
+    the kernels and on the plain twins, then once with the 'exact' solver;
+    each held to the f64 fft/fft/exact path."""
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.core import greek, moments, slicing
+
+    cfg = make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
+                      solver="transformed")
+    assert cfg.NEQ == 1740 and cfg.pexact_prof == (8, 7, 6)
+    c = slice(N // 4, 3 * N // 4)
+    smax = float(sol64.abs().max())
+
+    def check(name, sol, diff):
+        assert sol.shape == (cfg.NEQ,) and diff.shape == (N, N)
+        assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
+        rms = float(torch.sqrt(torch.mean(diff[c, c] ** 2)))
+        assert 1.3 <= rms <= 1.7, f"{name}: central difference RMS {rms:.4f} outside [1.3, 1.7]"
+        drms = float(torch.sqrt(torch.mean((diff - diff64) ** 2)))
+        assert drms < 1e-6, f"{name}: RMS(diff - diff_f64) {drms:.3e} >= 1e-6"
+        srel = float((sol - sol64).abs().max()) / smax
+        assert srel <= 1e-6, f"{name}: max|sol - sol_f64| / max|sol_f64| {srel:.3e} > 1e-6"
+        return rms, drms, srel
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moments.moments.launches = 0
+    greek.corr_window.launches = 0
+    slicing.slice_pair.launches = 0
+    sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
+    launches = {"moments": moments.moments.launches,
+                "corr_window": greek.corr_window.launches,
+                "slice_pair": slicing.slice_pair.launches}
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["moments"] > 0 and launches["slice_pair"] > 0, \
+        f"a kernel of the contract path never launched: {launches}"
+    rms, drms, srel = check("contract", sol, diff)
+    log(f"phase 6 contract {N}^2 KerHW={KERHW} pexact/pexact/transformed prof (8, 7, 6): "
+        f"median step {step_s * 1e3:.1f} ms over 3 runs; launches {launches} in 4 runs; "
+        f"peak memory {peak / 2**30:.2f} GiB; central diff RMS {rms:.4f}; "
+        f"RMS(diff - diff_f64) = {drms:.3e} (bound 1e-6); "
+        f"max|sol - sol_f64|/max|sol_f64| = {srel:.3e} (bound 1e-6)")
+    del sol, diff
+    psol, pdiff, plain_s = run_pcp(I, J, cfg, plain=True, reps=3)
+    check("contract plain", psol, pdiff)
+    log(f"phase 6 same contract path on the plain twins: median step {plain_s * 1e3:.1f} ms")
+    del psol, pdiff
+    ecfg = make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
+                       solver="exact")
+    esol, ediff, exact_s = run_pcp(I, J, ecfg, plain=False, reps=1)
+    _, edrms, esrel = check("contract exact solver", esol, ediff)
+    log(f"phase 6 contract with solver='exact': step {exact_s * 1e3:.1f} ms; "
+        f"RMS(diff - diff_f64) = {edrms:.3e}; max|sol - sol_f64|/max = {esrel:.3e}")
+    del esol, ediff
+    k4 = phase_k4_on_path(I, J, cfg)
+    return launches, step_s, plain_s, peak, drms, srel, k4
+
+
+def phase_steady(I, J, pairs):
+    """--steady: the fast slice at steady state, kernels (K) against plain
+    twins (P), in pairs of alternating order."""
+    import torch
+    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+
+    cfg = make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
+                      solver="refined")
+
+    def step(plain):
+        t0 = time.perf_counter()
+        PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg, plain=plain)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for plain in (False, True, False, True):
+        step(plain)
+    tk, tp = [], []
+    for k in range(pairs):
+        order = (False, True) if k % 2 == 0 else (True, False)
+        got = {plain: step(plain) for plain in order}
+        tk.append(got[False])
+        tp.append(got[True])
+    faster = sum(a < b for a, b in zip(tk, tp))
+    log(f"steady fast slice {N}^2: median step {statistics.median(tk) * 1e3:.2f} ms with the "
+        f"kernels, {statistics.median(tp) * 1e3:.2f} ms on the plain twins, over {pairs} "
+        f"alternating pairs after 2 warm-ups each; kernels faster in {faster} of {pairs}")
+
+
+def phase_profile(I, J, out_dir):
+    """--profile: torch.profiler over one step of each path (after two
+    warm-ups): device busy time (kernels and copies), idle share of the
+    profiled wall, and the top operations by device and by host time. The
+    full tables go to out_dir/profile_<path>.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+
+    os.makedirs(out_dir, exist_ok=True)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    def on_device(e):
+        # kernels and copies carry the device type; the host operators that
+        # launched them report the same time again
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    paths = {
+        "contract": make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
+                                solver="transformed"),
+        "fast": make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
+                            solver="refined"),
+    }
+    for name, cfg in paths.items():
+        for _ in range(2):
+            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = prof.key_averages()
+        kernels = [e for e in ev if on_device(e)]
+        busy = sum(dev_us(e) for e in kernels) / 1e6
+        log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in "
+            f"{sum(e.count for e in kernels)} kernels and copies, idle share "
+            f"{1 - busy / wall:.3f}")
+        for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+            log(f"profile {name} device: {e.key[:60]:60s} {dev_us(e) / 1e3:9.2f} ms "
+                f"x{e.count}")
+        for e in sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+            log(f"profile {name} host: {e.key[:60]:60s} {e.self_cpu_time_total / 1e3:9.2f} ms "
+                f"x{e.count}")
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(ev.table(sort_by="self_cuda_time_total", row_limit=80))
 
 
 def main():
@@ -258,6 +555,21 @@ def main():
 
     smi = phase_device()
     phase_build()
+    if sys.argv[1:2] in (["--profile"], ["--steady"]):
+        if len(sys.argv) != 3:
+            print("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS]", file=sys.stderr)
+            return 2
+        I, J = (torch.as_tensor(a, device="cuda") for a in make_pair(N))
+        if sys.argv[1] == "--profile":
+            phase_profile(I, J, sys.argv[2])
+        else:
+            phase_steady(I, J, int(sys.argv[2]))
+        log(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
     report = phase_kernels()
     t0 = time.perf_counter()
     I, J = make_pair(N)
@@ -266,20 +578,31 @@ def main():
     J = torch.as_tensor(J, device=dev)
     log(f"phase 4 pair {N}^2 made and uploaded in {time.perf_counter() - t0:.1f} s")
     diff_fast, launches, step_s, plain_s = phase_slice(I, J)
-    rms64 = phase_f64(I, J, diff_fast)
+    sol64, diff64, rms64 = phase_f64(I, J, diff_fast)
+    del diff_fast
+    c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, report["slice_pair"] = \
+        phase_contract(I, J, sol64, diff64)
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax imported"
 
     kernels = []
     for name, source, replaces in [
         ("moments", "sfft_tpu_torch/csrc/moments.cu", "sfft_tpu/core/pallas_moments.py:143"),
         ("corr_window", "sfft_tpu_torch/csrc/corr_window.cu", "sfft_tpu/core/greek.py:94"),
+        ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
     ]:
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"]))
+                            launches=launches.get(name, 0) + c_launches[name],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"]))
     log(json.dumps({"slice_step_ms": step_s * 1e3, "slice_step_plain_ms": plain_s * 1e3,
-                    "fast_vs_f64_rms": rms64, "card": smi}))
+                    "fast_vs_f64_rms": rms64, "contract_step_ms": c_step_s * 1e3,
+                    "contract_step_plain_ms": c_plain_s * 1e3,
+                    "contract_peak_bytes": c_peak, "contract_vs_f64_rms": c_drms,
+                    "contract_vs_f64_sol_rel": c_srel,
+                    "contract_launches_per_step": {k: v / 4 for k, v in c_launches.items()},
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,11 @@ kernels are hand-written CUDA kernels for Hopper (sm_90a) under csrc/,
 built with nvcc at their first use on a CUDA tensor (see _kernels.py). On
 CPU tensors every kernel wrapper runs its plain PyTorch twin.
 
-Ported so far: the 'fft' and 'peeled' greek backends, the 'fft' and 'fft32'
-difference backends, the 'lu', 'cho' and 'refined' solvers, polynomial
-ENTANGLED / SEPARATE configs, and the customized packets.
+Ported so far: the 'fft', 'peeled' and 'pexact' greek backends, the 'fft',
+'fft32' and 'pexact' difference backends, the 'lu', 'cho', 'refined',
+'exact' and 'transformed' solvers, polynomial ENTANGLED / SEPARATE configs,
+and the customized packets. Numpy input runs on the CUDA card unless the
+caller passes device="cpu".
 """
 
 from sfft_tpu_torch.config import SFFTConfig, make_config

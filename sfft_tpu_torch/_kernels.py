@@ -34,8 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry -> argument types (pointers and the stream as void*, sizes as int)
+_L = ctypes.c_longlong
+# C entry -> argument types (pointers and the stream as void*, sizes as int
+# or long long)
 _SIGNATURES = {
+    "sfft_slice_pair_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "sfft_moments_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sfft_corr_window_c64": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],

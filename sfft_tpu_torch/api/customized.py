@@ -4,8 +4,8 @@
 Reference: Customized_Packet.CP (sfft/CustomizedPacket.py:12-223) and the
 zero-copy PureCupy_Customized_Packet.PCCP (sfft/PureCupyCustomizedPacket.py:
 39-187). The array-level entry point (PureTorchCustomizedPacket) takes
-tensors on any device (or numpy arrays, placed on `device`) and returns
-tensors there.
+tensors on any device (or numpy arrays, placed on `device`, which defaults
+to the CUDA card) and returns tensors there.
 
 Conventions preserved from the reference:
   * Images are read as fits.getdata(...).T so axis0 = X = NAXIS1.
@@ -48,14 +48,19 @@ class PureTorchCustomizedPacket:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (solution, difference) as tensors on the device of
         PixA_REF, or on `device` when it is given (numpy input without a
-        device runs on the CPU)."""
+        device runs on the CUDA card; without one it raises)."""
         if ForceConv not in ("REF", "SCI"):
             raise ValueError(f"ForceConv must be 'REF' or 'SCI', got {ForceConv!r}")
+        # masked == unmasked (the same objects): the NaN patch below is then
+        # the identity on the masked images, so the solve and the difference
+        # take the same tensors and the pexact backends share one pass of
+        # plane spectra between them
+        same = PixA_mREF is PixA_REF and PixA_mSCI is PixA_SCI
         PixA_REF = _as_tensor(PixA_REF, device)
         dev = PixA_REF.device
         PixA_SCI = _as_tensor(PixA_SCI, dev)
-        PixA_mREF = _as_tensor(PixA_mREF, dev)
-        PixA_mSCI = _as_tensor(PixA_mSCI, dev)
+        PixA_mREF = PixA_REF if same else _as_tensor(PixA_mREF, dev)
+        PixA_mSCI = PixA_SCI if same else _as_tensor(PixA_mSCI, dev)
 
         if cfg is None:
             cfg = make_config(
@@ -77,6 +82,8 @@ class PureTorchCustomizedPacket:
             mI, mJ = PixA_mSCI, PixA_mREF
             I = torch.where(nan_u, mI, PixA_SCI)
             J = torch.where(nan_u, mJ, PixA_REF)
+        if same:
+            mI, mJ = I, J
 
         solution, diff, _ = GeneralSFFT.GSS(I, J, mI, mJ, cfg, plain=plain)
         diff = torch.where(nan_u, torch.full_like(diff, float("nan")), diff)
@@ -103,10 +110,10 @@ class CustomizedPacket:
         ConstPhotRatio: bool = True,
         cfg: Optional[SFFTConfig] = None,
         VERBOSE_LEVEL: int = 1,
-        device="cpu",
+        device=None,
     ):
         """Returns (solution, difference) as numpy arrays; the solve runs on
-        `device` ('cpu' or 'cuda')."""
+        `device` ('cuda' when None, or 'cpu')."""
         PixA_REF = fits.getdata(FITS_REF).T.astype(np.float64)
         PixA_SCI = fits.getdata(FITS_SCI).T.astype(np.float64)
         PixA_mREF = fits.getdata(FITS_mREF).T.astype(np.float64)

@@ -26,6 +26,7 @@ import torch
 
 from sfft_tpu_torch.config import SFFTConfig
 from sfft_tpu_torch.core.indices import ab_tables
+from sfft_tpu_torch.core.statics import Static, table
 
 
 class GreekTables(NamedTuple):
@@ -51,6 +52,10 @@ class GreekTables(NamedTuple):
     Pts: torch.Tensor
     Pphi: torch.Tensor
     Pdel: torch.Tensor
+
+
+def _plan_entry(cfg: SFFTConfig, name: str) -> np.ndarray:
+    return _gather_plan(cfg)[name]
 
 
 @lru_cache(maxsize=64)
@@ -110,12 +115,13 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
     dev = t.Pbb.device
     odt = out_dtype if out_dtype is not None else dt
 
-    def const(x, dtype=dt):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+    def const(name, dtype=dt):
+        # the plan's static tables, built and uploaded once (core/statics.py)
+        return table(Static(_plan_entry, (cfg, name)), dev, dtype)
 
-    c1 = const(p["c1"])
-    c0 = const(p["c0"])
-    cs = const(p["cs"])
+    c1 = const("c1")
+    c0 = const("c0")
+    cs = const("cs")
 
     # ---- OMG block -----------------------------------------------------
     Pbbf = t.Pbb.reshape(Fij, Fij, -1)
@@ -127,19 +133,20 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
     ss = t.Pss[:, :, None, None]
     k1, k0, ks = c1[None, :], c0[None, :], cs[None, :]
     # column-indexed terms (row-independent)
-    bb_col = Pbbf[:, :, const(p["omg_col"], torch.long)][:, :, None, :]
-    sb_colneg = Psbf[:, :, const(p["g_row"], torch.long)][:, :, None, :]
+    bb_col = Pbbf[:, :, const("omg_col", torch.long)][:, :, None, :]
+    sb_colneg = Psbf[:, :, const("g_row", torch.long)][:, :, None, :]
     col_part = (k1 * bb_col + k0 * bb_zero + ks * bs_zero)      # x c0 row
     scl_part = (k1 * sb_colneg + k0 * sb_zero + ks * ss)        # x cs row
 
-    oc = const(p["omg_cross"], torch.long)
-    orow = const(p["omg_row"], torch.long)
-    grow = const(p["g_row"], torch.long)
+    oc = const("omg_cross", torch.long)
+    orow = const("omg_row", torch.long)
+    grow = const("g_row", torch.long)
     CH = _omg_chunk(Fab) if (odt != dt or Fij * Fab >= 8192) else Fab
 
     reg = None
     if reg_terms is not None:
-        reg = [(const(M), const(R)) for M, R in reg_terms]
+        reg = [tuple(torch.as_tensor(x, dtype=dt, device=dev) for x in MR)
+               for MR in reg_terms]
 
     def rows_for(idx):
         """OMG rows for a row-offset subset idx (CH,): (Fij, CH, Fij*Fab)."""

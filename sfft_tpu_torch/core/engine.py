@@ -3,10 +3,13 @@
 Maps to the reference call stack ElementalSFFTSubtract.ESS /
 GeneralSFFTSubtract.GSS (sfft/sfftcore/SFFTSubtract.py:8-475, 823-923).
 PyTorch runs eagerly, so the JAX package's per-config jit cache has no
-counterpart: the functions below run directly on tensors, on the device the
-input images lie on. Every entry point takes ``plain`` (default False):
-True keeps the hand kernels (K1, K3) out and runs their plain twins, which
-the tests and chip_smoke.py use as an independent cross-check.
+counterpart: the functions below run directly on tensors. Tensors run on the
+device they lie on; numpy input goes to `device`, which defaults to the CUDA
+card (a machine without one raises: there is no silent CPU fallback, so CPU
+callers pass device="cpu" or CPU tensors). Every entry point takes ``plain``
+(default False): True keeps the hand kernels (K1, K3, K4) out and runs their
+plain twins, which the tests and chip_smoke.py use as an independent
+cross-check.
 """
 
 from __future__ import annotations
@@ -43,10 +46,11 @@ def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None):
 
 
 def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
-                           plain: bool = False):
+                           plain: bool = False, shared=None):
     """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
     masked pair — everything `_solve_impl` does short of the solve (reference
-    LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383)."""
+    LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the pexact
+    plane spectra of (mI, mJ), when the caller has them."""
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
@@ -57,6 +61,11 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
         from sfft_tpu_torch.core.peel import peeled_greek_tables
 
         out = peeled_greek_tables(mI, mJ, cfg, plain=plain)
+        extra = out[5] if separate_varying else None
+    elif cfg.greek_backend == "pexact":
+        from sfft_tpu_torch.core.pexact import pexact_greek_tables
+
+        out = pexact_greek_tables(mI, mJ, cfg, shared=shared, plain=plain)
         extra = out[5] if separate_varying else None
     elif cfg.greek_backend == "fft":
         if separate_varying:
@@ -71,7 +80,7 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     else:
         raise NotImplementedError(
             f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
-            "yet (ROADMAP queue 1, TPU-precision engines); use 'fft' or 'peeled'")
+            "yet (ROADMAP queue 1); use 'fft', 'peeled' or 'pexact'")
     Comg, Cgam, Cthe, Cphi, Cdel = out[:5]
     tables = entangled_tables(
         cfg, (s**3) * Comg, (s**2) * Cgam, (s**2) * Cthe, s * Cphi, s * Cdel
@@ -98,14 +107,17 @@ def normal_equations_fn(cfg: SFFTConfig):
 
 
 def _solve_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, shared=None) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
-    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain)
+    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain, shared=shared)
     return solve_system(cfg, lhs, rhs).to(dt)
 
 
 def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
-                   solution: torch.Tensor) -> torch.Tensor:
+                   solution: torch.Tensor, plain: bool = False, shared=None) -> torch.Tensor:
+    if cfg.fdiff_backend == "pexact":
+        # the pair-arithmetic path builds its own basis-weighted planes
+        return fdiff(cfg, solution, None, None, J, None, I=I, shared=shared, plain=plain)
     # fft32: the difference is computed in f32/c64 anyway — build the basis
     # plane stacks directly in f32
     dt = torch_dtype("float32" if cfg.fdiff_backend == "fft32" else cfg.dtype)
@@ -117,19 +129,31 @@ def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
 
 def solve_and_subtract_fn(cfg: SFFTConfig):
     """One solve+subtract step: solve on the masked pair (mI, mJ), apply to
-    the unmasked pair (I, J). Returns (solution, difference)."""
+    the unmasked pair (I, J). Returns (solution, difference). With the
+    pexact backends for both tables and difference, the plane spectra are
+    computed once and shared when the masked and unmasked images are the
+    same tensors."""
+    both_pexact = cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact"
 
     def step(I, J, mI, mJ, plain: bool = False):
-        sol = _solve_impl(cfg, mI, mJ, plain=plain)
-        return sol, _subtract_impl(cfg, I, J, sol)
+        shared = None
+        if both_pexact:
+            from sfft_tpu_torch.core.pexact import pexact_plane_spectra
+
+            shared = pexact_plane_spectra(mI, mJ, cfg, plain=plain)
+        sol = _solve_impl(cfg, mI, mJ, plain=plain, shared=shared)
+        same = (I is mI) and (J is mJ)
+        diff = _subtract_impl(cfg, I, J, sol, plain=plain,
+                              shared=shared if same else None)
+        return sol, diff
 
     return step
 
 
 def solve_and_subtract_same_fn(cfg: SFFTConfig):
-    """The step for the masked == unmasked special case (2 array inputs).
-    The 'fft'-type backends share no plane spectra between solve and
-    difference, so this only selects the code path, as in sfft_tpu."""
+    """The step for the masked == unmasked special case (2 array inputs):
+    passing the same tensors through `step` lets the pexact backends share
+    one plane-spectra pass between solve and difference."""
     step = solve_and_subtract_fn(cfg)
 
     def step_same(I, J, plain: bool = False):
@@ -138,15 +162,27 @@ def solve_and_subtract_same_fn(cfg: SFFTConfig):
     return step_same
 
 
+def default_device() -> torch.device:
+    """Where numpy input runs when the caller names no device: the CUDA card.
+    Without one this raises; CPU callers pass device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "sfft_tpu_torch runs numpy input on the CUDA card unless a device is "
+            "given, and no CUDA device is available; pass device='cpu' (or CPU "
+            "tensors) to run on the CPU")
+    return torch.device("cuda")
+
+
 def _as_tensor(x, device=None) -> torch.Tensor:
     """Tensor view of an image: tensors stay where they are (moved only when
-    `device` names another device); numpy arrays go to `device` (CPU if None)."""
+    `device` names another device); numpy arrays go to `device`, or to the
+    card (``default_device``) when it is None."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     a = np.asarray(x)
     if not a.flags.writeable:  # torch tensors cannot view read-only memory
         a = a.copy()
-    return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a, device=default_device() if device is None else device)
 
 
 def _check_device(t: torch.Tensor):
@@ -165,16 +201,17 @@ class ElementalSFFT:
         SFFTSolution=None,
         Subtract: bool = False,
         plain: bool = False,
+        device=None,
     ):
         """Solve (unless SFFTSolution is given) and optionally subtract.
-        Runs on the device of PixA_I (CPU for numpy input); returns tensors
-        there."""
+        Runs on the device of PixA_I, or on `device` when it is given (numpy
+        input without a device runs on the card); returns tensors there."""
         if tuple(PixA_I.shape) != (cfg.N0, cfg.N1) or tuple(PixA_J.shape) != (cfg.N0, cfg.N1):
             raise ValueError(
                 f"input images must have shape ({cfg.N0}, {cfg.N1}); "
                 f"got {tuple(PixA_I.shape)} / {tuple(PixA_J.shape)}"
             )
-        I = _as_tensor(PixA_I)
+        I = _as_tensor(PixA_I, device)
         _check_device(I)
         J = _as_tensor(PixA_J, I.device)
         solution = SFFTSolution
@@ -184,12 +221,14 @@ class ElementalSFFT:
             solution = _as_tensor(solution, I.device)
         diff = None
         if Subtract:
-            diff = _subtract_impl(cfg, I, J, solution)
+            diff = _subtract_impl(cfg, I, J, solution, plain=plain)
         return solution, diff
 
 
-def elemental_subtract(PixA_I, PixA_J, cfg, solution=None, subtract=False, plain=False):
-    return ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, subtract, plain=plain)
+def elemental_subtract(PixA_I, PixA_J, cfg, solution=None, subtract=False, plain=False,
+                       device=None):
+    return ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, subtract, plain=plain,
+                             device=device)
 
 
 class GeneralSFFT:
@@ -200,7 +239,9 @@ class GeneralSFFT:
 
     @staticmethod
     def GSS(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg: SFFTConfig, ContamMask_I=None,
-            plain: bool = False):
+            plain: bool = False, device=None):
+        """Runs on the device of PixA_I, or on `device` when it is given
+        (numpy input without a device runs on the card)."""
         shapes = {
             tuple(PixA_I.shape),
             tuple(PixA_J.shape),
@@ -212,15 +253,22 @@ class GeneralSFFT:
 
         if PixA_I is PixA_mI and PixA_J is PixA_mJ and ContamMask_I is None:
             # masked == unmasked (the same arrays): the two-input step
-            I = _as_tensor(PixA_I)
+            I = _as_tensor(PixA_I, device)
             _check_device(I)
             solution, diff = solve_and_subtract_same_fn(cfg)(
                 I, _as_tensor(PixA_J, I.device), plain=plain)
             return solution, diff, None
 
+        if device is not None:
+            dev = torch.device(device)
+        elif isinstance(PixA_I, torch.Tensor):
+            dev = PixA_I.device
+        else:
+            dev = default_device()
         solution, _ = ElementalSFFT.ESS(PixA_mI, PixA_mJ, cfg, None, Subtract=False,
-                                        plain=plain)
-        _, diff = ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, Subtract=True)
+                                        plain=plain, device=dev)
+        _, diff = ElementalSFFT.ESS(PixA_I, PixA_J, cfg, solution, Subtract=True,
+                                    plain=plain, device=dev)
 
         contam_out = None
         if ContamMask_I is not None:
@@ -228,12 +276,12 @@ class GeneralSFFT:
             tsol[-cfg.Fpq :] = 0.0
             tI = _as_tensor(ContamMask_I, diff.device).to(torch_dtype(cfg.dtype))
             tJ = torch.zeros_like(tI)
-            _, tD = ElementalSFFT.ESS(tI, tJ, cfg, tsol, Subtract=True)
+            _, tD = ElementalSFFT.ESS(tI, tJ, cfg, tsol, Subtract=True, plain=plain)
             contam_out = tD < -0.001
         return solution, diff, contam_out
 
 
 def general_subtract(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg, contam_mask_I=None,
-                     plain=False):
+                     plain=False, device=None):
     return GeneralSFFT.GSS(PixA_I, PixA_J, PixA_mI, PixA_mJ, cfg, contam_mask_I,
-                           plain=plain)
+                           plain=plain, device=device)

@@ -6,7 +6,8 @@ Reference: Kab phase factors + Construct_FDIFF + ifft2
 The per-pixel phase sum of the reference factorizes: the per-ij kernel
 spectrum is K_ij = W0 @ A_ij @ W1, two skinny matmuls, and everything runs on
 rfft2 half-spectra. 'fft' computes in the config dtype; 'fft32' runs the same
-algebra in float32 / complex64.
+algebra in float32 / complex64. 'pexact' (the contract mode's exact-grade
+difference) lives in core/pexact.py.
 
 The fused model-spectrum pass is plain PyTorch here; its hand kernel (K2)
 is the next item of ROADMAP queue 2.
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core.statics import Static, table
 
 
 def _phase_matrices(cfg: SFFTConfig, half: bool = True):
@@ -36,6 +38,12 @@ def _phase_matrices(cfg: SFFTConfig, half: bool = True):
     W1 = np.exp((-2j * np.pi / N1) * np.outer(b, v))
     cdt = np.complex128 if cfg.dtype == "float64" else np.complex64
     return W0.astype(cdt), W1.astype(cdt)
+
+
+def phase_matrix(cfg: SFFTConfig, half: bool, k: int) -> np.ndarray:
+    """W0 (k = 0) or W1 (k = 1) of _phase_matrices: the builder of their
+    device copies (core/statics.py)."""
+    return _phase_matrices(cfg, half)[k]
 
 
 def split_solution(cfg: SFFTConfig, solution: torch.Tensor):
@@ -69,9 +77,8 @@ def fdiff_fft(
     N0, N1 = cfg.N0, cfg.N1
     dev = J.device
     a_ijab, b_pq = split_solution(cfg, solution)
-    W0, W1 = _phase_matrices(cfg, half=True)
-    W0 = torch.as_tensor(W0, device=dev)
-    W1 = torch.as_tensor(W1, device=dev)
+    W0 = table(Static(phase_matrix, (cfg, True, 0)), dev)
+    W1 = table(Static(phase_matrix, (cfg, True, 1)), dev)
     cdt = W0.dtype
 
     stack = torch.cat([J[None], SI, ST], dim=0)
@@ -99,7 +106,16 @@ def fdiff_fft(
     return torch.fft.irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
 
 
-def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None) -> torch.Tensor:
+def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
+          plain: bool = False) -> torch.Tensor:
+    """The difference image for cfg.fdiff_backend. 'pexact' builds its own
+    pair planes from the image I (SI, ST and SSc unused) and may reuse the
+    plane spectra of the solve (`shared`); plain=True runs the plain twins
+    of its kernels."""
+    if cfg.fdiff_backend == "pexact":
+        from sfft_tpu_torch.core.pexact import fdiff_pexact
+
+        return fdiff_pexact(cfg, solution, I, J, shared=shared, plain=plain)
     if cfg.fdiff_backend == "fft":
         return fdiff_fft(cfg, solution, SI, ST, J, SSc)
     if cfg.fdiff_backend == "fft32":
@@ -118,4 +134,4 @@ def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None) -> torch.Tensor:
         return out.to(J.dtype)
     raise NotImplementedError(
         f"fdiff backend {cfg.fdiff_backend!r} is not ported to sfft_tpu_torch yet "
-        "(ROADMAP queue 1, TPU-precision engines); use 'fft' or 'fft32'")
+        "(ROADMAP queue 1); use 'fft', 'fft32' or 'pexact'")

@@ -28,6 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sfft_tpu_torch.core.statics import index
+
 
 def _window_row_indices(N: int, w: int) -> np.ndarray:
     """Row indices of irfft output holding CC at lags rho=-w..w (table index
@@ -66,23 +68,11 @@ def _idft_mats_on(N0: int, N1: int, wx: int, wy: int, dtype: torch.dtype,
             torch.as_tensor(E1, device=device).contiguous())
 
 
-@lru_cache(maxsize=256)
-def _index_on(idx: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A static index list as a tensor on `device`, uploaded once: a
-    host-to-device copy from pageable memory synchronizes the stream, which
-    the kernel wrapper must not do on every call."""
-    return torch.as_tensor(idx, dtype=dtype, device=device)
-
-
-def _idx(a, dtype, device) -> torch.Tensor:
-    return _index_on(tuple(int(v) for v in a), dtype, device)
-
-
 def corr_pairs_plain(specA, specB, ia, ib, E0, E1) -> torch.Tensor:
     """The plain twin of K1 (sfft_tpu's 'matmul' method) for a pair list:
     out[c] = Re(E0 @ (specA[ia[c]] * conj(specB[ib[c]])) @ E1)."""
-    H = specA[_idx(ia, torch.long, specA.device)] * torch.conj(
-        specB[_idx(ib, torch.long, specA.device)])
+    H = specA[index(ia, specA.device, torch.long)] * torch.conj(
+        specB[index(ib, specA.device, torch.long)])
     T1 = torch.einsum("cuv,ve->cue", H, E1)
     return torch.real(torch.einsum("ru,cue->cre", E0, T1))
 
@@ -95,8 +85,8 @@ def _corr_launch(specA, specB, ia, ib, E0, E1) -> torch.Tensor:
     R0, R1 = E0.shape[0], E1.shape[1]
     real = torch.float32 if specA.dtype == torch.complex64 else torch.float64
     dev = specA.device
-    pa = _idx(ia, torch.int32, dev)
-    pb = _idx(ib, torch.int32, dev)
+    pa = index(ia, dev, torch.int32)
+    pb = index(ib, dev, torch.int32)
     T1 = torch.empty((npairs, N0, R1), dtype=specA.dtype, device=dev)
     out = torch.empty((npairs, R0, R1), dtype=real, device=dev)
     entry = ("sfft_corr_window_c64" if specA.dtype == torch.complex64
@@ -195,8 +185,8 @@ def corr_window_fft(
                              for k in range(0, len(iu), csize)], dim=0)
             full = torch.zeros((Fa, Fa, 2 * wx + 1, 2 * wy + 1), dtype=tri.dtype,
                                device=tri.device)
-            iu_t = _idx(iu, torch.long, tri.device)
-            ju_t = _idx(ju, torch.long, tri.device)
+            iu_t = index(iu, tri.device, torch.long)
+            ju_t = index(ju, tri.device, torch.long)
             full[iu_t, ju_t] = tri
             full[ju_t, iu_t] = torch.flip(tri, dims=(1, 2))
             return full
@@ -211,8 +201,8 @@ def corr_window_fft(
     if method != "irfft":
         raise ValueError(f"unknown corr_window_fft method {method!r}")
 
-    rows = _idx(_window_row_indices(N0, wx), torch.long, specA.device)
-    cols = _idx(_window_row_indices(N1, wy), torch.long, specA.device)
+    rows = index(_window_row_indices(N0, wx), specA.device, torch.long)
+    cols = index(_window_row_indices(N1, wy), specA.device, torch.long)
     H = specA[:, None, :, :] * torch.conj(specB)[None, :, :, :]
     H = H.reshape(Fa * Fb, N0, specA.shape[-1])
 

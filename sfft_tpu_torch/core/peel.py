@@ -31,6 +31,7 @@ from sfft_tpu_torch.config import SFFTConfig, torch_dtype
 from sfft_tpu_torch.core.greek import corr_window_fft
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.moments import moments
+from sfft_tpu_torch.core.statics import Static, table
 
 
 def _exact_skinny_matmul(P0: torch.Tensor, G: torch.Tensor,
@@ -56,6 +57,7 @@ class AxisStatic(NamedTuple):
     S: np.ndarray        # (R, SP, SP) shift matrices for main term
     D: np.ndarray        # (R, SP, SP) wrap-correction delta shift matrices
     lags: np.ndarray     # (R,) lag values -w..w
+    args: tuple          # (N, w, SP, EMAX): what built it, the key of its device copies
 
 
 def _shiftmat(h: float, SP: int) -> np.ndarray:
@@ -87,7 +89,45 @@ def axis_static(N: int, w: int, SP: int, EMAX: int) -> AxisStatic:
             D[k] = _shiftmat(-l / N + 1.0, SP) - S[k]
         elif l < 0:
             D[k] = _shiftmat(-l / N - 1.0, SP) - S[k]
-    return AxisStatic(c=c, ps=ps, pref=pref, suff=suff, S=S, D=D, lags=lags)
+    return AxisStatic(c=c, ps=ps, pref=pref, suff=suff, S=S, D=D, lags=lags,
+                      args=(N, w, SP, EMAX))
+
+
+def _axis_field(args: tuple, name: str) -> np.ndarray:
+    return getattr(axis_static(*args), name)
+
+
+def coord_powers(N: int, npow: int, lo: int, hi: int) -> np.ndarray:
+    """(npow, hi - lo): c^a over the scaled coordinates c = (x+1)/N,
+    x in [lo, hi)."""
+    c = (np.arange(N, dtype=np.float64) + 1.0) / N
+    return np.stack([c[lo:hi] ** a for a in range(npow)])
+
+
+def coord_powers_of(N: int, exps: tuple) -> np.ndarray:
+    """(len(exps), N): c^e for each exponent e."""
+    c = (np.arange(N, dtype=np.float64) + 1.0) / N
+    return np.stack([c ** int(e) for e in exps])
+
+
+def _ps_table(args: tuple, SG: int, SP: int) -> np.ndarray:
+    """(SG, SP) power sums ps[s + u]."""
+    idx = np.arange(SG)[:, None] + np.arange(SP)[None, :]
+    return axis_static(*args).ps[idx]
+
+
+def _strip_sums(args: tuple, w: int, SG: int, SP: int) -> np.ndarray:
+    """(2w+1, SG, SP) strip power sums per lag: prefix sums over x < l for
+    l > 0, suffix sums over x >= N-|l| for l < 0, zero at l = 0."""
+    ax = axis_static(*args)
+    idx = np.arange(SG)[:, None] + np.arange(SP)[None, :]
+    pr = np.zeros((2 * w + 1, SG, SP))
+    for k, l in enumerate(range(-w, w + 1)):
+        if l > 0:
+            pr[k] = ax.pref[l][idx]
+        elif l < 0:
+            pr[k] = ax.suff[-l][idx]
+    return pr
 
 
 # --------------------------------------------------------------------------
@@ -106,13 +146,10 @@ class MomentSet(NamedTuple):
     CNR: torch.Tensor  # (R0, R1, SG, SG) corner moments
 
 
-def _t(x, like: torch.Tensor, dtype=None) -> torch.Tensor:
-    """Host array -> tensor on `like`'s device (dtype defaults to like's)."""
-    return torch.as_tensor(np.asarray(x), dtype=dtype or like.dtype, device=like.device)
-
-
-def _powmat(ax: AxisStatic, SG: int, like: torch.Tensor) -> torch.Tensor:
-    return _t(np.stack([ax.c**a for a in range(SG)]), like)  # (SG, N)
+def _t(build, args: tuple, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The static table build(*args) as a tensor on `like`'s device (dtype
+    defaults to like's), built and uploaded once (core/statics.py)."""
+    return table(Static(build, args), like.device, dtype or like.dtype)
 
 
 def moment_set(
@@ -121,8 +158,8 @@ def moment_set(
 ) -> MomentSet:
     """Compute the moment set of image G on its device (exact f64)."""
     dt, dev = G.dtype, G.device
-    P0 = _powmat(ax0, SG, G)  # (SG, N0)
-    P1 = _powmat(ax1, SG, G)  # (SG, N1)
+    P0 = _t(coord_powers, (N0, SG, 0, N0), G)  # (SG, N0)
+    P1 = _t(coord_powers, (N1, SG, 0, N1), G)  # (SG, N1)
     R0, R1 = 2 * w0 + 1, 2 * w1 + 1
 
     def zeros(*shape):
@@ -134,8 +171,8 @@ def moment_set(
     # row strips: rows [0, w0) and [N0-w0, N0)
     rowmom_top = G[:w0] @ P1.T if w0 else zeros(0, SG)      # (w0, SG)
     rowmom_bot = G[N0 - w0 :] @ P1.T if w0 else zeros(0, SG)
-    cx_top = _t(np.stack([ax0.c[:w0] ** a for a in range(SG)]), G)        # (SG, w0)
-    cx_bot = _t(np.stack([ax0.c[N0 - w0 :] ** a for a in range(SG)]), G)
+    cx_top = _t(coord_powers, (N0, SG, 0, w0), G)        # (SG, w0)
+    cx_bot = _t(coord_powers, (N0, SG, N0 - w0, N0), G)
     top_terms = cx_top[:, :, None] * rowmom_top[None, :, :]   # (SG, w0, SG)
     bot_terms = cx_bot[:, :, None] * rowmom_bot[None, :, :]
     top_pref = torch.cumsum(top_terms, dim=1)                   # sum_{x<rho}
@@ -149,8 +186,8 @@ def moment_set(
 
     colmom_l = (P0 @ G[:, :w1]) if w1 else zeros(SG, 0)          # (SG, w1)
     colmom_r = (P0 @ G[:, N1 - w1 :]) if w1 else zeros(SG, 0)
-    cy_l = _t(np.stack([ax1.c[:w1] ** b for b in range(SG)]), G)
-    cy_r = _t(np.stack([ax1.c[N1 - w1 :] ** b for b in range(SG)]), G)
+    cy_l = _t(coord_powers, (N1, SG, 0, w1), G)
+    cy_r = _t(coord_powers, (N1, SG, N1 - w1, N1), G)
     l_terms = colmom_l[:, None, :] * cy_l[None, :, :]         # (SG, SG, w1)
     r_terms = colmom_r[:, None, :] * cy_r[None, :, :]
     l_pref = torch.cumsum(l_terms, dim=2)
@@ -202,24 +239,10 @@ def poly_moment_set(
 
     Supports a leading batch axis on Q.
     """
-    idx = np.arange(SG)[:, None] + np.arange(SP)[None, :]
-    ps0 = _t(ax0.ps[idx], Q)          # (SG, SP)
-    ps1 = _t(ax1.ps[idx], Q)
-    R0, R1 = 2 * w0 + 1, 2 * w1 + 1
-    pr0 = np.zeros((R0, SG, SP))
-    for k, l in enumerate(range(-w0, w0 + 1)):
-        if l > 0:
-            pr0[k] = ax0.pref[l][idx]
-        elif l < 0:
-            pr0[k] = ax0.suff[-l][idx]
-    pr1 = np.zeros((R1, SG, SP))
-    for k, l in enumerate(range(-w1, w1 + 1)):
-        if l > 0:
-            pr1[k] = ax1.pref[l][idx]
-        elif l < 0:
-            pr1[k] = ax1.suff[-l][idx]
-    pr0 = _t(pr0, Q)
-    pr1 = _t(pr1, Q)
+    ps0 = _t(_ps_table, (ax0.args, SG, SP), Q)          # (SG, SP)
+    ps1 = _t(_ps_table, (ax1.args, SG, SP), Q)
+    pr0 = _t(_strip_sums, (ax0.args, w0, SG, SP), Q)    # (R0, SG, SP)
+    pr1 = _t(_strip_sums, (ax1.args, w1, SG, SP), Q)
 
     M = torch.einsum("...uv,au,bv->...ab", Q, ps0, ps1)
     RS = torch.einsum("...uv,rau,bv->...rab", Q, pr0, ps1)
@@ -234,10 +257,10 @@ def polycorr(
     """CC(poly(P), G)[rho, eps] from G's moment set. Batched:
     P: (..., SP, SP) poly coeffs; mom tensors may carry their own leading batch
     axis ('b'). Returns (...P-batch, ...mom-batch, R0, R1)."""
-    S0 = _t(ax0.S, P)
-    D0 = _t(ax0.D, P)
-    S1 = _t(ax1.S, P)
-    D1 = _t(ax1.D, P)
+    S0 = _t(_axis_field, (ax0.args, "S"), P)
+    D0 = _t(_axis_field, (ax0.args, "D"), P)
+    S1 = _t(_axis_field, (ax1.args, "S"), P)
+    D1 = _t(_axis_field, (ax1.args, "D"), P)
     Mm, RS, CS, CNR = mom
     squeeze = Mm.dim() == 2
     if squeeze:  # add singleton mom batch
@@ -281,28 +304,53 @@ def fit_poly_coeffs(
     (on the device; no host round trip). Exactness of the peel does NOT
     depend on fit quality, so a small ridge keeps the (Hilbert-like) system
     tame. Returns (deg+1, deg+1) tensor coeffs (total-degree mask)."""
-    exps = [(s, t) for s in range(deg + 1) for t in range(deg + 1 - s)]
+    exps = _fit_exponents(deg)
+    args = (ax0.args, ax1.args, deg, ridge)
+    dd = _t(_fit_gram, args + ("d",), M)
+    rhs = torch.stack([M[s, t] for (s, t) in exps]) / dd
+    sol = (_t(_fit_gram, args + ("inv",), M) @ rhs) / dd
+    out = torch.zeros((deg + 1, deg + 1), dtype=M.dtype, device=M.device)
+    st = _t(np.array, (tuple(zip(*exps)),), M, torch.int64)     # (2, n)
+    out[st[0], st[1]] = sol
+    return out
+
+
+def _fit_exponents(deg: int):
+    return [(s, t) for s in range(deg + 1) for t in range(deg + 1 - s)]
+
+
+def _fit_gram(ax0args: tuple, ax1args: tuple, deg: int, ridge: float, part: str):
+    """The fit's static tables: "d" the square roots of the Gram diagonal,
+    "inv" the inverse of the scaled, ridged Gram matrix."""
+    ps0 = axis_static(*ax0args).ps
+    ps1 = axis_static(*ax1args).ps
+    exps = _fit_exponents(deg)
     n = len(exps)
     G = np.zeros((n, n))
     for a, (s, t) in enumerate(exps):
         for b, (u, v) in enumerate(exps):
-            G[a, b] = ax0.ps[s + u] * ax1.ps[t + v]
+            G[a, b] = ps0[s + u] * ps1[t + v]
     d = np.sqrt(np.diag(G))
-    Gn = G / np.outer(d, d) + ridge * np.eye(n)
-    Gn_inv = np.linalg.inv(Gn)
-    dd = _t(d, M)
-    rhs = torch.stack([M[s, t] for (s, t) in exps]) / dd
-    sol = (_t(Gn_inv, M) @ rhs) / dd
-    out = torch.zeros((deg + 1, deg + 1), dtype=M.dtype, device=M.device)
-    si = torch.as_tensor([s for s, _ in exps], device=M.device)
-    ti = torch.as_tensor([t for _, t in exps], device=M.device)
-    out[si, ti] = sol
-    return out
+    if part == "d":
+        return d
+    return np.linalg.inv(G / np.outer(d, d) + ridge * np.eye(n))
 
 
 # --------------------------------------------------------------------------
 # the peeled Greek backend
 # --------------------------------------------------------------------------
+
+
+def _exps_key(exps: np.ndarray) -> tuple:
+    return tuple((int(i), int(j)) for i, j in exps)
+
+
+def phi_table(ax0args: tuple, ax1args: tuple, exps_b: tuple) -> np.ndarray:
+    """PHI = CC(T_p, T_q)[0]: products of the static power sums."""
+    ps0 = axis_static(*ax0args).ps
+    ps1 = axis_static(*ax1args).ps
+    return np.array([[float(ps0[i1 + i2] * ps1[j1 + j2]) for (i2, j2) in exps_b]
+                     for (i1, j1) in exps_b])
 
 
 def peeled_greek_tables(
@@ -406,14 +454,14 @@ def peeled_greek_tables(
     FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))  # CC(F_a, S_b)
 
     # fluct planes in fluct dtype for the FFT part
-    U = _t(np.stack([ax0o.c**s for s in range(dmu + 1)]), I, fd)  # (dmu+1, N0)
-    V = _t(np.stack([ax1o.c**t for t in range(dmu + 1)]), I, fd)
+    U = _t(coord_powers, (N0, dmu + 1, 0, N0), I, fd)  # (dmu+1, N0)
+    V = _t(coord_powers, (N1, dmu + 1, 0, N1), I, fd)
     smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
     smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
     FIf = I.to(fd) - smoothI
     FJf = J.to(fd) - smoothJ
-    Uk = _t(np.stack([ax0o.c ** int(i) for i in exps_k[:, 0]]), I, fd)
-    Vk = _t(np.stack([ax1o.c ** int(j) for j in exps_k[:, 1]]), I, fd)
+    Uk = _t(coord_powers_of, (N0, tuple(int(i) for i in exps_k[:, 0])), I, fd)
+    Vk = _t(coord_powers_of, (N1, tuple(int(j) for j in exps_k[:, 1])), I, fd)
     Fplanes = FIf[None] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, N0, N1)
 
     stack = torch.cat([FJf[None], Fplanes], dim=0)
@@ -439,8 +487,7 @@ def peeled_greek_tables(
     Cthe = SJ + FSJ + FFJwin
 
     # --- PHI / DEL: closed form from static sums / moments --------------
-    Cphi = _t(np.array([[float(ax0g.ps[i1 + i2] * ax1g.ps[j1 + j2])
-                         for (i2, j2) in exps_b] for (i1, j1) in exps_b]), I, dt)
+    Cphi = _t(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b)), I, dt)
     Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
 
     if not separate_varying:

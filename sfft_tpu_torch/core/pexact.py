@@ -1,0 +1,485 @@
+"""Peeled + sliced exact engine: contract-grade tables at a reduced slice
+depth (counterpart of sfft_tpu/core/pexact.py).
+
+Each image splits exactly, I = P_I + F_I, with P_I a low-degree polynomial
+fit (core/peel.py). Every Greek correlation then expands into
+
+  smooth x smooth / smooth x fluct -> exact f64 moment algebra (K3)  [no FFT]
+  fluct  x fluct                   -> sliced pair-FFT windows (K4),
+                                      at the reduced cfg.pexact_prof
+
+The difference (fdiff_pexact) splits the same way: the spectral model sum
+runs on the fluctuation spectra, and the smooth model (the circular
+convolution of polynomial planes with the fitted kernel) is closed-form
+shift algebra plus wrap corrections on the <= w-wide boundary bands.
+
+Requires polynomial kernel, background and scaling bases. Every function
+takes ``plain``: True runs the plain twins of K3 and K4.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _cmatmul_sliced,
+                                           _pair_hadamard_conj, _pair_mul_static_rr,
+                                           _pmap, _split_on, _swap, _two_prod, _two_sum,
+                                           exact_corr_window, exact_dft_axis,
+                                           exact_idft_halfin_real,
+                                           exact_sep_weighted_spectra, pair_from_f64)
+from sfft_tpu_torch.core.fdiff import phase_matrix, split_solution, standard_kernel_coeffs
+from sfft_tpu_torch.core.indices import ref_basis_exponents
+from sfft_tpu_torch.core.peel import (AxisStatic, MomentSet, _axis_field, _exps_key,
+                                      axis_static, coord_powers, coord_powers_of,
+                                      fit_poly_coeffs, moment_set, phi_table, poly_moment_set,
+                                      polycorr, shift_moment_set)
+from sfft_tpu_torch.core.statics import Static, index, table
+
+
+# ---------------------------------------------------------------------------
+# pair helpers
+# ---------------------------------------------------------------------------
+
+
+def pair_sub(a: CPair, b: CPair) -> CPair:
+    """Real pair minus real pair (TwoSum on the hi lanes)."""
+    h, e = _two_sum(a.rh, -b.rh)
+    return CPair(h, a.rl - b.rl + e, None, None)
+
+
+def pair_poly_plane(C: torch.Tensor, N0: int, N1: int) -> CPair:
+    """Grid evaluation of a ScaledFortranCoor polynomial as a real pair.
+
+    C: (SP, SP) f64 coefficients over c0^s c1^t with c = (idx+1)/N. The
+    y-contraction is a tiny f64 product; the x-axis accumulation runs in f32
+    pair arithmetic (~2^-48 of the plane scale)."""
+    SP = C.shape[0]
+    dev = C.device
+    V = table(Static(coord_powers, (N1, SP, 0, N1)), dev)       # (SP, N1) f64
+    M = C.to(torch.float64) @ V                                  # (SP, N1) f64
+    Mh = M.to(torch.float32)
+    Ml = (M - Mh.to(torch.float64)).to(torch.float32)
+    Uh, Ul = _split_on(Static(coord_powers, (N0, SP, 0, N0)), dev)
+    hi = lo = None
+    for s in range(SP):
+        uh, ul = Uh[s][:, None], Ul[s][:, None]
+        p, e = _two_prod(uh, Mh[s][None, :])
+        plo = e + uh * Ml[s][None, :] + ul * Mh[s][None, :]
+        if hi is None:
+            hi, lo = p, plo
+        else:
+            hi, e2 = _two_sum(hi, p)
+            lo = lo + plo + e2
+    return CPair(hi, lo, None, None)
+
+
+# ---------------------------------------------------------------------------
+# shared front end
+# ---------------------------------------------------------------------------
+
+
+class _Geom(NamedTuple):
+    exps_k: np.ndarray       # UNION kernel(+scaling) exponents (Fij_u, 2)
+    exps_b: np.ndarray
+    Fk_only: int             # kernel-only count (cfg.Fij)
+    SP: int                  # poly-side exponents (S_a = mu * beta_a)
+    SG: int                  # moment exponents
+    ax0o: AxisStatic
+    ax1o: AxisStatic
+    ax0g: AxisStatic
+    ax1g: AxisStatic
+    dmu: int
+
+
+def pexact_supported(cfg: SFFTConfig) -> bool:
+    if cfg.kernel_basis.kind != "polynomial" or cfg.bg_basis.kind != "polynomial":
+        return False
+    if cfg.scaling_mode == "SEPARATE-VARYING" and cfg.scaling_basis.kind != "polynomial":
+        return False
+    return True
+
+
+def _geom(cfg: SFFTConfig) -> _Geom:
+    if not pexact_supported(cfg):
+        raise ValueError(
+            "pexact backends require polynomial kernel/background/scaling "
+            "bases; B-spline configs use greek_backend='exact'")
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    dmu = cfg.peel_degree
+    dk = cfg.kernel_basis.degree
+    ds = cfg.scaling_basis.degree if separate_varying else 0
+    db = cfg.bg_basis.degree
+    SP = dmu + max(dk, ds) + 1
+    SG = SP + max(dk, ds, db)
+    EMAX = 2 * SG + 2
+    exps_k = ref_basis_exponents(cfg.kernel_basis)
+    if separate_varying:
+        exps_k = np.concatenate([exps_k, ref_basis_exponents(cfg.scaling_basis)], axis=0)
+    return _Geom(
+        exps_k=exps_k, exps_b=ref_basis_exponents(cfg.bg_basis),
+        Fk_only=cfg.Fij, SP=SP, SG=SG,
+        ax0o=axis_static(N0, 2 * w0, SP, EMAX),
+        ax1o=axis_static(N1, 2 * w1, SP, EMAX),
+        ax0g=axis_static(N0, w0, SP, EMAX),
+        ax1g=axis_static(N1, w1, SP, EMAX),
+        dmu=dmu,
+    )
+
+
+class PexactShared(NamedTuple):
+    """What the Greek tables and the difference both consume, computed once
+    per (I, J) pair."""
+
+    mI: torch.Tensor         # (dmu+1, dmu+1) f64 peel coeffs of I
+    mJ: torch.Tensor
+    momI_o: MomentSet        # raw-I exact moments, +-2w window, SG exponents
+    momJ_g: MomentSet        # raw-J exact moments, +-w window
+    sp: CPair                # stacked half spectra of [F_J] + F_I*beta_union
+
+
+def pexact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
+                         plain: bool = False) -> PexactShared:
+    g = _geom(cfg)
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    I = I.to(dt)
+    J = J.to(dt)
+    momI_o = moment_set(I, N0, N1, 2 * w0, 2 * w1, g.SG, g.ax0o, g.ax1o, plain)
+    momJ_g = moment_set(J, N0, N1, w0, w1, g.SG, g.ax0g, g.ax1g, plain)
+    mI = fit_poly_coeffs(momI_o.M, g.dmu, g.ax0o, g.ax1o)
+    mJ = fit_poly_coeffs(momJ_g.M, g.dmu, g.ax0g, g.ax1g)
+    # exact-pair fluctuations: F = pair(I) - pair-eval(P), with the same
+    # coefficients the moment algebra uses
+    FIp = pair_sub(pair_from_f64(I), pair_poly_plane(mI, N0, N1))
+    FJp = pair_sub(pair_from_f64(J), pair_poly_plane(mJ, N0, N1))
+    prof = SliceProfile(*cfg.pexact_prof)
+    U = Static(coord_powers_of, (N0, tuple(int(i) for i, _ in g.exps_k)))
+    V = Static(coord_powers_of, (N1, tuple(int(j) for _, j in g.exps_k)))
+    sp = exact_sep_weighted_spectra([FJp], FIp, U, V, prof=prof, plain=plain)
+    return PexactShared(mI=mI, mJ=mJ, momI_o=momI_o, momJ_g=momJ_g, sp=sp)
+
+
+# ---------------------------------------------------------------------------
+# Greek tables
+# ---------------------------------------------------------------------------
+
+
+def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
+                        shared: Optional[PexactShared] = None, plain: bool = False):
+    """(Comg, Cgam, Cthe, Cphi, Cdel[, (Pbs, Pss, Pgs, Pts)]) unscaled CC
+    tables: smooth-involving terms exact f64 (moment algebra), fluct x fluct
+    via the sliced pair-FFT windows at cfg.pexact_prof."""
+    g = _geom(cfg)
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    SP, dmu = g.SP, g.dmu
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    if shared is None:
+        shared = pexact_plane_spectra(I, J, cfg, plain=plain)
+    mI, mJ, momI_o, momJ_g, sp = shared
+    exps_k, exps_b = g.exps_k, g.exps_b
+    Fij, Fpq = len(exps_k), len(exps_b)
+    ax0o, ax1o, ax0g, ax1g = g.ax0o, g.ax1o, g.ax0g, g.ax1g
+    dev = mI.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    # +-w moment window is a central slice of the +-2w one
+    momI_g = MomentSet(
+        M=momI_o.M,
+        RS=momI_o.RS[w0: 3 * w0 + 1],
+        CS=momI_o.CS[w1: 3 * w1 + 1],
+        CNR=momI_o.CNR[w0: 3 * w0 + 1, w1: 3 * w1 + 1],
+    )
+
+    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings
+    PA = zeros(Fij, SP, SP)
+    for k, (i, j) in enumerate(exps_k):
+        PA[k, i: i + dmu + 1, j: j + dmu + 1] = mI
+    mJ_pad = zeros(1, SP, SP)
+    mJ_pad[0, : dmu + 1, : dmu + 1] = mJ
+    TQ = zeros(Fpq, SP, SP)
+    for k, (p, q) in enumerate(exps_b):
+        TQ[k, p, q] = 1.0
+
+    def fluct_mom(momG: MomentSet, mcoef, ax0, ax1) -> MomentSet:
+        Q = zeros(SP, SP)
+        Q[: dmu + 1, : dmu + 1] = mcoef
+        pm = poly_moment_set(Q, (ax0.S.shape[0] - 1) // 2, (ax1.S.shape[0] - 1) // 2,
+                             SP, g.SG, ax0, ax1)
+        return MomentSet(M=momG.M - pm.M, RS=momG.RS - pm.RS,
+                         CS=momG.CS - pm.CS, CNR=momG.CNR - pm.CNR)
+
+    momFI_o = fluct_mom(momI_o, mI, ax0o, ax1o)
+    momFI_g = fluct_mom(momI_g, mI, ax0g, ax1g)
+    momFb_o = shift_moment_set(momFI_o, exps_k, SP)
+    momFa_g = shift_moment_set(momFI_g, exps_k, SP)
+
+    # --- OMG smooth terms -------------------------------------------------
+    momSb_o = poly_moment_set(PA, 2 * w0, 2 * w1, SP, g.SG, ax0o, ax1o)
+    SS = polycorr(PA, momSb_o, ax0o, ax1o)                 # CC(S_a, S_b)
+    SF = polycorr(PA, momFb_o, ax0o, ax1o)                 # CC(S_a, F_b)
+    FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))
+
+    # --- fluct x fluct via ONE sliced windowed-correlation pass -----------
+    # (the THE window +-w is a central slice of the +-2w one)
+    prof = SliceProfile(*cfg.pexact_prof)
+    iu, ju = np.triu_indices(Fij)
+    ia = np.concatenate([iu + 1, np.arange(Fij) + 1])
+    jb = np.concatenate([ju + 1, np.zeros(Fij, np.int64)])
+    spec_all = _pmap(sp, lambda v: v[: 1 + Fij])
+    cc = exact_corr_window(spec_all, spec_all, N0, N1, 2 * w0, 2 * w1,
+                           pairs=(ia, jb), prof=prof, plain=plain)
+    n_omg = len(iu)
+    iu_t = index(iu, dev)
+    ju_t = index(ju, dev)
+    FF = torch.zeros((Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
+    FF[iu_t, ju_t] = cc[:n_omg]
+    FF[ju_t, iu_t] = torch.flip(cc[:n_omg], dims=(1, 2))
+    FFJwin = cc[n_omg:, w0: 3 * w0 + 1, w1: 3 * w1 + 1]
+    Comg = SS + SF + FS + FF.to(dt)
+
+    # --- GAM: fully exact (moment algebra, no FFT at all) ------------------
+    momTq = poly_moment_set(TQ, w0, w1, SP, g.SG, ax0g, ax1g)
+    SS_gam = polycorr(PA, momTq, ax0g, ax1g)               # CC(S_a, T_q)
+    FT = polycorr(TQ, momFa_g, ax0g, ax1g)                 # CC(T_q, F_a)
+    Cgam = SS_gam + torch.flip(FT.permute(1, 0, 2, 3), dims=(2, 3))
+
+    # --- THE ---------------------------------------------------------------
+    SJ = polycorr(PA, momJ_g, ax0g, ax1g)                  # CC(S_a, J) exact
+    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[0], dims=(1, 2))
+    Cthe = SJ + FSJ + FFJwin.to(dt)
+
+    # --- PHI / DEL: closed form --------------------------------------------
+    Cphi = table(Static(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b))), dev, dt)
+    Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
+
+    if not separate_varying:
+        return Comg, Cgam, Cthe, Cphi, Cdel
+
+    # --- union tables -> SEPARATE-VARYING blocks (as in core/peel.py) ------
+    Fk = g.Fk_only
+    Fs = Fij - Fk
+    win0 = slice(w0, 3 * w0 + 1)
+    win1 = slice(w1, 3 * w1 + 1)
+    Pbs = Comg[:Fk, Fk:, win0, win1]
+    Pss = Comg[Fk:, Fk:, 2 * w0, 2 * w1]
+    Pgs = Cgam[Fk:, :, w0, w1]
+    Pts = Cthe[Fk:, w0, w1]
+
+    def pad_k(x, axes):
+        pads = []
+        for ax in reversed(range(x.dim())):
+            pads += [0, Fk - Fs] if ax in axes else [0, 0]
+        return torch.nn.functional.pad(x, pads)
+
+    extra = (pad_k(Pbs, [1]), pad_k(Pss, [0, 1]), pad_k(Pgs, [0]), pad_k(Pts, [0]))
+    return Comg[:Fk, :Fk], Cgam[:Fk], Cthe[:Fk], Cphi, Cdel, extra
+
+
+# ---------------------------------------------------------------------------
+# difference construction
+# ---------------------------------------------------------------------------
+
+
+def _fold_weights(N1: int) -> np.ndarray:
+    """f32 weights of the folded Hermitian half: 2 for interior columns, 1
+    for DC and Nyquist."""
+    fold = np.full(N1 // 2 + 1, 2.0, np.float32)
+    fold[0] = 1.0
+    if N1 % 2 == 0:
+        fold[-1] = 1.0
+    return fold
+
+
+def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
+                 J: torch.Tensor, shared: Optional[PexactShared] = None,
+                 plain: bool = False) -> torch.Tensor:
+    """Exact-grade difference via the peel split.
+
+    D = J - SCALE * sum_ij circconv(I * beta_ij, Astd_ij) - bg. With
+    I = P_I + F_I, J = P_J + F_J: the fluct part is the spectral model sum on
+    the fluctuation spectra, inverse-transformed at the same profile; the
+    smooth part is one polynomial evaluated in pair arithmetic plus f64
+    wrap-correction strips. Reference semantics: Construct_FDIFF
+    (sfft/sfftcore/SFFTSubtract.py:771-816) and its SEPARATE-VARYING variant
+    (sfft/BSplineSFFT.py:2430-2528)."""
+    g = _geom(cfg)
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    N1h = N1 // 2 + 1
+    dt = torch_dtype(cfg.dtype)
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    prof = SliceProfile(*cfg.pexact_prof)
+    if shared is None:
+        shared = pexact_plane_spectra(I, J, cfg, plain=plain)
+    mI, mJ, _momI_o, _momJ_g, sp = shared
+    dev = mI.device
+    solution = solution.to(dt)
+    Fk = g.Fk_only
+    Fs = len(g.exps_k) - Fk          # union scaling planes (0 if ENTANGLED)
+
+    a_ijab, b_pq = split_solution(cfg, solution)
+    a00 = a_ijab[:, w0, w1]
+    s_nc = a_ijab.sum(dim=(1, 2)) - a00
+
+    # --- spectral fluct model (on the fluct spectra) -----------------------
+    W0T = Static(np.transpose, (Static(phase_matrix, (cfg, True, 0)),))
+    W1 = Static(phase_matrix, (cfg, True, 1))
+    Ap = a_ijab.clone()
+    Ap[:, w0, w1] = 0.0
+    Adat = pair_from_f64(Ap.transpose(1, 2))
+    T1 = _cmatmul_sliced(Adat, W0T, plain=plain)
+    K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
+
+    def split64(c):
+        c32 = c.to(torch.float32)
+        return c32, (c - c32.to(torch.float64)).to(torch.float32)
+
+    def shift_pair(P, c):
+        c32, cres = split64(c)
+        h, e = _two_sum(P.rh, c32.expand(P.rh.shape))
+        return CPair(h, P.rl + e + cres, P.ih, P.il)
+
+    def scale_pair(P, c32, cres):
+        pr, er = _two_prod(P.rh, c32.expand(P.rh.shape))
+        pi, ei = _two_prod(P.ih, c32.expand(P.ih.shape))
+        return CPair(pr, er + P.rl * c32 + P.rh * cres,
+                     pi, ei + P.il * c32 + P.ih * cres)
+
+    def addp(acc, term):
+        if acc is None:
+            return term
+        hr, er = _two_sum(acc.rh, term.rh)
+        hi, ei = _two_sum(acc.ih, term.ih)
+        return CPair(hr, acc.rl + term.rl + er, hi, acc.il + term.il + ei)
+
+    def plane(P, k):
+        return _pmap(P, lambda v: v[k])
+
+    acc = None
+    for i in range(Fk):
+        c_i = (a00[i] - s_nc[i]) if not separate_varying else -s_nc[i]
+        Ki = shift_pair(plane(K, i), c_i)
+        acc = addp(acc, _pair_hadamard_conj(plane(sp, 1 + i),
+                                            CPair(Ki.rh, Ki.rl, -Ki.ih, -Ki.il)))
+    if separate_varying:
+        for i in range(Fs):
+            acc = addp(acc, scale_pair(plane(sp, 1 + Fk + i), *split64(a00[i])))
+
+    m = scale_pair(acc, *_split_on(Static(np.float64, (float(cfg.SCALE),)), dev))
+    dr, er = _two_sum(sp.rh[0], -m.rh)
+    di, ei = _two_sum(sp.ih[0], -m.ih)
+    FD = CPair(dr, sp.rl[0] - m.rl + er, di, sp.il[0] - m.il + ei)
+
+    # inverse of the Hermitian half: axis 0 first at half width, then the
+    # weight-2 fold and the real-only axis-1 inverse
+    foldj = table(Static(_fold_weights, (N1,)), dev)
+    FDw = _pmap(FD, lambda v: v * foldj)
+    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, prof=prof, plain=plain)
+    z = _pmap(zt, _swap)
+    if N1 % 2 == 0:
+        y = exact_idft_halfin_real(z, N1, prof=prof, plain=plain)
+    else:
+        zp = _pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - N1h)))
+        y = exact_dft_axis(zp, N1, inverse=True, real_out=True, prof=prof, plain=plain)
+    Dfl = _pair_mul_static_rr(y, Static(np.float64, (1.0 / (N0 * N1),)))
+
+    # --- smooth model: closed-form shift algebra ----------------------------
+    dmu, dk = g.dmu, cfg.kernel_basis.degree
+    ds = cfg.scaling_basis.degree if separate_varying else 0
+    db = cfg.bg_basis.degree
+    SPc = dmu + dk + 1                      # conv coeff exponents per axis
+    SPt = max(SPc, dmu + ds + 1, db + 1)    # total smooth poly exponents
+    axs0 = axis_static(N0, w0, SPc, 2 * SPc + 2)
+    axs1 = axis_static(N1, w1, SPc, 2 * SPc + 2)
+
+    def T(build, *args):
+        return table(Static(build, args), dev, torch.float64)
+
+    S0, D0 = T(_axis_field, axs0.args, "S"), T(_axis_field, axs0.args, "D")
+    S1, D1 = T(_axis_field, axs1.args, "S"), T(_axis_field, axs1.args, "D")
+
+    exps_kk = ref_basis_exponents(cfg.kernel_basis)
+    Cij = torch.zeros((Fk, SPc, SPc), dtype=dt, device=dev)
+    for k, (i, j) in enumerate(exps_kk):
+        Cij[k, i: i + dmu + 1, j: j + dmu + 1] = mI
+    if separate_varying:
+        # non-center offsets act on I*beta with effective center -(sum-a00)
+        Astd = a_ijab.clone()
+        Astd[:, w0, w1] = -s_nc
+    else:
+        Astd = standard_kernel_coeffs(cfg, a_ijab)
+    Cab = torch.einsum("iab,ist->abst", Astd, Cij)             # (L0, L1, SPc, SPc)
+    Cm = torch.einsum("asu,abst,btv->uv", S0, Cab, S1)
+    Gx = torch.einsum("asu,abst,btv->auv", D0, Cab, S1)        # (L0, SPc, SPc)
+    Gy = torch.einsum("asu,abst,btv->buv", S0, Cab, D1)        # (L1, SPc, SPc)
+    Gc = torch.einsum("asu,abst,btv->abuv", D0, Cab, D1)
+
+    # total main polynomial: P_J - SCALE*conv_main - bg (- SCALE*a00.P*sigma)
+    s = cfg.SCALE
+    Ctot = torch.zeros((SPt, SPt), dtype=dt, device=dev)
+    Ctot[: dmu + 1, : dmu + 1] += mJ
+    Ctot[:SPc, :SPc] += -s * Cm
+    Bbg = torch.zeros((SPt, SPt), dtype=dt, device=dev)
+    Bbg[index(g.exps_b[:, 0], dev), index(g.exps_b[:, 1], dev)] += b_pq
+    Ctot = Ctot - Bbg
+    if separate_varying:
+        exps_s = ref_basis_exponents(cfg.scaling_basis)
+        for k, (i, j) in enumerate(exps_s):
+            Ctot[i: i + dmu + 1, j: j + dmu + 1] += -s * a00[k] * mI
+    main = pair_poly_plane(Ctot, N0, N1)
+
+    # combine fluct + main in pair arithmetic; ONE f64 materialisation
+    h, e = _two_sum(Dfl.rh, main.rh)
+    D = h.to(torch.float64) + (Dfl.rl + main.rl + e)
+
+    # --- wrap-correction strips (f64, tiny) ---------------------------------
+    def pows(N, lo, hi):
+        # (hi - lo, SPc): c^u over rows x in [lo, hi)
+        return T(np.transpose, Static(coord_powers, (N, SPc, lo, hi)))
+
+    U_top, U_bot = pows(N0, 0, w0), pows(N0, N0 - w0, N0)
+    V_left, V_right = pows(N1, 0, w1), pows(N1, N1 - w1, N1)
+    P0, P1 = pows(N0, 0, N0), pows(N1, 0, N1)
+
+    def rcumsum(x, dim):
+        return torch.flip(torch.cumsum(torch.flip(x, dims=(dim,)), dim=dim), dims=(dim,))
+
+    if w0:
+        # top rows x in [0, w0): lags a > x  -> suffix-cum over Gx[w0+1:]
+        corr_top = torch.einsum("xu,xuv,yv->xy", U_top, rcumsum(Gx[w0 + 1:], 0), P1)
+        # bottom rows x = N0-w0+xi: lags a <= -(w0-xi) -> prefix-cum Gx[:w0]
+        corr_bot = torch.einsum("xu,xuv,yv->xy", U_bot, torch.cumsum(Gx[:w0], dim=0), P1)
+        D[:w0] += -s * corr_top
+        D[N0 - w0:] += -s * corr_bot
+    if w1:
+        corr_l = torch.einsum("xu,yuv,yv->xy", P0, rcumsum(Gy[w1 + 1:], 0), V_left)
+        corr_r = torch.einsum("xu,yuv,yv->xy", P0, torch.cumsum(Gy[:w1], dim=0), V_right)
+        D[:, :w1] += -s * corr_l
+        D[:, N1 - w1:] += -s * corr_r
+    if w0 and w1:
+        def cum2(block, rev0, rev1):
+            b = rcumsum(block, 0) if rev0 else torch.cumsum(block, dim=0)
+            return rcumsum(b, 1) if rev1 else torch.cumsum(b, dim=1)
+
+        corners = [
+            (slice(None, w0), slice(None, w1), Gc[w0 + 1:, w1 + 1:], True, True,
+             U_top, V_left),
+            (slice(None, w0), slice(N1 - w1, None), Gc[w0 + 1:, :w1], True, False,
+             U_top, V_right),
+            (slice(N0 - w0, None), slice(None, w1), Gc[:w0, w1 + 1:], False, True,
+             U_bot, V_left),
+            (slice(N0 - w0, None), slice(N1 - w1, None), Gc[:w0, :w1], False, False,
+             U_bot, V_right),
+        ]
+        for sx, sy, blk, rev0, rev1, Ux, Vy in corners:
+            corr = torch.einsum("xu,xyuv,yv->xy", Ux, cum2(blk, rev0, rev1), Vy)
+            D[sx, sy] += -s * corr
+
+    return D.to(J.dtype)

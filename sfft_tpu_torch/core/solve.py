@@ -7,13 +7,18 @@ are removed by a static gather and the solution re-extended by a static
 scatter.
 
 Ported solvers:
-  'lu'       torch.linalg.solve (LAPACK on CPU, cuSOLVER on CUDA) in the
-             system's dtype
-  'cho'      Cholesky (the system is a Gram matrix)
-  'refined'  equilibrated float32 LU + float64-residual refinement (the fast
-             mode's solver)
-The TPU-precision solvers ('exact', 'transformed', 'blocked_cho', 'host')
-raise NotImplementedError.
+  'lu'           torch.linalg.solve (LAPACK on CPU, cuSOLVER on CUDA) in the
+                 system's dtype
+  'cho'          Cholesky (the system is a Gram matrix)
+  'refined'      equilibrated float32 LU + float64-residual refinement (the
+                 fast mode's solver)
+  'transformed'  the contract mode's solve on the TPU: static Legendre
+                 congruence, f32 Cholesky + f64-residual refinement, and a
+                 certified fallback to 'exact'
+  'exact'        equilibrated f64 Cholesky + exact-residual refinement,
+                 as sfft_tpu runs it on a CPU or GPU
+'blocked_cho' and 'host', and the large-system route of 'exact'
+(_refined_solve_f64 with the K5 slicer), raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from sfft_tpu_torch.config import SFFTConfig
 from sfft_tpu_torch.core.indices import kernel_sum_dof_index, stripe_indices
+from sfft_tpu_torch.core.statics import Static, index, table
 
 
 def _refined_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 3) -> torch.Tensor:
@@ -31,7 +37,7 @@ def _refined_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 3) -> torch.Te
     Jacobi equilibration tames the wildly different column scales of the SFFT
     system (polynomial coordinate powers); each refinement step then recovers
     digits until the f64 residual floor, when cond(D A D) * eps32 << 1."""
-    d = 1.0 / torch.sqrt(torch.abs(torch.diagonal(A)) + torch.finfo(A.dtype).tiny)
+    d = _equilibrate(A)
     As = A * d[:, None] * d[None, :]
     bs = b * d
     A32 = As.to(torch.float32)
@@ -55,6 +61,143 @@ def _refined_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 3) -> torch.Te
         r = bs - As @ x
         x = x + f32_solve(r)
     return x * d
+
+
+def _equilibrate(A: torch.Tensor):
+    """Jacobi scaling d = 1/sqrt|diag A| (tiny-guarded)."""
+    return 1.0 / torch.sqrt(torch.abs(torch.diagonal(A)) + torch.finfo(A.dtype).tiny)
+
+
+def _refine(As: torch.Tensor, bs: torch.Tensor, solve, iters: int):
+    """x = solve(bs) and up to `iters` residual corrections, stopping once
+    the residual is below 1e-15 of |bs| (a host check, as sfft_tpu's
+    while_loop condition). Returns (x, |bs|)."""
+    x = solve(bs)
+    bnorm = float(torch.linalg.norm(bs))
+    rn = bnorm
+    for _ in range(iters):
+        if not rn > 1e-15 * bnorm:
+            break
+        r = bs - As @ x
+        x = x + solve(r)
+        rn = float(torch.linalg.norm(r))
+    return x, bnorm
+
+
+def _exact_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """f64-contract solve: Jacobi equilibration, f64 Cholesky (LAPACK on the
+    CPU, cuSOLVER on CUDA) and exact-residual refinement. The iteration
+    matrix has spectral radius ~cond * eps64, so two refinements reach the
+    f64 floor. sfft_tpu factorises in blocks of its own (its TPU has no f64
+    library Cholesky); one library call reaches the same f64 floor here."""
+    d = _equilibrate(A)
+    As = A * d[:, None] * d[None, :]
+    bs = b * d
+    L = torch.linalg.cholesky(As)
+
+    def solve_cho(r):
+        return torch.cholesky_solve(r[:, None], L)[:, 0]
+
+    x, _ = _refine(As, bs, solve_cho, iters)
+    return x * d
+
+
+def _legendre_congruence(degree: int) -> np.ndarray:
+    """Static change of basis C for the triangular 2-D monomial terms
+    {x^i y^j : i+j <= degree} (the enumeration of indices.ref_basis_exponents)
+    into tensor products of SHIFTED Legendre polynomials on [0, 1]. Column
+    ij holds the monomial coefficients of the Legendre term; the coefficients
+    are integers, so the congruence T' A T is backward-stable in f64. The
+    Legendre basis takes a factor ~600 off cond(equilibrated) of the normal
+    system (sfft_tpu's measurement on its 512^2 bench system)."""
+    P1 = {
+        0: [1],
+        1: [-1, 2],
+        2: [1, -6, 6],
+        3: [-1, 12, -30, 20],
+    }
+    terms = [(i, j) for i in range(degree + 1) for j in range(degree + 1 - i)]
+    F = len(terms)
+    C = np.zeros((F, F))
+    for col, (p, q) in enumerate(terms):
+        cp, cq = P1[p], P1[q]
+        for row, (r, s) in enumerate(terms):
+            if r < len(cp) and s < len(cq):
+                C[row, col] = cp[r] * cq[s]
+    return C
+
+
+def _transformed_solve(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor,
+                       iters: int = 10) -> torch.Tensor:
+    """Contract-grade solve of the FULL (untweaked) polynomial ENTANGLED
+    system: a static Legendre congruence x = S z (the ConstPhotRatio
+    constraint kept exactly: removed dofs are diagonal-pinned), Jacobi
+    equilibration, f32 Cholesky with an explicit f32 inverse factor, and
+    f64-residual refinement. Certificate: if the final residual exceeds
+    1e-12 of the right-hand side (or is NaN, or the f32 factorisation
+    fails), the SAME transformed system goes to the unconditional
+    _exact_solve. sfft_tpu takes the branch with lax.cond; here it is a host
+    check. Returns the NEQ solution in the original basis."""
+    Fij, Fab, Fijab, Fpq = cfg.Fij, cfg.Fab, cfg.Fijab, cfg.Fpq
+    c = cfg.center_ab
+    dev, dt = lhs.device, lhs.dtype
+    if Fpq > 1 and cfg.bg_basis.kind == "polynomial":
+        Cb = Static(_legendre_congruence, (cfg.bg_basis.degree,))
+    else:
+        Cb = Static(np.eye, (max(Fpq, 1),))
+    removed = (kernel_sum_dof_index(cfg)[1:].astype(np.int64)
+               if cfg.const_phot_ratio else np.zeros((0,), np.int64))
+    Cj = table(Static(_legendre_congruence, (cfg.kernel_basis.degree,)), dev, dt)
+    Cbj = table(Cb, dev, dt)
+
+    def S_cols(M):
+        # M (r, NEQ) -> M @ S
+        r = M.shape[0]
+        K = M[:, :Fijab].reshape(r, Fij, Fab)
+        K2 = torch.einsum("ria,ij->rja", K, Cj)
+        if removed.size:
+            K2[:, 1:, c] = 0.0
+            K2[:, 0, c] = K[:, 0, c]
+        parts = [K2.reshape(r, Fijab)]
+        if Fpq:
+            parts.append(M[:, Fijab:] @ Cbj)
+        return torch.cat(parts, dim=1)
+
+    def S_vec(z):
+        # x = S z (back to the original basis)
+        Zk = z[:Fijab].reshape(Fij, Fab)
+        X = torch.einsum("ja,ij->ia", Zk, Cj)
+        if removed.size:
+            X[1:, c] = 0.0
+            X[0, c] = Zk[0, c]
+        parts = [X.reshape(Fijab)]
+        if Fpq:
+            parts.append(Cbj @ z[Fijab:])
+        return torch.cat(parts)
+
+    At = S_cols(S_cols(lhs).T.contiguous())
+    bt = S_cols(rhs[None, :])[0]
+    if removed.size:
+        rm = index(removed, dev)
+        At[rm, rm] = 1.0
+        bt[rm] = 0.0
+
+    d = _equilibrate(At)
+    As = At * d[:, None] * d[None, :]
+    bs = bt * d
+    L32, info = torch.linalg.cholesky_ex(As.to(torch.float32))
+    if int(info) != 0:
+        return S_vec(_exact_solve(At, bt))
+    eye = torch.eye(L32.shape[0], dtype=torch.float32, device=dev)
+    Li32 = torch.linalg.solve_triangular(L32, eye, upper=False)
+
+    def f32_solve(r):
+        return (Li32.T @ (Li32 @ r.to(torch.float32))).to(dt)
+
+    x, bnorm = _refine(As, bs, f32_solve, iters)
+    rn = float(torch.linalg.norm(bs - As @ x))
+    ok = rn <= 1e-12 * bnorm                       # False on NaN
+    return S_vec(x * d if ok else _exact_solve(At, bt))
 
 
 def _contig_segments(idx: np.ndarray):
@@ -110,10 +253,19 @@ def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor) -> torch
     """Solve, honoring the scaling-mode system tweak. Returns the NEQ-length
     solution with removed dofs re-inserted (zeros, or the shared constant for
     aggregated B-spline scaling)."""
-    if cfg.solver not in ("lu", "cho", "refined"):
+    if cfg.solver == "transformed":
+        # polynomial ENTANGLED f64 contract: the stripe removal is carried
+        # exactly inside the transform (sfft_tpu forces this path on any
+        # backend for solver='transformed', and takes it for 'exact' on the
+        # TPU only)
+        if (lhs.dtype == torch.float64 and cfg.scaling_mode == "ENTANGLED"
+                and cfg.kernel_basis.kind == "polynomial"):
+            return _transformed_solve(cfg, lhs, rhs)
+        raise ValueError("solver='transformed' requires an f64 polynomial ENTANGLED config")
+    if cfg.solver not in ("lu", "cho", "refined", "exact"):
         raise NotImplementedError(
             f"solver {cfg.solver!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1, TPU-precision engines); use 'lu', 'cho' or 'refined'")
+            "(ROADMAP queue 1); use 'lu', 'cho', 'refined', 'exact' or 'transformed'")
     dev = lhs.device
     pres, aggregate, ij00 = _tweak_plan(cfg)
     reduced = pres is not None
@@ -136,8 +288,16 @@ def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor) -> torch
     elif cfg.solver == "cho":
         L = torch.linalg.cholesky(A)
         x = torch.cholesky_solve(b[:, None], L)[:, 0]
-    else:
+    elif cfg.solver == "refined" or A.dtype == torch.float32:
+        # an f32-assembled system cannot beat f32 residuals anyway
         x = _refined_solve(A, b)
+    elif A.shape[0] >= 8192 and cfg.regularize_lambda > 0 and cfg.reg_xy:
+        raise NotImplementedError(
+            "solver 'exact' on a regularized system of NEQ >= 8192 takes "
+            "sfft_tpu's _refined_solve_f64 with the K5 slicer, which waits "
+            "for the v2-engine slice (ROADMAP queue 1)")
+    else:
+        x = _exact_solve(A, b)
 
     if not reduced:
         return x

@@ -149,7 +149,8 @@ def test_difference_with_cross_fed_solution(fdiff):
     I, J = make_pair(4)
     jc, tc = cfgs(w=2, fdiff_backend=fdiff)
     sol, dj = jengine.ElementalSFFT.ESS(I, J, jc, Subtract=True)
-    _, dt = tengine.ElementalSFFT.ESS(I, J, tc, SFFTSolution=np.asarray(sol), Subtract=True)
+    _, dt = tengine.ElementalSFFT.ESS(I, J, tc, SFFTSolution=np.asarray(sol), Subtract=True,
+                                     device="cpu")
     bound = 1e-8 if fdiff == "fft" else 2e-6
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0,
                                atol=bound * np.abs(J).max())
@@ -160,7 +161,7 @@ def test_ess_f64_matches_reference_and_oracle(greek):
     I, J = make_pair(5, N0=48, N1=40)
     jc, tc = cfgs(N0=48, N1=40, w=2, greek_backend=greek, fluct_dtype="float64")
     sj, dj = jengine.ElementalSFFT.ESS(I, J, jc, Subtract=True)
-    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
+    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     sj, dj = np.asarray(sj), np.asarray(dj)
     assert st_.dtype == torch.float64 and dt.dtype == torch.float64
     np.testing.assert_allclose(st_.numpy(), sj, rtol=1e-6, atol=1e-7 * np.abs(sj).max())
@@ -178,15 +179,15 @@ def test_gss_masked_matches_reference():
     mJ[5:8, 5:8] = 0.0
     jc, tc = cfgs()
     sj, dj, cj = jengine.GeneralSFFT.GSS(I, J, mI, mJ, jc)
-    st_, dt, ct = tengine.GeneralSFFT.GSS(I, J, mI, mJ, tc)
+    st_, dt, ct = tengine.GeneralSFFT.GSS(I, J, mI, mJ, tc, device="cpu")
     assert cj is None and ct is None
     sj = np.asarray(sj)
     np.testing.assert_allclose(st_.numpy(), sj, rtol=1e-6, atol=1e-7 * np.abs(sj).max())
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0, atol=1e-8 * np.abs(J).max())
     # masked == unmasked (same objects) takes the two-input step; same result
     # as distinct equal arrays
-    s1, d1, _ = tengine.GeneralSFFT.GSS(I, J, I, J, tc)
-    s2, d2, _ = tengine.GeneralSFFT.GSS(I, J, I.copy(), J.copy(), tc)
+    s1, d1, _ = tengine.GeneralSFFT.GSS(I, J, I, J, tc, device="cpu")
+    s2, d2, _ = tengine.GeneralSFFT.GSS(I, J, I.copy(), J.copy(), tc, device="cpu")
     np.testing.assert_array_equal(s1.numpy(), s2.numpy())
     np.testing.assert_array_equal(d1.numpy(), d2.numpy())
 
@@ -197,7 +198,7 @@ def test_contamination_mask_matches_reference():
     contam[10:13, 10:13] = True
     jc, tc = cfgs()
     _, _, cj = jengine.GeneralSFFT.GSS(I, J, I, J, jc, ContamMask_I=contam)
-    _, _, ct = tengine.GeneralSFFT.GSS(I, J, I, J, tc, ContamMask_I=contam)
+    _, _, ct = tengine.GeneralSFFT.GSS(I, J, I, J, tc, ContamMask_I=contam, device="cpu")
     assert ct.dtype == torch.bool
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     assert ct.numpy().sum() >= contam.sum()
@@ -208,7 +209,7 @@ def test_separate_varying_ess_matches_reference():
     jc, tc = cfgs(N0=48, N1=40, w=2, DB=1, greek_backend="peeled", fluct_dtype="float64",
                   scaling_basis=JB("polynomial", 1))
     sj, dj = jengine.ElementalSFFT.ESS(I, J, jc, Subtract=True)
-    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
+    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     sj = np.asarray(sj)
     np.testing.assert_allclose(st_.numpy(), sj, rtol=1e-6, atol=1e-7 * np.abs(sj).max())
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0, atol=1e-8 * np.abs(J).max())
@@ -227,7 +228,7 @@ def test_fast_mode_matches_reference():
     jc, tc = cfgs(N0=128, N1=128, w=2, greek_backend="peeled", fdiff_backend="fft32",
                   solver="refined")
     sj, dj = jengine.ElementalSFFT.ESS(I, J, jc, Subtract=True)
-    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
+    st_, dt = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     sj, dj = np.asarray(sj), np.asarray(dj)
     assert np.abs(st_.numpy() - sj).max() <= 3e-2 * np.abs(sj).max()
     assert np.sqrt(np.mean((dt.numpy() - dj) ** 2)) < 0.05
@@ -246,8 +247,8 @@ def test_fast_slice_config_matches_f64_path():
                                       fdiff_backend="fft32", solver="refined")
     assert fast.NEQ == 6 * 17 ** 2 + 6 and fast.fluct_dtype == "float32"
     P = sfft_tpu_torch.PureTorchCustomizedPacket
-    s_fast, d_fast = P.PCP(I, J, I, J, "REF", 8, cfg=fast)
-    s_64, d_64 = P.PCP(I, J, I, J, "REF", 8, plain=True)
+    s_fast, d_fast = P.PCP(I, J, I, J, "REF", 8, cfg=fast, device="cpu")
+    s_64, d_64 = P.PCP(I, J, I, J, "REF", 8, plain=True, device="cpu")
     assert torch.isfinite(s_fast).all() and torch.isfinite(d_fast).all()
     assert float(torch.sqrt(torch.mean((d_fast - d_64) ** 2))) < 0.05
     c = slice(32, 96)
@@ -260,8 +261,8 @@ def test_pcp_forceconv_sci_sign_and_nan():
     A, B = make_pair(9)
     mA, mB = A.copy(), B.copy()
     A[3, 4] = np.nan
-    s_sci, d_sci = P.PCP(A, B, mA, mB, "SCI", 1)
-    s_ref, d_ref = P.PCP(B, A, mB, mA, "REF", 1)
+    s_sci, d_sci = P.PCP(A, B, mA, mB, "SCI", 1, device="cpu")
+    s_ref, d_ref = P.PCP(B, A, mB, mA, "REF", 1, device="cpu")
     np.testing.assert_array_equal(s_sci.numpy(), s_ref.numpy())
     d1, d2 = d_sci.numpy(), d_ref.numpy()
     assert np.isnan(d1[3, 4]) and np.isnan(d2[3, 4])
@@ -276,7 +277,7 @@ def test_pcp_forceconv_sci_sign_and_nan():
     np.testing.assert_array_equal(np.isnan(d1), np.isnan(dj))
     np.testing.assert_allclose(d1[mask], dj[mask], rtol=0, atol=1e-8 * np.nanmax(np.abs(B)))
     with pytest.raises(ValueError):
-        P.PCP(A, B, mA, mB, "AUTO", 1)
+        P.PCP(A, B, mA, mB, "AUTO", 1, device="cpu")
 
 
 def test_cp_golden_sparse_matches_reference(tmp_path):
@@ -294,7 +295,8 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
     sj, dj = JCP.CP(*args, FITS_DIFF=str(tmp_path / "dj.fits"),
                     FITS_Solution=str(tmp_path / "sj.fits"))
     st_, dt = sfft_tpu_torch.CustomizedPacket.CP(*args, FITS_DIFF=str(tmp_path / "dt.fits"),
-                                                 FITS_Solution=str(tmp_path / "st.fits"))
+                                                 FITS_Solution=str(tmp_path / "st.fits"),
+                                                 device="cpu")
     assert isinstance(st_, np.ndarray) and isinstance(dt, np.ndarray)
     np.testing.assert_allclose(st_, sj, rtol=1e-6, atol=1e-7 * np.abs(sj).max())
     ref_img, _ = fits.read(paths["sci"])
@@ -307,15 +309,17 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
 
 
 def test_unported_backends_raise():
+    """greek 'exact', fdiff 'conv', solver 'blocked_cho' and lambda > 0 wait
+    for later slices ('pexact' and solver 'exact' run: test_torch_pexact.py)."""
     I, J = make_pair(10)
-    for kw in [dict(greek_backend="exact"), dict(greek_backend="pexact"),
-               dict(solver="exact"), dict(fdiff_backend="conv")]:
+    for kw in [dict(greek_backend="exact"), dict(fdiff_backend="conv"),
+               dict(solver="blocked_cho")]:
         _, tc = cfgs(**kw)
         with pytest.raises(NotImplementedError):
-            tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
+            tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     _, tc = cfgs(regularize_lambda=0.1, reg_xy=((5.0, 5.0),))
     with pytest.raises(NotImplementedError):
-        tengine.ElementalSFFT.ESS(I, J, tc)
+        tengine.ElementalSFFT.ESS(I, J, tc, device="cpu")
 
 
 def test_standard_kernel_coeffs_match_reference():
@@ -334,7 +338,9 @@ def test_make_config_resolution_matches_reference():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, sfft_tpu_torch, sfft_tpu_torch.core.peel, sfft_tpu_torch._kernels; "
+    code = ("import sys, sfft_tpu_torch, sfft_tpu_torch.core.peel, sfft_tpu_torch._kernels, "
+            "sfft_tpu_torch.core.exact_fft, sfft_tpu_torch.core.slicing, "
+            "sfft_tpu_torch.core.pexact, sfft_tpu_torch.core.solve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'sfft_tpu' or m.startswith('sfft_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -343,3 +349,30 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("entry", ["PCP", "ESS", "GSS", "CP"])
+def test_numpy_input_without_device_never_runs_on_cpu(entry, tmp_path, monkeypatch):
+    """Numpy input with no device goes to the CUDA card: on a machine
+    without one the entry points raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    I, J = make_pair(11)
+    _, tc = cfgs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "PCP":
+            sfft_tpu_torch.PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", 1)
+        elif entry == "ESS":
+            tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
+        elif entry == "GSS":
+            tengine.GeneralSFFT.GSS(I, J, I.copy(), J.copy(), tc)
+        else:
+            from sfft_tpu_torch.io import fits
+
+            paths = []
+            for name, img in [("r", I), ("s", J), ("mr", I), ("ms", J)]:
+                paths.append(str(tmp_path / f"{name}.fits"))
+                fits.write(paths[-1], img.T)
+            sfft_tpu_torch.CustomizedPacket.CP(*paths, "REF", 1)
+    # CPU tensors stay on the CPU without a device
+    sol, diff = sfft_tpu_torch.PureTorchCustomizedPacket.PCP(t(I), t(J), t(I), t(J), "REF", 1)
+    assert sol.device.type == "cpu" and diff.device.type == "cpu"

@@ -1,0 +1,201 @@
+"""The contract path of sfft_tpu_torch (pexact tables and difference, the
+transformed and exact solvers) against sfft_tpu on the CPU.
+
+The pair is tests/test_pexact.py's 80x64, w=3 pair from its seed; sfft_tpu
+runs its own CPU route (jitted, XLA slicing chain). Each sfft_tpu reference
+is computed once per module. Bounds: tables 1e-12 * max (the pexact bound
+of tests/test_pexact.py); solutions 1e-6 * max|sol| and differences
+1e-8 * max|J| (tests/test_engine.py). The balanced profile (6, 6, 5) captures
+36 bits of the fluctuation scale: the two packages round the compensation
+terms of their pair arithmetic differently (eager PyTorch never contracts a
+product into an FMA, XLA:CPU may), and at that depth such a difference can
+flip a last slice. Each package then sits ~6e-6 from the f64 oracle on this
+pair and ~2e-6 from the other, so that case is held to 1e-5 of the
+reference and of the f64 oracle (tests/test_pexact.py holds sfft_tpu's
+balanced profile to 1e-4 of the oracle).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import sfft_tpu  # noqa: F401  (x64)
+import jax.numpy as jnp
+from sfft_tpu.config import BasisSpec
+from sfft_tpu.core import engine as jengine
+from sfft_tpu.core import solve as jsolve
+
+from sfft_tpu_torch.config import config_from_fields
+from sfft_tpu_torch.core import engine as tengine
+from sfft_tpu_torch.core import pexact as tpexact
+from sfft_tpu_torch.core import solve as tsolve
+
+from test_pexact import _cfg, _pair
+
+CASES = {
+    "contract": dict(solver="transformed"),
+    "exact": dict(solver="exact"),
+    "balanced": dict(solver="transformed", pexact_prof=(6, 6, 5)),
+    "separate-varying": dict(solver="exact", scaling_basis=BasisSpec("polynomial", 1)),
+    "odd-N1": dict(solver="transformed", N1=63),
+}
+
+
+def _pair_for(name):
+    if name == "odd-N1":
+        return _pair(np.random.default_rng(7), 80, 63)
+    return _pair(np.random.default_rng(42))
+
+
+def _cfgs(name):
+    jc = _cfg("pexact", "pexact", **CASES[name])
+    return jc, config_from_fields(dataclasses.asdict(jc))
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """sfft_tpu's (solution, difference) per case, computed on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            I, J = _pair_for(name)
+            jc, _ = _cfgs(name)
+            sol, diff, _ = jengine.GeneralSFFT.GSS(I, J, I, J, jc)
+            cache[name] = (np.asarray(sol), np.asarray(diff))
+        return cache[name]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def contract_system():
+    """sfft_tpu's pexact normal equations of the contract case."""
+    I, J = _pair_for("contract")
+    jc, _ = _cfgs("contract")
+    lhs, rhs = jengine._normal_equations_impl(jc, jnp.asarray(I), jnp.asarray(J))
+    return np.array(lhs), np.array(rhs)
+
+
+def test_pexact_normal_equations_match_reference(contract_system):
+    I, J = _pair_for("contract")
+    _, tc = _cfgs("contract")
+    lhs_j, rhs_j = contract_system
+    lhs, rhs = tengine.normal_equations_fn(tc)(torch.as_tensor(I), torch.as_tensor(J))
+    assert lhs.dtype == torch.float64 and lhs.shape == (tc.NEQ, tc.NEQ)
+    assert np.abs(lhs.numpy() - lhs_j).max() < 1e-12 * np.abs(lhs_j).max()
+    assert np.abs(rhs.numpy() - rhs_j).max() < 1e-12 * np.abs(rhs_j).max()
+
+
+@pytest.mark.parametrize("name", ["contract", "exact", "separate-varying", "odd-N1"])
+def test_gss_matches_reference(refs, name):
+    I, J = _pair_for(name)
+    _, tc = _cfgs(name)
+    sj, dj = refs(name)
+    st, dt, _ = tengine.GeneralSFFT.GSS(I, J, I, J, tc, device="cpu")
+    assert st.dtype == torch.float64 and dt.shape == I.shape
+    assert np.abs(st.numpy() - sj).max() <= 1e-6 * np.abs(sj).max()
+    assert np.abs(dt.numpy() - dj).max() <= 1e-8 * np.abs(J).max()
+
+
+def test_gss_balanced_profile(refs):
+    I, J = _pair_for("balanced")
+    _, tc = _cfgs("balanced")
+    sj, dj = refs("balanced")
+    st, dt, _ = tengine.GeneralSFFT.GSS(I, J, I, J, tc, device="cpu")
+    st = st.numpy()
+    assert np.abs(st - sj).max() <= 1e-5 * np.abs(sj).max()
+    assert np.abs(dt.numpy() - dj).max() <= 1e-8 * np.abs(J).max()
+    # the f64 fft/fft/lu oracle of tests/test_pexact.py
+    so, do, _ = jengine.GeneralSFFT.GSS(I, J, I, J, _cfg("fft", "fft"))
+    so = np.asarray(so)
+    assert np.abs(st - so).max() <= 1e-5 * np.abs(so).max()
+    assert np.sqrt(np.mean((dt.numpy() - np.asarray(do)) ** 2)) < 1e-5
+
+
+def test_masked_pair_takes_separate_spectra(monkeypatch):
+    """Masked == unmasked (the same arrays) shares one plane-spectra pass
+    between tables and difference; a distinct masked pair computes its own."""
+    I, J = _pair_for("contract")
+    _, tc = _cfgs("contract")
+    calls = []
+    real = tpexact.pexact_plane_spectra
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tpexact, "pexact_plane_spectra", counted)
+    s1, d1, _ = tengine.GeneralSFFT.GSS(I, J, I, J, tc, device="cpu")
+    assert len(calls) == 1
+    s2, d2, _ = tengine.GeneralSFFT.GSS(I, J, I.copy(), J.copy(), tc, device="cpu")
+    assert len(calls) == 3
+    np.testing.assert_allclose(s2.numpy(), s1.numpy(), rtol=0, atol=1e-12 * float(s1.abs().max()))
+    np.testing.assert_allclose(d2.numpy(), d1.numpy(), rtol=0, atol=1e-12 * np.abs(J).max())
+
+
+@pytest.mark.parametrize("solver", ["transformed", "exact"])
+def test_solve_system_matches_reference(contract_system, solver):
+    """Both packages solve sfft_tpu's pexact system (cross-fed as numpy)."""
+    lhs, rhs = contract_system
+    jc, tc = _cfgs("contract")
+    jc = dataclasses.replace(jc, solver=solver)
+    tc = dataclasses.replace(tc, solver=solver)
+    ref = np.asarray(jsolve.solve_system(jc, jnp.asarray(lhs), jnp.asarray(rhs)))
+    out = tsolve.solve_system(tc, torch.as_tensor(lhs), torch.as_tensor(rhs)).numpy()
+    assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
+    removed = np.setdiff1d(np.arange(tc.NEQ), tsolve._tweak_plan(tc)[0])
+    assert np.all(out[removed] == 0.0)
+
+
+def test_transformed_solve_falls_back_to_exact(contract_system, monkeypatch):
+    """With no refinement the certificate (residual <= 1e-12 |b|) fails and
+    the transformed system goes to _exact_solve; the result is the same
+    solution."""
+    lhs, rhs = map(torch.as_tensor, contract_system)
+    _, tc = _cfgs("contract")
+    calls = []
+    real = tsolve._exact_solve
+
+    def counted(A, b, iters=2):
+        calls.append(A.shape)
+        return real(A, b, iters)
+
+    monkeypatch.setattr(tsolve, "_exact_solve", counted)
+    good = tsolve._transformed_solve(tc, lhs, rhs)
+    assert calls == []
+    fell = tsolve._transformed_solve(tc, lhs, rhs, iters=0)
+    assert calls == [(tc.NEQ, tc.NEQ)]
+    assert float((fell - good).abs().max()) <= 1e-6 * float(good.abs().max())
+
+
+def test_legendre_congruence_matches_reference():
+    for degree in range(4):
+        np.testing.assert_array_equal(tsolve._legendre_congruence(degree),
+                                      jsolve._legendre_congruence(degree))
+
+
+@pytest.mark.parametrize("n", [100, 300, 600])
+def test_exact_solver_reaches_f64_floor(n):
+    """tests/test_exact_fft.py's ill-conditioned SPD system (cond 1e9), at
+    three sizes."""
+    rng = np.random.default_rng(20260816)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    A = (Q * np.logspace(0, -9, n)) @ Q.T
+    A = 0.5 * (A + A.T)
+    b = A @ rng.standard_normal(n)
+    x = tsolve._exact_solve(torch.as_tensor(A), torch.as_tensor(b)).numpy()
+    x_np = np.linalg.solve(A, b)
+    assert np.linalg.norm(x - x_np) / np.linalg.norm(x_np) < 1e-5
+    assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) < 1e-12
+
+
+def test_pexact_rejects_bspline():
+    _, tc = _cfgs("contract")
+    tc = dataclasses.replace(tc, kernel_basis=type(tc.kernel_basis)(
+        "bspline", 2, int_knots_x=(40.0,), int_knots_y=(32.0,)))
+    assert not tpexact.pexact_supported(tc)
+    with pytest.raises(ValueError, match="polynomial"):
+        tengine.GeneralSFFT.GSS(*(np.zeros((80, 64)),) * 4, tc, device="cpu")
