@@ -5,9 +5,9 @@
 
 Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
 against its plain PyTorch twin on the card (K3 moments, K1 windowed
-correlation, K4 integer slicer: bit for bit), then drives the port's two
-paths at full size on a 4096^2 pair (the benchmark pair's generator), KerHW=8,
-poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
+correlation, K4 and K5 integer slicers: bit for bit), then drives the port's
+paths at full size. On a 4096^2 pair (the benchmark pair's generator),
+KerHW=8, poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
 GeneralSFFT.GSS:
 
   * the 'fast' slice (peeled tables, fft32 difference, refined solve), which
@@ -16,28 +16,45 @@ GeneralSFFT.GSS:
     (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
     K3 and K4; and once with the 'exact' solver.
 
+And on a 900^2 pair of the same generator, written to FITS, through
+BSplinePacket.BSP -> GeneralSFFT.GSS:
+
+  * the v2 (B-spline) engine's contract path on the JWST/NIRCam
+    configuration of sfft_tpu's bench.py (GKerHW=11, degree-2 B-spline
+    kernel with 2 x 2 internal knots, SEPARATE-VARYING degree-2 polynomial
+    scaling, degree-0 background, Tikhonov lambda = 3e-5 on 512 seeded
+    points: NEQ = 13226) with the exact / exact / exact backends, which runs
+    K4 (every sliced product of the exact engine) and K5 (the sliced
+    residuals of the large f64 solve). The NIRCam image pair itself is not
+    in the repository; the generated pair stands in for it.
+
 Each path is driven with the launch counts set to 0 just before it and read
-just after, and must have launched its kernels. One more contract step, with
-the static-table caches emptied, holds every K4 launch of the step (the
-static tables' and the data's, at the shapes, depths and vector widths the
-path gives it) bit for bit against the twin on the same inputs, and times K4
-and the twin on each distinct launch's inputs. Both are held to the port's
-f64 path on the plain twins: the fast difference to the fft/fft/lu
-difference within 0.05 RMS; the contract difference to the fft/fft/exact
-difference (the f64 tables solved by the refined 'exact' solver) within
-1e-6 RMS, and its solution to 1e-6 of that solution's maximum. Each
-difference must have the pair's noise level.
+just after, and must have launched its kernels. Two more steps of the
+contract path and of the v2 path, the first with the static-table caches
+emptied, hold every K4 and K5 launch of the step (the static tables' and the
+data's, at the shapes, depths and vector widths the path gives it) bit for
+bit against the twin on the same inputs, and time each kernel and its twin
+on each distinct launch's inputs. The v2 path is held to the f64 fft/fft/lu
+path of the same configuration (difference within 1e-6 RMS, solution within
+1e-6 of its maximum), and its large solve (f32 Cholesky refined with sliced
+residuals) to the same solve with f64-matvec residuals (1e-9). The 4096^2
+paths are held to the port's f64 path on the plain twins: the fast
+difference to the fft/fft/lu difference within 0.05 RMS; the contract
+difference to the fft/fft/exact difference (the f64 tables solved by the
+refined 'exact' solver) within 1e-6 RMS, and its solution to 1e-6 of that
+solution's maximum. Each difference must have the pair's noise level.
 
 Every phase prints one line; any failure raises, so the process exits
 non-zero and prints no result. The last three lines are the kernel report
 (one JSON object), the card's name and power limit, and
 {"ok": true, "device": {...}}. Needs a CUDA device and nvcc; imports
-nothing of JAX. Takes ~2 min on an H100.
+nothing of JAX. Takes a few minutes on an H100.
 
     python3 chip_smoke.py --profile OUT_DIR
 
-builds the kernels and profiles one step of each path instead (device busy
-time, idle share, top operations; the full tables go to OUT_DIR).
+builds the kernels and profiles one step of each path (contract, fast, v2)
+instead (device busy time, idle share, top operations; the full tables go to
+OUT_DIR).
 
     python3 chip_smoke.py --steady PAIRS
 
@@ -59,6 +76,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 4096
 KERHW = 8
+# the v2 path: image width, kernel half-width and Tikhonov weight of the
+# NIRCam configuration; solve_n is the size of its tweaked system (13226
+# dofs less the 19 placeholder scaling dofs)
+V2_N = 900
+V2_KERHW = 11
+V2_LAMBDA = 3e-5
+V2_NEQ = 13226
+V2_SOLVE_N = 13207
 # H100 SXM datasheet peaks (NVIDIA's data sheet, dense rates at the 700 W
 # limit): HBM3, and FP32 / FP64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -262,7 +287,101 @@ def phase_kernels():
         assert ndiff == 0, f"K4 {shape}: {ndiff} slices or scales differ from the twin"
     log(f"phase 3 K4 slice_pair: 0 slices or scales differ from the twin over 8 shapes x "
         f"(rowwise, global) x nsl (6, 7, 8, 9)")
+    report["slice_triple_alone"] = phase_k5(rng)
     return report
+
+
+def phase_k5(rng):
+    """K5 against its twin, bit for bit (slices and scales), rowwise and
+    global, nsl 8 and 12, with and without padded output columns: the
+    solve's row-chunk and vector shapes (odd width 13207: scalar loads), a
+    zero row, aligned widths (float4 loads), a view off the 16-byte
+    boundary, and values whose lo parts are f32 subnormals. Then the time
+    at the solve's full (13207, 13207) rowwise nsl-12 launch."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, slicing, solve
+
+    dev = torch.device("cuda")
+    n = V2_SOLVE_N
+    npad = n + (-n) % 8
+
+    def wide(shape, scale=1.0):
+        v = rng.normal(0, 7.3, shape) * np.exp(rng.normal(0, 4, shape)) * scale
+        return torch.as_tensor(v, device=dev)
+
+    zero_row = wide((512, n))
+    zero_row[3] = 0.0
+    tiny = solve._split3(wide((33, 120), 1e-22))
+    nsub = int(((tiny[2] != 0) & (tiny[2].abs() < 1.17549435e-38)).sum())
+    assert nsub > 0, "the subnormal case holds no subnormal lo part"
+    flat = solve._split3(wide((64 * 384 + 4,)))
+    cases = [
+        (f"(512, {n}) with a zero row", solve._split3(zero_row), (None, npad)),
+        (f"({n},)", solve._split3(wide((n,))), (None, npad)),
+        ("(37, 53)", solve._split3(wide((37, 53))), (None, 56, 55)),
+        ("(64, 384)", solve._split3(wide((64, 384))), (None, 392)),
+        ("(3, 40, 130)", solve._split3(wide((3, 40, 130))), (None, 136)),
+        (f"(33, 120) with {nsub} subnormal lo parts", tiny, (None,)),
+        ("(64, 384) view 4 bytes off the 16-byte boundary",
+         tuple(p[1:1 + 64 * 384].reshape(64, 384) for p in flat), (None, 392)),
+        ("(24579,) view 4 bytes off the 16-byte boundary", tuple(p[1:] for p in flat),
+         (None,)),
+    ]
+    del zero_row
+    ndiff = nchecks = 0
+    for name, parts, cols in cases:
+        for rowwise in (True, False):
+            for nsl in (8, 12):
+                for out_cols in cols:
+                    sl, s = exact_fft._slice_triple_real(*parts, nsl, rowwise, out_cols=out_cols)
+                    torch.cuda.synchronize()
+                    ref, sref = exact_fft._slice_triple_real(*parts, nsl, rowwise, plain=True,
+                                                             out_cols=out_cols)
+                    assert sl.shape == ref.shape, f"K5 {name}: shape {tuple(sl.shape)}"
+                    ndiff += int((sl != ref).sum()) + int((s != sref).sum())
+                    nchecks += 1
+        assert ndiff == 0, f"K5 {name}: {ndiff} slices or scales differ from the twin"
+        if "zero row" in name:
+            sl, _ = exact_fft._slice_triple_real(*parts, 12, True)
+            assert not bool(sl[:, 3].any()), "K5: a zero row gave non-zero slices"
+    log(f"phase 3 K5 slice_triple: 0 slices or scales differ from the twin in {nchecks} "
+        f"checks over {len(cases)} cases ({'; '.join(c[0] for c in cases)}) x (rowwise, "
+        f"global) x nsl (8, 12) x output widths")
+    del cases, tiny, flat, parts
+
+    # the solve's one big launch: the equilibrated matrix, rowwise, 12
+    # slices, rows written at the padded depth of the int8 product
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    v = torch.randn((n, n), dtype=torch.float64, device=dev, generator=g)
+    v *= torch.exp(4.0 * torch.randn((n, n), dtype=torch.float64, device=dev, generator=g))
+    h, m, lo = solve._split3(v, consume=True)
+    del v
+    s = exact_fft._pow2ceil_scalar(h.abs().amax(dim=-1, keepdim=True)).contiguous()
+    out = slicing.slice_triple(h, m, lo, s, 12, npad)
+    torch.cuda.synchronize()
+    ref = slicing.slice_triple_plain(h, m, lo, s, 12, npad)
+    nd = int((out != ref).sum())
+    assert nd == 0, f"K5 ({n}, {n}): {nd} slices differ from the twin"
+    del out, ref
+    k5 = dict(ms=cuda_ms(lambda: slicing.slice_triple(h, m, lo, s, 12, npad), reps=3, inner=3),
+              plain_ms=cuda_ms(lambda: slicing.slice_triple_plain(h, m, lo, s, 12, npad),
+                               reps=3, inner=1))
+    k5["bound_ms"], k5["bound_by"] = k5_bound((n, n), 12, True, npad)
+    log(f"phase 3 K5 slice_triple ({n}, {n}) rowwise nsl=12 into {npad} columns: 0 differing "
+        f"slices; kernel {k5['ms']:.4f} ms, plain twin {k5['plain_ms']:.4f} ms, bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}); no single PyTorch call computes it")
+    return k5
+
+
+def k5_bound(shape, nsl, rowwise, out_cols):
+    """K5's bound: read (hi, mid, lo) f32 and the scales, write nsl int8
+    planes at the output row width; ~16 operations for the scaling, the
+    TwoSum and the injections and 4 per slice."""
+    n = int(np.prod(shape))
+    rows = n // shape[-1]
+    return bound(12 * n + nsl * rows * (out_cols or shape[-1]) + 4 * (rows if rowwise else 1),
+                 n * (16 + 4 * nsl), FP32_FLOP_PER_S)
 
 
 def k4_bound(shape, nsl, rowwise):
@@ -273,66 +392,91 @@ def k4_bound(shape, nsl, rowwise):
     return bound(n * (8 + nsl) + 4 * nscale, n * (6 + 4 * nsl), FP32_FLOP_PER_S)
 
 
-def phase_k4_on_path(I, J, cfg):
-    """Two contract steps with every K4 launch checked: its output against
-    slice_pair_plain on the same inputs, bit for bit. The first runs with
-    the static-table caches emptied, so the big static tables are sliced
-    again; the second is a steady-state step. Then K4 and the twin are timed
-    on the first inputs of each distinct launch signature (shape, rowwise,
-    nsl, vector width), and summed over the steady step's launches (the
-    per-step time, plain time and bound of the report)."""
+def slicers_on_path(run, phase, path):
+    """Two steps of one path (`run` drives one) with every K4 and K5 launch
+    checked: its output against the plain twin on the same inputs, bit for
+    bit. The first runs with the static-table caches emptied, so the big
+    static tables are sliced again; the second is a steady-state step. Then
+    each kernel and its twin are timed on the first inputs of each distinct
+    launch signature (shape, rowwise, nsl, vector width, output width), and
+    summed over the steady step's launches (the per-step time, plain time
+    and bound of the report). Returns the report of each slicer that the
+    path launched."""
     import torch
-    from sfft_tpu_torch import PureTorchCustomizedPacket
     from sfft_tpu_torch.core import exact_fft, slicing
 
-    launch = slicing._launch
+    launch4, launch5 = slicing._launch, slicing._launch_triple
     inputs = {}
     counts = [{}, {}]
+    step = [0]
 
-    def checked(hi, lo, s, nsl):
-        out = launch(hi, lo, s, nsl)
-        ref = slicing.slice_pair_plain(hi, lo, s, nsl)
-        sig = (tuple(hi.shape), s.dim() > 0, nsl, slicing._vec_width(hi, lo, s))
+    def note(sig, out, ref, tensors):
         nd = int((out != ref).sum())
-        assert nd == 0, f"K4 on the contract path {sig}: {nd} slices differ from the twin"
+        assert nd == 0, f"{sig[0]} on the {path} path {sig[1:]}: {nd} slices differ from the twin"
         if sig not in inputs:
-            inputs[sig] = (hi.clone(), lo.clone(), s.clone())
-        counts[run][sig] = counts[run].get(sig, 0) + 1
+            inputs[sig] = tuple(t.clone() for t in tensors)
+        counts[step[0]][sig] = counts[step[0]].get(sig, 0) + 1
         return out
+
+    def checked4(hi, lo, s, nsl):
+        sig = ("slice_pair", tuple(hi.shape), s.dim() > 0, nsl,
+               slicing._vec_width(hi, lo, s), hi.shape[-1])
+        return note(sig, launch4(hi, lo, s, nsl), slicing.slice_pair_plain(hi, lo, s, nsl),
+                    (hi, lo, s))
+
+    def checked5(hi, mid, lo, s, nsl, out_cols):
+        sig = ("slice_triple", tuple(hi.shape), s.dim() > 0, nsl,
+               slicing._triple_vec_in(hi, mid, lo), out_cols)
+        return note(sig, launch5(hi, mid, lo, s, nsl, out_cols),
+                    slicing.slice_triple_plain(hi, mid, lo, s, nsl, out_cols),
+                    (hi, mid, lo, s))
 
     exact_fft._static_slices_for.cache_clear()
     exact_fft._stacked.cache_clear()
-    slicing._launch = checked
+    slicing._launch, slicing._launch_triple = checked4, checked5
     try:
-        for run in (0, 1):
-            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+        for step[0] in (0, 1):
+            run()
             torch.cuda.synchronize()
     finally:
-        slicing._launch = launch
-    k4 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None)
-    t_bytes = t_ops = 0.0
-    for sig, (h, lo, s) in sorted(inputs.items()):
-        shape, rowwise, nsl, vec = sig
-        ms = cuda_ms(lambda: slicing.slice_pair(h, lo, s, nsl))
-        pms = cuda_ms(lambda: slicing.slice_pair_plain(h, lo, s, nsl))
-        bms, by = k4_bound(shape, nsl, rowwise)
+        slicing._launch, slicing._launch_triple = launch4, launch5
+    reports = {}
+    for sig, tensors in sorted(inputs.items(), key=lambda kv: kv[0]):
+        name, shape, rowwise, nsl, vec, out_cols = sig
+        if name == "slice_pair":
+            kernel = lambda: slicing.slice_pair(*tensors, nsl)
+            twin = lambda: slicing.slice_pair_plain(*tensors, nsl)
+            bms, by = k4_bound(shape, nsl, rowwise)
+        else:
+            kernel = lambda: slicing.slice_triple(*tensors, nsl, out_cols)
+            twin = lambda: slicing.slice_triple_plain(*tensors, nsl, out_cols)
+            bms, by = k5_bound(shape, nsl, rowwise, out_cols)
+        big = tensors[0].numel() > 2 ** 26
+        ms = cuda_ms(kernel, reps=3 if big else 5, inner=3 if big else 10)
+        pms = cuda_ms(twin, reps=3 if big else 5, inner=1 if big else 10)
         count = counts[1].get(sig, 0)
-        k4["ms"] += count * ms
-        k4["plain_ms"] += count * pms
-        k4["bound_ms"] += count * bms
-        t_bytes += count * bms * (by == "bytes")
-        t_ops += count * bms * (by == "operations")
-        log(f"phase 6 K4 on the contract path {shape} rowwise={rowwise} nsl={nsl} vec={vec}: "
-            f"{counts[0].get(sig, 0)} launches at first use, {count} per steady step, 0 "
-            f"differing slices; kernel {ms:.4f} ms, plain twin {pms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-    k4["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    n0, n1 = (sum(c.values()) for c in counts)
-    log(f"phase 6 K4 on the contract path: {n0} launches at first use and {n1} per steady "
-        f"step, {len(inputs)} signatures, all bit-identical to the twin; per steady step "
-        f"kernel {k4['ms']:.4f} ms, plain twin {k4['plain_ms']:.4f} ms, bound "
-        f"{k4['bound_ms']:.4f} ms ({k4['bound_by']}); no single PyTorch call computes it")
-    return k4
+        r = reports.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                          library_ms=None, bytes_ms=0.0, first=0, steady=0,
+                                          signatures=0))
+        r["ms"] += count * ms
+        r["plain_ms"] += count * pms
+        r["bound_ms"] += count * bms
+        r["bytes_ms"] += count * bms * (by == "bytes")
+        r["first"] += counts[0].get(sig, 0)
+        r["steady"] += count
+        r["signatures"] += 1
+        log(f"phase {phase} {name} on the {path} path {shape} rowwise={rowwise} nsl={nsl} "
+            f"vec={vec} out_cols={out_cols}: {counts[0].get(sig, 0)} launches at first use, "
+            f"{count} per steady step, 0 differing slices; kernel {ms:.4f} ms, plain twin "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+    for name, r in reports.items():
+        r["bound_by"] = "bytes" if 2 * r.pop("bytes_ms") >= r["bound_ms"] else "operations"
+        log(f"phase {phase} {name} on the {path} path: {r['first']} launches at first use and "
+            f"{r['steady']} per steady step, {r['signatures']} signatures, all bit-identical "
+            f"to the twin; per steady step kernel {r['ms']:.4f} ms, plain twin "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); no "
+            f"single PyTorch call computes it")
+    return reports
 
 
 def run_pcp(I, J, cfg, plain, reps):
@@ -461,8 +605,226 @@ def phase_contract(I, J, sol64, diff64):
     log(f"phase 6 contract with solver='exact': step {exact_s * 1e3:.1f} ms; "
         f"RMS(diff - diff_f64) = {edrms:.3e}; max|sol - sol_f64|/max = {esrel:.3e}")
     del esol, ediff
-    k4 = phase_k4_on_path(I, J, cfg)
+    from sfft_tpu_torch import PureTorchCustomizedPacket
+
+    k4 = slicers_on_path(
+        lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg),
+        6, "contract")["slice_pair"]
     return launches, step_s, plain_s, peak, drms, srel, k4
+
+
+def nircam_config(lam=V2_LAMBDA, **backends):
+    """The JWST/NIRCam configuration of sfft_tpu's bench.py (bench_bspline)
+    at V2_N^2, GKerHW = V2_KERHW: degree-2 B-spline kernel with 2 x 2
+    internal knots, SEPARATE-VARYING degree-2 polynomial scaling, degree-0
+    background, Tikhonov regularization on 512 points from seed 10086."""
+    from sfft_tpu_torch import make_bspline_config
+
+    n = V2_N
+    rng = np.random.default_rng(10086)
+    xy = np.stack([rng.uniform(10.0, n - 10.0, 512), rng.uniform(10.0, n - 10.0, 512)], axis=1)
+    return make_bspline_config(
+        n, n, V2_KERHW, KerSpType="B-Spline", KerSpDegree=2,
+        KerIntKnotX=[0.5 + n / 3, 0.5 + n * 2 / 3], KerIntKnotY=[0.5 + n / 3, 0.5 + n * 2 / 3],
+        SEPARATE_SCALING=True, ScaSpType="Polynomial", ScaSpDegree=2,
+        BkgSpType="Polynomial", BkgSpDegree=0,
+        REGULARIZE_KERNEL=True, XY_REGULARIZE=xy, LAMBDA_REGULARIZE=lam, **backends)
+
+
+EXACT_TRIO = dict(greek_backend="exact", fdiff_backend="exact", solver="exact")
+
+
+def write_pair_fits(d):
+    """The generator's pair at V2_N^2 as FITS files in directory d."""
+    from sfft_tpu_torch.io import fits
+
+    I, J = make_pair(V2_N)
+    ref, sci = os.path.join(d, "ref.fits"), os.path.join(d, "sci.fits")
+    fits.write(ref, I.T)
+    fits.write(sci, J.T)
+    return ref, sci
+
+
+def run_bsp(ref, sci, cfg, plain, reps, **out):
+    """One warm-up and `reps` timed calls of BSplinePacket.BSP (FITS in,
+    arrays out; masked == unmasked); returns (solution, difference, median
+    seconds)."""
+    import torch
+    from sfft_tpu_torch import BSplinePacket
+
+    times = []
+    for k in range(reps + 1):
+        t0 = time.perf_counter()
+        sol, diff = BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg, plain=plain, **out)
+        torch.cuda.synchronize()
+        if k:
+            times.append(time.perf_counter() - t0)
+    return sol, diff, statistics.median(times)
+
+
+def phase_v2():
+    """The v2 engine's contract path (exact / exact / exact on the NIRCam
+    configuration) through BSplinePacket.BSP, with the kernels and on the
+    plain twins, held to the f64 fft/fft/lu path of the same configuration;
+    every K4 and K5 launch of a step held to its twin; the sliced route of
+    the large solve held to its f64-matvec route on the path's own system."""
+    import tempfile
+
+    import torch
+    from sfft_tpu_torch import BSplinePacket, read_bspline_solution_fits
+    from sfft_tpu_torch.core import greek, moments, slicing, solve
+    from sfft_tpu_torch.io import fits
+
+    n = V2_N
+    c = slice(n // 4, 3 * n // 4)
+    counters = {"moments": moments.moments, "corr_window": greek.corr_window,
+                "slice_pair": slicing.slice_pair, "slice_triple": slicing.slice_triple}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ref, sci = write_pair_fits(d)
+        log(f"phase 7 pair {n}^2 made and written to FITS in {time.perf_counter() - t0:.1f} s")
+
+        # first use (kernels and static tables warm up here). An f32
+        # Cholesky factor that breaks down gives an all-NaN solution; the
+        # documented recovery is a larger lambda, never another solver
+        for lam in (V2_LAMBDA, 10 * V2_LAMBDA, 100 * V2_LAMBDA):
+            cfg = nircam_config(lam, **EXACT_TRIO)
+            assert cfg.NEQ == V2_NEQ and cfg.scaling_mode == "SEPARATE-VARYING", cfg.NEQ
+            t0 = time.perf_counter()
+            sol, _ = BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if np.isfinite(sol).all():
+                break
+            log(f"phase 7 v2: FINDING: the f32 Cholesky factor of the equilibrated system "
+                f"broke down at lambda = {lam:g} (all-NaN solution); raising lambda")
+        else:
+            raise AssertionError("the f32 factor broke down at every lambda tried")
+
+        # the main path: counts set to 0 just before, read just after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        sol, diff, step_s = run_bsp(ref, sci, cfg, plain=False, reps=3)
+        launches = {k: f.launches for k, f in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        assert launches["slice_pair"] > 0 and launches["slice_triple"] > 0, \
+            f"a kernel of the v2 path never launched: {launches}"
+        assert sol.shape == (cfg.NEQ,) and diff.shape == (n, n)
+        assert np.isfinite(sol).all() and np.isfinite(diff).all()
+        rms = float(np.sqrt(np.mean(diff[c, c] ** 2)))
+        assert 1.3 <= rms <= 1.7, f"v2: central difference RMS {rms:.4f} outside [1.3, 1.7]"
+
+        # the f64 yardstick: the same configuration through fft / fft / lu
+        ycfg = nircam_config(lam)
+        assert (ycfg.greek_backend, ycfg.fdiff_backend, ycfg.solver) == ("fft", "fft", "lu")
+        ysol, ydiff, y_s = run_bsp(ref, sci, ycfg, plain=True, reps=1)
+        assert np.isfinite(ydiff).all()
+        smax = float(np.abs(ysol).max())
+
+        def against_yardstick(name, s, dd):
+            drms = float(np.sqrt(np.mean((dd - ydiff) ** 2)))
+            srel = float(np.abs(s - ysol).max()) / smax
+            assert drms < 1e-6, f"{name}: RMS(diff - diff_f64) {drms:.3e} >= 1e-6"
+            assert srel <= 1e-6, f"{name}: max|sol - sol_f64| / max|sol_f64| {srel:.3e} > 1e-6"
+            return drms, srel
+
+        drms, srel = against_yardstick("v2", sol, diff)
+        log(f"phase 7 v2 {n}^2 GKerHW={V2_KERHW} B-spline NIRCam configuration, lambda={lam:g}, "
+            f"exact/exact/exact NEQ={cfg.NEQ} through BSplinePacket.BSP: first call "
+            f"{first_s:.1f} s; median step {step_s * 1e3:.1f} ms over 3 runs; launches "
+            f"{launches} in 4 runs; peak memory {peak / 2**30:.2f} GiB; central diff RMS "
+            f"{rms:.4f}; f64 fft/fft/lu yardstick step {y_s * 1e3:.1f} ms; RMS(diff - diff_f64) "
+            f"= {drms:.3e} (bound 1e-6); max|sol - sol_f64|/max|sol_f64| = {srel:.3e} "
+            f"(bound 1e-6)")
+
+        # the same path on the plain twins
+        psol, pdiff, plain_s = run_bsp(ref, sci, cfg, plain=True, reps=3)
+        pdrms, psrel = against_yardstick("v2 plain", psol, pdiff)
+        kdiff = float(np.abs(psol - sol).max()) / smax
+        log(f"phase 7 same v2 path on the plain twins: median step {plain_s * 1e3:.1f} ms; "
+            f"RMS(diff - diff_f64) = {pdrms:.3e}; max-rel solution {psrel:.3e}; kernels vs "
+            f"twins max-rel solution {kdiff:.3e}")
+        del psol, pdiff
+
+        # the FITS products: the difference and the solution read back
+        dpath, spath = os.path.join(d, "diff.fits"), os.path.join(d, "solution.fits")
+        fsol, fdiff = BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg, FITS_DIFF=dpath,
+                                        FITS_Solution=spath)
+        rsol, rcfg = read_bspline_solution_fits(spath)
+        assert np.array_equal(rsol, fsol) and rcfg.NEQ == cfg.NEQ
+        assert rcfg.kernel_basis == cfg.kernel_basis and rcfg.scaling_basis == cfg.scaling_basis
+        assert np.array_equal(fits.getdata(dpath).T, fdiff)
+        log(f"phase 7 v2 FITS products: difference and solution ({rsol.size} dofs, bases and "
+            f"knots in the header) read back identical")
+        del fsol, fdiff
+
+        # every K4 and K5 launch of a step against its twin; the second
+        # step also records the solve's own system and refinement
+        real_solve = solve._refined_solve_f64
+        seen = []
+
+        def recording(A, b, **kw):
+            info = {}
+            x = real_solve(A, b, info=info, **kw)
+            seen.append((A.clone(), b.clone(), info, x))
+            del seen[:-1]
+            return x
+
+        solve._refined_solve_f64 = recording
+        try:
+            slicers = slicers_on_path(
+                lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg), 7, "v2")
+        finally:
+            solve._refined_solve_f64 = real_solve
+    assert seen, "the v2 path did not reach _refined_solve_f64"
+    A, b, info, x_path = seen.pop()
+    assert tuple(A.shape) == (V2_SOLVE_N, V2_SOLVE_N), tuple(A.shape)
+    assert info["factor_ok"] and bool(torch.isfinite(x_path).all()), info
+    log(f"phase 7 v2 solve on the path: system {tuple(A.shape)}, f32 Cholesky factor ok, "
+        f"{info['steps']} refinement steps, |r|/|b| = {info['rel_residual']:.3e}, no NaN")
+
+    # sliced residuals against f64-matvec residuals on the path's own system
+    routes = {}
+    for name, kw in [("sliced", {}), ("f64_matvec", dict(_f64_matvec=True))]:
+        ts = []
+        for _ in range(3):
+            rinfo = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = solve._refined_solve_f64(A, b, info=rinfo, **kw)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        assert rinfo["factor_ok"] and bool(torch.isfinite(x).all()), (name, rinfo)
+        routes[name] = (x, rinfo, statistics.median(ts))
+    xs, xm = routes["sliced"][0], routes["f64_matvec"][0]
+    rrel = float((xs - xm).abs().max() / xm.abs().max())
+    prel = float((xs - x_path).abs().max() / xm.abs().max())
+    assert prel <= 1e-12, f"the sliced route off the path vs on it: max-rel {prel:.3e} > 1e-12"
+    assert rrel <= 1e-9, f"sliced vs f64-matvec route: max-rel {rrel:.3e} > 1e-9"
+    log("phase 7 v2 _refined_solve_f64 routes on the path's system: " + "; ".join(
+        f"{name} {r[2] * 1e3:.1f} ms (median of 3), {r[1]['steps']} steps, |r|/|b| = "
+        f"{r[1]['rel_residual']:.3e}" for name, r in routes.items())
+        + f"; max-rel difference of the solutions {rrel:.3e} (bound 1e-9)")
+
+    # one residual each way (the matrix of the sliced route as the solve
+    # holds it: 12 int8 planes against 1.4 GB of f64)
+    d_eq = solve._equilibrate(A)
+    _, Asl, sa = solve._sliced_residual_setup(A, d_eq)
+    As = A * d_eq[:, None] * d_eq[None, :]
+    xv = routes["sliced"][0] / d_eq
+    mv_sliced = cuda_ms(lambda: solve._sliced_matvec(Asl, sa, xv), reps=3, inner=3)
+    mv_f64 = cuda_ms(lambda: As @ xv, reps=3, inner=3)
+    mrel = float((solve._sliced_matvec(Asl, sa, xv) - As @ xv).abs().max() / (As @ xv).abs().max())
+    log(f"phase 7 v2 one residual product ({V2_SOLVE_N} dofs): sliced int8 "
+        f"{mv_sliced:.3f} ms, f64 matvec {mv_f64:.3f} ms; max-rel difference {mrel:.3e}")
+    return dict(launches=launches, step_s=step_s, plain_s=plain_s, first_s=first_s, peak=peak,
+                drms=drms, srel=srel, rms=rms, lam=lam, yardstick_s=y_s, slicers=slicers,
+                steps=info["steps"], rel_residual=info["rel_residual"],
+                route_ms={k: r[2] * 1e3 for k, r in routes.items()},
+                route_steps={k: r[1]["steps"] for k, r in routes.items()}, route_rel=rrel,
+                residual_ms=dict(sliced=mv_sliced, f64_matvec=mv_f64))
 
 
 def phase_steady(I, J, pairs):
@@ -496,14 +858,20 @@ def phase_steady(I, J, pairs):
 
 def phase_profile(I, J, out_dir):
     """--profile: torch.profiler over one step of each path (after two
-    warm-ups): device busy time (kernels and copies), idle share of the
+    warm-ups; the v2 path's step is one BSplinePacket.BSP call on FITS
+    files in a temporary directory): device busy time (kernels and copies), idle share of the
     profiled wall, and the top operations by device and by host time. The
     full tables go to out_dir/profile_<path>.txt."""
     import torch
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
-    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+    from sfft_tpu_torch import BSplinePacket, PureTorchCustomizedPacket, make_config
 
     os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory()
+    ref, sci = write_pair_fits(tmp.name)
+    v2cfg = nircam_config(**EXACT_TRIO)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -513,19 +881,22 @@ def phase_profile(I, J, out_dir):
         # launched them report the same time again
         return str(getattr(e, "device_type", "")).endswith("CUDA")
 
+    def pcp(**backends):
+        cfg = make_config(N, N, KERHW, **backends)
+        return lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+
     paths = {
-        "contract": make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
-                                solver="transformed"),
-        "fast": make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
-                            solver="refined"),
+        "contract": pcp(greek_backend="pexact", fdiff_backend="pexact", solver="transformed"),
+        "fast": pcp(greek_backend="peeled", fdiff_backend="fft32", solver="refined"),
+        "v2": lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=v2cfg),
     }
-    for name, cfg in paths.items():
+    for name, step in paths.items():
         for _ in range(2):
-            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+            step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+            step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = prof.key_averages()
@@ -542,6 +913,7 @@ def phase_profile(I, J, out_dir):
                 f"x{e.count}")
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(ev.table(sort_by="self_cuda_time_total", row_limit=80))
+    tmp.cleanup()
 
 
 def main():
@@ -582,6 +954,11 @@ def main():
     del diff_fast
     c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, report["slice_pair"] = \
         phase_contract(I, J, sol64, diff64)
+    del I, J, sol64, diff64
+    torch.cuda.empty_cache()
+    v2 = phase_v2()
+    report["slice_triple"] = v2["slicers"]["slice_triple"]
+    v2_k4 = v2["slicers"]["slice_pair"]
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax imported"
 
     kernels = []
@@ -589,10 +966,16 @@ def main():
         ("moments", "sfft_tpu_torch/csrc/moments.cu", "sfft_tpu/core/pallas_moments.py:143"),
         ("corr_window", "sfft_tpu_torch/csrc/corr_window.cu", "sfft_tpu/core/greek.py:94"),
         ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
+        ("slice_triple", "sfft_tpu_torch/csrc/slice_triple.cu",
+         "sfft_tpu/core/pallas_slice.py:214"),
     ]:
+        # launches: the sum over the main paths' runs (fast, contract, v2);
+        # times: K3 and K1 alone at the fast slice's shapes, K4 summed over
+        # a steady contract step's launches, K5 over a steady v2 step's
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches.get(name, 0) + c_launches[name],
+                            launches=(launches.get(name, 0) + c_launches.get(name, 0)
+                                      + v2["launches"][name]),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -602,6 +985,19 @@ def main():
                     "contract_peak_bytes": c_peak, "contract_vs_f64_rms": c_drms,
                     "contract_vs_f64_sol_rel": c_srel,
                     "contract_launches_per_step": {k: v / 4 for k, v in c_launches.items()},
+                    "v2_step_ms": v2["step_s"] * 1e3, "v2_step_plain_ms": v2["plain_s"] * 1e3,
+                    "v2_first_call_s": v2["first_s"], "v2_yardstick_step_ms":
+                    v2["yardstick_s"] * 1e3, "v2_lambda": v2["lam"],
+                    "v2_peak_bytes": v2["peak"], "v2_vs_f64_rms": v2["drms"],
+                    "v2_vs_f64_sol_rel": v2["srel"], "v2_central_rms": v2["rms"],
+                    "v2_launches_per_step": {k: v / 4 for k, v in v2["launches"].items()},
+                    "v2_refinement_steps": v2["steps"], "v2_rel_residual": v2["rel_residual"],
+                    "v2_solve_route_ms": v2["route_ms"], "v2_solve_route_steps":
+                    v2["route_steps"], "v2_solve_routes_rel": v2["route_rel"],
+                    "v2_residual_ms": v2["residual_ms"],
+                    "v2_k4_per_step": {k: v2_k4[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "steady", "signatures")},
+                    "k5_alone": report["slice_triple_alone"],
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

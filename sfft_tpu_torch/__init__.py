@@ -12,11 +12,13 @@ kernels are hand-written CUDA kernels for Hopper (sm_90a) under csrc/,
 built with nvcc at their first use on a CUDA tensor (see _kernels.py). On
 CPU tensors every kernel wrapper runs its plain PyTorch twin.
 
-Ported so far: the 'fft', 'peeled' and 'pexact' greek backends, the 'fft',
-'fft32' and 'pexact' difference backends, the 'lu', 'cho', 'refined',
-'exact' and 'transformed' solvers, polynomial ENTANGLED / SEPARATE configs,
-and the customized packets. Numpy input runs on the CUDA card unless the
-caller passes device="cpu".
+Ported so far: the 'fft', 'exact', 'peeled' and 'pexact' greek backends, the
+'fft', 'fft32', 'exact' and 'pexact' difference backends, the 'lu', 'cho',
+'refined', 'exact' (with its large-system route) and 'transformed' solvers,
+Tikhonov regularization, polynomial and B-spline bases in the ENTANGLED /
+SEPARATE scaling modes, the customized packets and the B-spline packet with
+its solution FITS. Numpy input runs on the CUDA card unless the caller
+passes device="cpu".
 """
 
 from sfft_tpu_torch.config import SFFTConfig, make_config
@@ -27,6 +29,13 @@ from sfft_tpu_torch.core.engine import (
     general_subtract,
 )
 from sfft_tpu_torch.api.customized import CustomizedPacket, PureTorchCustomizedPacket
+from sfft_tpu_torch.api.bspline import (
+    BSplineMatchingKernel,
+    BSplinePacket,
+    make_bspline_config,
+    read_bspline_solution_fits,
+    write_bspline_solution_fits,
+)
 
 __version__ = "0.1.0"
 
@@ -39,4 +48,9 @@ __all__ = [
     "general_subtract",
     "CustomizedPacket",
     "PureTorchCustomizedPacket",
+    "BSplinePacket",
+    "BSplineMatchingKernel",
+    "make_bspline_config",
+    "read_bspline_solution_fits",
+    "write_bspline_solution_fits",
 ]

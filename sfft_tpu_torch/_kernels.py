@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of sfft_tpu_torch/csrc.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
+All ``csrc/*.cu`` files compile with nvcc (one process per source, all
+started together) and link into one shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), placed in
 ``sfft_tpu_torch/_build/`` under a name that carries a hash of the sources
 and flags: an edited source builds anew at its first use. The library is
@@ -30,7 +31,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,7 @@ _L = ctypes.c_longlong
 # or long long)
 _SIGNATURES = {
     "sfft_slice_pair_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    "sfft_slice_triple_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _P],
     "sfft_moments_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sfft_corr_window_c64": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
@@ -85,19 +87,44 @@ def build(verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", tmp, *sources()]
+    objdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = _nvcc()
+    report = []
+
+    def finish(cmd, proc):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        report.append(stdout + stderr)
+
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        # one compiler process per source, all started together
+        jobs = []
+        for src in sources():
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                   "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+        try:
+            for cmd, _, proc in jobs:
+                finish(cmd, proc)
+        finally:
+            for _, _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        link = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        finish(link, subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
         if verbose:
-            print(res.stdout + res.stderr, flush=True)
+            print("".join(report), flush=True)
         os.replace(tmp, out)  # atomic: a concurrent process never sees a partial file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+        shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -76,3 +76,16 @@ def basis_planes(spec: BasisSpec, N0: int, N1: int, dtype=torch.float64,
     Vt = torch.as_tensor(V[:, exps[:, 1]], dtype=dtype, device=device)  # (N1, F)
     return Ut.T[:, :, None] * Vt.T[:, None, :]
 
+
+def basis_at_points(spec: BasisSpec, N0: int, N1: int, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+    """Host-side basis values (F, Nq) at ScaledFortranCoor query points (for
+    the regularization Gram matrices and kernel / flux-scaling realization;
+    reference Realize_MatchingKernel, sfft/utils/SFFTSolutionReader.py:116-151)."""
+    exps = ref_basis_exponents(spec)
+    if spec.kind == "polynomial":
+        return np.stack([sx ** i * sy ** j for (i, j) in exps], axis=0)
+    if spec.kind == "bspline":
+        Uq = _bspline_basis_values(np.asarray(sx, np.float64), spec.int_knots_x, spec.degree, N0)
+        Vq = _bspline_basis_values(np.asarray(sy, np.float64), spec.int_knots_y, spec.degree, N1)
+        return np.stack([Uq[:, i] * Vq[:, j] for (i, j) in exps], axis=0)
+    raise ValueError(spec.kind)

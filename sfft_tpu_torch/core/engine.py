@@ -7,8 +7,8 @@ counterpart: the functions below run directly on tensors. Tensors run on the
 device they lie on; numpy input goes to `device`, which defaults to the CUDA
 card (a machine without one raises: there is no silent CPU fallback, so CPU
 callers pass device="cpu" or CPU tensors). Every entry point takes ``plain``
-(default False): True keeps the hand kernels (K1, K3, K4) out and runs their
-plain twins, which the tests and chip_smoke.py use as an independent
+(default False): True keeps the hand kernels (K1, K3, K4, K5) out and runs
+their plain twins, which the tests and chip_smoke.py use as an independent
 cross-check.
 """
 
@@ -21,8 +21,8 @@ from sfft_tpu_torch.config import SFFTConfig, torch_dtype
 from sfft_tpu_torch.core.assemble import GreekTables, assemble_system, entangled_tables
 from sfft_tpu_torch.core.basis import basis_planes
 from sfft_tpu_torch.core.fdiff import fdiff
-from sfft_tpu_torch.core.greek import greek_tables
-from sfft_tpu_torch.core.regularize import regularization_terms
+from sfft_tpu_torch.core.greek import greek_tables, greek_tables_separate
+from sfft_tpu_torch.core.regularize import regularization_terms_on
 from sfft_tpu_torch.core.solve import solve_system
 
 
@@ -49,8 +49,8 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
                            plain: bool = False, shared=None):
     """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
     masked pair — everything `_solve_impl` does short of the solve (reference
-    LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the pexact
-    plane spectra of (mI, mJ), when the caller has them."""
+    LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the exact or
+    pexact plane spectra of (mI, mJ), when the caller has them."""
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
@@ -67,20 +67,24 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
 
         out = pexact_greek_tables(mI, mJ, cfg, shared=shared, plain=plain)
         extra = out[5] if separate_varying else None
+    elif cfg.greek_backend == "exact":
+        from sfft_tpu_torch.core.greek import greek_tables_exact
+
+        out = greek_tables_exact(mI, mJ, cfg, shared=shared, plain=plain)
+        extra = out[5] if separate_varying else None
     elif cfg.greek_backend == "fft":
-        if separate_varying:
-            raise NotImplementedError(
-                "SEPARATE-VARYING scaling with the 'fft' greek backend needs "
-                "greek_tables_separate (ROADMAP queue 1, v2 engine); "
-                "the 'peeled' backend covers polynomial scaling bases")
-        SI, ST, _ = _plane_stacks(cfg, mI)
+        SI, ST, SSc = _plane_stacks(cfg, mI)
         out = greek_tables(SI, ST, mJ, cfg.w0, cfg.w1, backend="fft",
                            chunk=cfg.greek_chunk, plain=plain)
         extra = None
+        if separate_varying:
+            extra = greek_tables_separate(
+                SI, SSc, ST, mJ, cfg.w0, cfg.w1, backend="fft", chunk=cfg.greek_chunk,
+                n_active=cfg.scaling_basis.num_funcs(), plain=plain)
     else:
         raise NotImplementedError(
             f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
-            "yet (ROADMAP queue 1); use 'fft', 'peeled' or 'pexact'")
+            "yet (ROADMAP queue 1); use 'fft', 'exact', 'peeled' or 'pexact'")
     Comg, Cgam, Cthe, Cphi, Cdel = out[:5]
     tables = entangled_tables(
         cfg, (s**3) * Comg, (s**2) * Cgam, (s**2) * Cthe, s * Cphi, s * Cdel
@@ -93,7 +97,9 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
             Ptb=tables.Ptb, Pts=(s**2) * Pts,
             Pphi=tables.Pphi, Pdel=tables.Pdel,
         )
-    return assemble_system(cfg, tables, reg_terms=regularization_terms(cfg))
+    # Tikhonov terms ride the streamed OMG row chunks of the assembly
+    return assemble_system(cfg, tables,
+                           reg_terms=regularization_terms_on(cfg, mI.device, tables.Pbb.dtype))
 
 
 def normal_equations_fn(cfg: SFFTConfig):
@@ -110,13 +116,13 @@ def _solve_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
                 plain: bool = False, shared=None) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain, shared=shared)
-    return solve_system(cfg, lhs, rhs).to(dt)
+    return solve_system(cfg, lhs, rhs, plain=plain).to(dt)
 
 
 def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
                    solution: torch.Tensor, plain: bool = False, shared=None) -> torch.Tensor:
-    if cfg.fdiff_backend == "pexact":
-        # the pair-arithmetic path builds its own basis-weighted planes
+    if cfg.fdiff_backend in ("exact", "pexact"):
+        # the pair-arithmetic paths build their own basis-weighted planes
         return fdiff(cfg, solution, None, None, J, None, I=I, shared=shared, plain=plain)
     # fft32: the difference is computed in f32/c64 anyway — build the basis
     # plane stacks directly in f32
@@ -130,14 +136,20 @@ def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
 def solve_and_subtract_fn(cfg: SFFTConfig):
     """One solve+subtract step: solve on the masked pair (mI, mJ), apply to
     the unmasked pair (I, J). Returns (solution, difference). With the
-    pexact backends for both tables and difference, the plane spectra are
-    computed once and shared when the masked and unmasked images are the
-    same tensors."""
+    exact (or the pexact) backends for both tables and difference, the plane
+    spectra are computed once and shared when the masked and unmasked images
+    are the same tensors."""
+    both_exact = cfg.greek_backend == "exact" and cfg.fdiff_backend == "exact"
     both_pexact = cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact"
 
     def step(I, J, mI, mJ, plain: bool = False):
         shared = None
-        if both_pexact:
+        if both_exact:
+            from sfft_tpu_torch.core.greek import exact_plane_spectra
+
+            dt = torch_dtype(cfg.dtype)
+            shared = exact_plane_spectra(mI.to(dt), mJ.to(dt), cfg, plain=plain)
+        elif both_pexact:
             from sfft_tpu_torch.core.pexact import pexact_plane_spectra
 
             shared = pexact_plane_spectra(mI, mJ, cfg, plain=plain)
@@ -152,8 +164,8 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
 
 def solve_and_subtract_same_fn(cfg: SFFTConfig):
     """The step for the masked == unmasked special case (2 array inputs):
-    passing the same tensors through `step` lets the pexact backends share
-    one plane-spectra pass between solve and difference."""
+    passing the same tensors through `step` lets the exact and pexact
+    backends share one plane-spectra pass between solve and difference."""
     step = solve_and_subtract_fn(cfg)
 
     def step_same(I, J, plain: bool = False):

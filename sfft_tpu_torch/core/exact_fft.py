@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 # NB and K4's plain remainder chain (_seq_slices) live beside the kernel
 # wrapper in core/slicing.py
-from sfft_tpu_torch.core.slicing import NB, slice_pair, slice_pair_plain
+from sfft_tpu_torch.core.slicing import (NB, slice_pair, slice_pair_plain, slice_triple,
+                                          slice_triple_plain)
 from sfft_tpu_torch.core.statics import Static, index, table
 
 NSL_DATA = 9            # data slices (54 bits)
@@ -186,6 +187,26 @@ def _slice_pair_real(hi: torch.Tensor, lo: torch.Tensor, nsl: int,
     if plain:
         return slice_pair_plain(hi, lo, s, nsl), s
     return slice_pair(hi, lo, s.contiguous(), nsl), s
+
+
+def _slice_triple_real(hi: torch.Tensor, mid: torch.Tensor, lo: torch.Tensor, nsl: int,
+                       rowwise: bool = False, plain: bool = False, out_cols: int = None):
+    """Exact f32 triple (hi, mid, lo) -> (int8 slices stacked on axis 0,
+    pow-2 scale): value == scale * sum_q slices[q] * 2^(-NB (q+1)) to
+    2^(-NB nsl) of the scale (72 bits at nsl = 12; a pair floors at 2^-48).
+    The triple is an exact three-way split of an f64 value (hi = f32(v),
+    mid = f32(v - hi), lo = f32(v - hi - mid)), already canonical. nsl >= 8.
+    out_cols zero-pads the last axis of the slices (the depth an int8
+    product wants). CUDA tensors launch K5 (core/slicing.py) unless
+    plain=True; CPU tensors take its plain twin."""
+    if rowwise:
+        s = _pow2ceil_scalar(hi.abs().amax(dim=-1, keepdim=True))
+    else:
+        s = _pow2ceil_scalar(hi.abs().amax())
+    hi, mid, lo = hi.contiguous(), mid.contiguous(), lo.contiguous()
+    if plain:
+        return slice_triple_plain(hi, mid, lo, s, nsl, out_cols), s
+    return slice_triple(hi, mid, lo, s.contiguous(), nsl, out_cols), s
 
 
 def _slice_static(M: np.ndarray, nsl: int = None):
@@ -465,6 +486,12 @@ def _pair_mul_static_rr(v: CPair, W: Static) -> CPair:
     return CPair(p, lo, None, None)
 
 
+def pair_sep_mul(p: CPair, u: Static, v: Static) -> CPair:
+    """p * u * v for a real pair p (N0, N1) and static factors u (N0, 1) and
+    v (1, N1): exact-grade basis-plane weighting in pair arithmetic."""
+    return _pair_mul_static_rr(_pair_mul_static_rr(p, u), v)
+
+
 def pair_stack(pairs) -> CPair:
     """Stack CPairs along a new leading axis (imag parts must match)."""
     rh = torch.stack([q.rh for q in pairs])
@@ -580,6 +607,33 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
                             plain=plain)
         out.append(_pmap(zt, _swap))
     return pair_stack(out)
+
+
+def exact_fft2_pair(F, plane_chunk: int = 0, half: bool = False,
+                    prof: Optional[SliceProfile] = None, plain: bool = False) -> CPair:
+    """Exact-grade complex 2-D spectrum of a real f64 stack (..., N0, N1), or
+    of a real CPair of that shape. Returns the pair (..., N0, N1), or
+    (..., N0, N1//2+1) with half=True (the Hermitian half over the last
+    axis). A leading stack axis runs in chunks of `plane_chunk` planes
+    (sfft_tpu's size by default): the DFT stages slice each chunk under one
+    global scale, so the chunking is part of the numbers."""
+    is_pair = isinstance(F, CPair)
+    ref = F.rh if is_pair else F
+    N0, N1 = ref.shape[-2], ref.shape[-1]
+    if ref.dim() == 3:
+        if plane_chunk <= 0:
+            plane_chunk = int(max(1, min(8, 2 ** 24 // (N0 * N1))))
+        if ref.shape[0] > plane_chunk:
+            outs = []
+            for c0 in range(0, ref.shape[0], plane_chunk):
+                part = (_pmap(F, lambda v: v[c0:c0 + plane_chunk]) if is_pair
+                        else F[c0:c0 + plane_chunk])
+                outs.append(exact_fft2_pair(part, plane_chunk, half, prof, plain))
+            return CPair(*(torch.cat(vs, dim=0) for vs in zip(*outs)))
+    x = F if is_pair else pair_from_f64(F)
+    y = exact_dft_axis(x, N1, half_out=half, prof=prof, plain=plain)
+    z = exact_dft_axis(_pmap(y, _swap), N0, prof=prof, plain=plain)
+    return _pmap(z, _swap)
 
 
 def _idft_halfin_dims(N: int):

@@ -6,8 +6,10 @@ Reference: Kab phase factors + Construct_FDIFF + ifft2
 The per-pixel phase sum of the reference factorizes: the per-ij kernel
 spectrum is K_ij = W0 @ A_ij @ W1, two skinny matmuls, and everything runs on
 rfft2 half-spectra. 'fft' computes in the config dtype; 'fft32' runs the same
-algebra in float32 / complex64. 'pexact' (the contract mode's exact-grade
-difference) lives in core/pexact.py.
+algebra in float32 / complex64. 'exact' (``fdiff_exact``, the v2 engine's
+contract-grade difference for any spatial basis) carries that algebra in f32
+pair arithmetic with the sliced-integer transforms of core/exact_fft.py;
+'pexact' (the polynomial contract mode's) lives in core/pexact.py.
 
 The fused model-spectrum pass is plain PyTorch here; its hand kernel (K2)
 is the next item of ROADMAP queue 2.
@@ -21,7 +23,9 @@ import numpy as np
 import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
-from sfft_tpu_torch.core.statics import Static, table
+from sfft_tpu_torch.core.basis import basis_1d_tables
+from sfft_tpu_torch.core.indices import ref_basis_exponents
+from sfft_tpu_torch.core.statics import Static, index, table
 
 
 def _phase_matrices(cfg: SFFTConfig, half: bool = True):
@@ -106,12 +110,142 @@ def fdiff_fft(
     return torch.fft.irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
 
 
+def _fold_weights(N1: int) -> np.ndarray:
+    """Hermitian-fold weights of the half spectrum over the last axis, f32:
+    2 for interior columns, 1 for DC and (N1 even) the Nyquist column."""
+    fold = np.full(N1 // 2 + 1, 2.0, np.float32)
+    fold[0] = 1.0
+    if N1 % 2 == 0:
+        fold[-1] = 1.0
+    return fold
+
+
+def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: torch.Tensor,
+                shared=None, plain: bool = False) -> torch.Tensor:
+    """Exact-grade (f32 pair) difference construction, any spatial basis.
+
+    The spectral algebra of fdiff_fft, carried in pair arithmetic with the
+    sliced-integer transforms of core/exact_fft.py:
+      * forward half spectra of J, SI (and SSc): exact_plane_spectra, or
+        `shared` when the caller has the solve's;
+      * per-ij kernel spectra K = W0 @ A_ij @ W1 as two sliced products
+        against the static phase matrices;
+      * the model spectrum as compensated pair Hadamard sums;
+      * the inverse transform of the Hermitian half with the weight-2 fold:
+        axis 0 first at half width, then the real-only axis-1 inverse;
+      * the background term exactly in image space (separable U B V^T).
+    plain=True slices with the plain twin of K4."""
+    from sfft_tpu_torch.core.exact_fft import (CPair, _cmatmul_sliced, _pair_hadamard_conj,
+                                               _pmap, _split_on, _swap, _two_prod, _two_sum,
+                                               exact_dft_axis, exact_idft_halfin_real,
+                                               pair_from_f64)
+    from sfft_tpu_torch.core.greek import exact_plane_spectra
+
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    N1h = N1 // 2 + 1
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    if shared is None:
+        shared = exact_plane_spectra(I, J, cfg, plain=plain)
+    _Jp, _SIp, SScp, sp = shared
+    dev = sp.rh.device
+    nss = len(SScp) if SScp is not None else 0
+    a_ijab, b_pq = split_solution(cfg, solution.to(torch.float64))
+
+    # --- kernel spectra K_ij = W0 @ A'_ij @ W1 (center-zeroed) -------------
+    a00 = a_ijab[:, w0, w1]
+    s_nc = a_ijab.sum(dim=(1, 2)) - a00
+    W0T = Static(np.transpose, (Static(phase_matrix, (cfg, True, 0)),))
+    W1 = Static(phase_matrix, (cfg, True, 1))
+    Ap = a_ijab.clone()
+    Ap[:, w0, w1] = 0.0
+    # T1[i, b, u] = sum_a Ap[i, a, b] W0[u, a];  K[i, u, v] = sum_b T1[i, b, u] W1[b, v]
+    T1 = _cmatmul_sliced(pair_from_f64(Ap.transpose(1, 2)), W0T, plain=plain)
+    K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
+
+    def split64(c):
+        c32 = c.to(torch.float32)
+        return c32, (c - c32.to(torch.float64)).to(torch.float32)
+
+    def shift_pair(P, c):
+        """pair + f64 scalar, compensated."""
+        c32, cres = split64(c)
+        h, e = _two_sum(P.rh, c32.expand(P.rh.shape))
+        return CPair(h, P.rl + e + cres, P.ih, P.il)
+
+    def scale_pair(P, c32, cres):
+        """pair * f64 scalar, compensated (TwoProd on the hi lane)."""
+        pr, er = _two_prod(P.rh, c32.expand(P.rh.shape))
+        pi, ei = _two_prod(P.ih, c32.expand(P.ih.shape))
+        return CPair(pr, er + P.rl * c32 + P.rh * cres,
+                     pi, ei + P.il * c32 + P.ih * cres)
+
+    def addp(acc, term):
+        if acc is None:
+            return term
+        hr, er = _two_sum(acc.rh, term.rh)
+        hi, ei = _two_sum(acc.ih, term.ih)
+        return CPair(hr, acc.rl + term.rl + er, hi, acc.il + term.il + ei)
+
+    def plane(P, k):
+        return _pmap(P, lambda v: v[k])
+
+    # --- model spectrum: compensated pair sum over ij ----------------------
+    # per-ij spectral factor (reference Construct_FDIFF): for the ENTANGLED
+    # center dof the delta-basis term is a00 * 1, so the combined factor is
+    # K'[u, v] + (a00 - s_nc); SEPARATE-VARYING applies a00 to the FS planes
+    acc = None
+    for i in range(cfg.Fij):
+        c_i = -s_nc[i] if separate_varying else a00[i] - s_nc[i]
+        Ki = shift_pair(plane(K, i), c_i)
+        # the Hadamard helper computes A * conj(B): pass conj(K) for A * K
+        acc = addp(acc, _pair_hadamard_conj(plane(sp, 1 + i),
+                                            CPair(Ki.rh, Ki.rl, -Ki.ih, -Ki.il)))
+    if separate_varying:
+        for i in range(nss):
+            acc = addp(acc, scale_pair(plane(sp, 1 + cfg.Fij + i), *split64(a00[i])))
+
+    # FDIFF = FJ - SCALE * acc (SCALE is no power of two in general)
+    m = scale_pair(acc, *_split_on(Static(np.float64, (float(cfg.SCALE),)), dev))
+    dr, er = _two_sum(sp.rh[0], -m.rh)
+    di, ei = _two_sum(sp.ih[0], -m.ih)
+    FD = CPair(dr, sp.rl[0] - m.rl + er, di, sp.il[0] - m.il + ei)
+
+    # --- inverse transform of the Hermitian half ---------------------------
+    foldj = table(Static(_fold_weights, (N1,)), dev)
+    FDw = _pmap(FD, lambda v: v * foldj)
+    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, plain=plain)    # (N1h, N0)
+    z = _pmap(zt, _swap)
+    if N1 % 2 == 0:
+        y = exact_idft_halfin_real(z, N1, plain=plain)
+    else:
+        zp = _pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - N1h)))
+        y = exact_dft_axis(zp, N1, inverse=True, real_out=True, plain=plain)
+    D = (y.rh.to(torch.float64) + y.rl) / (N0 * N1)
+
+    # --- background term, exactly, in image space --------------------------
+    exps = ref_basis_exponents(cfg.bg_basis)
+    U = table(Static(_bg_axis_table, (cfg, 0)), dev, torch.float64)
+    V = table(Static(_bg_axis_table, (cfg, 1)), dev, torch.float64)
+    B = torch.zeros((U.shape[1], V.shape[1]), dtype=torch.float64, device=dev)
+    B.index_put_((index(exps[:, 0], dev), index(exps[:, 1], dev)), b_pq, accumulate=True)
+    return (D - U @ B @ V.T).to(J.dtype)
+
+
+def _bg_axis_table(cfg: SFFTConfig, axis: int) -> np.ndarray:
+    """1-D value table of the background basis along one axis."""
+    return basis_1d_tables(cfg.bg_basis, cfg.N0, cfg.N1)[axis]
+
+
 def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
           plain: bool = False) -> torch.Tensor:
-    """The difference image for cfg.fdiff_backend. 'pexact' builds its own
-    pair planes from the image I (SI, ST and SSc unused) and may reuse the
-    plane spectra of the solve (`shared`); plain=True runs the plain twins
-    of its kernels."""
+    """The difference image for cfg.fdiff_backend. 'exact' and 'pexact' build
+    their own pair planes from the image I (SI, ST and SSc unused) and may
+    reuse the plane spectra of the solve (`shared`); plain=True runs the
+    plain twins of their kernels."""
+    if cfg.fdiff_backend == "exact":
+        if I is None:
+            raise ValueError("fdiff_exact needs the unmasked image I")
+        return fdiff_exact(cfg, solution, I, J, shared=shared, plain=plain)
     if cfg.fdiff_backend == "pexact":
         from sfft_tpu_torch.core.pexact import fdiff_pexact
 
@@ -134,4 +268,4 @@ def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
         return out.to(J.dtype)
     raise NotImplementedError(
         f"fdiff backend {cfg.fdiff_backend!r} is not ported to sfft_tpu_torch yet "
-        "(ROADMAP queue 1); use 'fft', 'fft32' or 'pexact'")
+        "(ROADMAP queue 1); use 'fft', 'fft32', 'exact' or 'pexact'")

@@ -18,6 +18,13 @@ come from rfft2 half-spectra by one of:
 'auto' picks 'irfft' for CPU tensors (as sfft_tpu does on the CPU) and the
 kernel for CUDA tensors; plain=True keeps CUDA tensors on 'irfft', so a
 caller can run the whole path on the plain twins.
+
+The 'exact' backend (``greek_tables_exact``; the contract tables of the v2
+engine, any spatial basis) computes the same windows without f64 FFTs: the
+images ride as f32 pairs, one sliced-integer pair-FFT covers every data
+plane (core/exact_fft.py, the K4 slicer), every spectrum-pair window comes
+from one ``exact_corr_window`` pass, and the blocks against the analytic
+background planes are rolled-basis moments.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sfft_tpu_torch.core.statics import index
+from sfft_tpu_torch.core.basis import basis_1d_tables
+from sfft_tpu_torch.core.indices import ref_basis_exponents
+from sfft_tpu_torch.core.statics import Static, index, table
 
 
 def _window_row_indices(N: int, w: int) -> np.ndarray:
@@ -224,6 +233,275 @@ def dot_planes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return A.reshape(Fa, -1) @ B.reshape(Fb, -1).T
 
 
+def _bg_roll_mat(bg_spec, N0: int, N1: int, wx: int, wy: int, axis: int) -> np.ndarray:
+    """Rolled 1-D background-basis table of one axis, (N, R * F): column
+    (r, f) holds basis function f circularly shifted by lag r - w, so a
+    correlation against a separable analytic plane at every lag of the
+    window is one contraction with it."""
+    T = basis_1d_tables(bg_spec, N0, N1)[axis]
+    w = wx if axis == 0 else wy
+    rolled = np.stack([np.roll(T, -lag, axis=0) for lag in range(-w, w + 1)], 1)
+    return rolled.reshape(T.shape[0], -1)
+
+
+def exact_bg_corr(A: torch.Tensor, bg_spec, N0: int, N1: int, wx: int, wy: int,
+                  plain: bool = False) -> torch.Tensor:
+    """CC(A_a, T_q)[rho, eps] exactly for separable analytic background
+    planes T_q(x, y) = u_p(x) v_q(y): the lag set is static, so circularly
+    shifted basis factors are rolled value tables and the correlation is
+    two skinny f64 contractions (the K3 kernel on CUDA tensors):
+
+        CC[a, (p,q), rho, eps] = sum_xy A_a[x,y] u_p(x+rho) v_q(y+eps)
+
+    Any separable basis (polynomial or B-spline). Returns
+    (Fa, Fpq, 2wx+1, 2wy+1) f64."""
+    from sfft_tpu_torch.core.peel import _exact_skinny_matmul
+
+    dev = A.device
+    exps = ref_basis_exponents(bg_spec)
+    U, V = basis_1d_tables(bg_spec, N0, N1)
+    F0, F1 = U.shape[1], V.shape[1]
+    R0, R1 = 2 * wx + 1, 2 * wy + 1
+    Ur = table(Static(np.transpose, (Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 0)),)),
+               dev, torch.float64)                                   # (R0*F0, N0)
+    Vr = table(Static(np.transpose, (Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 1)),)),
+               dev, torch.float64)                                   # (R1*F1, N1)
+    Fa = A.shape[0]
+    A64 = A.to(torch.float64)
+    # step 1 (y): M1[(e,t), (a,x)] = sum_y Vr[(e,t), y] A[a, x, y]
+    M1 = _exact_skinny_matmul(Vr, A64.permute(2, 0, 1).reshape(N1, -1), plain=plain)
+    # step 2 (x): M2[(r,s), (e,t), a] = sum_x Ur[(r,s), x] M1[(e,t), (a,x)]
+    M1 = M1.reshape(R1 * F1 * Fa, N0).T
+    M2 = _exact_skinny_matmul(Ur, M1, plain=plain).reshape(R0, F0, R1, F1, Fa)
+    out = torch.stack([M2[:, int(i), :, int(j), :] for (i, j) in exps], dim=0)
+    return out.permute(3, 0, 1, 2)                                   # (Fa, Fpq, R0, R1)
+
+
+def exact_bg_corr_pair(Ap, bg_spec, N0: int, N1: int, wx: int, wy: int,
+                       plain: bool = False) -> torch.Tensor:
+    """exact_bg_corr for a pair-represented real plane stack Ap (F, N0, N1):
+    both contractions run through the sliced-integer exact products. Returns
+    (F, Fpq, R0, R1) f64."""
+    from sfft_tpu_torch.core.exact_fft import CPair, _cmatmul_sliced
+
+    exps = ref_basis_exponents(bg_spec)
+    U, V = basis_1d_tables(bg_spec, N0, N1)
+    F0, F1 = U.shape[1], V.shape[1]
+    R0, R1 = 2 * wx + 1, 2 * wy + 1
+    Ur = Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 0))          # (N0, R0*F0)
+    Vr = Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 1))          # (N1, R1*F1)
+    M1 = _cmatmul_sliced(Ap, Vr, plain=plain)                        # pair (F, N0, R1*F1)
+    M1t = CPair(M1.rh.transpose(-1, -2), M1.rl.transpose(-1, -2), None, None)
+    M2 = _cmatmul_sliced(M1t, Ur, plain=plain)                       # pair (F, R1*F1, R0*F0)
+    M = (M2.rh.to(torch.float64) + M2.rl).reshape(-1, R1, F1, R0, F0)
+    out = torch.stack([M[:, :, int(j), :, int(i)] for (i, j) in exps], dim=1)
+    return out.permute(0, 1, 3, 2)                                   # (F, Fpq, R0, R1)
+
+
+def _basis_factor(spec, N0: int, N1: int, axis: int, k: int) -> np.ndarray:
+    """1-D basis function k of one axis, shaped to broadcast over a plane:
+    (N0, 1) for axis 0, (1, N1) for axis 1."""
+    col = basis_1d_tables(spec, N0, N1)[axis][:, k]
+    return col[:, None] if axis == 0 else col[None, :]
+
+
+def _plane_weights(cfg, axis: int) -> np.ndarray:
+    """(F, N) row (axis 0) or column (axis 1) weights of the basis-weighted
+    planes in spectrum order: the kernel basis, then the scaling basis for
+    SEPARATE-VARYING."""
+    specs = [cfg.kernel_basis]
+    if cfg.scaling_mode == "SEPARATE-VARYING":
+        specs.append(cfg.scaling_basis)
+    rows = []
+    for spec in specs:
+        T = basis_1d_tables(spec, cfg.N0, cfg.N1)[axis]
+        rows += [T[:, ij[axis]] for ij in ref_basis_exponents(spec)]
+    return np.stack(rows)
+
+
+def exact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg, plain: bool = False):
+    """Shared front end of the exact engine: pair-split the images, build
+    the basis-weighted pair planes [J, I*beta_ij (, I*sigma_ij)] in f32 pair
+    arithmetic, and take one half-spectrum pair-FFT of the whole stack.
+
+    Both the Greek tables (greek_tables_exact) and the exact difference
+    (fdiff_exact) consume this; the solve+subtract step computes it once
+    when the masked and unmasked pairs are the same tensors.
+
+    Returns (Jp, SIp, SScp, sp): image-domain pairs (Jp one plane, SIp list
+    of Fij, SScp list or None) and the stacked half spectra CPair in plane
+    order [J] + SI (+ SSc)."""
+    from sfft_tpu_torch.core.exact_fft import (exact_sep_weighted_spectra, pair_from_f64,
+                                               pair_sep_mul)
+
+    N0, N1 = cfg.N0, cfg.N1
+    Ip = pair_from_f64(I.to(torch.float64))
+    Jp = pair_from_f64(J.to(torch.float64))
+
+    def weighted(spec):
+        return [pair_sep_mul(Ip, Static(_basis_factor, (spec, N0, N1, 0, int(i))),
+                             Static(_basis_factor, (spec, N0, N1, 1, int(j))))
+                for (i, j) in ref_basis_exponents(spec)]
+
+    # image-domain weighted planes (the background moments consume them)
+    SIp = weighted(cfg.kernel_basis)
+    SScp = weighted(cfg.scaling_basis) if cfg.scaling_mode == "SEPARATE-VARYING" else None
+    # separable-weight pair-FFT: Fi*Fj basis planes share Fj distinct
+    # column factors, so the axis-1 legs run once per distinct factor
+    sp = exact_sep_weighted_spectra([Jp], Ip, Static(_plane_weights, (cfg, 0)),
+                                    Static(_plane_weights, (cfg, 1)), plain=plain)
+    return Jp, SIp, SScp, sp
+
+
+def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
+                       plain: bool = False):
+    """All exact-grade tables for one config, without f64 FFTs: the images
+    are pair-split once, the basis weightings run in f32 pair arithmetic,
+    one pair-FFT covers every data plane (SEPARATE-VARYING scaling planes
+    included), and the background blocks are rolled-basis sliced moments.
+
+    shared: the precomputed exact_plane_spectra(I, J, cfg), when the caller
+    has it. Returns (Comg, Cgam, Cthe, Cphi, Cdel[, (Pbs, Pss, Pgs, Pts)])."""
+    from sfft_tpu_torch.core.exact_fft import CPair, exact_corr_window, pair_stack
+
+    N0, N1 = cfg.N0, cfg.N1
+    w0, w1 = cfg.w0, cfg.w1
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    if shared is None:
+        shared = exact_plane_spectra(I, J, cfg, plain=plain)
+    Jp, SIp, SScp, sp = shared
+    dev = sp.rh.device
+    Fij = len(SIp)
+    Fs = len(SScp) if SScp is not None else 0
+
+    # ALL spectrum-pair windows share ONE pass at the widest (+-2w) window
+    # (the partial inverse DFT pads every lag grid to the same 64 product
+    # columns, so a narrower window costs the same): OMG (SI x SI, +-2w),
+    # THE (SI x J, +-w) and for SEPARATE-VARYING also PBS / PSS / PTS
+    iu, ju = np.triu_indices(Fij)
+    ia_l = [iu + 1, np.arange(Fij) + 1]
+    jb_l = [ju + 1, np.zeros(Fij, np.int64)]
+    if separate_varying:
+        gI, gS = np.meshgrid(np.arange(Fij) + 1, np.arange(Fs) + 1 + Fij, indexing="ij")
+        su, sv = np.triu_indices(Fs)
+        ia_l += [gI.ravel(), su + 1 + Fij, np.arange(Fs) + 1 + Fij]
+        jb_l += [gS.ravel(), sv + 1 + Fij, np.zeros(Fs, np.int64)]
+    cc = exact_corr_window(sp, sp, N0, N1, 2 * w0, 2 * w1,
+                           pairs=(np.concatenate(ia_l), np.concatenate(jb_l)), plain=plain)
+    n_omg = len(iu)
+    iu_t, ju_t = index(iu, dev), index(ju, dev)
+    Comg = torch.zeros((Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
+    Comg[iu_t, ju_t] = cc[:n_omg]
+    Comg[ju_t, iu_t] = torch.flip(cc[:n_omg], dims=(1, 2))
+    win = (slice(w0, 3 * w0 + 1), slice(w1, 3 * w1 + 1))
+    Cthe = cc[n_omg: n_omg + Fij][(slice(None),) + win]
+    Cgam = exact_bg_corr_pair(pair_stack(SIp), cfg.bg_basis, N0, N1, w0, w1, plain=plain)
+    Cphi = table(Static(bg_static_gram, (cfg.bg_basis, N0, N1)), dev, cc.dtype)
+    Cdel = exact_bg_corr_pair(CPair(Jp.rh[None], Jp.rl[None], None, None),
+                              cfg.bg_basis, N0, N1, 0, 0, plain=plain)[0, :, 0, 0]
+    if not separate_varying:
+        return Comg, Cgam, Cthe, Cphi, Cdel
+
+    o = n_omg + Fij
+    Pbs = cc[o: o + Fij * Fs][(slice(None),) + win].reshape(Fij, Fs, 2 * w0 + 1, 2 * w1 + 1)
+    o += Fij * Fs
+    su_t, sv_t = index(su, dev), index(sv, dev)
+    pss_u = cc[o: o + len(su), 2 * w0, 2 * w1]
+    Pss = torch.zeros((Fs, Fs), dtype=cc.dtype, device=dev)
+    Pss[su_t, sv_t] = pss_u
+    Pss[sv_t, su_t] = pss_u
+    o += len(su)
+    Pts = cc[o: o + Fs, 2 * w0, 2 * w1]
+    Pgs = exact_bg_corr_pair(pair_stack(SScp), cfg.bg_basis, N0, N1, 0, 0,
+                             plain=plain)[:, :, 0, 0]
+    return Comg, Cgam, Cthe, Cphi, Cdel, _pad_scaling(Pbs, Pss, Pgs, Pts, cfg.Fij - Fs)
+
+
+def _pad_scaling(Pbs, Pss, Pgs, Pts, npad: int):
+    """Zero-pad the scaling-plane axes of the SEPARATE-VARYING tables from
+    the active scaling functions to Fij (the placeholder dofs)."""
+    if npad:
+        pad = torch.nn.functional.pad
+        Pbs = pad(Pbs, (0, 0, 0, 0, 0, npad))
+        Pss = pad(Pss, (0, npad, 0, npad))
+        Pgs = pad(Pgs, (0, 0, 0, npad))
+        Pts = pad(Pts, (0, npad))
+    return Pbs, Pss, Pgs, Pts
+
+
+def bg_static_gram(bg_spec, N0: int, N1: int) -> np.ndarray:
+    """PHI block in closed form: <T_q, T_q'> = (sum_x u u') (sum_y v v'),
+    separable exact host-side sums."""
+    U, V = basis_1d_tables(bg_spec, N0, N1)
+    exps = ref_basis_exponents(bg_spec)
+    GU = U.T @ U
+    GV = V.T @ V
+    return np.array([[GU[i1, i2] * GV[j1, j2] for (i2, j2) in exps]
+                     for (i1, j1) in exps])
+
+
+def _half_spectra(stack: torch.Tensor, plain: bool):
+    from sfft_tpu_torch.core.exact_fft import exact_fft2_pair
+
+    return exact_fft2_pair(stack.to(torch.float64), half=True, plain=plain)
+
+
+def greek_tables_separate(
+    SI: torch.Tensor,
+    SSc: torch.Tensor,
+    ST: torch.Tensor,
+    J: torch.Tensor,
+    w0: int,
+    w1: int,
+    backend: str = "fft",
+    chunk: int = 0,
+    bg_spec=None,
+    n_active: int = 0,
+    plain: bool = False,
+):
+    """Extra correlation tables for SEPARATE-VARYING scaling: the center-offset
+    dofs attach to the sigma-weighted stack SSc = I * sigma_ij (zero-padded to
+    Fij planes; reference ScaSPixA_Iij, sfft/BSplineSFFT.py:2862-2886).
+
+    Returns (Pbs_raw, Pss_raw, Pgs_raw, Pts_raw) unscaled CC tables:
+      Pbs: CC(SI_a, SSc_b) window +-w; Pss: CC(SSc_a, SSc_b)[0];
+      Pgs: CC(SSc_a, T_q)[0]; Pts: CC(SSc_a, J)[0].
+    Backends 'fft' and 'exact' are ported.
+    """
+    N0, N1 = J.shape
+    if backend == "exact":
+        from sfft_tpu_torch.core.exact_fft import _pmap, exact_corr_window
+
+        Fij = SI.shape[0]
+        Fs = n_active if n_active else SSc.shape[0]
+        SScA = SSc[:Fs]   # trailing planes are static zero padding: skip
+        sp = _half_spectra(torch.cat([SI, SScA, J[None]], dim=0), plain)
+        specI = _pmap(sp, lambda v: v[:Fij])
+        specS = _pmap(sp, lambda v: v[Fij:-1])
+        specJ = _pmap(sp, lambda v: v[-1:])
+        Pbs = exact_corr_window(specI, specS, N0, N1, w0, w1, plain=plain)
+        Pss = exact_corr_window(specS, specS, N0, N1, 0, 0, symmetric=True,
+                                plain=plain)[:, :, 0, 0]
+        Pts = exact_corr_window(specS, specJ, N0, N1, 0, 0, plain=plain)[:, 0, 0, 0]
+        if bg_spec is not None:
+            Pgs = exact_bg_corr(SScA, bg_spec, N0, N1, 0, 0, plain=plain)[:, :, 0, 0]
+        else:
+            specT = _half_spectra(ST, plain)
+            Pgs = exact_corr_window(specS, specT, N0, N1, 0, 0, plain=plain)[:, :, 0, 0]
+        return _pad_scaling(Pbs, Pss, Pgs, Pts, SSc.shape[0] - Fs)
+    if backend != "fft":
+        raise NotImplementedError(
+            f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
+            "(ROADMAP queue 1); use 'fft' or 'exact'")
+    Pss = dot_planes(SSc, SSc)
+    Pgs = dot_planes(SSc, ST)
+    Pts = dot_planes(SSc, J[None])[:, 0]
+    specI = torch.fft.rfft2(SI)
+    specS = torch.fft.rfft2(SSc)
+    Pbs = corr_window_fft(specI, specS, N0, N1, w0, w1, chunk=chunk, plain=plain)
+    return Pbs, Pss, Pgs, Pts
+
+
 def greek_tables(
     SI: torch.Tensor,
     ST: torch.Tensor,
@@ -233,6 +511,7 @@ def greek_tables(
     backend: str = "fft",
     chunk: int = 0,
     plain: bool = False,
+    bg_spec=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """All correlation tables the assembly needs.
 
@@ -244,14 +523,39 @@ def greek_tables(
       Cdel: (Fpq,)     lag 0
 
     Unscaled CC values; the engine applies the SCALE powers that map CC to the
-    reference's Pre tables. Only backend='fft' is ported; plain=True keeps
-    every correlation on the plain twins.
+    reference's Pre tables. Backends 'fft' and 'exact' are ported ('exact':
+    the sliced-integer pair-FFT and windowed correlation for the data x data
+    blocks; with `bg_spec`, the background basis, rolled-basis exact moments
+    for everything against the background planes, else the generic spectral
+    route on the ST planes). plain=True keeps every correlation and slicer
+    on the plain twins.
     """
+    N0, N1 = J.shape
+    if backend == "exact":
+        from sfft_tpu_torch.core.exact_fft import _pmap, exact_corr_window
+
+        Fij = SI.shape[0]
+        sp = _half_spectra(torch.cat([J[None], SI], dim=0), plain)
+        specJ = _pmap(sp, lambda v: v[0:1])
+        specI = _pmap(sp, lambda v: v[1: 1 + Fij])
+        Comg = exact_corr_window(specI, specI, N0, N1, 2 * w0, 2 * w1, symmetric=True,
+                                 plain=plain)
+        Cthe = exact_corr_window(specI, specJ, N0, N1, w0, w1, plain=plain)[:, 0]
+        if bg_spec is not None:
+            Cgam = exact_bg_corr(SI, bg_spec, N0, N1, w0, w1, plain=plain)
+            Cphi = table(Static(bg_static_gram, (bg_spec, N0, N1)), J.device, torch.float64)
+            Cdel = exact_bg_corr(J[None], bg_spec, N0, N1, 0, 0, plain=plain)[0, :, 0, 0]
+        else:
+            specT = _half_spectra(ST, plain)
+            Cgam = exact_corr_window(specI, specT, N0, N1, w0, w1, plain=plain)
+            Cphi = exact_corr_window(specT, specT, N0, N1, 0, 0, symmetric=True,
+                                     plain=plain)[:, :, 0, 0]
+            Cdel = exact_corr_window(specT, specJ, N0, N1, 0, 0, plain=plain)[:, 0, 0, 0]
+        return Comg, Cgam, Cthe, Cphi, Cdel
     if backend != "fft":
         raise NotImplementedError(
             f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1, TPU-precision engines)")
-    N0, N1 = J.shape
+            "(ROADMAP queue 1); use 'fft' or 'exact'")
     Cphi = dot_planes(ST, ST)
     Cdel = dot_planes(ST, J[None])[:, 0]
     stack = torch.cat([J[None], SI, ST], dim=0)

@@ -31,7 +31,8 @@ from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _cmatmul_sliced,
                                            exact_corr_window, exact_dft_axis,
                                            exact_idft_halfin_real,
                                            exact_sep_weighted_spectra, pair_from_f64)
-from sfft_tpu_torch.core.fdiff import phase_matrix, split_solution, standard_kernel_coeffs
+from sfft_tpu_torch.core.fdiff import (_fold_weights, phase_matrix, split_solution,
+                                        standard_kernel_coeffs)
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.peel import (AxisStatic, MomentSet, _axis_field, _exps_key,
                                       axis_static, coord_powers, coord_powers_of,
@@ -286,16 +287,6 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
 # ---------------------------------------------------------------------------
 # difference construction
 # ---------------------------------------------------------------------------
-
-
-def _fold_weights(N1: int) -> np.ndarray:
-    """f32 weights of the folded Hermitian half: 2 for interior columns, 1
-    for DC and Nyquist."""
-    fold = np.full(N1 // 2 + 1, 2.0, np.float32)
-    fold[0] = 1.0
-    if N1 % 2 == 0:
-        fold[-1] = 1.0
-    return fold
 
 
 def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,

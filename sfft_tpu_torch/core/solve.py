@@ -16,9 +16,12 @@ Ported solvers:
                  congruence, f32 Cholesky + f64-residual refinement, and a
                  certified fallback to 'exact'
   'exact'        equilibrated f64 Cholesky + exact-residual refinement,
-                 as sfft_tpu runs it on a CPU or GPU
-'blocked_cho' and 'host', and the large-system route of 'exact'
-(_refined_solve_f64 with the K5 slicer), raise NotImplementedError.
+                 as sfft_tpu runs it on a CPU or GPU; a Tikhonov-regularized
+                 system of NEQ >= 8192 (the 13k-dof B-spline configs) takes
+                 _refined_solve_f64 instead: an f32 Cholesky factor refined
+                 with exact-grade residuals from the int8-sliced system
+                 (the K5 slicer, core/slicing.py)
+'blocked_cho' and 'host' raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ import torch
 from sfft_tpu_torch.config import SFFTConfig
 from sfft_tpu_torch.core.indices import kernel_sum_dof_index, stripe_indices
 from sfft_tpu_torch.core.statics import Static, index, table
+
+# solver 'exact' sends regularized f64 systems of at least this size to
+# _refined_solve_f64 (sfft_tpu's gate)
+LARGE_NEQ = 8192
 
 
 def _refined_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 3) -> torch.Tensor:
@@ -68,20 +75,23 @@ def _equilibrate(A: torch.Tensor):
     return 1.0 / torch.sqrt(torch.abs(torch.diagonal(A)) + torch.finfo(A.dtype).tiny)
 
 
-def _refine(As: torch.Tensor, bs: torch.Tensor, solve, iters: int):
-    """x = solve(bs) and up to `iters` residual corrections, stopping once
-    the residual is below 1e-15 of |bs| (a host check, as sfft_tpu's
-    while_loop condition). Returns (x, |bs|)."""
+def _refine(matvec, bs: torch.Tensor, solve, iters: int):
+    """x = solve(bs) and up to `iters` residual corrections with
+    r = bs - matvec(x), stopping once the residual is below 1e-15 of |bs| (a
+    host check, as sfft_tpu's while_loop condition). Returns
+    (x, |bs|, steps taken, last residual norm)."""
     x = solve(bs)
     bnorm = float(torch.linalg.norm(bs))
     rn = bnorm
+    steps = 0
     for _ in range(iters):
         if not rn > 1e-15 * bnorm:
             break
-        r = bs - As @ x
+        r = bs - matvec(x)
         x = x + solve(r)
         rn = float(torch.linalg.norm(r))
-    return x, bnorm
+        steps += 1
+    return x, bnorm, steps, rn
 
 
 def _exact_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 2) -> torch.Tensor:
@@ -98,7 +108,137 @@ def _exact_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 2) -> torch.Tens
     def solve_cho(r):
         return torch.cholesky_solve(r[:, None], L)[:, 0]
 
-    x, _ = _refine(As, bs, solve_cho, iters)
+    x = _refine(As.matmul, bs, solve_cho, iters)[0]
+    return x * d
+
+
+_RESID_NSL = 12   # 72-bit capture: below eps64 against the row scale
+_RESID_KMAX = 11
+
+
+def _split3(x: torch.Tensor, consume: bool = False):
+    """Exact three-way f32 split of an f64 tensor: hi = f32(x),
+    mid = f32(x - hi), lo = f32(x - hi - mid). consume=True overwrites x
+    with the remainders (no second f64 copy of a large matrix)."""
+    rem = x if consume else x.clone()
+    hi = rem.to(torch.float32)
+    rem -= hi
+    mid = rem.to(torch.float32)
+    rem -= mid
+    return hi, mid, rem.to(torch.float32)
+
+
+def _sliced_residual_setup(A: torch.Tensor, d: torch.Tensor, nsl: int = _RESID_NSL,
+                           plain: bool = False):
+    """One-time int8 slicing of the equilibrated system d A d for
+    exact-grade refinement residuals. Returns (Ah, Asl_flat, sa): Ah is the
+    f32 hi part (it IS the f32 rounding of the equilibrated matrix, and goes
+    straight to the f32 Cholesky), and Asl_flat (nsl * n, np) int8 with the
+    per-row power-of-two scales sa (n, 1) represents the matrix to ~2^-72 of
+    each row's scale (exact three-way f32 split, 12 slices through K5; an
+    (hi, lo) pair would floor at 2^-48). Rows are slice-major, and the
+    columns are zero-padded from n to np, a multiple of 8: the depth the
+    int8 product of _sliced_matvec wants, written by the slicer itself. The
+    f64 equilibrated matrix lives only as a transient here."""
+    from sfft_tpu_torch.core.exact_fft import _slice_triple_real
+
+    n = A.shape[0]
+    As = A * d[:, None] * d[None, :]
+    Ah, Am, Al = _split3(As, consume=True)
+    del As
+    Asl, sa = _slice_triple_real(Ah, Am, Al, nsl, rowwise=True, plain=plain,
+                                 out_cols=n + (-n) % 8)
+    return Ah, Asl.reshape(nsl * n, -1), sa
+
+
+def _sliced_matvec(Asl_flat: torch.Tensor, sa: torch.Tensor, x: torch.Tensor,
+                   nsl: int = _RESID_NSL, kmax: int = _RESID_KMAX,
+                   plain: bool = False) -> torch.Tensor:
+    """Exact-grade f64 product of the sliced equilibrated matrix with a
+    runtime f64 vector: the refinement residual's workhorse.
+
+    The vector is split and sliced per call (K5, one global scale), and ONE
+    int8 product (nsl * n, np) @ (np, 64) computes every slice-pair product
+    with exact int32 accumulation (|prod| <= 2^12, depth n < 2^14, group
+    sums < 2^30); the <= kmax + 1 weight groups recombine in f64 directly
+    (the sums are exact integers and the output is only an (n,) vector, so
+    an f64 weighted sum keeps eps64 grade where a compensated f32 pair would
+    cap the result near 2^-48). Representation floor ~2^-54 relative, the
+    slicing grade of the contract's tables. torch._int_mm is the library's
+    int8 product, as sfft_tpu leaves this one to XLA's dot_general."""
+    from sfft_tpu_torch.core.exact_fft import _slice_triple_real
+
+    n = x.shape[0]
+    Kp = Asl_flat.shape[1]
+    xsl, sx = _slice_triple_real(*_split3(x), nsl, plain=plain, out_cols=Kp)   # (nsl, Kp)
+    X8 = torch.zeros((64, Kp), dtype=torch.int8, device=x.device)
+    X8[:nsl] = xsl
+    prod = torch._int_mm(Asl_flat, X8.t()).reshape(nsl, n, 64)     # slice-major rows
+    out = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    for s in range(min(kmax, 2 * nsl - 2) + 1):
+        g = None
+        for i in range(max(0, s - nsl + 1), min(nsl - 1, s) + 1):
+            t = prod[i, :, s - i]
+            g = t if g is None else g + t
+        out = out + g.to(x.dtype) * (2.0 ** (-6 * (s + 2)))
+    return out * sa[:, 0].to(x.dtype) * sx.to(x.dtype)
+
+
+def _refined_solve_f64(A: torch.Tensor, b: torch.Tensor, iters: int = 12,
+                       plain: bool = False, _f64_matvec: bool = False,
+                       info: dict = None) -> torch.Tensor:
+    """f64-contract solve for LARGE (NEQ >= 8k) systems: f32 Cholesky factor
+    + exact-grade-residual refinement to the f64 floor.
+
+    Valid because the Tikhonov-regularized big B-spline systems are far
+    better conditioned than the raw polynomial ones: cond(equilibrated)
+    ~1e7 on sfft_tpu's NIRCam 13,226-dof system, so cond * eps32 < 1 and
+    each refinement step contracts the error; the n^3 factorization stays
+    f32 and only the ~n^2 residuals are exact. The loop takes at most
+    `iters` steps and stops at |r| <= 1e-15 |b|.
+
+    The equilibrated system rides as int8 slices plus its f32 hi part
+    (_sliced_residual_setup, K5 on CUDA tensors, its plain twin on CPU
+    tensors or with plain=True); every residual is one _sliced_matvec; the
+    f32 factor is applied with the library's triangular solves
+    (cholesky_solve). _f64_matvec=True is the independent cross-check that
+    the tests and chip_smoke.py hold this route against: the f64
+    equilibrated matrix is kept and every residual is an f64 matvec
+    (sfft_tpu's route off the TPU). solve_system never sets it.
+
+    Validity domain: the equilibrated system must be numerically positive
+    definite IN f32; cond_eq alone does not decide this, the spectrum shape
+    does. When the f32 factorization breaks down, the factor is poisoned
+    with NaN and the returned solution is all-NaN: loudly visible, never a
+    silent switch of solver. The gate in solve_system (NEQ >= 8192 needs
+    Tikhonov regularization ON) keeps user systems in the valid class;
+    raising regularize_lambda is the documented recovery.
+
+    info: an optional dict that receives 'steps' (refinement steps taken),
+    'rel_residual' (last |r| / |b|) and 'factor_ok'."""
+    d = _equilibrate(A)
+    bs = b * d
+    if _f64_matvec:
+        As = A * d[:, None] * d[None, :]
+        Ah = As.to(torch.float32)
+        matvec = As.matmul
+    else:
+        Ah, Asl_flat, sa = _sliced_residual_setup(A, d, plain=plain)
+
+        def matvec(x):
+            return _sliced_matvec(Asl_flat, sa, x, plain=plain)
+
+    L32, bad = torch.linalg.cholesky_ex(Ah)
+    del Ah
+    # a factor that broke down poisons the solution (no host check here)
+    L32 = torch.where(bad == 0, L32, torch.full_like(L32[:1, :1], float("nan")))
+
+    def f32_solve(r):
+        return torch.cholesky_solve(r.to(torch.float32)[:, None], L32)[:, 0].to(b.dtype)
+
+    x, bnorm, steps, rn = _refine(matvec, bs, f32_solve, iters)
+    if info is not None:
+        info.update(steps=steps, rel_residual=rn / bnorm, factor_ok=int(bad) == 0)
     return x * d
 
 
@@ -194,7 +334,7 @@ def _transformed_solve(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor,
     def f32_solve(r):
         return (Li32.T @ (Li32 @ r.to(torch.float32))).to(dt)
 
-    x, bnorm = _refine(As, bs, f32_solve, iters)
+    x, bnorm = _refine(As.matmul, bs, f32_solve, iters)[:2]
     rn = float(torch.linalg.norm(bs - As @ x))
     ok = rn <= 1e-12 * bnorm                       # False on NaN
     return S_vec(x * d if ok else _exact_solve(At, bt))
@@ -249,10 +389,12 @@ def _tweak_plan(cfg: SFFTConfig):
     return pres, False, ij00
 
 
-def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor,
+                 plain: bool = False) -> torch.Tensor:
     """Solve, honoring the scaling-mode system tweak. Returns the NEQ-length
     solution with removed dofs re-inserted (zeros, or the shared constant for
-    aggregated B-spline scaling)."""
+    aggregated B-spline scaling). plain=True keeps the large-system route of
+    'exact' on the plain twin of the K5 slicer."""
     if cfg.solver == "transformed":
         # polynomial ENTANGLED f64 contract: the stripe removal is carried
         # exactly inside the transform (sfft_tpu forces this path on any
@@ -291,11 +433,13 @@ def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor) -> torch
     elif cfg.solver == "refined" or A.dtype == torch.float32:
         # an f32-assembled system cannot beat f32 residuals anyway
         x = _refined_solve(A, b)
-    elif A.shape[0] >= 8192 and cfg.regularize_lambda > 0 and cfg.reg_xy:
-        raise NotImplementedError(
-            "solver 'exact' on a regularized system of NEQ >= 8192 takes "
-            "sfft_tpu's _refined_solve_f64 with the K5 slicer, which waits "
-            "for the v2-engine slice (ROADMAP queue 1)")
+    elif A.shape[0] >= LARGE_NEQ and cfg.regularize_lambda > 0 and cfg.reg_xy:
+        # large f64 systems (the 13k-dof B-spline configs): f32 factor +
+        # exact-grade-residual refinement. Gated on Tikhonov regularization
+        # being ON: that keeps cond(equilibrated) where the f32-factor
+        # iteration converges; an unregularized giant system takes the
+        # unconditional f64 route below
+        x = _refined_solve_f64(A, b, plain=plain)
     else:
         x = _exact_solve(A, b)
 

@@ -309,17 +309,19 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
 
 
 def test_unported_backends_raise():
-    """greek 'exact', fdiff 'conv', solver 'blocked_cho' and lambda > 0 wait
-    for later slices ('pexact' and solver 'exact' run: test_torch_pexact.py)."""
+    """greek 'fft32' / 'corr', fdiff 'conv' and solvers 'blocked_cho' /
+    'host' wait for later slices. greek and fdiff 'exact' and lambda > 0 run
+    (held to sfft_tpu in test_torch_v2_exact.py and test_torch_v2_engine.py)."""
     I, J = make_pair(10)
-    for kw in [dict(greek_backend="exact"), dict(fdiff_backend="conv"),
-               dict(solver="blocked_cho")]:
+    for kw in [dict(greek_backend="fft32"), dict(greek_backend="corr"),
+               dict(fdiff_backend="conv"), dict(solver="blocked_cho"), dict(solver="host")]:
         _, tc = cfgs(**kw)
         with pytest.raises(NotImplementedError):
             tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
-    _, tc = cfgs(regularize_lambda=0.1, reg_xy=((5.0, 5.0),))
-    with pytest.raises(NotImplementedError):
-        tengine.ElementalSFFT.ESS(I, J, tc, device="cpu")
+    _, tc = cfgs(greek_backend="exact", fdiff_backend="exact", regularize_lambda=0.1,
+                 reg_xy=((5.0, 5.0),))
+    sol, diff = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
+    assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
 
 
 def test_standard_kernel_coeffs_match_reference():
@@ -340,7 +342,9 @@ def test_make_config_resolution_matches_reference():
 def test_import_leaves_jax_out():
     code = ("import sys, sfft_tpu_torch, sfft_tpu_torch.core.peel, sfft_tpu_torch._kernels, "
             "sfft_tpu_torch.core.exact_fft, sfft_tpu_torch.core.slicing, "
-            "sfft_tpu_torch.core.pexact, sfft_tpu_torch.core.solve; "
+            "sfft_tpu_torch.core.pexact, sfft_tpu_torch.core.solve, "
+            "sfft_tpu_torch.core.regularize, sfft_tpu_torch.api.bspline, "
+            "sfft_tpu_torch.post.solution; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'sfft_tpu' or m.startswith('sfft_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -351,7 +355,7 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["PCP", "ESS", "GSS", "CP"])
+@pytest.mark.parametrize("entry", ["PCP", "ESS", "GSS", "CP", "BSP"])
 def test_numpy_input_without_device_never_runs_on_cpu(entry, tmp_path, monkeypatch):
     """Numpy input with no device goes to the CUDA card: on a machine
     without one the entry points raise instead of falling back to the CPU."""
@@ -372,7 +376,10 @@ def test_numpy_input_without_device_never_runs_on_cpu(entry, tmp_path, monkeypat
             for name, img in [("r", I), ("s", J), ("mr", I), ("ms", J)]:
                 paths.append(str(tmp_path / f"{name}.fits"))
                 fits.write(paths[-1], img.T)
-            sfft_tpu_torch.CustomizedPacket.CP(*paths, "REF", 1)
+            if entry == "CP":
+                sfft_tpu_torch.CustomizedPacket.CP(*paths, "REF", 1)
+            else:
+                sfft_tpu_torch.BSplinePacket.BSP(*paths, GKerHW=1)
     # CPU tensors stay on the CPU without a device
     sol, diff = sfft_tpu_torch.PureTorchCustomizedPacket.PCP(t(I), t(J), t(I), t(J), "REF", 1)
     assert sol.device.type == "cpu" and diff.device.type == "cpu"

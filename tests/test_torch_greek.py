@@ -126,9 +126,12 @@ def test_greek_tables_fft_match_reference(w):
 
 def test_greek_tables_unported_backends_raise():
     SI = torch.zeros((6, 32, 32), dtype=torch.float64)
-    for backend in ("fft32", "corr", "exact"):
+    for backend in ("fft32", "corr"):
         with pytest.raises(NotImplementedError):
             tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend=backend)
+    # 'exact' is ported (held to sfft_tpu in test_torch_v2_engine.py)
+    out = tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="exact")
+    assert tuple(out[0].shape) == (6, 6, 5, 5) and not any(bool(o.any()) for o in out)
 
 
 def test_corr_window_wrapper_refusals():
