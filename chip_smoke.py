@@ -61,7 +61,17 @@ OUT_DIR).
 builds the kernels and times the fast slice at steady state instead: two
 warm-ups each way, then PAIRS pairs of one step with the kernels and one on
 the plain twins, in alternating order (KP, PK, ...); prints the medians and
-the number of pairs in which the kernels were faster.
+the number of pairs in which the kernels were faster, then the host time the
+K3 and K1 wrappers take to enqueue one call and the time of each call on the
+device (graph replay and back-to-back calls), which compares two commits'
+kernels on one clock when the script is run in a checkout of each.
+
+    python3 chip_smoke.py --kernels OUT_DIR
+
+builds the kernels with the compiler's resource report (registers, shared
+memory, spills; written to OUT_DIR/build_report.txt), runs the K3 and K1
+checks and timings of phase 3 alone, and profiles one call of each at the
+fast slice's shapes (device time of each stage by kernel name).
 """
 
 import json
@@ -148,6 +158,41 @@ def cuda_ms(fn, reps=5, inner=10):
     return statistics.median(times)
 
 
+def graph_ms(fn, calls=20, reps=7):
+    """Time of one call of fn in ms with the host out of the way: `calls`
+    calls are captured in one CUDA graph (after three warm-ups on the capture
+    stream) and the graph is replayed; the median over `reps` replays, over
+    `calls`. At tens of microseconds per call cuda_ms measures the host's
+    launch rate as much as the kernel; this measures the device alone, for a
+    hand kernel and a library call alike."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
@@ -171,46 +216,101 @@ def phase_build():
     from sfft_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    path = _kernels.build()
+    if sys.argv[1:2] == ["--kernels"] and len(sys.argv) == 3:
+        # the compiler's report (registers, shared memory, spills) goes to a file
+        import contextlib
+
+        os.makedirs(sys.argv[2], exist_ok=True)
+        with open(os.path.join(sys.argv[2], "build_report.txt"), "w") as f:
+            with contextlib.redirect_stdout(f):
+                path = _kernels.build(verbose=True)
+    else:
+        path = _kernels.build()
     _kernels.lib()
     srcs = [os.path.relpath(s, HERE) for s in _kernels.sources()]
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s, {srcs} -> "
         f"{os.path.relpath(path, HERE)}")
 
 
-def phase_kernels():
+def phase_k3():
+    """K3 against its twin at the fast slice's shape and at ragged ones, each
+    launched twice (bit-equal); times at the fast slice's shape."""
     import torch
-    from sfft_tpu_torch.core import exact_fft, greek, moments
+    from sfft_tpu_torch.core import moments
 
     dev = torch.device("cuda")
-    report = {}
-
-    # K3: M = W @ G, the test_pallas_moments.py inputs (W * logspace, G + 1e4)
     k3 = {}
-    for S, N0, N1 in [(8, N, N), (3, 300, 257), (16, 512, 130), (20, 256, 129)]:
+    # M = W @ G, the test_pallas_moments.py inputs (W * logspace, G + 1e4).
+    # Odd N1 (257, 129, 20001) and the view 8 bytes off the 16-byte boundary
+    # take the 8-byte-load variant; (5, 3001, 20001) stages W in several
+    # chunks per block; (3, 7, 300) is one split (no reduction)
+    cases = [(8, N, N, 0), (3, 300, 257, 0), (16, 512, 130, 0), (20, 256, 129, 0),
+             (8, 500, 384, 1), (5, 3001, 20001, 0), (5, 3001, 20002, 0), (3, 7, 300, 0)]
+    for S, N0, N1, shift in cases:
         rng = np.random.default_rng(5)
         W = torch.as_tensor(rng.normal(0, 1, (S, N0)) * np.logspace(0, 6, N0)[None, :],
                             device=dev)
-        G = torch.as_tensor(rng.normal(0, 1, (N0, N1)) + 1e4, device=dev)
+        if N0 * N1 > 2 ** 24 and N0 != N:
+            g = torch.Generator(device=dev)
+            g.manual_seed(5)
+            G = torch.randn((N0 * N1 + shift,), dtype=torch.float64, device=dev, generator=g)
+            G += 1e4
+        else:
+            G = torch.as_tensor(rng.normal(0, 1, (N0 * N1 + shift,)) + 1e4, device=dev)
+        G = G[shift:].reshape(N0, N1)
+        plan = moments._launch_plan(N0, N1, aligned=G.data_ptr() % 16 == 0)
+        assert plan["vec"] == (1 if (N1 % 2 or shift) else 2), plan
         out = moments.moments(W, G)
+        again = moments.moments(W, G)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K3 {(S, N0, N1)}: two launches differ"
         ref = moments.moments_plain(W, G)
         err = rel_err(out, ref)
         assert err <= 1e-13, f"K3 {(S, N0, N1)}: rel err {err:.3e} > 1e-13"
-        log(f"phase 3 K3 moments {(S, N0, N1)}: max|d|/max|ref| = {err:.3e} (bound 1e-13)")
+        log(f"phase 3 K3 moments {(S, N0, N1)}{' off 16-byte alignment' if shift else ''}: "
+            f"{plan['vec'] * 8}-byte loads, {plan['col_blocks']} x {plan['nsplit']} blocks of "
+            f"{plan['rows']} rows; max|d|/max|ref| = {err:.3e} (bound 1e-13); two launches "
+            f"bit-equal")
         if (S, N0, N1) == (8, N, N):
+            # ms, plain_ms and library_ms are device times (graph replay); the
+            # *_eager_ms are back-to-back calls from Python, launch gaps included
             k3 = dict(max_abs_err=float((out - ref).abs().max()),
-                      ms=cuda_ms(lambda: moments.moments(W, G)),
-                      plain_ms=cuda_ms(lambda: moments.moments_plain(W, G)),
-                      library_ms=cuda_ms(lambda: torch.matmul(W, G)))
+                      ms=graph_ms(lambda: moments.moments(W, G)),
+                      plain_ms=graph_ms(lambda: moments.moments_plain(W, G)),
+                      library_ms=graph_ms(lambda: torch.matmul(W, G)),
+                      eager_ms=cuda_ms(lambda: moments.moments(W, G)),
+                      library_eager_ms=cuda_ms(lambda: torch.matmul(W, G)))
             k3["bound_ms"], k3["bound_by"] = bound(8 * (S * N0 + N0 * N1 + S * N1),
                                                    2 * S * N0 * N1, FP64_FLOP_PER_S)
-    log(f"phase 3 K3 moments (8, {N}, {N}) f64: kernel {k3['ms']:.4f} ms, "
-        f"plain W @ G {k3['plain_ms']:.4f} ms, library torch.matmul {k3['library_ms']:.4f} ms, "
-        f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']})")
-    report["moments"] = k3
+    log(f"phase 3 K3 moments (8, {N}, {N}) f64, device time (20 calls in a CUDA graph, "
+        f"replayed): kernel {k3['ms']:.4f} ms, plain W @ G {k3['plain_ms']:.4f} ms, library "
+        f"torch.matmul {k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
+        f"({k3['bound_by']}); back-to-back calls from Python: kernel {k3['eager_ms']:.4f} ms, "
+        f"torch.matmul {k3['library_eager_ms']:.4f} ms")
+    return k3
 
-    # K1 at the slice's two shapes in c64: 6 fluctuation spectra (N, N/2+1);
+
+def k1_bound(npairs, nspec, n0, n1h, r0, r1, itemsize, peak, sym):
+    """K1's bound: stage 1 forms the Hadamard product (6 flops per element)
+    and contracts it with E1: a complex multiply-add (8 flops) per window
+    column, or with `sym` (the conjugate-pair route, which corr_window_fft
+    takes) four multiply-adds (8 flops) per pair of columns +d and -d:
+    r1 // 2 + 1 of them. Stage 2 contracts the (pairs, N0, R1) result with
+    E0; each spectrum is read once, the real windows written once."""
+    cols = r1 // 2 + 1 if sym else r1
+    return bound(itemsize * nspec * n0 * n1h + itemsize // 2 * npairs * r0 * r1,
+                 npairs * n0 * n1h * (6 + 8 * cols) + 8 * npairs * r0 * n0 * r1, peak)
+
+
+def phase_k1():
+    """K1 against its matmul twin: c64 at the fast slice's two shapes (timed,
+    launched twice: bit-equal) and at ragged shapes, c128 at 512^2 and, timed,
+    at the f64 'fft' greek backend's OMG call at 4096^2."""
+    import torch
+    from sfft_tpu_torch.core import greek
+
+    dev = torch.device("cuda")
+    # the slice's two shapes in c64: 6 fluctuation spectra (N, N/2+1);
     # OMG window +-2w symmetric (21 pairs, 33 x 33), THE window +-w vs J
     # (6 pairs, 17 x 17)
     rng = np.random.default_rng(6)
@@ -223,34 +323,106 @@ def phase_kernels():
                                                method=m, symmetric=True),
         "the": lambda m: greek.corr_window_fft(specF, specJ, N, N, KERHW, KERHW, method=m),
     }
-    # bounds: stage 1 forms the Hadamard product (6 flops) and contracts it
-    # with E1 (8 flops per complex MAC and window column); stage 2 contracts
-    # the (pairs, N0, R1) result with E0; the spectra are read once
     N1h = N // 2 + 1
     shapes = {"omg": (21, 4 * KERHW + 1, 6), "the": (6, 2 * KERHW + 1, 7)}
     k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
               bound_by="operations")
     for name, call in calls.items():
         out = call("kernel")
+        again = call("kernel")
         torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K1 c64 {name}: two launches differ"
+        del again
         ref = call("matmul")
         err = rel_err(out, ref)
         assert err <= 1e-5, f"K1 c64 {name}: rel err {err:.3e} > 1e-5"
-        ms = cuda_ms(lambda: call("kernel"))
+        ms = graph_ms(lambda: call("kernel"), calls=5)
+        ems = cuda_ms(lambda: call("kernel"))
         pms = cuda_ms(lambda: call("matmul"))
         npairs, R, nspec = shapes[name]
-        bms, by = bound(8 * nspec * N * N1h + 4 * npairs * R * R,
-                        npairs * N * N1h * (6 + 8 * R) + 8 * npairs * R * N * R,
-                        FP32_FLOP_PER_S)
+        bms, by = k1_bound(npairs, nspec, N, N1h, R, R, 8, FP32_FLOP_PER_S, sym=True)
         k1["max_abs_err"] = max(k1["max_abs_err"], float((out - ref).abs().max()))
         k1["ms"] += ms
         k1["plain_ms"] += pms
         k1["bound_ms"] += bms
-        log(f"phase 3 K1 corr_window c64 {name} {tuple(out.shape)}: max|d|/max|ref| = "
-            f"{err:.3e} (bound 1e-5); kernel {ms:.4f} ms, plain matmul twin {pms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}); no single PyTorch call computes it")
-    report["corr_window"] = k1
-    del specs, specJ, specF
+        k1[name] = dict(ms=ms, eager_ms=ems, plain_ms=pms, bound_ms=bms, bound_by=by,
+                        plan=greek._corr_plan(R, True))
+        log(f"phase 3 K1 corr_window c64 {name} {tuple(out.shape)} plan (TY, NE) = "
+            f"{k1[name]['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), two launches "
+            f"bit-equal; kernel {ms:.4f} ms (5 calls in a CUDA graph, replayed; {ems:.4f} ms "
+            f"back to back from Python), plain matmul twin {pms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}, the conjugate-pair route's count); no single PyTorch "
+            f"call computes it")
+    # the general route (any weights; no caller on the port's paths) on the
+    # OMG pair list, against its own bound
+    iu, ju = np.triu_indices(6)
+    R = 4 * KERHW + 1
+    E0, E1 = greek._idft_mats_on(N, N, 2 * KERHW, 2 * KERHW, specF.dtype, dev)
+    out = greek.corr_window(specF, specF, iu, ju, E0, E1)
+    err = rel_err(out, greek.corr_pairs_plain(specF, specF, iu, ju, E0, E1))
+    assert err <= 1e-5, f"K1 c64 omg pair list, general weights: rel err {err:.3e} > 1e-5"
+    gen = dict(ms=graph_ms(lambda: greek.corr_window(specF, specF, iu, ju, E0, E1), calls=5),
+               plan=greek._corr_plan(R, False))
+    gen["bound_ms"], gen["bound_by"] = k1_bound(21, 6, N, N1h, R, R, 8, FP32_FLOP_PER_S,
+                                                sym=False)
+    k1["omg_general"] = gen
+    log(f"phase 3 K1 corr_window c64 omg pair list on the general route (any weights), plan "
+        f"(TY, NE) = {gen['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5); kernel "
+        f"{gen['ms']:.4f} ms, bound {gen['bound_ms']:.4f} ms ({gen['bound_by']})")
+    del specs, specJ, specF, out, ref, E0, E1
+
+    # c64 at ragged shapes: N0 off the 64-row tile, odd and even N1h, 1 to 64
+    # lags along axis 1, an unordered pair list with repeated planes
+    ia = np.array([3, 0, 3, 1, 1, 0, 2, 3])
+    ib = np.array([1, 1, 3, 0, 1, 2, 2, 0])
+    nragged = 0
+    for N0, N1h_r in [(100, 51), (131, 52), (64, 17)]:
+        sa = torch.as_tensor(rng.normal(0, 1, (4, N0, N1h_r, 2)), dtype=torch.float32,
+                             device=dev)
+        sb = torch.as_tensor(rng.normal(0, 1, (4, N0, N1h_r, 2)), dtype=torch.float32,
+                             device=dev)
+        sa, sb = torch.view_as_complex(sa), torch.view_as_complex(sb)
+        for R0, R1 in [(1, 1), (17, 17), (33, 33), (5, 64), (7, 10)]:
+            E0 = torch.view_as_complex(torch.as_tensor(
+                rng.normal(0, 1, (R0, N0, 2)), dtype=torch.float32, device=dev))
+            E1 = torch.view_as_complex(torch.as_tensor(
+                rng.normal(0, 1, (N1h_r, R1, 2)), dtype=torch.float32, device=dev))
+            variants = [(E1, False)]
+            if R1 % 2:
+                # conjugate-symmetric weights about the middle column: the
+                # kernel's half-work variant, and the general one on them
+                w = R1 // 2
+                Es = torch.cat([torch.flip(E1[:, w + 1:], dims=(1,)).conj(), E1[:, w:]],
+                               dim=1).resolve_conj().contiguous()
+                variants += [(Es, True), (Es, False)]
+            for (E, sym) in variants:
+                for pa, pb in [(ia, ib), (ia[:1], ib[:1])]:
+                    out = greek._corr_window(sa, sb, pa, pb, E0, E, sym=sym)
+                    again = greek._corr_window(sa, sb, pa, pb, E0, E, sym=sym)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, again), \
+                        f"K1 c64 ragged {(N0, N1h_r, R0, R1, sym)}: two launches differ"
+                    err = rel_err(out, greek.corr_pairs_plain(sa, sb, pa, pb, E0, E))
+                    assert err <= 1e-5, \
+                        f"K1 c64 ragged {(N0, N1h_r, R0, R1, sym)}: {err:.3e} > 1e-5"
+                    nragged += 1
+    # a chunk that splits a plane's group of pairs, symmetric and cross
+    A = torch.as_tensor(rng.normal(0, 1, (5, 200, 150)), dtype=torch.float32, device=dev)
+    spec = torch.fft.rfft2(A)
+    for symmetric in (True, False):
+        for chunk in (0, 4, 1):
+            kw = dict(symmetric=symmetric, chunk=chunk)
+            out = greek.corr_window_fft(spec, spec, 200, 150, 8, 16, method="kernel", **kw)
+            torch.cuda.synchronize()
+            ref = greek.corr_window_fft(spec, spec, 200, 150, 8, 16, method="matmul", **kw)
+            err = rel_err(out, ref)
+            assert err <= 1e-5, f"K1 c64 (5, 200, 76) {kw}: rel err {err:.3e} > 1e-5"
+            nragged += 1
+    log(f"phase 3 K1 corr_window c64 ragged: {nragged} checks within 1e-5 of the twin "
+        f"(N0 100 / 131 / 64 / 200, N1h 51 / 52 / 17 / 76, R1 1 / 10 / 17 / 33 / 64, an "
+        f"unordered pair list with repeated planes, one pair, general and conjugate-symmetric "
+        f"weights, chunks 4 and 1 splitting a plane's pairs), direct launches twice and "
+        f"bit-equal")
 
     # K1 in c128 at 512^2: both symmetric settings and chunking
     A = torch.as_tensor(rng.normal(0, 1, (6, 512, 512)), device=dev)
@@ -265,7 +437,45 @@ def phase_kernels():
             assert err <= 1e-11, f"K1 c128 {kw}: rel err {err:.3e} > 1e-11"
             log(f"phase 3 K1 corr_window c128 512^2 {kw}: max|d|/max|ref| = {err:.3e} "
                 f"(bound 1e-11)")
-    del A, spec
+    del A, spec, out, ref
+
+    # c128 at the f64 'fft' greek backend's largest call: OMG of six planes
+    # at 4096^2 (21 pairs, 33 x 33)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    spec = torch.fft.rfft2(30.0 * torch.randn((6, N, N), dtype=torch.float64, device=dev,
+                                              generator=g))
+    call = lambda m: greek.corr_window_fft(spec, spec, N, N, 2 * KERHW, 2 * KERHW, method=m,
+                                           symmetric=True)
+    out = call("kernel")
+    again = call("kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "K1 c128 omg: two launches differ"
+    del again
+    err = rel_err(out, call("matmul"))
+    assert err <= 1e-11, f"K1 c128 omg: rel err {err:.3e} > 1e-11"
+    R = 4 * KERHW + 1
+    c128 = dict(ms=graph_ms(lambda: call("kernel"), calls=3, reps=3),
+                plain_ms=cuda_ms(lambda: call("matmul"), reps=3, inner=1),
+                plan=greek._corr_plan(R, True))
+    c128["bound_ms"], c128["bound_by"] = k1_bound(21, 6, N, N1h, R, R, 16, FP64_FLOP_PER_S, sym=True)
+    k1["c128_omg"] = c128
+    log(f"phase 3 K1 corr_window c128 omg {tuple(out.shape)} at {N}^2 plan (TY, NE) = "
+        f"{c128['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-11), two launches bit-equal; "
+        f"kernel {c128['ms']:.4f} ms, plain matmul twin {c128['plain_ms']:.4f} ms, bound "
+        f"{c128['bound_ms']:.4f} ms ({c128['bound_by']})")
+    return k1
+
+
+def phase_kernels():
+    import torch
+    from sfft_tpu_torch.core import exact_fft
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    N1h = N // 2 + 1
+    report = {"moments": phase_k3(), "corr_window": phase_k1()}
+    torch.cuda.empty_cache()
 
     # K4: bit for bit against the twin (slices and scales), rowwise and
     # global, on wide-range values: odd widths (the scalar path: a row
@@ -854,6 +1064,85 @@ def phase_steady(I, J, pairs):
     log(f"steady fast slice {N}^2: median step {statistics.median(tk) * 1e3:.2f} ms with the "
         f"kernels, {statistics.median(tp) * 1e3:.2f} ms on the plain twins, over {pairs} "
         f"alternating pairs after 2 warm-ups each; kernels faster in {faster} of {pairs}")
+    del I, J
+    torch.cuda.empty_cache()
+
+    # what the step pays for on the host: the time the K3 and K1 wrappers take
+    # to enqueue one call at the slice's shapes (the device runs behind)
+    calls = slice_kernel_calls()
+    host = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        windows = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            windows.append((time.perf_counter() - t0) / 20 * 1e6)
+            torch.cuda.synchronize()
+        host[name] = statistics.median(windows)
+    log("steady host time to enqueue one wrapper call (median of 7 windows of 20): "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in host.items()))
+    # and on the device: each wrapper call timed both ways, so that two
+    # commits can be compared on one clock
+    for name, fn in calls.items():
+        log(f"steady {name}: {graph_ms(fn, calls=20 if name == 'K3' else 5):.4f} ms device "
+            f"time (calls in a CUDA graph, replayed), {cuda_ms(fn):.4f} ms back to back from "
+            f"Python")
+
+
+def slice_kernel_calls():
+    """The fast slice's three kernel calls on seeded inputs of its shapes:
+    K3 (8, N) x (N, N) f64, K1 c64 on the OMG and the THE window."""
+    import torch
+    from sfft_tpu_torch.core import greek, moments
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    W = torch.randn((8, N), dtype=torch.float64, device=dev, generator=g)
+    G = torch.randn((N, N), dtype=torch.float64, device=dev, generator=g)
+    specs = torch.fft.rfft2(30.0 * torch.randn((7, N, N), dtype=torch.float32, device=dev,
+                                               generator=g))
+    specJ, specF = specs[0:1], specs[1:]
+    return {
+        "K3": lambda: moments.moments(W, G),
+        "K1 omg": lambda: greek.corr_window_fft(specF, specF, N, N, 2 * KERHW, 2 * KERHW,
+                                                method="kernel", symmetric=True),
+        "K1 the": lambda: greek.corr_window_fft(specF, specJ, N, N, KERHW, KERHW,
+                                                method="kernel"),
+    }
+
+
+def phase_kernel_profile(out_dir):
+    """torch.profiler over three calls of K3 and of K1's two c64 windows at
+    the fast slice's shapes: device time per kernel name (K1's two stages
+    and the mirror's glue apart). The table goes to out_dir too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    each = slice_kernel_calls()
+
+    def calls():
+        for fn in each.values():
+            fn()
+
+    calls()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            calls()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0)
+    kernels = [e for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        log(f"kernel profile: {e.key[:90]:90s} {dev_us(e) / e.count / 1e3:9.4f} ms x{e.count}")
+    with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+        f.write(ev.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=120))
 
 
 def phase_profile(I, J, out_dir):
@@ -916,6 +1205,9 @@ def phase_profile(I, J, out_dir):
     tmp.cleanup()
 
 
+USAGE = "usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR]"
+
+
 def main():
     import torch
 
@@ -927,9 +1219,22 @@ def main():
 
     smi = phase_device()
     phase_build()
+    ok_line = json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}})
+    if sys.argv[1:2] == ["--kernels"]:
+        if len(sys.argv) != 3:
+            print(USAGE, file=sys.stderr)
+            return 2
+        phase_k3()
+        phase_k1()
+        phase_kernel_profile(sys.argv[2])
+        log(smi)
+        print(ok_line, flush=True)
+        return 0
     if sys.argv[1:2] in (["--profile"], ["--steady"]):
         if len(sys.argv) != 3:
-            print("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS]", file=sys.stderr)
+            print(USAGE, file=sys.stderr)
             return 2
         I, J = (torch.as_tensor(a, device="cuda") for a in make_pair(N))
         if sys.argv[1] == "--profile":
@@ -937,10 +1242,7 @@ def main():
         else:
             phase_steady(I, J, int(sys.argv[2]))
         log(smi)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                                 "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}),
-              flush=True)
+        print(ok_line, flush=True)
         return 0
     report = phase_kernels()
     t0 = time.perf_counter()
@@ -964,7 +1266,7 @@ def main():
     kernels = []
     for name, source, replaces in [
         ("moments", "sfft_tpu_torch/csrc/moments.cu", "sfft_tpu/core/pallas_moments.py:143"),
-        ("corr_window", "sfft_tpu_torch/csrc/corr_window.cu", "sfft_tpu/core/greek.py:94"),
+        ("corr_window", "sfft_tpu_torch/csrc/corr_window.cuh", "sfft_tpu/core/greek.py:94"),
         ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
         ("slice_triple", "sfft_tpu_torch/csrc/slice_triple.cu",
          "sfft_tpu/core/pallas_slice.py:214"),
@@ -998,13 +1300,14 @@ def main():
                     "v2_k4_per_step": {k: v2_k4[k] for k in ("ms", "plain_ms", "bound_ms",
                                                              "steady", "signatures")},
                     "k5_alone": report["slice_triple_alone"],
+                    "k1_calls": {k: report["corr_window"][k]
+                                 for k in ("omg", "the", "omg_general", "c128_omg")},
+                    "k3_eager_ms": {k: report["moments"][k]
+                                    for k in ("eager_ms", "library_eager_ms")},
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}),
-          flush=True)
+    print(ok_line, flush=True)
     return 0
 
 

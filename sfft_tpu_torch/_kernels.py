@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels of sfft_tpu_torch/csrc.
 
-All ``csrc/*.cu`` files compile with nvcc (one process per source, all
-started together) and link into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), placed in
+All ``csrc/*.cu`` files (with the ``*.cuh`` headers they share) compile with
+nvcc (one process per source, all started together) and link into one
+shared library with a plain C interface (no PyTorch headers, so a build takes seconds), placed in
 ``sfft_tpu_torch/_build/`` under a name that carries a hash of the sources
 and flags: an edited source builds anew at its first use. The library is
 loaded with ctypes. Every C entry takes its tensors as raw device pointers
@@ -41,11 +41,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "sfft_slice_pair_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "sfft_slice_triple_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _P],
-    "sfft_moments_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sfft_corr_window_c64": [_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
-    "sfft_corr_window_c128": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P],
+    "sfft_moments_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sfft_corr_window_c64": [_P] * 9 + [_I] * 9 + [_P],
+    "sfft_corr_window_c128": [_P] * 9 + [_I] * 9 + [_P],
     "sfft_cuda_error_string": [_I],
 }
 
@@ -71,7 +69,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libsfft_kernels_{h.hexdigest()[:16]}.so")

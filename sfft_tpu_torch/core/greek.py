@@ -13,7 +13,7 @@ come from rfft2 half-spectra by one of:
   * 'matmul' — Hadamard product + a partial inverse DFT, two complex
     contractions with the static E0 / E1 matrices (plain torch);
   * 'kernel' — the same partial inverse DFT in the hand-written K1 kernel
-    (csrc/corr_window.cu), which never writes the Hadamard product out.
+    (csrc/corr_window.cuh), which never writes the Hadamard product out.
 
 'auto' picks 'irfft' for CPU tensors (as sfft_tpu does on the CPU) and the
 kernel for CUDA tensors; plain=True keeps CUDA tensors on 'irfft', so a
@@ -29,7 +29,7 @@ background planes are rolled-basis moments.
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Tuple
 
 import numpy as np
@@ -63,6 +63,9 @@ def _partial_idft_mats(N0: int, N1: int, wx: int, wy: int, cdtype):
     if N1 % 2 == 0:
         w[-1] = 1.0
     E1 = w[:, None] * np.exp(2j * np.pi * np.outer(v, cols) / N1)
+    # the lags +d and -d carry conjugate weights: what the kernel's
+    # conjugate-pair route (``_corr_window`` with sym) relies on
+    assert np.allclose(E1[:, wy + 1:], np.conj(E1[:, :wy][:, ::-1]), rtol=0.0, atol=1e-9)
     return E0.astype(cdtype), E1.astype(cdtype)
 
 
@@ -86,25 +89,133 @@ def corr_pairs_plain(specA, specB, ia, ib, E0, E1) -> torch.Tensor:
     return torch.real(torch.einsum("ru,cue->cre", E0, T1))
 
 
-def _corr_launch(specA, specB, ia, ib, E0, E1) -> torch.Tensor:
+_MAX_GROUPS = 8        # lag groups per pair (corr_window.cuh kMaxTY): two per warp
+_LAGS_PER_THREAD = (5, 9)   # the lag slots per thread the kernel is built for
+_BLOCK_WARPS = 4       # warps per stage-1 block (kMaxWarps)
+_GROUP_SLOTS = 4       # planes a block holds in shared memory (kSlots)
+_GROUP_INTS = 18       # ints per row of the group table (kGroupInts)
+_U_RANGES = 32         # ranges of u that stage 2 sums apart (kUSplit)
+_E1_ROW_PAD = 64       # the packed E1 has a multiple of this many rows (kMaxVT)
+
+
+def _corr_plan(R1: int, sym: bool = False):
+    """(TY, NE) of a K1 launch: TY lag groups per pair, each thread NE
+    consecutive lag slots; group g holds slots [g * NE, min(L, (g + 1) * NE))
+    of the L = R1 slots, or with `sym` (conjugate-symmetric weights: slot d
+    serves the lags w + d and w - d, w = R1 // 2) of the L = w + 1 slots.
+    The fewest padded slots, counting that a warp holds two groups; among
+    equals the most lags per thread."""
+    L = R1 // 2 + 1 if sym else R1
+    best = None
+    for ne in _LAGS_PER_THREAD:
+        ty = -(-L // ne)
+        if ty > _MAX_GROUPS:
+            continue
+        key = ((ty + ty % 2) * ne, -ne)
+        if best is None or key < best[0]:
+            best = (key, (ty, ne))
+    return best[1]
+
+
+def _pairs_per_block(ty: int) -> int:
+    """Pairs a stage-1 block works on: its warps over the warps of a pair."""
+    return _BLOCK_WARPS // -(-ty // 2)
+
+
+def _pair_groups(ia, ib, same: bool, ppb: int):
+    """The schedule of a K1 launch: the pair list (ia[c], ib[c]) cut into
+    groups of at most `ppb` pairs that touch at most 4 planes between them,
+    so that a block copies each plane's tile once for all its pairs. Pairs
+    are binned by rectangles of planes (2 x 2 for 4 pairs per block, or 3 x 1
+    where one side has a single plane; 2 x 1 for 2), and a bin holding more
+    than `ppb` pairs (a repeated pair) is cut in list order. `same`: the
+    two stacks are one tensor, so plane p of A and plane p of B share a slot.
+
+    Returns a list of (slots, pairs): slots a list of (stack, plane) with
+    stack 0 for A and 1 for B; pairs a list of (slot_a, slot_b, c)."""
+    ia = [int(v) for v in ia]
+    ib = [int(v) for v in ib]
+    ua, ub = sorted(set(ia)), sorted(set(ib))
+    if ppb >= 4:
+        ra, rb = (3, 1) if len(ub) == 1 else (1, 3) if len(ua) == 1 else (2, 2)
+    elif ppb >= 2:
+        ra, rb = (2, 1) if len(ua) > 1 else (1, 2)
+    else:
+        ra, rb = 1, 1
+    bin_a = {p: k // ra for k, p in enumerate(ua)}
+    bin_b = {p: k // rb for k, p in enumerate(ub)}
+    bins = {}
+    for c, (a, b) in enumerate(zip(ia, ib)):
+        bins.setdefault((bin_a[a], bin_b[b]), []).append(c)
+    groups = []
+    for cs in bins.values():
+        for k in range(0, len(cs), ppb):
+            slots, pairs = [], []
+            for c in cs[k:k + ppb]:
+                keys = ((0, ia[c]), (0 if same else 1, ib[c]))
+                for key in keys:
+                    if key not in slots:
+                        slots.append(key)
+                pairs.append((slots.index(keys[0]), slots.index(keys[1]), c))
+            groups.append((slots, pairs))
+    return groups
+
+
+def _group_table(groups) -> np.ndarray:
+    """The groups as the (ngroups, 18) int32 table the kernel reads: npairs,
+    nslots, the slots' planes [4] and stacks [4], the pairs' slots as
+    slot_a + 4 * slot_b [4] and their output indices c [4]."""
+    tab = np.zeros((len(groups), _GROUP_INTS), np.int32)
+    for row, (slots, pairs) in zip(tab, groups):
+        assert 1 <= len(pairs) <= _BLOCK_WARPS and 1 <= len(slots) <= _GROUP_SLOTS
+        row[0], row[1] = len(pairs), len(slots)
+        for k, (stack, plane) in enumerate(slots):
+            row[2 + k], row[6 + k] = plane, stack
+        for k, (sa, sb, c) in enumerate(pairs):
+            row[10 + k], row[14 + k] = sa + 4 * sb, c
+    return tab
+
+
+@lru_cache(maxsize=256)
+def _schedule(ia: tuple, ib: tuple, same: bool, ppb: int, device: torch.device):
+    """(group table on `device`, ngroups) of a pair list: built and uploaded
+    once per list."""
+    groups = _group_table(_pair_groups(ia, ib, same, ppb))
+    return torch.tensor(groups.ravel(), device=device), len(groups)
+
+
+def _corr_launch(specA, specB, ia, ib, E0, E1, sym=False):
+    """One kernel launch; with `sym` (and an odd R1) on the conjugate-pair
+    route."""
     from sfft_tpu_torch import _kernels
 
     npairs = len(ia)
     N0, N1h = specA.shape[1], specA.shape[2]
     R0, R1 = E0.shape[0], E1.shape[1]
-    real = torch.float32 if specA.dtype == torch.complex64 else torch.float64
+    double = specA.dtype == torch.complex128
+    real = torch.float64 if double else torch.float32
     dev = specA.device
-    pa = index(ia, dev, torch.int32)
-    pb = index(ib, dev, torch.int32)
+    sym = bool(sym) and R1 % 2 == 1
+    ty, ne = _corr_plan(R1, sym)
+    same = specA.data_ptr() == specB.data_ptr() and specA.shape == specB.shape
+    table_dev, ngroups = _schedule(tuple(int(v) for v in ia), tuple(int(v) for v in ib), same,
+                                   _pairs_per_block(ty), dev)
+    # scratch: E1 repacked into padded lag groups (rows up to a whole tile),
+    # the stage-1 result, and stage 2's partial sums over ranges of u
+    slots = ne if double else ne + ne % 2
+    E1p = torch.empty((-(-N1h // _E1_ROW_PAD) * _E1_ROW_PAD, (ty + ty % 2) * slots),
+                      dtype=specA.dtype, device=dev)
     T1 = torch.empty((npairs, N0, R1), dtype=specA.dtype, device=dev)
+    part = torch.empty((npairs, _U_RANGES, R0, R1), dtype=real, device=dev)
     out = torch.empty((npairs, R0, R1), dtype=real, device=dev)
-    entry = ("sfft_corr_window_c64" if specA.dtype == torch.complex64
-             else "sfft_corr_window_c128")
+    entry = "sfft_corr_window_c128" if double else "sfft_corr_window_c64"
     with torch.cuda.device(dev):
         err = getattr(_kernels.lib(), entry)(
-            specA.data_ptr(), specB.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            E0.data_ptr(), E1.data_ptr(), T1.data_ptr(), out.data_ptr(),
-            npairs, N0, N1h, R0, R1, _kernels.stream_ptr(specA))
+            specA.data_ptr(), specB.data_ptr(), table_dev.data_ptr(),
+            E0.data_ptr(), E1.data_ptr(), E1p.data_ptr(), T1.data_ptr(), part.data_ptr(),
+            out.data_ptr(),
+            npairs, ngroups, N0, N1h, R0, R1, ty, ne, int(sym),
+            _kernels.stream_ptr(specA))
     corr_window.launches += 1
     _kernels.check(err, "corr_window kernel launch")
     return out
@@ -114,8 +225,19 @@ def corr_window(specA: torch.Tensor, specB: torch.Tensor, ia, ib,
                 E0: torch.Tensor, E1: torch.Tensor) -> torch.Tensor:
     """K1: windowed cross-correlations (npairs, R0, R1) for the pair list
     (ia, ib) of the half-spectrum stacks specA (Fa, N0, N1h) and specB
-    (Fb, N0, N1h). CUDA tensors launch csrc/corr_window.cu (complex64 or
-    complex128); CPU tensors use ``corr_pairs_plain``."""
+    (Fb, N0, N1h), with any weight matrices E0 (R0, N0) and E1 (N1h, R1).
+    CUDA tensors launch csrc/corr_window.cuh (complex64 or complex128); CPU
+    tensors use ``corr_pairs_plain``."""
+    return _corr_window(specA, specB, ia, ib, E0, E1, sym=False)
+
+
+def _corr_window(specA, specB, ia, ib, E0, E1, sym: bool) -> torch.Tensor:
+    """``corr_window``; with `sym` the kernel takes E1's columns as
+    conjugate-symmetric about the middle one, E1[:, w + d] == conj(E1[:,
+    w - d]) with w = R1 // 2: it forms both lags from one set of products
+    (half the multiply-adds) and reads only the columns from w on. Only for
+    the matrices of ``_partial_idft_mats``, which are built so and checked
+    there."""
     tensors = (specA, specB, E0, E1)
     if specA.dtype not in (torch.complex64, torch.complex128) or any(
             t.dtype != specA.dtype for t in tensors):
@@ -149,7 +271,7 @@ def corr_window(specA: torch.Tensor, specB: torch.Tensor, ia, ib,
     if E1.shape[1] > 64 or len(ia) == 0 or len(ia) > 65535:
         raise ValueError(f"corr_window kernel takes 1..65535 pairs and at most "
                          f"64 lags along axis 1, got {len(ia)} and {E1.shape[1]}")
-    return _corr_launch(specA, specB, ia, ib, E0, E1)
+    return _corr_launch(specA, specB, ia, ib, E0, E1, sym=sym)
 
 
 corr_window.launches = 0
@@ -182,7 +304,8 @@ def corr_window_fft(
 
     if method in ("matmul", "kernel"):
         E0, E1 = _idft_mats_on(N0, N1, wx, wy, specA.dtype, specA.device)
-        pair_fn = corr_window if method == "kernel" else corr_pairs_plain
+        # the window's weights come in conjugate pairs of lags (+d, -d)
+        pair_fn = partial(_corr_window, sym=True) if method == "kernel" else corr_pairs_plain
         same = symmetric and specA is specB
         if method == "kernel":
             specA = specA.resolve_conj().contiguous()

@@ -155,6 +155,131 @@ def test_corr_window_wrapper_refusals():
     assert out.shape == (2, 11, 9) and tgreek.corr_window.launches == before
 
 
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("R1", [1, 2, 3, 4, 9, 10, 17, 23, 33, 47, 63, 64])
+def test_corr_plan_covers_every_lag_once(R1, sym):
+    """The lag groups of a K1 launch tile the lag slots: every slot in
+    exactly one group, no group empty, within the kernel's limits; with the
+    conjugate-pair lags the slots d = 0..w stand for the columns w + d and
+    w - d, which together are every column once."""
+    ty, ne = tgreek._corr_plan(R1, sym)
+    assert 1 <= ty <= tgreek._MAX_GROUPS and ne in tgreek._LAGS_PER_THREAD
+    L = R1 // 2 + 1 if sym else R1
+    groups = [range(g * ne, min(L, (g + 1) * ne)) for g in range(ty)]
+    assert all(len(g) > 0 for g in groups)
+    slots = sorted(d for g in groups for d in g)
+    assert slots == list(range(L))
+    if sym and R1 % 2:
+        w = R1 // 2
+        cols = sorted([w + d for d in slots] + [w - d for d in slots if d > 0])
+        assert cols == list(range(R1))
+    assert 1 <= tgreek._pairs_per_block(ty) <= 4
+
+
+def test_corr_plan_fast_slice_shapes():
+    # the peeled path's two windows: 17 slots of lag pairs in 2 groups of 9,
+    # 9 slots in 2 groups of 5; one warp per pair, so four pairs per block
+    assert tgreek._corr_plan(33, True) == (2, 9)
+    assert tgreek._corr_plan(17, True) == (2, 5)
+    assert tgreek._corr_plan(33, False) == (4, 9)
+    assert tgreek._pairs_per_block(2) == 4 and tgreek._pairs_per_block(4) == 2
+    assert tgreek._pairs_per_block(8) == 1
+
+
+def _pair_lists():
+    iu, ju = np.triu_indices(6)
+    ia, ib = np.meshgrid(np.arange(6), np.arange(3), indexing="ij")
+    return {
+        "symmetric": (iu, ju, True),
+        "cross": (ia.ravel(), ib.ravel(), False),
+        "against_one": (np.arange(6), np.zeros(6, int), False),
+        "one_against": (np.zeros(5, int), np.arange(5), False),
+        "chunk_of_triangle": (iu[3:8], ju[3:8], True),
+        "repeated": ([3, 0, 3, 1, 1, 0, 2, 3, 3, 3, 3, 3], [1, 1, 3, 0, 1, 2, 2, 0, 1, 1, 1, 1],
+                     True),
+        "repeated_cross": ([2, 2, 2, 2, 2, 0], [1, 1, 1, 1, 1, 1], False),
+        "single": ([4], [2], False),
+        "single_self": ([4], [4], True),
+    }
+
+
+@pytest.mark.parametrize("ppb", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(_pair_lists()))
+def test_pair_groups_cover_every_pair_once(name, ppb):
+    """The schedule of a K1 launch: every pair of the list in exactly one
+    group, with the planes it names; at most ppb pairs and 4 planes a
+    group; the table the kernel reads says the same."""
+    ia, ib, same = _pair_lists()[name]
+    groups = tgreek._pair_groups(ia, ib, same, ppb)
+    seen = []
+    for slots, pairs in groups:
+        assert 1 <= len(pairs) <= ppb and 1 <= len(slots) <= tgreek._GROUP_SLOTS
+        assert len(set(slots)) == len(slots)
+        used = set()
+        for sa, sb, c in pairs:
+            assert slots[sa] == (0, int(ia[c]))
+            assert slots[sb] == (0 if same else 1, int(ib[c]))
+            used.update((sa, sb))
+            seen.append(c)
+        assert used == set(range(len(slots)))      # no plane copied for nothing
+    assert sorted(seen) == list(range(len(ia)))
+    tab = tgreek._group_table(groups)
+    assert tab.shape == (len(groups), tgreek._GROUP_INTS) and tab.dtype == np.int32
+    back = []
+    for row in tab:
+        for k in range(row[0]):
+            sa, sb = row[10 + k] % 4, row[10 + k] // 4
+            assert sa < row[1] and sb < row[1]
+            back.append((row[14 + k], row[2 + sa], row[6 + sa], row[2 + sb], row[6 + sb]))
+    assert sorted(back) == [(c, int(ia[c]), 0, int(ib[c]), 0 if same else 1)
+                            for c in range(len(ia))]
+
+
+def test_pair_groups_share_planes():
+    # the 21 pairs of six planes in 6 groups that copy 18 plane tiles, not 42
+    iu, ju = np.triu_indices(6)
+    groups = tgreek._pair_groups(iu, ju, True, 4)
+    assert len(groups) == 6 and sum(len(s) for s, _ in groups) == 18
+    # six planes against one: 2 groups of 3 pairs, 8 tiles, not 12
+    groups = tgreek._pair_groups(np.arange(6), np.zeros(6, int), False, 4)
+    assert [len(p) for _, p in groups] == [3, 3] and sum(len(s) for s, _ in groups) == 8
+
+
+@pytest.mark.parametrize("symmetric,chunk", [(True, 0), (True, 4), (True, 1), (False, 0),
+                                             (False, 5), (False, 1)])
+def test_corr_window_fft_pair_schedule(monkeypatch, symmetric, chunk):
+    """Every pair of the window tensor goes to the pair function exactly
+    once (the upper triangle when symmetric), whatever the chunk."""
+    spec = torch.fft.rfft2(torch.as_tensor(_stack(F=5)))
+    seen = []
+    real = tgreek.corr_pairs_plain
+
+    def recording(sa, sb, ia, ib, E0, E1):
+        assert chunk == 0 or len(ia) <= chunk
+        seen.extend(zip(map(int, ia), map(int, ib)))
+        return real(sa, sb, ia, ib, E0, E1)
+
+    monkeypatch.setattr(tgreek, "corr_pairs_plain", recording)
+    out = tgreek.corr_window_fft(spec, spec, 48, 40, 3, 2, method="matmul",
+                                 symmetric=symmetric, chunk=chunk)
+    want = [(a, b) for a in range(5) for b in range(5) if not symmetric or a <= b]
+    assert sorted(seen) == want
+    monkeypatch.undo()
+    ref = tgreek.corr_window_fft(spec, spec, 48, 40, 3, 2, method="irfft")
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-10, atol=1e-8)
+
+
+def test_corr_window_unordered_repeated_and_single_pairs():
+    spec = torch.fft.rfft2(torch.as_tensor(_stack()))
+    E0, E1 = tgreek._idft_mats_on(48, 40, 5, 4, spec.dtype, spec.device)
+    ia, ib = [3, 0, 3, 1, 1, 0, 2, 3], [1, 1, 3, 0, 1, 2, 2, 0]
+    out = tgreek.corr_window(spec, spec, ia, ib, E0, E1)
+    for c, (a, b) in enumerate(zip(ia, ib)):
+        one = tgreek.corr_window(spec, spec, [a], [b], E0, E1)
+        assert one.shape == (1, 11, 9)
+        np.testing.assert_allclose(out[c].numpy(), one[0].numpy(), rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,bound", [(torch.complex64, 1e-5), (torch.complex128, 1e-11)])
 @pytest.mark.parametrize("symmetric", [True, False])
@@ -173,3 +298,72 @@ def test_corr_window_kernel_matches_twin_on_gpu(cuda, dtype, bound, symmetric):
                                      symmetric=symmetric, chunk=chunk)
         err = float((out - ref).abs().max() / ref.abs().max())
         assert err <= bound, (wx, wy, chunk, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bound", [(torch.complex64, 1e-5), (torch.complex128, 1e-11)])
+@pytest.mark.parametrize("N0,N1h", [(100, 51), (131, 52), (64, 17)])
+def test_corr_window_kernel_ragged_and_deterministic_on_gpu(cuda, dtype, bound, N0, N1h):
+    """Rows off the row tile, odd and even N1h, 1 to 64 lags, general and
+    conjugate-symmetric weights, an unordered pair list with repeated planes
+    and a single pair; twice, bit-equal."""
+    rng = np.random.default_rng(4)
+
+    def cplx(*shape):
+        return torch.view_as_complex(torch.as_tensor(
+            rng.normal(0, 1, shape + (2,)), device=cuda)).to(dtype)
+
+    sa, sb = cplx(4, N0, N1h), cplx(4, N0, N1h)
+    ia, ib = np.array([3, 0, 3, 1, 1, 0, 2, 3]), np.array([1, 1, 3, 0, 1, 2, 2, 0])
+    for R0, R1 in [(1, 1), (17, 17), (33, 33), (5, 64), (7, 10)]:
+        E0, E1 = cplx(R0, N0), cplx(N1h, R1)
+        variants = [(E1, False)]
+        if R1 % 2:   # conjugate-symmetric weights: the half-work variant, and the general one
+            w = R1 // 2
+            Es = torch.cat([torch.flip(E1[:, w + 1:], dims=(1,)).conj(), E1[:, w:]],
+                           dim=1).resolve_conj().contiguous()
+            variants += [(Es, True), (Es, False)]
+        for E, sym in variants:
+            for pa, pb in [(ia, ib), (ia[:1], ib[:1])]:
+                before = tgreek.corr_window.launches
+                out = tgreek._corr_window(sa, sb, pa, pb, E0, E, sym=sym)
+                again = tgreek._corr_window(sa, sb, pa, pb, E0, E, sym=sym)
+                torch.cuda.synchronize()
+                assert tgreek.corr_window.launches == before + 2
+                assert torch.equal(out, again)
+                ref = tgreek.corr_pairs_plain(sa, sb, pa, pb, E0, E)
+                err = float((out - ref).abs().max() / ref.abs().max())
+                assert err <= bound, (R0, R1, sym, len(pa), err)
+
+
+@pytest.mark.gpu
+def test_corr_window_kernel_on_side_stream_on_gpu(cuda):
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.normal(0, 1, (5, 200, 150)), dtype=torch.float32, device=cuda)
+    spec = torch.fft.rfft2(A)
+    ref = tgreek.corr_window_fft(spec, spec, 200, 150, 8, 16, method="matmul", symmetric=True)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        out = tgreek.corr_window_fft(spec, spec, 200, 150, 8, 16, method="kernel",
+                                     symmetric=True, chunk=4)
+    side.synchronize()
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_corr_window_refusals_on_gpu(cuda):
+    spec = torch.fft.rfft2(torch.as_tensor(_stack(), device=cuda))
+    E0, E1 = tgreek._idft_mats_on(48, 40, 5, 4, spec.dtype, spec.device)
+    ia, ib = [0, 1], [1, 2]
+    with pytest.raises(ValueError):   # lazy conjugate view
+        tgreek.corr_window(spec, spec.conj(), ia, ib, E0, E1)
+    with pytest.raises(ValueError):   # no pairs
+        tgreek.corr_window(spec, spec, [], [], E0, E1)
+    with pytest.raises(ValueError):   # more than 64 lags along axis 1
+        wide = torch.zeros((21, 65), dtype=spec.dtype, device=cuda)
+        tgreek.corr_window(spec, spec, ia, ib, E0, wide)
+    with pytest.raises(ValueError):   # operands on two devices
+        tgreek.corr_window(spec, spec, ia, ib, E0.cpu(), E1)
+    with pytest.raises(IndexError):
+        tgreek.corr_window(spec, spec, [0, 4], [0, 0], E0, E1)

@@ -98,6 +98,42 @@ def test_split_plan_covers_contraction(N0, N1):
     nsplit, rows = tmom._split_plan(N0, N1)
     assert rows % tmom._ROW_TILE == 0 and rows > 0
     assert nsplit * rows >= N0 and (nsplit - 1) * rows < N0
+    assert 1 <= nsplit <= 65535
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("N0,N1", [(4096, 4096), (300, 257), (512, 130), (7, 300), (1, 1),
+                                   (3001, 20001), (3001, 20002), (100000, 8), (5000000, 2)])
+def test_launch_plan_covers_every_block_once(N0, N1, aligned):
+    """Every (column block, row range) of the kernel's grid: the column
+    blocks tile [0, N1) and the row ranges tile [0, N0), each exactly once
+    and none empty; 16-byte loads only where every row stays aligned."""
+    plan = tmom._launch_plan(N0, N1, aligned=aligned)
+    assert plan["vec"] == (2 if aligned and N1 % 2 == 0 else 1)
+    assert plan["cols"] == tmom._COLS // 2 * plan["vec"]
+    col_edges = [(i * plan["cols"], min(N1, (i + 1) * plan["cols"]))
+                 for i in range(plan["col_blocks"])]
+    row_edges = [(k * plan["rows"], min(N0, (k + 1) * plan["rows"]))
+                 for k in range(plan["nsplit"])]
+    for edges, n in ((col_edges, N1), (row_edges, N0)):
+        assert edges[0][0] == 0 and edges[-1][1] == n
+        assert all(lo < hi for lo, hi in edges)
+        assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+    assert plan["nsplit"] <= 65535 and plan["rows"] % tmom._ROW_TILE == 0
+    # a full-size grid is about one even wave; never far beyond the target
+    assert plan["col_blocks"] * plan["nsplit"] <= max(plan["col_blocks"], tmom._TARGET_BLOCKS)
+
+
+def test_launch_plan_sweep_shapes():
+    """Over a sweep of square image shapes the full-width plan is the
+    kernel's one block shape (128 columns, whole 16-row tiles) in a grid of
+    at most one wave of the target."""
+    for n in (512, 1024, 2048, 4096, 8192):
+        plan = tmom._launch_plan(n, n)
+        assert (plan["vec"], plan["cols"]) == (2, tmom._COLS)
+        assert plan["rows"] % tmom._ROW_TILE == 0
+        assert plan["col_blocks"] * plan["nsplit"] <= tmom._TARGET_BLOCKS
+    assert tmom._launch_plan(4096, 4096)["nsplit"] == tmom._TARGET_BLOCKS // 32
 
 
 def test_peel_routes_f64_products_through_moments():
@@ -126,3 +162,57 @@ def test_moments_kernel_matches_twin_on_gpu(cuda, S, N0, N1):
     ref = tmom.moments_plain(Wd, Gd)
     rel = float((out - ref).abs().max() / ref.abs().max())
     assert rel <= 1e-13, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,N0,N1,shift", [
+    (3, 7, 300, 0),          # one split: no reduction pass
+    (8, 500, 384, 1),        # even N1, 8 bytes off the 16-byte boundary: 8-byte loads
+    (5, 3001, 20001, 0),     # odd N1, several W chunks per block
+    (5, 3001, 20002, 0),     # 16-byte loads, ragged last column block
+    (16, 100000, 8, 0),      # one column block, many splits
+])
+def test_moments_kernel_ragged_and_deterministic_on_gpu(cuda, S, N0, N1, shift):
+    rng = np.random.default_rng(3)
+    W = torch.as_tensor(rng.normal(0, 1, (S, N0)), device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    G = torch.randn((N0 * N1 + shift,), dtype=torch.float64, device=cuda, generator=g)
+    G = (G + 100.0)[shift:].reshape(N0, N1)
+    out = tmom.moments(W, G)
+    again = tmom.moments(W, G)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)           # fixed summation order
+    ref = tmom.moments_plain(W, G)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_moments_kernel_on_side_stream_on_gpu(cuda):
+    W, G = _inputs(8, 1024, 640)
+    Wd, Gd = torch.as_tensor(W, device=cuda), torch.as_tensor(G, device=cuda)
+    ref = tmom.moments_plain(Wd, Gd)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        outs = [tmom.moments(Wd, Gd) for _ in range(3)]
+    main = tmom.moments(Wd, Gd)             # the default stream has tickets of its own
+    side.synchronize()
+    torch.cuda.synchronize()
+    for out in outs + [main]:
+        assert torch.equal(out, outs[0])
+        assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_moments_refusals_on_gpu(cuda):
+    W = torch.ones((4, 32), dtype=torch.float64, device=cuda)
+    G = torch.ones((32, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tmom.moments(W.float(), G)
+    with pytest.raises(ValueError):
+        tmom.moments(W, G.T.contiguous().T)      # non-contiguous
+    with pytest.raises(ValueError):
+        tmom.moments(W, G.cpu())                 # two devices
+    with pytest.raises(ValueError):
+        tmom.moments(W, G[:31])
