@@ -31,10 +31,11 @@ BSplinePacket.BSP -> GeneralSFFT.GSS:
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. Two more steps of the
 contract path and of the v2 path, the first with the static-table caches
-emptied, hold every K4 and K5 launch of the step (the static tables' and the
-data's, at the shapes, depths and vector widths the path gives it) bit for
-bit against the twin on the same inputs, and time each kernel and its twin
-on each distinct launch's inputs. The v2 path is held to the f64 fft/fft/lu
+emptied, hold every launch of the K4 and K5 slicing stages of the step (the
+static tables' and the data's, on the views, depths and padded widths the
+path gives them) bit for bit against the stage twins on the same inputs
+(slices, scales, and the f32 matrix of the K5 setup), and time each stage
+and its twin on each distinct launch's inputs. The v2 path is held to the f64 fft/fft/lu
 path of the same configuration (difference within 1e-6 RMS, solution within
 1e-6 of its maximum), and its large solve (f32 Cholesky refined with sliced
 residuals) to the same solve with f64-matvec residuals (1e-9). The 4096^2
@@ -67,11 +68,22 @@ device (graph replay and back-to-back calls), which compares two commits'
 kernels on one clock when the script is run in a checkout of each.
 
     python3 chip_smoke.py --kernels OUT_DIR
+    python3 chip_smoke.py --slicers OUT_DIR
 
-builds the kernels with the compiler's resource report (registers, shared
-memory, spills; written to OUT_DIR/build_report.txt), runs the K3 and K1
-checks and timings of phase 3 alone, and profiles one call of each at the
-fast slice's shapes (device time of each stage by kernel name).
+build the kernels with the compiler's resource report (registers, shared
+memory, spills; written to OUT_DIR/build_report.txt) and run phase 3's
+checks and timings of K3 and K1 (with a profile of one call of each at the
+fast slice's shapes: device time of each stage by kernel name), or of the
+K4 and K5 slicing stages, alone.
+
+    python3 chip_smoke.py --stages OUT_DIR
+
+times the slicing stages of one steady contract step and one steady v2 step
+on the path's own inputs (device, back to back, plain twins, kernels and
+copies per call, bound; OUT_DIR/stages_<label>.json). It runs in a checkout
+without the stage entries of core/slicing.py too, where each stage is the
+wrapper chain the callers ran before them, so that two commits compare on
+one card.
 """
 
 import json
@@ -216,7 +228,7 @@ def phase_build():
     from sfft_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    if sys.argv[1:2] == ["--kernels"] and len(sys.argv) == 3:
+    if sys.argv[1:2] in (["--kernels"], ["--slicers"]) and len(sys.argv) == 3:
         # the compiler's report (registers, shared memory, spills) goes to a file
         import contextlib
 
@@ -497,8 +509,133 @@ def phase_kernels():
         assert ndiff == 0, f"K4 {shape}: {ndiff} slices or scales differ from the twin"
     log(f"phase 3 K4 slice_pair: 0 slices or scales differ from the twin over 8 shapes x "
         f"(rowwise, global) x nsl (6, 7, 8, 9)")
+    phase_stage_checks(rng)
     report["slice_triple_alone"] = phase_k5(rng)
     return report
+
+
+def k4_views(rng, dev):
+    """Views of wide-range f32 pairs as producers leave them: (name, make)
+    where make(seed) gives a (hi, lo) pair of that layout. Transposed and
+    strided views, a leading axis of stride 1, ragged K, rows off the
+    16-byte boundary, zero rows and lo parts that are f32 subnormals."""
+    import torch
+
+    def pair(shape, scale=1.0, zero=None):
+        v = rng.normal(0, 7.3, shape) * np.exp(rng.normal(0, 4, shape)) * scale
+        if zero is not None:
+            v[zero] = 0.0
+        h = torch.as_tensor(v.astype(np.float32), device=dev)
+        return h, torch.as_tensor((v - v.astype(np.float32)).astype(np.float32), device=dev)
+
+    def each(fn, *ps):
+        return tuple(fn(t) for t in ps)
+
+    return [
+        ("(64, 384) contiguous", lambda: pair((64, 384))),
+        ("(7, 33) contiguous", lambda: pair((7, 33))),
+        ("(1001,)", lambda: pair((1001,))),
+        ("(64, 385) rows of 400", lambda: each(lambda t: t[:, :385], *pair((64, 400)))),
+        ("(64, 384) transposed", lambda: each(lambda t: t.t(), *pair((384, 64)))),
+        ("(3, 40, 13) transposed", lambda: each(lambda t: t.transpose(1, 2), *pair((3, 13, 40)))),
+        ("(3, 40, 256) leading axis of stride 1",
+         lambda: each(lambda t: t.permute(2, 0, 1), *pair((40, 256, 3)))),
+        ("(5, 33, 130) transposed, a zero row",
+         lambda: each(lambda t: t.transpose(1, 2), *pair((5, 130, 33), zero=(1, slice(None), 4)))),
+        ("(130, 120) with zero rows", lambda: pair((130, 120), zero=[3, 77])),
+        ("(48, 100) off the 16-byte boundary",
+         lambda: each(lambda t: t.reshape(-1)[1:1 + 4800].reshape(48, 100), *pair((48 * 100 + 4,)))),
+        ("(33, 120) subnormal lo parts", lambda: pair((33, 120), scale=1e-33)),
+        ("(2, 900, 451) rows of 451", lambda: pair((2, 900, 451))),
+        ("(451, 30, 30) leading axis of stride 1",
+         lambda: each(lambda t: t.permute(2, 0, 1), *pair((30, 30, 451)))),
+    ]
+
+
+def phase_stage_checks(rng):
+    """The stage entries (core/slicing.py) against their twins, bit for bit:
+    K4's slice_pairs on the views of k4_views, real-only (one pair) and
+    complex (two pairs), rowwise and global, K padded to Kp = K, the next
+    multiple of 8 and 19 more, nsl 1 to 16, and slice_pair under given
+    scales; K5's slice_rows_f64 on f64 matrices whose rows alternate between
+    16- and 8-byte phases, a zero row, subnormal lo parts, a row too wide for
+    shared memory, nsl 8 to 16 and padded widths, and slice_vec_f64 on the
+    13207 vector (rows of the operand past nsl left as they were)."""
+    import torch
+    from sfft_tpu_torch.core import slicing
+
+    dev = torch.device("cuda")
+    nchecks = 0
+    for name, make in k4_views(rng, dev):
+        a, b = make(), make()
+        K = a[0].shape[-1]
+        for parts in ([a], [a, b]):
+            for rowwise in (True, False):
+                for Kp, nsl in [(K, 1), (K + (-K) % 8, 9), (K + 19, 16), (K + (-K) % 8, 6)]:
+                    before = slicing.slice_pair.launches
+                    got = slicing.slice_pairs(parts, nsl, Kp, rowwise)
+                    torch.cuda.synchronize()
+                    assert slicing.slice_pair.launches == before + 1, name
+                    ref = slicing.slice_pairs_plain(parts, nsl, Kp, rowwise)
+                    for (sl, s), (rsl, rs) in zip(got, ref):
+                        assert sl.shape == rsl.shape and torch.equal(sl, rsl) and \
+                            torch.equal(s, rs), f"K4 stage {name} parts={len(parts)} " \
+                            f"rowwise={rowwise} Kp={Kp} nsl={nsl}: differs from the twin"
+                    nchecks += 1
+        h, lo = (t.contiguous() for t in a)
+        for s in (ref[0][1], slicing._pow2ceil_scalar(h.abs().amax(dim=-1, keepdim=True))):
+            assert torch.equal(slicing.slice_pair(h, lo, s.contiguous(), 8),
+                               slicing.slice_pair_plain(h, lo, s, 8)), f"K4 given scale {name}"
+            nchecks += 1
+    log(f"phase 3 K4 slice_pairs stage: {nchecks} checks bit-identical to the twin (slices and "
+        f"scales) over {len(k4_views(rng, dev))} views x (one pair, two) x (rowwise, global) x "
+        f"(Kp, nsl) in ((K, 1), (K8, 9), (K + 19, 16), (K8, 6)), and slice_pair under given "
+        f"scales")
+
+    def f64(shape, scale=1.0):
+        v = rng.normal(0, 7.3, shape) * np.exp(rng.normal(0, 4, shape)) * scale
+        return torch.as_tensor(v, device=dev)
+
+    n = V2_SOLVE_N
+    cases = []
+    A = f64((512, n))
+    A[3] = 0.0
+    cases.append((f"(512, {n}) with a zero row", A, [n + (-n) % 8, n]))
+    cases.append(("(37, 53)", f64((37, 53)), [56, 55, 53]))
+    cases.append(("(64, 384)", f64((64, 384)), [384, 392]))
+    cases.append(("(40, 1207) rows of 1300", f64((40, 1300))[:, :1207], [1208]))
+    cases.append(("(33, 120) subnormal lo parts", f64((33, 120), 1e-22), [120]))
+    cases.append(("(3, 30011) rows too wide for shared memory", f64((3, 30011)), [30016]))
+    nk5 = 0
+    for name, A, widths in cases:
+        d = torch.as_tensor(np.exp(rng.normal(0, 2, max(A.shape))), device=dev)
+        for nsl in (8, 12, 16):
+            for out_cols in widths:
+                before = slicing.slice_triple.launches
+                got = slicing.slice_rows_f64(A, d, nsl, out_cols)
+                torch.cuda.synchronize()
+                assert slicing.slice_triple.launches == before + 1, name
+                ref = slicing.slice_rows_f64_plain(A, d, nsl, out_cols)
+                for g, r in zip(got, ref):
+                    assert g.shape == r.shape and torch.equal(g, r), \
+                        f"K5 matrix stage {name} nsl={nsl} out_cols={out_cols}: differs"
+                nk5 += 1
+    for m, rows, ldo in [(n, 64, n + (-n) % 8), (1207, 16, 1210), (13, 12, 13)]:
+        x = f64((m,))
+        for nsl in (8, 12, 16):
+            if nsl > rows:
+                continue
+            buf = torch.full((rows, ldo), 77, dtype=torch.int8, device=dev)
+            want = buf.clone()
+            s = slicing.slice_vec_f64(x, nsl, buf)
+            torch.cuda.synchronize()
+            rs = slicing.slice_vec_f64_plain(x, nsl, want)
+            assert torch.equal(buf, want) and torch.equal(s, rs), \
+                f"K5 vector stage ({m},) into ({rows}, {ldo}) nsl={nsl}: differs"
+            nk5 += 1
+    log(f"phase 3 K5 slice_rows_f64 / slice_vec_f64 stages: {nk5} checks bit-identical to the "
+        f"twins (Ah, slices, scales; the operand's other rows untouched) over "
+        f"{'; '.join(c[0] for c in cases)}; vectors ({n},), (1207,), (13,); nsl 8, 12, 16")
 
 
 def phase_k5(rng):
@@ -581,6 +718,27 @@ def phase_k5(rng):
     log(f"phase 3 K5 slice_triple ({n}, {n}) rowwise nsl=12 into {npad} columns: 0 differing "
         f"slices; kernel {k5['ms']:.4f} ms, plain twin {k5['plain_ms']:.4f} ms, bound "
         f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}); no single PyTorch call computes it")
+    del h, m, lo, s
+
+    # the solve's setup as one stage: from A and d to Ah, slices and scales
+    A = torch.randn((n, n), dtype=torch.float64, device=dev, generator=g)
+    A *= torch.exp(4.0 * torch.randn((n, n), dtype=torch.float64, device=dev, generator=g))
+    d = torch.exp(torch.randn((n,), dtype=torch.float64, device=dev, generator=g))
+    got = slicing.slice_rows_f64(A, d, 12, npad)
+    torch.cuda.synchronize()
+    ref = slicing.slice_rows_f64_plain(A, d, 12, npad)
+    nd = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    assert nd == 0, f"K5 matrix stage ({n}, {n}): {nd} values differ from the twin"
+    del got, ref
+    stage = dict(ms=cuda_ms(lambda: slicing.slice_rows_f64(A, d, 12, npad), reps=3, inner=3),
+                 plain_ms=cuda_ms(lambda: slicing.slice_rows_f64_plain(A, d, 12, npad), reps=3,
+                                  inner=1))
+    stage["bound_ms"], stage["bound_by"] = k5_matrix_bound(n, 12, npad)
+    k5["matrix_stage"] = stage
+    log(f"phase 3 K5 slice_rows_f64 stage ({n}, {n}) from A and d, nsl=12 into {npad} columns: "
+        f"Ah, slices and scales bit-identical to the twin; kernel {stage['ms']:.4f} ms, plain "
+        f"twin {stage['plain_ms']:.4f} ms, bound {stage['bound_ms']:.4f} ms "
+        f"({stage['bound_by']}, {100 * stage['bound_ms'] / stage['ms']:.1f}%)")
     return k5
 
 
@@ -594,99 +752,375 @@ def k5_bound(shape, nsl, rowwise, out_cols):
                  n * (16 + 4 * nsl), FP32_FLOP_PER_S)
 
 
-def k4_bound(shape, nsl, rowwise):
-    """K4's bound: read (hi, lo) f32 and the scales, write nsl int8 planes;
-    ~6 operations for the TwoSum and 4 per slice."""
-    n = int(np.prod(shape))
-    nscale = n // shape[-1] if rowwise else 1
-    return bound(n * (8 + nsl) + 4 * nscale, n * (6 + 4 * nsl), FP32_FLOP_PER_S)
-
-
 def slicers_on_path(run, phase, path):
     """Two steps of one path (`run` drives one) with every K4 and K5 launch
-    checked: its output against the plain twin on the same inputs, bit for
-    bit. The first runs with the static-table caches emptied, so the big
-    static tables are sliced again; the second is a steady-state step. Then
-    each kernel and its twin are timed on the first inputs of each distinct
-    launch signature (shape, rowwise, nsl, vector width, output width), and
-    summed over the steady step's launches (the per-step time, plain time
-    and bound of the report). Returns the report of each slicer that the
-    path launched."""
+    checked: its outputs (slices, scales, and Ah of the K5 matrix stage)
+    against the plain stage twin on the same inputs, bit for bit. The first
+    step runs with the static-table caches emptied, so the big static tables
+    are sliced again; the second is a steady-state step. Then each distinct
+    launch signature (shape, strides, alignment, rowwise, nsl, padded width,
+    parts) is timed on its first inputs: the stage's device time (calls
+    replayed in a CUDA graph), back to back from Python, its plain twin,
+    the kernels one call launches and its bound, summed over the steady
+    step's launches. Returns the report of each slicer that the path
+    launched."""
     import torch
-    from sfft_tpu_torch.core import exact_fft, slicing
+    from sfft_tpu_torch.core import exact_fft, slicing, solve
 
-    launch4, launch5 = slicing._launch, slicing._launch_triple
+    launch4 = slicing._launch_pairs
+    rows5, vec5 = solve.slice_rows_f64, solve.slice_vec_f64
     inputs = {}
     counts = [{}, {}]
     step = [0]
 
-    def note(sig, out, ref, tensors):
-        nd = int((out != ref).sum())
-        assert nd == 0, f"{sig[0]} on the {path} path {sig[1:]}: {nd} slices differ from the twin"
+    def note(sig, same, make):
+        assert same, f"{sig[0]} on the {path} path {sig[1:]}: differs from the twin"
         if sig not in inputs:
-            inputs[sig] = tuple(t.clone() for t in tensors)
+            inputs[sig] = make()
         counts[step[0]][sig] = counts[step[0]].get(sig, 0) + 1
-        return out
 
-    def checked4(hi, lo, s, nsl):
-        sig = ("slice_pair", tuple(hi.shape), s.dim() > 0, nsl,
-               slicing._vec_width(hi, lo, s), hi.shape[-1])
-        return note(sig, launch4(hi, lo, s, nsl), slicing.slice_pair_plain(hi, lo, s, nsl),
-                    (hi, lo, s))
+    def checked4(parts, nsl, Kp, rowwise, scales=None):
+        got = launch4(parts, nsl, Kp, rowwise, scales)
+        if scales is None:
+            ref = slicing.slice_pairs_plain(parts, nsl, Kp, rowwise)
+        else:
+            ref = [(slicing.slice_pair_plain(h, l, s, nsl), s)
+                   for (h, l), s in zip(parts, scales)]
+        h = parts[0][0]
+        sig = ("slice_pair", tuple(h.shape), tuple(h.stride()), h.data_ptr() % 16 == 0,
+               bool(rowwise), nsl, Kp, len(parts), scales is not None)
+        same = all(torch.equal(a, b) and torch.equal(s, t) for (a, s), (b, t) in zip(got, ref))
+        note(sig, same, lambda: ([(_clone_view(a), _clone_view(b)) for a, b in parts], scales))
+        return got
 
-    def checked5(hi, mid, lo, s, nsl, out_cols):
-        sig = ("slice_triple", tuple(hi.shape), s.dim() > 0, nsl,
-               slicing._triple_vec_in(hi, mid, lo), out_cols)
-        return note(sig, launch5(hi, mid, lo, s, nsl, out_cols),
-                    slicing.slice_triple_plain(hi, mid, lo, s, nsl, out_cols),
-                    (hi, mid, lo, s))
+    def checked_rows(A, d, nsl, out_cols=None):
+        got = rows5(A, d, nsl, out_cols)
+        ref = slicing.slice_rows_f64_plain(A, d, nsl, out_cols)
+        sig = ("slice_rows_f64", tuple(A.shape), tuple(A.stride()), A.data_ptr() % 16 == 0,
+               True, nsl, out_cols, 1, False)
+        note(sig, all(torch.equal(a, b) for a, b in zip(got, ref)),
+             lambda: (A.clone(), d.clone()))
+        return got
+
+    def checked_vec(x, nsl, out):
+        want = out.clone()
+        s = vec5(x, nsl, out)
+        rs = slicing.slice_vec_f64_plain(x, nsl, want)
+        sig = ("slice_vec_f64", tuple(x.shape), tuple(out.shape), True, False, nsl,
+               out.shape[1], 1, False)
+        note(sig, torch.equal(out, want) and torch.equal(s, rs),
+             lambda: (x.clone(), out.clone()))
+        return s
 
     exact_fft._static_slices_for.cache_clear()
     exact_fft._stacked.cache_clear()
-    slicing._launch, slicing._launch_triple = checked4, checked5
+    slicing._launch_pairs = checked4
+    solve.slice_rows_f64, solve.slice_vec_f64 = checked_rows, checked_vec
     try:
         for step[0] in (0, 1):
             run()
             torch.cuda.synchronize()
     finally:
-        slicing._launch, slicing._launch_triple = launch4, launch5
+        slicing._launch_pairs = launch4
+        solve.slice_rows_f64, solve.slice_vec_f64 = rows5, vec5
     reports = {}
-    for sig, tensors in sorted(inputs.items(), key=lambda kv: kv[0]):
-        name, shape, rowwise, nsl, vec, out_cols = sig
+    for sig, tensors in sorted(inputs.items(), key=lambda kv: str(kv[0])):
+        name, shape, strides, aligned, rowwise, nsl, Kp, nparts, given = sig
         if name == "slice_pair":
-            kernel = lambda: slicing.slice_pair(*tensors, nsl)
-            twin = lambda: slicing.slice_pair_plain(*tensors, nsl)
-            bms, by = k4_bound(shape, nsl, rowwise)
+            parts, scales = tensors
+            if given:
+                kernel = lambda: slicing.slice_pair(*parts[0], scales[0], nsl)
+                twin = lambda: slicing.slice_pair_plain(*parts[0], scales[0], nsl)
+            else:
+                kernel = lambda: slicing.slice_pairs(parts, nsl, Kp, rowwise)
+                twin = lambda: slicing.slice_pairs_plain(parts, nsl, Kp, rowwise)
+            bms, by = k4_stage_bound(shape, nparts, nsl, Kp, rowwise)
+            big = int(np.prod(shape)) > 2 ** 22
+            report = "slice_pair"
+        elif name == "slice_rows_f64":
+            A, d = tensors
+            kernel = lambda: slicing.slice_rows_f64(A, d, nsl, Kp)
+            twin = lambda: slicing.slice_rows_f64_plain(A, d, nsl, Kp)
+            bms, by = k5_matrix_bound(shape[0], nsl, Kp)
+            big = True
+            report = "slice_triple"
         else:
-            kernel = lambda: slicing.slice_triple(*tensors, nsl, out_cols)
-            twin = lambda: slicing.slice_triple_plain(*tensors, nsl, out_cols)
-            bms, by = k5_bound(shape, nsl, rowwise, out_cols)
-        big = tensors[0].numel() > 2 ** 26
-        ms = cuda_ms(kernel, reps=3 if big else 5, inner=3 if big else 10)
+            x, buf = tensors
+            kernel = lambda: slicing.slice_vec_f64(x, nsl, buf)
+            twin = lambda: slicing.slice_vec_f64_plain(x, nsl, buf.clone())
+            bms, by = k5_vector_bound(shape[0], nsl, Kp)
+            big = False
+            report = "slice_triple"
+        # the kernels one call launches, from the wrappers' counts
+        counters = (slicing.slice_pair.launches + slicing.slice_pair.scale_launches
+                    + slicing.slice_triple.launches)
+        kernel()
+        nk = (slicing.slice_pair.launches + slicing.slice_pair.scale_launches
+              + slicing.slice_triple.launches - counters)
+        ms = graph_ms(kernel, calls=2 if big else 20, reps=3 if big else 7)
+        ems = cuda_ms(kernel, reps=3 if big else 5, inner=3 if big else 10)
         pms = cuda_ms(twin, reps=3 if big else 5, inner=1 if big else 10)
         count = counts[1].get(sig, 0)
-        r = reports.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                          library_ms=None, bytes_ms=0.0, first=0, steady=0,
-                                          signatures=0))
+        r = reports.setdefault(report, dict(max_abs_err=0.0, ms=0.0, eager_ms=0.0, plain_ms=0.0,
+                                            bound_ms=0.0, library_ms=None, bytes_ms=0.0,
+                                            first=0, steady=0, kernels=0, signatures=0))
         r["ms"] += count * ms
+        r["eager_ms"] += count * ems
         r["plain_ms"] += count * pms
         r["bound_ms"] += count * bms
         r["bytes_ms"] += count * bms * (by == "bytes")
         r["first"] += counts[0].get(sig, 0)
         r["steady"] += count
+        r["kernels"] += count * nk
         r["signatures"] += 1
-        log(f"phase {phase} {name} on the {path} path {shape} rowwise={rowwise} nsl={nsl} "
-            f"vec={vec} out_cols={out_cols}: {counts[0].get(sig, 0)} launches at first use, "
-            f"{count} per steady step, 0 differing slices; kernel {ms:.4f} ms, plain twin "
+        log(f"phase {phase} {name} on the {path} path {shape} strides {strides} aligned={aligned} "
+            f"rowwise={rowwise} nsl={nsl} Kp={Kp} parts={nparts}"
+            f"{' given scale' if given else ''}: {counts[0].get(sig, 0)} launches at first use, "
+            f"{count} per steady step, all bit-identical to the twin; {nk} kernel(s) a call, "
+            f"device {ms:.4f} ms (graph replay), back to back {ems:.4f} ms, plain twin "
             f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
     for name, r in reports.items():
         r["bound_by"] = "bytes" if 2 * r.pop("bytes_ms") >= r["bound_ms"] else "operations"
-        log(f"phase {phase} {name} on the {path} path: {r['first']} launches at first use and "
-            f"{r['steady']} per steady step, {r['signatures']} signatures, all bit-identical "
-            f"to the twin; per steady step kernel {r['ms']:.4f} ms, plain twin "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); no "
-            f"single PyTorch call computes it")
+        log(f"phase {phase} {name} on the {path} path: {r['first']} stage calls at first use and "
+            f"{r['steady']} per steady step ({r['kernels']} kernels), {r['signatures']} "
+            f"signatures, all bit-identical to the twins; per steady step device "
+            f"{r['ms']:.4f} ms, back to back {r['eager_ms']:.4f} ms, plain twin "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
+            f"computes it")
     return reports
+
+
+def _clone_view(t):
+    """A copy of t with t's sizes, strides and storage offset (so the same
+    layout, alignment and vector width reach the slicer)."""
+    import torch
+
+    off = t.storage_offset()
+    span = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    base = torch.empty(off + span, dtype=t.dtype, device=t.device)
+    out = base.as_strided(t.shape, t.stride(), off)
+    out.copy_(t)
+    return out
+
+
+def stage_impls():
+    """The slicing stages as this checkout has them: (K4 stage, K5 matrix
+    stage, K5 vector stage, label), each taking plain=True for its plain
+    twin. With the stage entries of core/slicing.py (slice_pairs,
+    slice_rows_f64, slice_vec_f64) each stage is the entry; in a checkout
+    without them (the older wrapper chain) each stage is the chain that the
+    callers ran: _padk, the scale from amax and _pow2ceil_scalar,
+    .contiguous() and one K4 launch per part; A * d * d, _split3, the scale
+    and K5; _split3, K5, a zeroed (64, Kp) operand and the copy into it."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, slicing, solve
+
+    if hasattr(slicing, "slice_pairs"):
+        def k4(parts, nsl, Kp, rowwise, plain=False):
+            fn = slicing.slice_pairs_plain if plain else slicing.slice_pairs
+            return fn(parts, nsl, Kp, rowwise)
+
+        def k5m(A, d, plain=False):
+            fn = slicing.slice_rows_f64_plain if plain else slicing.slice_rows_f64
+            return fn(A, d, solve._RESID_NSL, A.shape[1] + (-A.shape[1]) % 8)
+
+        def k5v(x, Kp, buf, plain=False):
+            fn = slicing.slice_vec_f64_plain if plain else slicing.slice_vec_f64
+            return fn(x, solve._RESID_NSL, buf)
+
+        label = "stage"
+    else:
+        def k4(parts, nsl, Kp, rowwise, plain=False):
+            return [exact_fft._slice_pair_real(exact_fft._padk(h, Kp), exact_fft._padk(l, Kp),
+                                               nsl, rowwise, plain) for h, l in parts]
+
+        def k5m(A, d, plain=False):
+            return solve._sliced_residual_setup(A, d, plain=plain)
+
+        def k5v(x, Kp, buf, plain=False):
+            nsl = solve._RESID_NSL
+            xsl, sx = exact_fft._slice_triple_real(*solve._split3(x), nsl, plain=plain,
+                                                   out_cols=Kp)
+            X8 = torch.zeros((64, Kp), dtype=torch.int8, device=x.device)
+            X8[:nsl] = xsl
+            return X8, sx
+
+        label = "chain"
+    return k4, k5m, k5v, label
+
+
+def device_launches(fn):
+    """Kernels and copies one call of fn puts on the device (torch.profiler;
+    the most over three profiled calls, as a trace can drop events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if str(getattr(e, "device_type", "")).endswith("CUDA")))
+    return max(counts)
+
+
+def k4_stage_bound(shape, nparts, nsl, Kp, rowwise):
+    """The K4 stage's bound: per part, 8 bytes in per live element, nsl
+    bytes out per padded element and 4 bytes per scale; ~6 operations for
+    the TwoSum and 4 per slice."""
+    n = int(np.prod(shape))
+    rows = n // shape[-1]
+    return bound(nparts * (8 * n + nsl * rows * Kp + 4 * (rows if rowwise else 1)),
+                 nparts * n * (6 + 4 * nsl), FP32_FLOP_PER_S)
+
+
+def k5_matrix_bound(n, nsl, ldo):
+    """The K5 matrix stage's bound: A (f64) and d in, Ah (f32), nsl int8
+    planes of the padded rows and the row scales out; ~30 operations for the
+    equilibration, the split, the TwoSum and the injections and 4 per slice."""
+    return bound(8 * n * n + 8 * n + 4 * n * n + nsl * n * ldo + 4 * n,
+                 n * n * (30 + 4 * nsl), FP32_FLOP_PER_S)
+
+
+def k5_vector_bound(n, nsl, Kp):
+    """The K5 vector stage's bound: x (f64) in, the nsl slice rows of the
+    (64, Kp) operand and the scale out (the operand's other rows are zeros
+    that a residual need not write)."""
+    return bound(8 * n + nsl * Kp + 4, n * (30 + 4 * nsl), FP32_FLOP_PER_S)
+
+
+def capture_stages(run):
+    """Drive one step (`run`) and keep, per slicing-stage signature, the
+    inputs of its first call (same layout) and its calls in the step. K4
+    stages are taken where the callers hand their operands to the slicer
+    (exact_fft._cmatmul_sliced: the producers' views, unpadded), K5 at
+    solve._sliced_residual_setup and solve._sliced_matvec."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, pexact, solve
+
+    sigs = {}
+
+    def note(sig, make):
+        if sig not in sigs:
+            sigs[sig] = [make(), 0]
+        sigs[sig][1] += 1
+
+    real_cm, real_setup, real_mv = (exact_fft._cmatmul_sliced, solve._sliced_residual_setup,
+                                    solve._sliced_matvec)
+
+    def cm(data, W, rowwise=False, real_out=False, prof=None, plain=False):
+        nsl = (prof or exact_fft.SliceProfile(exact_fft.NSL_DATA, exact_fft.NSL_STATIC,
+                                              exact_fft.KMAX)).nsl_data
+        K = W.host().shape[0]
+        parts = [(data.rh, data.rl)] + ([] if data.is_real else [(data.ih, data.il)])
+        sig = ("K4", tuple(data.rh.shape), tuple(data.rh.stride()),
+               data.rh.data_ptr() % 16 == 0, bool(rowwise), nsl, K + (-K) % 8, len(parts))
+        note(sig, lambda: [(_clone_view(h), _clone_view(l)) for h, l in parts])
+        return real_cm(data, W, rowwise, real_out, prof, plain)
+
+    def setup(A, d, *args, **kw):
+        note(("K5 matrix", tuple(A.shape)), lambda: (A.clone(), d.clone()))
+        return real_setup(A, d, *args, **kw)
+
+    def mv(Asl_flat, sa, x, *args, **kw):
+        note(("K5 vector", tuple(x.shape), Asl_flat.shape[1]), lambda: (x.clone(),))
+        return real_mv(Asl_flat, sa, x, *args, **kw)
+
+    exact_fft._cmatmul_sliced = pexact._cmatmul_sliced = cm
+    solve._sliced_residual_setup, solve._sliced_matvec = setup, mv
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        exact_fft._cmatmul_sliced = pexact._cmatmul_sliced = real_cm
+        solve._sliced_residual_setup, solve._sliced_matvec = real_setup, real_mv
+    return sigs
+
+
+def time_stages(sigs, path):
+    """Each captured stage signature timed on its captured inputs: device
+    time (calls in a CUDA graph, replayed), back-to-back time, the plain
+    twins' time, the kernels and copies one call puts on the device, and its
+    bound; summed over the step's calls. Returns the per-step sums by stage
+    kind and the per-signature rows."""
+    import torch
+
+    k4, k5m, k5v, label = stage_impls()
+    rows, sums = [], {}
+    for sig, (inputs, count) in sorted(sigs.items(), key=lambda kv: str(kv[0])):
+        kind = sig[0]
+        if kind == "K4":
+            _, shape, strides, aligned, rowwise, nsl, Kp, nparts = sig
+            call = lambda plain=False: k4(inputs, nsl, Kp, rowwise, plain)
+            bms, by = k4_stage_bound(shape, nparts, nsl, Kp, rowwise)
+            big = int(np.prod(shape)) > 2 ** 22
+        elif kind == "K5 matrix":
+            A, d = inputs
+            call = lambda plain=False: k5m(A, d, plain)
+            n = A.shape[0]
+            bms, by = k5_matrix_bound(n, 12, n + (-n) % 8)
+            big = True
+        else:
+            (x,), Kp = inputs, sig[2]
+            buf = torch.zeros((64, Kp), dtype=torch.int8, device=x.device)
+            call = lambda plain=False: k5v(x, Kp, buf, plain)
+            bms, by = k5_vector_bound(x.shape[0], 12, Kp)
+            big = False
+        ms = graph_ms(call, calls=3 if big else 20, reps=5)
+        eager = cuda_ms(call, reps=3 if big else 5, inner=3 if big else 10)
+        pms = cuda_ms(lambda: call(True), reps=3 if big else 5, inner=1 if big else 10)
+        nlaunch = device_launches(call)
+        torch.cuda.synchronize()
+        row = dict(sig=[str(v) for v in sig], count=count, ms=ms, eager_ms=eager, plain_ms=pms,
+                   launches=nlaunch, bound_ms=bms, bound_by=by)
+        rows.append(row)
+        s = sums.setdefault(kind, dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, launches=0,
+                                       bound_ms=0.0, calls=0, signatures=0))
+        for k in ("ms", "eager_ms", "plain_ms", "bound_ms"):
+            s[k] += count * row[k]
+        s["launches"] += count * nlaunch
+        s["calls"] += count
+        s["signatures"] += 1
+        log(f"stages {path} {label} {sig}: {count} calls per step; device {ms:.4f} ms (graph "
+            f"replay), back to back {eager:.4f} ms, plain twins {pms:.4f} ms, {nlaunch} kernels "
+            f"and copies per call, bound {bms:.4f} ms ({by})")
+    for kind, s in sums.items():
+        log(f"stages {path} {label} {kind} per step: {s['calls']} calls, {s['signatures']} "
+            f"signatures, {s['launches']} kernels and copies; device {s['ms']:.4f} ms, back to "
+            f"back {s['eager_ms']:.4f} ms, plain twins {s['plain_ms']:.4f} ms, bound "
+            f"{s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
+    return sums, rows
+
+
+def phase_stages(I, J, out_dir):
+    """--stages: the slicing stages of one steady contract step and one
+    steady v2 step, each signature timed on the path's own inputs (see
+    time_stages); written to out_dir/stages_<label>.json."""
+    import tempfile
+
+    import torch
+    from sfft_tpu_torch import BSplinePacket, PureTorchCustomizedPacket, make_config
+
+    os.makedirs(out_dir, exist_ok=True)
+    label = stage_impls()[3]
+    cfg = make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
+                      solver="transformed")
+    step = lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+    step()
+    report = {"contract": time_stages(capture_stages(step), "contract")}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ref, sci = write_pair_fits(d)
+        v2cfg = nircam_config(**EXACT_TRIO)
+        step = lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=v2cfg)
+        step()
+        report["v2"] = time_stages(capture_stages(step), "v2")
+    with open(os.path.join(out_dir, f"stages_{label}.json"), "w") as f:
+        json.dump(report, f, indent=1)
 
 
 def run_pcp(I, J, cfg, plain, reps):
@@ -789,11 +1223,13 @@ def phase_contract(I, J, sol64, diff64):
     torch.cuda.reset_peak_memory_stats()
     moments.moments.launches = 0
     greek.corr_window.launches = 0
-    slicing.slice_pair.launches = 0
+    slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
     sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
+    # K4: its slicing launches and its global-max launches (one source)
     launches = {"moments": moments.moments.launches,
                 "corr_window": greek.corr_window.launches,
-                "slice_pair": slicing.slice_pair.launches}
+                "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
+                "slice_pair_scale": slicing.slice_pair.scale_launches}
     peak = torch.cuda.max_memory_allocated()
     assert launches["moments"] > 0 and launches["slice_pair"] > 0, \
         f"a kernel of the contract path never launched: {launches}"
@@ -916,8 +1352,11 @@ def phase_v2():
         torch.cuda.reset_peak_memory_stats()
         for f in counters.values():
             f.launches = 0
+        slicing.slice_pair.scale_launches = 0
         sol, diff, step_s = run_bsp(ref, sci, cfg, plain=False, reps=3)
         launches = {k: f.launches for k, f in counters.items()}
+        launches["slice_pair_scale"] = slicing.slice_pair.scale_launches
+        launches["slice_pair"] += launches["slice_pair_scale"]
         peak = torch.cuda.max_memory_allocated()
         assert launches["slice_pair"] > 0 and launches["slice_triple"] > 0, \
             f"a kernel of the v2 path never launched: {launches}"
@@ -1183,17 +1622,21 @@ def phase_profile(I, J, out_dir):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         ev = prof.key_averages()
         kernels = [e for e in ev if on_device(e)]
         busy = sum(dev_us(e) for e in kernels) / 1e6
+        cat = sum(dev_us(e) for e in kernels if "CatArrayBatchedCopy" in e.key) / 1e3
         log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in "
             f"{sum(e.count for e in kernels)} kernels and copies, idle share "
-            f"{1 - busy / wall:.3f}")
+            f"{1 - busy / wall:.3f}; concatenation copies {cat:.2f} ms; peak memory "
+            f"{peak / 2**30:.2f} GiB")
         for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
             log(f"profile {name} device: {e.key[:60]:60s} {dev_us(e) / 1e3:9.2f} ms "
                 f"x{e.count}")
@@ -1205,7 +1648,8 @@ def phase_profile(I, J, out_dir):
     tmp.cleanup()
 
 
-USAGE = "usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR]"
+USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
+         "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
 def main():
@@ -1222,23 +1666,30 @@ def main():
     ok_line = json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}})
-    if sys.argv[1:2] == ["--kernels"]:
+    if sys.argv[1:2] in (["--kernels"], ["--slicers"]):
         if len(sys.argv) != 3:
             print(USAGE, file=sys.stderr)
             return 2
-        phase_k3()
-        phase_k1()
-        phase_kernel_profile(sys.argv[2])
+        if sys.argv[1] == "--kernels":
+            phase_k3()
+            phase_k1()
+            phase_kernel_profile(sys.argv[2])
+        else:
+            rng = np.random.default_rng(6)
+            phase_stage_checks(rng)
+            phase_k5(rng)
         log(smi)
         print(ok_line, flush=True)
         return 0
-    if sys.argv[1:2] in (["--profile"], ["--steady"]):
+    if sys.argv[1:2] in (["--profile"], ["--steady"], ["--stages"]):
         if len(sys.argv) != 3:
             print(USAGE, file=sys.stderr)
             return 2
         I, J = (torch.as_tensor(a, device="cuda") for a in make_pair(N))
         if sys.argv[1] == "--profile":
             phase_profile(I, J, sys.argv[2])
+        elif sys.argv[1] == "--stages":
+            phase_stages(I, J, sys.argv[2])
         else:
             phase_steady(I, J, int(sys.argv[2]))
         log(smi)
@@ -1297,8 +1748,9 @@ def main():
                     "v2_solve_route_ms": v2["route_ms"], "v2_solve_route_steps":
                     v2["route_steps"], "v2_solve_routes_rel": v2["route_rel"],
                     "v2_residual_ms": v2["residual_ms"],
-                    "v2_k4_per_step": {k: v2_k4[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                             "steady", "signatures")},
+                    "v2_k4_per_step": {k: v2_k4[k] for k in ("ms", "eager_ms", "plain_ms",
+                                                             "bound_ms", "steady", "kernels",
+                                                             "signatures")},
                     "k5_alone": report["slice_triple_alone"],
                     "k1_calls": {k: report["corr_window"][k]
                                  for k in ("omg", "the", "omg_general", "c128_omg")},

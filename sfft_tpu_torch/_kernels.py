@@ -39,7 +39,11 @@ _L = ctypes.c_longlong
 # C entry -> argument types (pointers and the stream as void*, sizes as int
 # or long long)
 _SIGNATURES = {
-    "sfft_slice_pair_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
+    "sfft_slice_pairs": [_P, _I, _I, _I, _I, _I, _L, _I, _L, _I, _P],
+    "sfft_slice_pairs_absmax": [_P, _I, _I, _I, _P, _P, _P],
+    "sfft_slice_pairs_rowmax": [_P, _L, _I, _I, _P, _P, _P],
+    "sfft_slice_rows_f64": [_P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _P],
+    "sfft_slice_vec_f64": [_P, _P, _P, _L, _L, _I, _P],
     "sfft_slice_triple_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _P],
     "sfft_moments_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sfft_corr_window_c64": [_P] * 9 + [_I] * 9 + [_P],

@@ -37,10 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# NB and K4's plain remainder chain (_seq_slices) live beside the kernel
-# wrapper in core/slicing.py
-from sfft_tpu_torch.core.slicing import (NB, slice_pair, slice_pair_plain, slice_triple,
-                                          slice_triple_plain)
+# NB, the scale (_pow2ceil_scalar), the pad and K4's plain chain live beside
+# the kernel wrappers in core/slicing.py
+from sfft_tpu_torch.core.slicing import (NB, _padk, _pow2ceil_scalar, slice_pairs,
+                                          slice_pairs_plain, slice_triple, slice_triple_plain)
 from sfft_tpu_torch.core.statics import Static, index, table
 
 NSL_DATA = 9            # data slices (54 bits)
@@ -161,12 +161,10 @@ def _cols(W: np.ndarray, n: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _pow2ceil_scalar(m: torch.Tensor) -> torch.Tensor:
-    """Exact power of two in (m, 2m] (elementwise), from the f32 exponent
-    bits: s = 2^(biased_exponent - 126). Stays on the device."""
-    m = torch.clamp(m.to(torch.float32), min=1e-30)
-    expo = (m.view(torch.int32) >> 23) & 0xFF
-    return ((expo + 1) << 23).view(torch.float32)
+def _slice_pairs(parts, nsl: int, Kp: int, rowwise: bool, plain: bool):
+    """The K4 stage (core/slicing.py slice_pairs) on the operand's parts,
+    or its plain twin with plain=True (CPU tensors always take the twin)."""
+    return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise)
 
 
 def _slice_pair_real(hi: torch.Tensor, lo: torch.Tensor, nsl: int,
@@ -178,15 +176,7 @@ def _slice_pair_real(hi: torch.Tensor, lo: torch.Tensor, nsl: int,
     else one global scale (shape ()). The scale is taken from max|hi| before
     the TwoSum canonicalisation, as in sfft_tpu. CUDA tensors launch K4
     (core/slicing.py) unless plain=True; CPU tensors take its plain twin."""
-    if rowwise:
-        s = _pow2ceil_scalar(hi.abs().amax(dim=-1, keepdim=True))
-    else:
-        s = _pow2ceil_scalar(hi.abs().amax())
-    hi = hi.contiguous()
-    lo = lo.contiguous()
-    if plain:
-        return slice_pair_plain(hi, lo, s, nsl), s
-    return slice_pair(hi, lo, s.contiguous(), nsl), s
+    return _slice_pairs([(hi, lo)], nsl, hi.shape[-1], rowwise, plain)[0]
 
 
 def _slice_triple_real(hi: torch.Tensor, mid: torch.Tensor, lo: torch.Tensor, nsl: int,
@@ -248,12 +238,6 @@ def _pad_cols(M: np.ndarray, mult: int = 64) -> np.ndarray:
     return np.pad(M, pads)
 
 
-def _padk(x: torch.Tensor, Kp: int) -> torch.Tensor:
-    """Zero-pad the last (contraction) axis to Kp."""
-    k = x.shape[-1]
-    return x if k == Kp else F.pad(x, (0, Kp - k))
-
-
 def _accum(outs, weights, sc, big: bool):
     """Weighted pair-combine of int32 group sums. `big`: sums may exceed
     f32's exact-integer range — split each into a 2^12-aligned top plus a
@@ -294,13 +278,14 @@ def _static_slices_for(ref: Static, nsl: int, device, plain: bool = False) -> Op
     if not np.any(Mp_):
         return None
     K = Mp_.shape[0]
+    Kp = K + (-K) % 8
     if Mp_.size * nsl >= 2 ** 17:
+        # the stage slices the transposed view straight into (nsl, Mp, Kp)
         hi, lo = _split_on(padded, device)
-        sl, s = _slice_pair_real(hi, lo, nsl, rowwise=False, plain=plain)
+        slT, s = _slice_pairs([(hi.t(), lo.t())], nsl, Kp, False, plain)[0]
     else:
         sl_np, s = _slice_static(Mp_, nsl)
-        sl = torch.tensor(sl_np, device=device)
-    slT = _padk(sl.transpose(1, 2), K + (-K) % 8).contiguous()
+        slT = _padk(torch.tensor(sl_np, device=device).transpose(1, 2), Kp).contiguous()
     return _Static((ref, nsl, device, plain), slT, s)
 
 
@@ -396,14 +381,16 @@ def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: boo
     K, M = W.host().shape
     Kp = K + (-K) % 8
     wr = _static_slices_for(Static(np.real, (W,)), p.nsl_static, dev, plain)
-    dr_sl, sdr = _slice_pair_real(_padk(data.rh, Kp), _padk(data.rl, Kp), p.nsl_data,
-                                  rowwise, plain)
     wi = _static_slices_for(Static(np.imag, (W,)), p.nsl_static, dev, plain)
     have_wi = wi is not None
     parts = [wr, wi] if have_wi else [wr]
+    # the producers' views as they are (transposed ones too): one K4 stage
+    # for the real and the imaginary part, padded to Kp by the slicer
+    pairs = [(data.rh, data.rl)] + ([] if data.is_real else [(data.ih, data.il)])
+    sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain)
+    dr_sl, sdr = sliced[0]
     if not data.is_real:
-        di_sl, sdi = _slice_pair_real(_padk(data.ih, Kp), _padk(data.il, Kp), p.nsl_data,
-                                      rowwise, plain)
+        di_sl, sdi = sliced[1]
 
     if real_out and not data.is_real and have_wi:
         rr_h, rr_l = _sliced_dot_multi(dr_sl, sdr, parts[:1], K, M, p.kmax)[0]

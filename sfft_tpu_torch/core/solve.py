@@ -31,6 +31,9 @@ import torch
 
 from sfft_tpu_torch.config import SFFTConfig
 from sfft_tpu_torch.core.indices import kernel_sum_dof_index, stripe_indices
+from sfft_tpu_torch.core.slicing import (slice_rows_f64, slice_rows_f64_plain, slice_vec_f64,
+                                          slice_vec_f64_plain)
+from sfft_tpu_torch.core.slicing import split3 as _split3
 from sfft_tpu_torch.core.statics import Static, index, table
 
 # solver 'exact' sends regularized f64 systems of at least this size to
@@ -116,18 +119,6 @@ _RESID_NSL = 12   # 72-bit capture: below eps64 against the row scale
 _RESID_KMAX = 11
 
 
-def _split3(x: torch.Tensor, consume: bool = False):
-    """Exact three-way f32 split of an f64 tensor: hi = f32(x),
-    mid = f32(x - hi), lo = f32(x - hi - mid). consume=True overwrites x
-    with the remainders (no second f64 copy of a large matrix)."""
-    rem = x if consume else x.clone()
-    hi = rem.to(torch.float32)
-    rem -= hi
-    mid = rem.to(torch.float32)
-    rem -= mid
-    return hi, mid, rem.to(torch.float32)
-
-
 def _sliced_residual_setup(A: torch.Tensor, d: torch.Tensor, nsl: int = _RESID_NSL,
                            plain: bool = False):
     """One-time int8 slicing of the equilibrated system d A d for
@@ -135,44 +126,42 @@ def _sliced_residual_setup(A: torch.Tensor, d: torch.Tensor, nsl: int = _RESID_N
     f32 hi part (it IS the f32 rounding of the equilibrated matrix, and goes
     straight to the f32 Cholesky), and Asl_flat (nsl * n, np) int8 with the
     per-row power-of-two scales sa (n, 1) represents the matrix to ~2^-72 of
-    each row's scale (exact three-way f32 split, 12 slices through K5; an
-    (hi, lo) pair would floor at 2^-48). Rows are slice-major, and the
-    columns are zero-padded from n to np, a multiple of 8: the depth the
-    int8 product of _sliced_matvec wants, written by the slicer itself. The
-    f64 equilibrated matrix lives only as a transient here."""
-    from sfft_tpu_torch.core.exact_fft import _slice_triple_real
-
+    each row's scale (exact three-way f32 split, 12 slices; an (hi, lo) pair
+    would floor at 2^-48). Rows are slice-major, and the columns are
+    zero-padded from n to np, a multiple of 8: the depth the int8 product of
+    _sliced_matvec wants. On CUDA tensors the whole setup is one launch of K5
+    (core/slicing.py slice_rows_f64: equilibration, split, row scales and
+    slices in one pass over each row; no f64 copy of the equilibrated
+    matrix), with plain=True or on CPU tensors its plain twin."""
     n = A.shape[0]
-    As = A * d[:, None] * d[None, :]
-    Ah, Am, Al = _split3(As, consume=True)
-    del As
-    Asl, sa = _slice_triple_real(Ah, Am, Al, nsl, rowwise=True, plain=plain,
-                                 out_cols=n + (-n) % 8)
+    fn = slice_rows_f64_plain if plain else slice_rows_f64
+    Ah, Asl, sa = fn(A, d, nsl, n + (-n) % 8)
     return Ah, Asl.reshape(nsl * n, -1), sa
 
 
 def _sliced_matvec(Asl_flat: torch.Tensor, sa: torch.Tensor, x: torch.Tensor,
                    nsl: int = _RESID_NSL, kmax: int = _RESID_KMAX,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, X8: torch.Tensor = None) -> torch.Tensor:
     """Exact-grade f64 product of the sliced equilibrated matrix with a
     runtime f64 vector: the refinement residual's workhorse.
 
-    The vector is split and sliced per call (K5, one global scale), and ONE
-    int8 product (nsl * n, np) @ (np, 64) computes every slice-pair product
-    with exact int32 accumulation (|prod| <= 2^12, depth n < 2^14, group
-    sums < 2^30); the <= kmax + 1 weight groups recombine in f64 directly
-    (the sums are exact integers and the output is only an (n,) vector, so
-    an f64 weighted sum keeps eps64 grade where a compensated f32 pair would
-    cap the result near 2^-48). Representation floor ~2^-54 relative, the
-    slicing grade of the contract's tables. torch._int_mm is the library's
-    int8 product, as sfft_tpu leaves this one to XLA's dot_general."""
-    from sfft_tpu_torch.core.exact_fft import _slice_triple_real
-
+    The vector is split and sliced per call (K5's vector stage, one global
+    scale) straight into rows 0..nsl-1 of the (64, np) int8 operand X8,
+    whose other rows stay zero (a caller that passes X8 zeroes it once; by
+    default a zeroed one is made here), and ONE int8 product (nsl * n, np) @
+    (np, 64) computes every slice-pair product with exact int32
+    accumulation (|prod| <= 2^12, depth n < 2^14, group sums < 2^30); the
+    <= kmax + 1 weight groups recombine in f64 directly (the sums are exact
+    integers and the output is only an (n,) vector, so an f64 weighted sum
+    keeps eps64 grade where a compensated f32 pair would cap the result near
+    2^-48). Representation floor ~2^-54 relative, the slicing grade of the
+    contract's tables. torch._int_mm is the library's int8 product, as
+    sfft_tpu leaves this one to XLA's dot_general."""
     n = x.shape[0]
     Kp = Asl_flat.shape[1]
-    xsl, sx = _slice_triple_real(*_split3(x), nsl, plain=plain, out_cols=Kp)   # (nsl, Kp)
-    X8 = torch.zeros((64, Kp), dtype=torch.int8, device=x.device)
-    X8[:nsl] = xsl
+    if X8 is None:
+        X8 = torch.zeros((64, Kp), dtype=torch.int8, device=x.device)
+    sx = (slice_vec_f64_plain if plain else slice_vec_f64)(x, nsl, X8)
     prod = torch._int_mm(Asl_flat, X8.t()).reshape(nsl, n, 64)     # slice-major rows
     out = torch.zeros((n,), dtype=x.dtype, device=x.device)
     for s in range(min(kmax, 2 * nsl - 2) + 1):
@@ -224,9 +213,12 @@ def _refined_solve_f64(A: torch.Tensor, b: torch.Tensor, iters: int = 12,
         matvec = As.matmul
     else:
         Ah, Asl_flat, sa = _sliced_residual_setup(A, d, plain=plain)
+        # the residuals' int8 operand, zeroed once: each residual writes its
+        # slice rows, the rest stay zero
+        X8 = torch.zeros((64, Asl_flat.shape[1]), dtype=torch.int8, device=A.device)
 
         def matvec(x):
-            return _sliced_matvec(Asl_flat, sa, x, plain=plain)
+            return _sliced_matvec(Asl_flat, sa, x, plain=plain, X8=X8)
 
     L32, bad = torch.linalg.cholesky_ex(Ah)
     del Ah
