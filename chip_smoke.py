@@ -5,13 +5,14 @@
 
 Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
 against its plain PyTorch twin on the card (K3 moments, K1 windowed
-correlation, K4 and K5 integer slicers: bit for bit), then drives the port's
+correlation, K2 fused model spectrum, K4 and K5 integer slicers: bit for
+bit), then drives the port's
 paths at full size. On a 4096^2 pair (the benchmark pair's generator),
 KerHW=8, poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
 GeneralSFFT.GSS:
 
   * the 'fast' slice (peeled tables, fft32 difference, refined solve), which
-    runs K3 and K1;
+    runs K3, K1 and K2;
   * the 'contract' path (pexact tables and difference at pexact_prof
     (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
     K3 and K4; and once with the 'exact' solver.
@@ -27,6 +28,25 @@ BSplinePacket.BSP -> GeneralSFFT.GSS:
     K4 (every sliced product of the exact engine) and K5 (the sliced
     residuals of the large f64 solve). The NIRCam image pair itself is not
     in the repository; the generated pair stands in for it.
+
+and, on the same 900^2 pair and configuration, the two v2 fast modes:
+
+  * fft32 / fft32 / refined (greek 'fft32': K1 in c64 at the v2 widths;
+    the fft32 difference: K2);
+  * peeled / fft32 / refined with f32 fluctuations (the piecewise peel of
+    core/peel_pw.py, whose f64 products run K3 and whose fluctuation
+    windows run K1; K2);
+
+each held to the v2 f64 fft/fft/lu difference within the fast bound (RMS
+< 0.05) or, where the mode's plain twins are farther than that (the fft32
+mode's own f32 error on this system), no farther than the twins; K3 and K2
+held to their twins on each mode's own operands; and then the NIRCam
+post-processing on the peeled mode's solution (matching kernels on the tile
+grid, BSplineDeCorrelation.BDC kernels from Gaussian PSFs made here,
+BSplineGridConvolve.GSVC of the difference), on the card and on the CPU
+within 1e-9. The fast slice runs K2 too (K3, K1, K2), its difference is
+held to the f64 one with K2 and with K2's twin, and its K3 and K2 calls to
+their twins on the path's own operands.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. Two more steps of the
@@ -53,8 +73,8 @@ nothing of JAX. Takes a few minutes on an H100.
 
     python3 chip_smoke.py --profile OUT_DIR
 
-builds the kernels and profiles one step of each path (contract, fast, v2)
-instead (device busy time, idle share, top operations; the full tables go to
+builds the kernels and profiles one step of each path (contract, fast, v2,
+v2-fast-fft32, v2-fast-peeled) instead (device busy time, idle share, top operations; the full tables go to
 OUT_DIR).
 
     python3 chip_smoke.py --steady PAIRS
@@ -72,15 +92,25 @@ kernels on one clock when the script is run in a checkout of each.
 
 build the kernels with the compiler's resource report (registers, shared
 memory, spills; written to OUT_DIR/build_report.txt) and run phase 3's
-checks and timings of K3 and K1 (with a profile of one call of each at the
-fast slice's shapes: device time of each stage by kernel name), or of the
-K4 and K5 slicing stages, alone.
+checks and timings of K3, K1 (also at the v2 fast widths) and K2 (with a
+profile of one call of K3 and K1 at the fast slice's shapes: device time of
+each stage by kernel name), or of the K4 and K5 slicing stages, alone.
+
+    python3 chip_smoke.py --fidelity
+
+runs the fast slice and the v2-fast-fft32 mode alone and prints each one's
+RMS(diff - diff_f64) with the kernels, on the plain twins, with one kernel
+at a time on its twin, and (v2) with the f32 tables assembled and solved in
+f64; it runs in a checkout of an older commit too (copy the script into
+it), which is how a change to a kernel's summation order is followed across
+commits in one call.
 
     python3 chip_smoke.py --stages OUT_DIR
 
 times the slicing stages of one steady contract step and one steady v2 step
-on the path's own inputs (device, back to back, plain twins, kernels and
-copies per call, bound; OUT_DIR/stages_<label>.json). It runs in a checkout
+on the path's own inputs (device, back to back, plain twins, K4 / K5 kernel
+launches per call from the wrappers' counters and kernels and copies from
+the profiler, bound; OUT_DIR/stages_<label>.json). It runs in a checkout
 without the stage entries of core/slicing.py too, where each stage is the
 wrapper chain the callers ran before them, so that two commits compare on
 one card.
@@ -479,6 +509,479 @@ def phase_k1():
     return k1
 
 
+def k2_bound(Fij, Fpq, nS, n0, n1h, L0, itemsize, peak):
+    """K2's bound: each spectrum plane (FJ, the Fij FI, the Fpq FT, the nS
+    FS) read once, FDIFF written once, the phase matrices and the solution
+    read once; per half-spectrum element 8 flops per complex multiply-add of
+    K' (Fij * L0 of them), 8 per FI term, 4 per FT / FS term and 2 for the
+    subtraction."""
+    planes = (2 + Fij + Fpq + nS) * n0 * n1h
+    small = n0 * L0 + L0 * n1h
+    return bound(itemsize * (planes + small) + itemsize // 2 * (Fij * L0 * L0 + Fpq),
+                 n0 * n1h * (8 * Fij * L0 + 8 * Fij + 4 * (Fpq + nS) + 2), peak)
+
+
+def k2_inputs(Fij, Fpq, nS, n0, n1, w, cdt, seed=7):
+    """Seeded inputs of fdiff_model at one shape on the card, at the
+    magnitudes of a fitted path: spectra of zero-mean unit-noise planes (J,
+    SI, ST; no DC term to swamp the model), scaling planes, the path's SCALE
+    1 / (n0 n1) and a solution whose kernel part is (n0 n1) times a unit
+    center and 0.05-scale off-center coefficients, so that the model
+    FJ - FDIFF is of the order of the planes and its K'-dependent part is
+    about half of it; and the static phase matrices of a (2w+1)^2 kernel."""
+    import torch
+    from sfft_tpu_torch.core import fdiff
+
+    dev = torch.device("cuda")
+    rdt = torch.float32 if cdt == torch.complex64 else torch.float64
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    specs = torch.fft.rfft2(torch.randn((1 + Fij + Fpq, n0, n1), dtype=rdt, device=dev,
+                                        generator=g))
+    FS = torch.fft.rfft2(torch.randn((nS, n0, n1), dtype=rdt, device=dev, generator=g)) \
+        if nS else None
+    L = 2 * w + 1
+    a = 0.05 * torch.randn((Fij, L, L), dtype=torch.float64, device=dev, generator=g)
+    a[:, w, w] = 1.0
+    sol = torch.cat([(n0 * n1) * a.reshape(-1),
+                     torch.randn((Fpq,), dtype=torch.float64, device=dev, generator=g)])
+    lag = np.arange(-w, w + 1)
+    W0 = np.exp((-2j * np.pi / n0) * np.outer(np.arange(n0), lag))
+    W1 = np.exp((-2j * np.pi / n1) * np.outer(lag, np.arange(n1 // 2 + 1)))
+    return (specs, FS, sol.to(rdt), torch.as_tensor(W0, dtype=cdt, device=dev),
+            torch.as_tensor(W1, dtype=cdt, device=dev), Fij, w, w, 1.0 / (n0 * n1)), fdiff
+
+
+def k2_model_err(args, out, ref):
+    """K2 against its twin on the model FJ - FDIFF, the part the kernel
+    computes: max|out - ref| / max|FJ - ref|."""
+    return float((out - ref).abs().max() / (args[0][0] - ref).abs().max())
+
+
+def phase_k2():
+    """K2 against its twin: the fast slice's shapes (Fij 6, Fpq 6,
+    4096 x 2049, L 17) and the v2 ones (Fij 25, Fpq 1, 6 scaling planes,
+    900 x 451, L 23), each in c64 and c128, and ragged shapes (odd N1, N0 off
+    the row tile); the model (FJ - FDIFF) within 1e-5 (c64) and 1e-12 (c128)
+    of its maximum, each launched twice (bit-equal); device time (graph
+    replay) against the bound and the twin."""
+    import torch
+
+    cases = [("fast", 6, 6, 0, N, N, KERHW), ("v2", 25, 1, 6, V2_N, V2_N, V2_KERHW),
+             ("ragged", 4, 2, 3, 1001, 999, 3), ("ragged1", 2, 0, 2, 37, 21, 1)]
+    out = {}
+    for name, Fij, Fpq, nS, n0, n1, w in cases:
+        for cdt, tol in [(torch.complex64, 1e-5), (torch.complex128, 1e-12)]:
+            args, fdiff = k2_inputs(Fij, Fpq, nS, n0, n1, w, cdt)
+            fdiff.fdiff_model.launches = 0
+            got = fdiff.fdiff_model(*args)
+            again = fdiff.fdiff_model(*args)
+            torch.cuda.synchronize()
+            assert fdiff.fdiff_model.launches == 4, fdiff.fdiff_model.launches
+            assert torch.equal(got, again), f"K2 {name} {cdt}: two launches differ"
+            del again
+            ref = fdiff.fdiff_model_plain(*args)
+            err = k2_model_err(args, got, ref)
+            assert err <= tol, f"K2 {name} {cdt}: model rel err {err:.3e} > {tol:g}"
+            key = f"{name} {'c64' if cdt == torch.complex64 else 'c128'}"
+            row = dict(max_abs_err=float((got - ref).abs().max()), rel_err=err)
+            del got, ref
+            if name in ("fast", "v2"):
+                big = n0 == N
+                row["ms"] = graph_ms(lambda: fdiff.fdiff_model(*args), calls=5 if big else 20)
+                row["plain_ms"] = cuda_ms(lambda: fdiff.fdiff_model_plain(*args), reps=3,
+                                          inner=3)
+                peak = FP32_FLOP_PER_S if cdt == torch.complex64 else FP64_FLOP_PER_S
+                row["bound_ms"], row["bound_by"] = k2_bound(
+                    Fij, Fpq, nS, n0, n1 // 2 + 1, 2 * w + 1, cdt.itemsize, peak)
+                timing = (f"; kernel {row['ms']:.4f} ms (calls in a CUDA graph, replayed), "
+                          f"plain twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+                          f"ms ({row['bound_by']}; {100 * row['bound_ms'] / row['ms']:.1f}% "
+                          f"of it)")
+            else:
+                timing = ""
+            out[key] = row
+            log(f"phase 3 K2 fdiff_model {key} Fij {Fij} Fpq {Fpq} nS {nS} "
+                f"({n0}, {n1 // 2 + 1}) L {2 * w + 1}: max|d| / max|model| = {err:.3e} (bound "
+                f"{tol:g}), two launches bit-equal{timing}")
+            del args
+            torch.cuda.empty_cache()
+    # the main path's K2 is the fast slice's c64 call
+    report = dict(out["fast c64"], library_ms=None)
+    report["calls"] = out
+    return report
+
+
+def phase_k1_v2():
+    """K1 (c64) at the v2 fast pair lists (900 x 451, 25 kernel planes):
+    Comg symmetric (lags +-22, R 45: 23 slots on the conjugate-pair route),
+    Cgam and Cthe (25 x 1 pairs, R 23), Pbs (25 x 25, R 23); and at the
+    piecewise peel's (31 planes: kernel and scaling; FF symmetric R 45, FFJ
+    31 x 1 R 23); each against its matmul twin within 1e-5 of max, launched
+    twice (bit-equal), timed."""
+    import torch
+    from sfft_tpu_torch.core import greek
+
+    dev = torch.device("cuda")
+    n, w = V2_N, V2_KERHW
+    n1h = n // 2 + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    specs = torch.fft.rfft2(30.0 * torch.randn((33, n, n), dtype=torch.float32, device=dev,
+                                               generator=g))
+    specJ, specT, specI, specF = specs[0:1], specs[1:2], specs[2:27], specs[2:33]
+    calls = {
+        "omg": (specI, specI, 2 * w, True), "gam": (specI, specT, w, False),
+        "the": (specI, specJ, w, False), "pbs": (specI, specI, w, False),
+        "peel ff": (specF, specF, 2 * w, True), "peel ffj": (specF, specJ, w, False),
+    }
+    rows = {}
+    for name, (a, b, wx, sym) in calls.items():
+        call = lambda m: greek.corr_window_fft(a, b, n, n, wx, wx, method=m, symmetric=sym)
+        out = call("kernel")
+        again = call("kernel")
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K1 v2 {name}: two launches differ"
+        err = rel_err(out, call("matmul"))
+        assert err <= 1e-5, f"K1 v2 {name}: rel err {err:.3e} > 1e-5"
+        R = 2 * wx + 1
+        npairs = a.shape[0] * (a.shape[0] + 1) // 2 if sym else a.shape[0] * b.shape[0]
+        nspec = a.shape[0] + (0 if sym else b.shape[0])
+        bms, by = k1_bound(npairs, nspec, n, n1h, R, R, 8, FP32_FLOP_PER_S, sym=True)
+        rows[name] = dict(shape=list(out.shape), rel_err=err, ms=graph_ms(lambda: call("kernel")),
+                          plain_ms=cuda_ms(lambda: call("matmul"), reps=3, inner=3),
+                          bound_ms=bms, bound_by=by, plan=greek._corr_plan(R, True))
+        r = rows[name]
+        log(f"phase 3 K1 corr_window c64 v2 {name} {tuple(out.shape)} plan (TY, NE) = "
+            f"{r['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), two launches bit-equal; "
+            f"kernel {r['ms']:.4f} ms (graph replay), plain matmul twin {r['plain_ms']:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}; {100 * bms / r['ms']:.1f}% of it)")
+    del specs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernels_on_path(run, path, phase):
+    """Drive one step (`run`) with the K3 and K2 wrappers recording the
+    operands of their first call at each shape, then hold each shape's
+    kernel result to its twin on those operands, launched twice (bit-equal),
+    and time it: K3 scaled by max(|W| @ |G|) (the products' own magnitude:
+    these sums cancel) within 1e-13; K2 on the model FJ - FDIFF within 1e-5
+    (c64) or 1e-12 (c128) of its maximum."""
+    import torch
+    from sfft_tpu_torch.core import fdiff, moments, peel
+
+    seen3, seen2 = {}, {}
+    real3, real2 = moments.moments, fdiff.fdiff_model
+
+    def recording3(W, G):
+        key = (W.shape[0], W.shape[1], G.shape[1])
+        if key not in seen3:
+            seen3[key] = [W.clone(), G.clone(), 0]
+        seen3[key][2] += 1
+        return real3(W, G)
+
+    def recording2(specs, FS, solution, W0, W1, *rest):
+        key = (tuple(specs.shape), 0 if FS is None else FS.shape[0], str(specs.dtype))
+        if key not in seen2:
+            seen2[key] = [(specs.clone(), None if FS is None else FS.clone(), solution.clone(),
+                           W0, W1, *rest), 0]
+        seen2[key][1] += 1
+        return real2(specs, FS, solution, W0, W1, *rest)
+
+    recording2.launches = 0
+    # every f64 product of the peel goes through peel._exact_skinny_matmul,
+    # which calls the wrapper by its name in core/peel.py; fdiff_fft calls
+    # fdiff_model by its name in core/fdiff.py
+    peel.moments, fdiff.fdiff_model = recording3, recording2
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        peel.moments, fdiff.fdiff_model = real3, real2
+    rows = {}
+    for (S, N0, N1), (W, G, count) in sorted(seen3.items()):
+        out = real3(W, G)
+        again = real3(W, G)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K3 {path} {(S, N0, N1)}: two launches differ"
+        ref = moments.moments_plain(W, G)
+        scale = float((W.abs() @ G.abs()).max())
+        diff = float((out - ref).abs().max())
+        err = diff / scale if scale else (0.0 if diff == 0.0 else float("inf"))
+        assert err <= 1e-13, f"K3 {path} {(S, N0, N1)}: {err:.3e} of max(|W| @ |G|) > 1e-13"
+        ms = graph_ms(lambda: real3(W, G))
+        bms, by = bound(8 * (S * N0 + N0 * N1 + S * N1), 2 * S * N0 * N1, FP64_FLOP_PER_S)
+        rows[f"K3 {(S, N0, N1)}"] = dict(calls=count, rel_err=err, ms=ms, bound_ms=bms,
+                                         bound_by=by)
+        log(f"phase {phase} K3 moments on the {path} path {(S, N0, N1)}: {count} calls per "
+            f"step; max|d| = {err:.3e} of max(|W| @ |G|) (bound 1e-13), two launches "
+            f"bit-equal; kernel {ms:.4f} ms (graph replay), bound {bms:.4f} ms ({by})")
+    for (shape, nS, _), (args, count) in sorted(seen2.items()):
+        out = real2(*args)
+        again = real2(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K2 {path} {shape}: two launches differ"
+        c64 = args[0].dtype == torch.complex64
+        tol = 1e-5 if c64 else 1e-12
+        err = k2_model_err(args, out, fdiff.fdiff_model_plain(*args))
+        assert err <= tol, f"K2 {path} {shape}: model rel err {err:.3e} > {tol:g}"
+        ms = graph_ms(lambda: real2(*args))
+        Fij, L0 = args[5], args[3].shape[1]
+        bms, by = k2_bound(Fij, shape[0] - 1 - Fij, nS, shape[1], shape[2], L0,
+                           args[0].itemsize, FP32_FLOP_PER_S if c64 else FP64_FLOP_PER_S)
+        rows[f"K2 {shape} nS {nS}"] = dict(calls=count, rel_err=err, ms=ms, bound_ms=bms,
+                                           bound_by=by)
+        log(f"phase {phase} K2 fdiff_model on the {path} path, spectra {shape} nS {nS} "
+            f"{'c64' if c64 else 'c128'}: {count} calls per step; max|d| / max|model| = "
+            f"{err:.3e} (bound {tol:g}), two launches bit-equal; kernel {ms:.4f} ms (graph "
+            f"replay), bound {bms:.4f} ms ({by})")
+    return rows
+
+
+FAST_TRIO = dict(greek_backend="fft32", fdiff_backend="fft32", solver="refined")
+PEELED_TRIO = dict(greek_backend="peeled", fdiff_backend="fft32", solver="refined",
+                   fluct_dtype="float32")
+
+
+def phase_v2_fast(lam, ydiff):
+    """The two v2 fast modes on the NIRCam configuration through
+    BSplinePacket.BSP: fft32 / fft32 / refined, and peeled (the piecewise
+    peel) / fft32 / refined with f32 fluctuations. Each with the kernels
+    (counts set to 0 just before, read just after) and on the plain twins;
+    finite, at the pair's noise level (central RMS in [1.3, 1.7]); and each
+    held the same way to the f64 fft/fft/lu difference of phase 7: RMS
+    below the fast bound 0.05 or, where the mode's plain twins are farther
+    than that (the mode's own f32 error, as the fft32 mode's c64 tables of
+    the raw images on this 13k-dof system; PERF.md section 6), no farther
+    than the twins: the kernels may not take a mode past the bound or past
+    its own plain computation. K3 and K2 are then held to their twins on
+    each mode's own operands (kernels_on_path)."""
+    import tempfile
+
+    import torch
+    from sfft_tpu_torch import BSplinePacket
+    from sfft_tpu_torch.core import fdiff, greek, moments, peel_pw
+
+    n = V2_N
+    c = slice(n // 4, 3 * n // 4)
+    counters = {"moments": moments.moments, "corr_window": greek.corr_window,
+                "fdiff_model": fdiff.fdiff_model}
+    modes = {"v2-fast-fft32": (FAST_TRIO, ("corr_window", "fdiff_model")),
+             "v2-fast-peeled": (PEELED_TRIO, ("moments", "corr_window", "fdiff_model"))}
+    res = {}
+
+    def rms_of(a, b=None):
+        return float(np.sqrt(np.mean((a if b is None else a - b) ** 2)))
+
+    with tempfile.TemporaryDirectory() as d:
+        ref, sci = write_pair_fits(d)
+        for mode, (backends, used) in modes.items():
+            cfg = nircam_config(lam, **backends)
+            assert cfg.NEQ == V2_NEQ
+            if "peeled" in mode:
+                assert peel_pw.pw_supported(cfg), "the NIRCam knots fail pw_supported"
+            t0 = time.perf_counter()
+            BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            for f in counters.values():
+                f.launches = 0
+            sol, diff, step_s = run_bsp(ref, sci, cfg, plain=False, reps=3)
+            launches = {k: counters[k].launches for k in used}
+            peak = torch.cuda.max_memory_allocated()
+            assert all(v > 0 for v in launches.values()), \
+                f"{mode}: a kernel of the path never launched: {launches}"
+            assert sol.shape == (cfg.NEQ,) and diff.shape == (n, n)
+            psol, pdiff, plain_s = run_bsp(ref, sci, cfg, plain=True, reps=3)
+            for name, dd in (("kernels", diff), ("plain twins", pdiff)):
+                assert np.isfinite(dd).all(), f"{mode} {name}: not finite"
+                crms = rms_of(dd[c, c])
+                assert 1.3 <= crms <= 1.7, \
+                    f"{mode} {name}: central difference RMS {crms:.4f} outside [1.3, 1.7]"
+            rms, prms = rms_of(diff[c, c]), rms_of(pdiff[c, c])
+            drms, pdrms = rms_of(diff, ydiff), rms_of(pdiff, ydiff)
+            assert drms < 0.05 or drms <= pdrms, \
+                f"{mode}: RMS(diff - diff_f64) {drms:.4e} above the fast bound 0.05 and the " \
+                f"plain twins' {pdrms:.4e}"
+            row = dict(step_s=step_s, plain_s=plain_s, first_s=first_s, peak=peak,
+                       launches=launches, rms=rms, plain_rms=prms, drms=drms, plain_drms=pdrms,
+                       kernels_vs_twins_rms=rms_of(diff, pdiff), within_fast_bound=drms < 0.05,
+                       cfg=cfg, sol=sol, diff=diff)
+            verdict = ("within the fast bound 0.05" if drms < 0.05 else
+                       "FINDING: above the fast bound 0.05 (open), within the plain twins' "
+                       "distance")
+            log(f"phase 8 {mode} {n}^2 NEQ={cfg.NEQ} through BSplinePacket.BSP: first call "
+                f"{first_s:.1f} s; median step {step_s * 1e3:.1f} ms over 3 runs (plain twins "
+                f"{plain_s * 1e3:.1f} ms); launches {launches} in 4 runs; peak memory "
+                f"{peak / 2**30:.2f} GiB; central diff RMS {rms:.4f} (plain twins {prms:.4f}); "
+                f"RMS(diff - diff_f64) = {drms:.4e} (plain twins {pdrms:.4e}; {verdict}); "
+                f"kernels vs twins RMS {row['kernels_vs_twins_rms']:.3e}")
+            del psol, pdiff
+            row["on_path"] = kernels_on_path(
+                lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg), mode, 8)
+            res[mode] = row
+    return res
+
+
+def gaussian_psf(size, sigma):
+    x = np.arange(size) - (size - 1) / 2.0
+    p = np.exp(-(x[:, None] ** 2 + x[None, :] ** 2) / (2.0 * sigma ** 2))
+    return p / p.sum()
+
+
+def phase_post(sol, diff, cfg, devices=("cuda", "cpu")):
+    """The NIRCam post-processing (examples/subtract_nircam.py steps 3-4) on
+    phase 8's solution and difference (the peeled mode's, which meets the
+    fast bound), on the card and on the CPU:
+    matching kernels realized on the tile grid (TiHW = 5 GKerHW),
+    decorrelation kernels per tile from Gaussian PSFs made here
+    (BSplineDeCorrelation.BDC, denominator clipping at 1e5), and the grid
+    convolution of the difference (BSplineGridConvolve.GSVC); card and CPU
+    within 1e-9 of max (f64)."""
+    import torch
+    from sfft_tpu_torch import BSplineDeCorrelation, BSplineGridConvolve, BSplineMatchingKernel
+    from sfft_tpu_torch.post.grid_convolve import make_tile_grid
+
+    n = V2_N
+    TiHW = round(5 * V2_KERHW)
+    AllocatedL, XY_TiC = make_tile_grid(n, n, TiHW)
+    MKerStack = BSplineMatchingKernel(XY_TiC).from_solution(sol, cfg)
+    assert MKerStack.shape == (len(XY_TiC), cfg.L0, cfg.L1) and np.isfinite(MKerStack).all()
+    psf_ref, psf_sci = gaussian_psf(31, 1.6), gaussian_psf(31, 2.0)
+    out, secs = {}, {}
+    for dev in devices:
+        t0 = time.perf_counter()
+        dk = np.array([BSplineDeCorrelation.BDC(
+            MK_JLst=[psf_ref], SkySig_JLst=[1.0], MK_ILst=[psf_sci], SkySig_ILst=[1.0],
+            MK_Fin=mk, KERatio=2.0, VERBOSE_LEVEL=0, device=dev) for mk in MKerStack])
+        dc = BSplineGridConvolve(diff, AllocatedL, dk, nan_fill_value=0.0, use_fft=True,
+                                 normalize_kernel=True, device=dev).GSVC(TiHW=TiHW)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        out[dev] = (dk, dc)
+    (dk, dc), (dk_c, dc_c) = out[devices[0]], out[devices[1]]
+    assert np.isfinite(dk).all() and np.isfinite(dc).all() and dc.shape == (n, n)
+    ek = float(np.abs(dk - dk_c).max() / np.abs(dk_c).max())
+    ec = float(np.abs(dc - dc_c).max() / np.abs(dc_c).max())
+    assert ek <= 1e-9 and ec <= 1e-9, f"post: card vs CPU {ek:.3e} / {ec:.3e} > 1e-9"
+    log(f"phase 9 post-processing on the v2-fast-peeled solution: {len(XY_TiC)} tiles "
+        f"(TiHW {TiHW}), matching kernels {MKerStack.shape[1:]}, decorrelation kernels "
+        f"{dk.shape[1:]} (BDC), GSVC of the {n}^2 difference; card {secs[devices[0]]:.2f} s, "
+        f"CPU {secs[devices[1]]:.2f} s; card vs CPU max|d|/max: kernels {ek:.3e}, decorrelated "
+        f"difference {ec:.3e} (bound 1e-9)")
+    return dict(tiles=len(XY_TiC), card_s=secs[devices[0]], cpu_s=secs[devices[1]], kernel_rel=ek,
+                diff_rel=ec)
+
+
+def one_twin(mod, name, twin, run):
+    """`run()` with mod.name replaced by `twin`."""
+    real = getattr(mod, name)
+    setattr(mod, name, twin)
+    try:
+        return run()
+    finally:
+        setattr(mod, name, real)
+
+
+def k1_matmul_twin(a, b, ia, ib, E0, E1, sym=False):
+    from sfft_tpu_torch.core import greek
+
+    return greek.corr_pairs_plain(a, b, ia, ib, E0, E1)
+
+
+def f32_tables_in_f64(run):
+    """`run()` with the engine's assembly taking the f32 tables in f64 (the
+    tables cast, then the f64 system and its solve)."""
+    import torch
+    from sfft_tpu_torch.core import engine
+    from sfft_tpu_torch.core.assemble import GreekTables
+
+    real = engine.assemble_system
+
+    def in_f64(cfg, t, out_dtype=None, reg_terms=None):
+        return real(cfg, GreekTables(*(x.double() for x in t)),
+                    reg_terms=engine.regularization_terms_on(cfg, t.Pbb.device, torch.float64))
+
+    return one_twin(engine, "assemble_system", in_f64, run)
+
+
+def phase_fidelity(I, J):
+    """--fidelity: where a fast mode's distance from its f64 path comes
+    from. The 4096^2 fast slice against the f64 fft/fft/lu difference, and
+    (where the checkout has K2) the v2-fast-fft32 mode on the NIRCam
+    configuration against its f64 fft/fft/lu difference: with the kernels,
+    on the plain twins, and with one kernel at a time on its twin (K1 on
+    corr_pairs_plain, sfft_tpu's 'matmul' route in cuBLAS; K2 on
+    fdiff_model_plain; K3 on moments_plain), and the v2 mode's f32 tables
+    assembled and solved in f64. A change to a kernel's summation order
+    runs it in a checkout of the parent and of the change in one call (the
+    script copied into the parent's)."""
+    import tempfile
+
+    import torch
+    from sfft_tpu_torch import BSplinePacket, make_config
+    from sfft_tpu_torch.core import fdiff, greek, moments, peel
+
+    cfg = make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
+                      solver="refined")
+    _, d64, _ = run_pcp(I, J, make_config(N, N, KERHW), plain=True, reps=1)
+
+    def rms(d):
+        return float(torch.sqrt(torch.mean((d - d64) ** 2)))
+
+    def pcp():
+        return run_pcp(I, J, cfg, plain=False, reps=1)[1]
+
+    out = {"fast": {}, "v2-fast-fft32": {}}
+
+    def note(path, what, run, dist):
+        """One line per reading; a route whose f32 system is not positive
+        definite (the refined solve's Cholesky fails) is noted as such."""
+        try:
+            out[path][what] = dist(run())
+            text = f"{out[path][what]:.4e}"
+        except torch.linalg.LinAlgError as e:
+            out[path][what] = None
+            text = f"failed: {str(e).split(':')[-1].strip()}"
+        log(f"fidelity {path} RMS(diff - diff_f64), {what}: {text}")
+
+    note("fast", "kernels", pcp, rms)
+    note("fast", "plain twins", lambda: run_pcp(I, J, cfg, plain=True, reps=1)[1], rms)
+    note("fast", "kernels, K1 twin",
+         lambda: one_twin(greek, "_corr_window", k1_matmul_twin, pcp), rms)
+    note("fast", "kernels, K3 twin",
+         lambda: one_twin(peel, "moments", moments.moments_plain, pcp), rms)
+    if hasattr(fdiff, "fdiff_model"):
+        note("fast", "kernels, K2 twin",
+             lambda: one_twin(fdiff, "fdiff_model", fdiff.fdiff_model_plain, pcp), rms)
+        with tempfile.TemporaryDirectory() as d:
+            ref, sci = write_pair_fits(d)
+            y64 = BSplinePacket.BSP(ref, sci, ref, sci, cfg=nircam_config(), plain=True)[1]
+            vcfg = nircam_config(**FAST_TRIO)
+
+            def bsp(plain=False):
+                return BSplinePacket.BSP(ref, sci, ref, sci, cfg=vcfg, plain=plain)[1]
+
+            def vrms(dd):
+                return float(np.sqrt(np.mean((dd - y64) ** 2)))
+
+            v2 = "v2-fast-fft32"
+            note(v2, "kernels", bsp, vrms)
+            note(v2, "plain twins", lambda: bsp(plain=True), vrms)
+            note(v2, "kernels, K1 twin",
+                 lambda: one_twin(greek, "_corr_window", k1_matmul_twin, bsp), vrms)
+            note(v2, "kernels, K2 twin",
+                 lambda: one_twin(fdiff, "fdiff_model", fdiff.fdiff_model_plain, bsp), vrms)
+            note(v2, "kernels, f32 tables assembled and solved in f64",
+                 lambda: f32_tables_in_f64(bsp), vrms)
+            note(v2, "plain twins, f32 tables assembled and solved in f64",
+                 lambda: f32_tables_in_f64(lambda: bsp(plain=True)), vrms)
+    log(json.dumps({"fidelity": out}))
+
+
 def phase_kernels():
     import torch
     from sfft_tpu_torch.core import exact_fft
@@ -488,6 +991,8 @@ def phase_kernels():
     N1h = N // 2 + 1
     report = {"moments": phase_k3(), "corr_window": phase_k1()}
     torch.cuda.empty_cache()
+    report["k1_v2"] = phase_k1_v2()
+    report["fdiff_model"] = phase_k2()
 
     # K4: bit for bit against the twin (slices and scales), rowwise and
     # global, on wide-range values: odd widths (the scalar path: a row
@@ -882,8 +1387,9 @@ def slicers_on_path(run, phase, path):
     for name, r in reports.items():
         r["bound_by"] = "bytes" if 2 * r.pop("bytes_ms") >= r["bound_ms"] else "operations"
         log(f"phase {phase} {name} on the {path} path: {r['first']} stage calls at first use and "
-            f"{r['steady']} per steady step ({r['kernels']} kernels), {r['signatures']} "
-            f"signatures, all bit-identical to the twins; per steady step device "
+            f"{r['steady']} per steady step ({r['kernels']} kernel launches, the wrappers' "
+            f"counters), {r['signatures']} signatures, all bit-identical to the twins; per "
+            f"steady step device "
             f"{r['ms']:.4f} ms, back to back {r['eager_ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
@@ -948,6 +1454,22 @@ def stage_impls():
 
         label = "chain"
     return k4, k5m, k5v, label
+
+
+def wrapper_launches(fn):
+    """Kernel launches of one call of fn as the K4 and K5 wrappers count
+    them (slice_pair.launches and, where the checkout has it,
+    slice_pair.scale_launches; slice_triple.launches)."""
+    import torch
+    from sfft_tpu_torch.core import slicing
+
+    counters = [(slicing.slice_pair, "launches"), (slicing.slice_pair, "scale_launches"),
+                (slicing.slice_triple, "launches")]
+    counters = [(f, a) for f, a in counters if hasattr(f, a)]
+    before = [getattr(f, a) for f, a in counters]
+    fn()
+    torch.cuda.synchronize()
+    return sum(getattr(f, a) - b for (f, a), b in zip(counters, before))
 
 
 def device_launches(fn):
@@ -1073,24 +1595,28 @@ def time_stages(sigs, path):
         ms = graph_ms(call, calls=3 if big else 20, reps=5)
         eager = cuda_ms(call, reps=3 if big else 5, inner=3 if big else 10)
         pms = cuda_ms(lambda: call(True), reps=3 if big else 5, inner=1 if big else 10)
-        nlaunch = device_launches(call)
+        nkern = wrapper_launches(call)
+        nops = device_launches(call)
         torch.cuda.synchronize()
         row = dict(sig=[str(v) for v in sig], count=count, ms=ms, eager_ms=eager, plain_ms=pms,
-                   launches=nlaunch, bound_ms=bms, bound_by=by)
+                   kernel_launches=nkern, device_ops=nops, bound_ms=bms, bound_by=by)
         rows.append(row)
-        s = sums.setdefault(kind, dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, launches=0,
-                                       bound_ms=0.0, calls=0, signatures=0))
+        s = sums.setdefault(kind, dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, kernel_launches=0,
+                                       device_ops=0, bound_ms=0.0, calls=0, signatures=0))
         for k in ("ms", "eager_ms", "plain_ms", "bound_ms"):
             s[k] += count * row[k]
-        s["launches"] += count * nlaunch
+        s["kernel_launches"] += count * nkern
+        s["device_ops"] += count * nops
         s["calls"] += count
         s["signatures"] += 1
         log(f"stages {path} {label} {sig}: {count} calls per step; device {ms:.4f} ms (graph "
-            f"replay), back to back {eager:.4f} ms, plain twins {pms:.4f} ms, {nlaunch} kernels "
-            f"and copies per call, bound {bms:.4f} ms ({by})")
+            f"replay), back to back {eager:.4f} ms, plain twins {pms:.4f} ms; per call {nkern} "
+            f"K4 / K5 kernel launches (the wrappers' counters) and {nops} kernels and copies "
+            f"(profiler events, all kernels and copies of the stage); bound {bms:.4f} ms ({by})")
     for kind, s in sums.items():
         log(f"stages {path} {label} {kind} per step: {s['calls']} calls, {s['signatures']} "
-            f"signatures, {s['launches']} kernels and copies; device {s['ms']:.4f} ms, back to "
+            f"signatures, {s['kernel_launches']} K4 / K5 kernel launches (wrappers' counters), "
+            f"{s['device_ops']} kernels and copies (profiler); device {s['ms']:.4f} ms, back to "
             f"back {s['eager_ms']:.4f} ms, plain twins {s['plain_ms']:.4f} ms, bound "
             f"{s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
     return sums, rows
@@ -1142,17 +1668,19 @@ def run_pcp(I, J, cfg, plain, reps):
 
 def phase_slice(I, J):
     import torch
-    from sfft_tpu_torch import make_config
-    from sfft_tpu_torch.core import greek, moments
+    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+    from sfft_tpu_torch.core import fdiff, greek, moments
 
     cfg = make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
                       solver="refined")
     assert cfg.NEQ == 1740 and cfg.fluct_dtype == "float32"
     moments.moments.launches = 0
     greek.corr_window.launches = 0
+    fdiff.fdiff_model.launches = 0
     sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
     launches = {"moments": moments.moments.launches,
-                "corr_window": greek.corr_window.launches}
+                "corr_window": greek.corr_window.launches,
+                "fdiff_model": fdiff.fdiff_model.launches}
     assert all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}"
     assert sol.shape == (cfg.NEQ,) and diff.shape == (N, N)
     assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
@@ -1165,10 +1693,20 @@ def phase_slice(I, J):
     _, _, plain_s = run_pcp(I, J, cfg, plain=True, reps=3)
     log(f"phase 4 same slice on the plain twins (no hand kernel): median step "
         f"{plain_s * 1e3:.1f} ms")
-    return diff, launches, step_s, plain_s
+    # the same step with K2 alone on its twin (the f32 order of the
+    # difference's sums is K2's own)
+    real = fdiff.fdiff_model
+    fdiff.fdiff_model = fdiff.fdiff_model_plain
+    try:
+        _, diff_k2twin, _ = run_pcp(I, J, cfg, plain=False, reps=1)
+    finally:
+        fdiff.fdiff_model = real
+    on_path = kernels_on_path(
+        lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg), "fast", 4)
+    return diff, diff_k2twin, launches, step_s, plain_s, on_path
 
 
-def phase_f64(I, J, diff_fast):
+def phase_f64(I, J, diff_fast, diff_k2twin):
     import torch
     from sfft_tpu_torch import make_config
 
@@ -1177,9 +1715,12 @@ def phase_f64(I, J, diff_fast):
     sol64, diff64, step_s = run_pcp(I, J, cfg, plain=True, reps=1)
     assert bool(torch.isfinite(diff64).all())
     rms = float(torch.sqrt(torch.mean((diff_fast - diff64) ** 2)))
+    rms_twin = float(torch.sqrt(torch.mean((diff_k2twin - diff64) ** 2)))
     assert rms < 0.05, f"fast vs f64 difference RMS {rms:.4e} >= 0.05"
+    assert rms_twin < 0.05, f"fast (K2 twin) vs f64 difference RMS {rms_twin:.4e} >= 0.05"
     log(f"phase 5 f64 fft/fft/lu on the plain twins: step {step_s * 1e3:.1f} ms; "
-        f"RMS(diff_fast - diff_f64) = {rms:.4e} (bound 0.05)")
+        f"RMS(diff_fast - diff_f64) = {rms:.4e} with K2, {rms_twin:.4e} with K2's twin "
+        f"(bound 0.05)")
     # the contract's yardstick: the same f64 tables solved by the refined
     # 'exact' solver. At this conditioning an unrefined f64 LU lands
     # anywhere in the cond * eps64 band in near-null directions (sfft_tpu's
@@ -1191,7 +1732,7 @@ def phase_f64(I, J, diff_fast):
     lu_rel = float((sol64 - solx).abs().max() / solx.abs().max())
     log(f"phase 5 f64 fft/fft/exact on the plain twins: step {xstep_s * 1e3:.1f} ms; "
         f"lu vs exact solver: RMS(diff) = {lu_rms:.3e}, max-rel solution {lu_rel:.3e}")
-    return solx, diffx, rms
+    return solx, diffx, rms, rms_twin
 
 
 def phase_contract(I, J, sol64, diff64):
@@ -1469,6 +2010,7 @@ def phase_v2():
     log(f"phase 7 v2 one residual product ({V2_SOLVE_N} dofs): sliced int8 "
         f"{mv_sliced:.3f} ms, f64 matvec {mv_f64:.3f} ms; max-rel difference {mrel:.3e}")
     return dict(launches=launches, step_s=step_s, plain_s=plain_s, first_s=first_s, peak=peak,
+                ydiff=ydiff,
                 drms=drms, srel=srel, rms=rms, lam=lam, yardstick_s=y_s, slicers=slicers,
                 steps=info["steps"], rel_residual=info["rel_residual"],
                 route_ms={k: r[2] * 1e3 for k, r in routes.items()},
@@ -1600,6 +2142,8 @@ def phase_profile(I, J, out_dir):
     tmp = tempfile.TemporaryDirectory()
     ref, sci = write_pair_fits(tmp.name)
     v2cfg = nircam_config(**EXACT_TRIO)
+    fft32cfg = nircam_config(**FAST_TRIO)
+    peeledcfg = nircam_config(**PEELED_TRIO)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -1617,6 +2161,8 @@ def phase_profile(I, J, out_dir):
         "contract": pcp(greek_backend="pexact", fdiff_backend="pexact", solver="transformed"),
         "fast": pcp(greek_backend="peeled", fdiff_backend="fft32", solver="refined"),
         "v2": lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=v2cfg),
+        "v2-fast-fft32": lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=fft32cfg),
+        "v2-fast-peeled": lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=peeledcfg),
     }
     for name, step in paths.items():
         for _ in range(2):
@@ -1649,6 +2195,7 @@ def phase_profile(I, J, out_dir):
 
 
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
+         "--fidelity | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -1673,11 +2220,18 @@ def main():
         if sys.argv[1] == "--kernels":
             phase_k3()
             phase_k1()
+            phase_k1_v2()
+            phase_k2()
             phase_kernel_profile(sys.argv[2])
         else:
             rng = np.random.default_rng(6)
             phase_stage_checks(rng)
             phase_k5(rng)
+        log(smi)
+        print(ok_line, flush=True)
+        return 0
+    if sys.argv[1:] == ["--fidelity"]:
+        phase_fidelity(*(torch.as_tensor(a, device="cuda") for a in make_pair(N)))
         log(smi)
         print(ok_line, flush=True)
         return 0
@@ -1702,9 +2256,9 @@ def main():
     I = torch.as_tensor(I, device=dev)
     J = torch.as_tensor(J, device=dev)
     log(f"phase 4 pair {N}^2 made and uploaded in {time.perf_counter() - t0:.1f} s")
-    diff_fast, launches, step_s, plain_s = phase_slice(I, J)
-    sol64, diff64, rms64 = phase_f64(I, J, diff_fast)
-    del diff_fast
+    diff_fast, diff_k2twin, launches, step_s, plain_s, on_path = phase_slice(I, J)
+    sol64, diff64, rms64, rms64_twin = phase_f64(I, J, diff_fast, diff_k2twin)
+    del diff_fast, diff_k2twin
     c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, report["slice_pair"] = \
         phase_contract(I, J, sol64, diff64)
     del I, J, sol64, diff64
@@ -1712,7 +2266,12 @@ def main():
     v2 = phase_v2()
     report["slice_triple"] = v2["slicers"]["slice_triple"]
     v2_k4 = v2["slicers"]["slice_pair"]
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax imported"
+    torch.cuda.empty_cache()
+    fast = phase_v2_fast(v2["lam"], v2["ydiff"])
+    pw = fast["v2-fast-peeled"]
+    post = phase_post(pw["sol"], pw["diff"], pw["cfg"])
+    assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
+                   or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
     kernels = []
     for name, source, replaces in [
@@ -1721,19 +2280,32 @@ def main():
         ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
         ("slice_triple", "sfft_tpu_torch/csrc/slice_triple.cu",
          "sfft_tpu/core/pallas_slice.py:214"),
+        ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90"),
     ]:
-        # launches: the sum over the main paths' runs (fast, contract, v2);
-        # times: K3 and K1 alone at the fast slice's shapes, K4 summed over
-        # a steady contract step's launches, K5 over a steady v2 step's
+        # launches: the sum over the main paths' runs (fast, contract, v2,
+        # the two v2 fast modes); times: K3, K1 and K2 alone at the fast
+        # slice's shapes, K4 summed over a steady contract step's launches,
+        # K5 over a steady v2 step's
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=(launches.get(name, 0) + c_launches.get(name, 0)
-                                      + v2["launches"][name]),
+                                      + v2["launches"].get(name, 0)
+                                      + fast["v2-fast-fft32"]["launches"].get(name, 0)
+                                      + fast["v2-fast-peeled"]["launches"].get(name, 0)),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     log(json.dumps({"slice_step_ms": step_s * 1e3, "slice_step_plain_ms": plain_s * 1e3,
-                    "fast_vs_f64_rms": rms64, "contract_step_ms": c_step_s * 1e3,
+                    "fast_vs_f64_rms": rms64, "fast_k2_twin_vs_f64_rms": rms64_twin,
+                    "slice_launches_per_step": {k: v / 4 for k, v in launches.items()},
+                    "v2_fast": {m: {k: v for k, v in fast[m].items()
+                                    if k not in ("cfg", "sol", "diff", "launches")}
+                                | {"launches_per_step": {k: v / 4 for k, v in
+                                                         fast[m]["launches"].items()}}
+                                for m in ("v2-fast-fft32", "v2-fast-peeled")},
+                    "fast_on_path": on_path, "k1_v2": report["k1_v2"],
+                    "k2_calls": report["fdiff_model"]["calls"], "post": post,
+                    "contract_step_ms": c_step_s * 1e3,
                     "contract_step_plain_ms": c_plain_s * 1e3,
                     "contract_peak_bytes": c_peak, "contract_vs_f64_rms": c_drms,
                     "contract_vs_f64_sol_rel": c_srel,

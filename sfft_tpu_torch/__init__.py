@@ -12,12 +12,14 @@ kernels are hand-written CUDA kernels for Hopper (sm_90a) under csrc/,
 built with nvcc at their first use on a CUDA tensor (see _kernels.py). On
 CPU tensors every kernel wrapper runs its plain PyTorch twin.
 
-Ported so far: the 'fft', 'exact', 'peeled' and 'pexact' greek backends, the
-'fft', 'fft32', 'exact' and 'pexact' difference backends, the 'lu', 'cho',
-'refined', 'exact' (with its large-system route) and 'transformed' solvers,
-Tikhonov regularization, polynomial and B-spline bases in the ENTANGLED /
-SEPARATE scaling modes, the customized packets and the B-spline packet with
-its solution FITS. Numpy input runs on the CUDA card unless the caller
+Ported so far: the 'fft', 'fft32', 'exact', 'peeled' (polynomial and B-spline
+bases) and 'pexact' greek backends, the 'fft', 'fft32', 'exact' and 'pexact'
+difference backends, the 'lu', 'cho', 'refined', 'exact' (with its
+large-system route) and 'transformed' solvers, Tikhonov regularization,
+polynomial and B-spline bases in the ENTANGLED / SEPARATE scaling modes, the
+customized packets and the B-spline packet with its solution FITS, and the
+post-processing (matching-kernel realization, decorrelation kernels, grid
+convolution). Numpy input runs on the CUDA card unless the caller
 passes device="cpu".
 """
 
@@ -36,6 +38,8 @@ from sfft_tpu_torch.api.bspline import (
     read_bspline_solution_fits,
     write_bspline_solution_fits,
 )
+from sfft_tpu_torch.post.decorrelation import BSplineDeCorrelation, DeCorrelationCalculator
+from sfft_tpu_torch.post.grid_convolve import BSplineGridConvolve
 
 __version__ = "0.1.0"
 
@@ -53,4 +57,7 @@ __all__ = [
     "make_bspline_config",
     "read_bspline_solution_fits",
     "write_bspline_solution_fits",
+    "DeCorrelationCalculator",
+    "BSplineDeCorrelation",
+    "BSplineGridConvolve",
 ]

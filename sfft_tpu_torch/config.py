@@ -49,11 +49,11 @@ class SFFTConfig:
     """All static parameters of one SFFT problem instance.
 
     Backend fields name the same algorithms as in sfft_tpu; the port
-    implements greek 'fft', 'exact', 'peeled' and 'pexact', fdiff 'fft',
-    'fft32', 'exact' and 'pexact', and solvers 'lu', 'cho', 'refined',
-    'exact' and 'transformed'. The others (greek 'fft32' / 'corr', fdiff
-    'conv', solvers 'host' / 'blocked_cho') raise NotImplementedError where
-    they are dispatched.
+    implements greek 'fft', 'fft32', 'exact', 'peeled' (polynomial and
+    B-spline bases) and 'pexact', fdiff 'fft', 'fft32', 'exact' and
+    'pexact', and solvers 'lu', 'cho', 'refined', 'exact' and 'transformed'.
+    The others (greek 'corr', fdiff 'conv', solvers 'host' / 'blocked_cho')
+    raise NotImplementedError where they are dispatched.
     """
 
     N0: int

@@ -72,19 +72,21 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
 
         out = greek_tables_exact(mI, mJ, cfg, shared=shared, plain=plain)
         extra = out[5] if separate_varying else None
-    elif cfg.greek_backend == "fft":
+    elif cfg.greek_backend in ("fft", "fft32"):
+        # fft32: the tables come out f32, so the assembly below runs in f32
+        # and the solve receives the f32 system, as sfft_tpu's does
         SI, ST, SSc = _plane_stacks(cfg, mI)
-        out = greek_tables(SI, ST, mJ, cfg.w0, cfg.w1, backend="fft",
+        out = greek_tables(SI, ST, mJ, cfg.w0, cfg.w1, backend=cfg.greek_backend,
                            chunk=cfg.greek_chunk, plain=plain)
         extra = None
         if separate_varying:
             extra = greek_tables_separate(
-                SI, SSc, ST, mJ, cfg.w0, cfg.w1, backend="fft", chunk=cfg.greek_chunk,
-                n_active=cfg.scaling_basis.num_funcs(), plain=plain)
+                SI, SSc, ST, mJ, cfg.w0, cfg.w1, backend=cfg.greek_backend,
+                chunk=cfg.greek_chunk, n_active=cfg.scaling_basis.num_funcs(), plain=plain)
     else:
         raise NotImplementedError(
             f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
-            "yet (ROADMAP queue 1); use 'fft', 'exact', 'peeled' or 'pexact'")
+            "yet (ROADMAP queue 1); use 'fft', 'fft32', 'exact', 'peeled' or 'pexact'")
     Comg, Cgam, Cthe, Cphi, Cdel = out[:5]
     tables = entangled_tables(
         cfg, (s**3) * Comg, (s**2) * Cgam, (s**2) * Cthe, s * Cphi, s * Cdel
@@ -97,7 +99,11 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
             Ptb=tables.Ptb, Pts=(s**2) * Pts,
             Pphi=tables.Pphi, Pdel=tables.Pdel,
         )
-    # Tikhonov terms ride the streamed OMG row chunks of the assembly
+    # Tikhonov terms ride the streamed OMG row chunks of the assembly. The
+    # system comes out in the tables' dtype: f64 tables assemble in f64 at
+    # any NEQ, as sfft_tpu does on a CPU or GPU (its f32 output for f64
+    # tables at NEQ >= 8192 with a solver other than 'exact' is a TPU rule;
+    # the card holds the 1.4 GB f64 system of 13k dofs easily)
     return assemble_system(cfg, tables,
                            reg_terms=regularization_terms_on(cfg, mI.device, tables.Pbb.dtype))
 
@@ -130,7 +136,11 @@ def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
     I = I.to(dt)
     J = J.to(dt)
     SI, ST, SSc = _plane_stacks(cfg, I, dtype=dt)
-    return fdiff(cfg, solution.to(dt), SI, ST, J, SSc)
+    if SSc is not None:
+        # the planes past the active scaling functions are zero padding:
+        # they add nothing to the model spectrum
+        SSc = SSc[: cfg.scaling_basis.num_funcs()]
+    return fdiff(cfg, solution.to(dt), SI, ST, J, SSc, plain=plain)
 
 
 def solve_and_subtract_fn(cfg: SFFTConfig):

@@ -11,8 +11,10 @@ contract-grade difference for any spatial basis) carries that algebra in f32
 pair arithmetic with the sliced-integer transforms of core/exact_fft.py;
 'pexact' (the polynomial contract mode's) lives in core/pexact.py.
 
-The fused model-spectrum pass is plain PyTorch here; its hand kernel (K2)
-is the next item of ROADMAP queue 2.
+The fused model-spectrum pass between the forward and the inverse rfft2
+(``fdiff_model``) is the hand-written K2 kernel (csrc/fdiff_model.cu) on CUDA
+tensors and its plain twin ``fdiff_model_plain`` on CPU tensors; the FFTs
+stay cuFFT.
 """
 
 from __future__ import annotations
@@ -65,6 +67,101 @@ def standard_kernel_coeffs(cfg: SFFTConfig, a_ijab: torch.Tensor) -> torch.Tenso
     return out
 
 
+def fdiff_model_plain(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch.Tensor,
+                      W1: torch.Tensor, Fij: int, w0: int, w1: int, SCALE: float) -> torch.Tensor:
+    """The model spectrum's plain PyTorch twin: FDIFF = FJ - sum_ij
+    SCALE (K'_ij - s_nc_ij) FI_ij - sum_pq b_pq FT_pq - SCALE sum_ij a00_ij
+    FX_ij with K'_ij = W0 @ A'_ij @ W1 (center-zeroed), FX = FS when given
+    (its nS <= Fij planes pair with the first nS centers), else FI.
+    specs: (1 + Fij + Fpq, N0, N1h) rfft2 half spectra of J, SI, ST."""
+    cdt = W0.dtype
+    L0, L1 = W0.shape[1], W1.shape[0]
+    FJ = specs[0]
+    FI = specs[1 : 1 + Fij]
+    FT = specs[1 + Fij :]
+    a_ijab = solution[: Fij * L0 * L1].reshape(Fij, L0, L1)
+    b_pq = solution[Fij * L0 * L1 :]
+    a00 = a_ijab[:, w0, w1]
+    Ap = a_ijab.clone()
+    Ap[:, w0, w1] = 0.0
+    Ap = Ap.to(cdt)
+    # K'_ij[u, v] = (W0 @ A'_ij @ W1)[u, v]  (center-zeroed kernel spectrum)
+    K = torch.einsum("ua,iab,bv->iuv", W0, Ap, W1)
+    s_nc = a_ijab.sum(dim=(1, 2)) - a00
+    factor = SCALE * (K - s_nc.to(cdt)[:, None, None])
+
+    model = (factor * FI).sum(dim=0) + torch.tensordot(b_pq.to(cdt), FT, dims=([0], [0]))
+    if FS is None:
+        model = model + SCALE * torch.tensordot(a00.to(cdt), FI, dims=([0], [0]))
+    else:
+        model = model + SCALE * torch.tensordot(a00[: FS.shape[0]].to(cdt), FS,
+                                                dims=([0], [0]))
+    return FJ - model
+
+
+_K2_ENTRY = {torch.complex64: "sfft_fdiff_model_c64", torch.complex128: "sfft_fdiff_model_c128"}
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE):
+    from sfft_tpu_torch import _kernels
+
+    L0, L1 = W0.shape[1], W1.shape[0]
+    N0, N1h = specs.shape[1], specs.shape[2]
+    dev = specs.device
+    T = torch.empty((Fij, L0, N1h), dtype=specs.dtype, device=dev)
+    snc = torch.empty((Fij,), dtype=solution.dtype, device=dev)
+    out = torch.empty((N0, N1h), dtype=specs.dtype, device=dev)
+    nS = 0 if FS is None else FS.shape[0]
+    with torch.cuda.device(dev):
+        err = getattr(_kernels.lib(), _K2_ENTRY[specs.dtype])(
+            specs.data_ptr(), FS.data_ptr() if nS else None, solution.data_ptr(),
+            W0.data_ptr(), W1.data_ptr(), T.data_ptr(), snc.data_ptr(), out.data_ptr(),
+            Fij, specs.shape[0] - 1 - Fij, nS, L0, L1, w0, w1, N0, N1h, float(SCALE),
+            _kernels.stream_ptr(specs))
+    fdiff_model.launches += 2
+    _kernels.check(err, "fdiff_model kernel launch")
+    return out
+
+
+def fdiff_model(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch.Tensor,
+                W1: torch.Tensor, Fij: int, w0: int, w1: int, SCALE: float) -> torch.Tensor:
+    """The model spectrum FDIFF (N0, N1h) of ``fdiff_model_plain``'s
+    arguments, all contiguous, complex64 (f32 solution) or complex128 (f64).
+    CUDA tensors go through the K2 kernel (two launches: the per-ij rows
+    A'_ij @ W1, then one pass over the half spectrum that never writes K');
+    CPU tensors through ``fdiff_model_plain``."""
+    cdt = specs.dtype
+    spectra = [specs, W0, W1] + ([] if FS is None else [FS])
+    if cdt not in _REAL or any(t.dtype != cdt for t in spectra) or solution.dtype != _REAL[cdt]:
+        raise TypeError("fdiff_model needs complex64 or complex128 spectra and phase matrices "
+                        "and a solution of the matching real type")
+    tensors = spectra + [solution]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fdiff_model needs contiguous operands")
+    if any(t.device != specs.device for t in tensors):
+        raise ValueError("fdiff_model operands on more than one device")
+    if specs.dim() != 3:
+        raise ValueError("fdiff_model needs (1 + Fij + Fpq, N0, N1h) spectra")
+    nplanes, N0, N1h = specs.shape
+    L0, L1 = W0.shape[1], W1.shape[0]
+    Fpq = nplanes - 1 - Fij
+    if (Fpq < 0 or tuple(W0.shape) != (N0, L0) or tuple(W1.shape) != (L1, N1h)
+            or tuple(solution.shape) != (Fij * L0 * L1 + Fpq,)
+            or (FS is not None and (FS.shape[0] > Fij or tuple(FS.shape[1:]) != (N0, N1h)))):
+        raise ValueError("fdiff_model: inconsistent shapes")
+    if specs.device.type == "cpu":
+        return fdiff_model_plain(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
+    if specs.device.type != "cuda":
+        raise ValueError(f"fdiff_model runs on cpu or cuda tensors, not {specs.device}")
+    if specs.numel() >= 2 ** 31 or Fij * L0 > 65535:
+        raise ValueError("fdiff_model kernel takes int32 extents")
+    return _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
+
+
+fdiff_model.launches = 0
+
+
 def fdiff_fft(
     cfg: SFFTConfig,
     solution: torch.Tensor,
@@ -72,41 +169,25 @@ def fdiff_fft(
     ST: torch.Tensor,
     J: torch.Tensor,
     SSc: torch.Tensor = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Fourier-space difference: D = irfft2(FJ - sum_ij K_ij . FI_ij - sum b FT).
 
     SSc: scaling-weighted planes (SEPARATE-VARYING); the center-offset dofs
     apply to them instead of SI (reference Construct_FDIFF SEPARATE-VARYING
-    variant, sfft/BSplineSFFT.py:2430-2528)."""
+    variant, sfft/BSplineSFFT.py:2430-2528); it may hold fewer than Fij
+    planes (the active ones). The model spectrum between the forward and the
+    inverse rfft2 is ``fdiff_model`` (K2 on the card); plain=True takes its
+    twin."""
     N0, N1 = cfg.N0, cfg.N1
     dev = J.device
-    a_ijab, b_pq = split_solution(cfg, solution)
     W0 = table(Static(phase_matrix, (cfg, True, 0)), dev)
     W1 = table(Static(phase_matrix, (cfg, True, 1)), dev)
-    cdt = W0.dtype
-
-    stack = torch.cat([J[None], SI, ST], dim=0)
-    specs = torch.fft.rfft2(stack)
-    FJ = specs[0]
-    FI = specs[1 : 1 + cfg.Fij]
-    FT = specs[1 + cfg.Fij :]
-
-    a00 = a_ijab[:, cfg.w0, cfg.w1]
-    Ap = a_ijab.clone()
-    Ap[:, cfg.w0, cfg.w1] = 0.0
-    Ap = Ap.to(cdt)
-    # K'_ij[u, v] = (W0 @ A'_ij @ W1)[u, v]  (center-zeroed kernel spectrum)
-    K = torch.einsum("ua,iab,bv->iuv", W0, Ap, W1)
-    s_nc = a_ijab.sum(dim=(1, 2)) - a00
-    factor = cfg.SCALE * (K - s_nc.to(cdt)[:, None, None])
-
-    model = (factor * FI).sum(dim=0) + torch.tensordot(b_pq.to(cdt), FT, dims=([0], [0]))
-    if SSc is None:
-        model = model + cfg.SCALE * torch.tensordot(a00.to(cdt), FI, dims=([0], [0]))
-    else:
-        FS = torch.fft.rfft2(SSc)
-        model = model + cfg.SCALE * torch.tensordot(a00.to(cdt), FS, dims=([0], [0]))
-    FDIFF = FJ - model
+    specs = torch.fft.rfft2(torch.cat([J[None], SI, ST], dim=0))
+    FS = None if SSc is None else torch.fft.rfft2(SSc)
+    model = fdiff_model_plain if plain else fdiff_model
+    FDIFF = model(specs, FS, solution.to(_REAL[W0.dtype]).contiguous(), W0, W1, cfg.Fij,
+                  cfg.w0, cfg.w1, cfg.SCALE)
     return torch.fft.irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
 
 
@@ -251,7 +332,7 @@ def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
 
         return fdiff_pexact(cfg, solution, I, J, shared=shared, plain=plain)
     if cfg.fdiff_backend == "fft":
-        return fdiff_fft(cfg, solution, SI, ST, J, SSc)
+        return fdiff_fft(cfg, solution, SI, ST, J, SSc, plain=plain)
     if cfg.fdiff_backend == "fft32":
         # float32/complex64 compute of the difference from the float64
         # solution: f32 rounding, far below the pixel noise of survey images
@@ -264,6 +345,7 @@ def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
             ST.to(f32),
             J.to(f32),
             None if SSc is None else SSc.to(f32),
+            plain=plain,
         )
         return out.to(J.dtype)
     raise NotImplementedError(

@@ -201,12 +201,13 @@ def _corr_launch(specA, specB, ia, ib, E0, E1, sym=False):
     table_dev, ngroups = _schedule(tuple(int(v) for v in ia), tuple(int(v) for v in ib), same,
                                    _pairs_per_block(ty), dev)
     # scratch: E1 repacked into padded lag groups (rows up to a whole tile),
-    # the stage-1 result, and stage 2's partial sums over ranges of u
+    # the stage-1 result, and stage 2's partial sums over ranges of u (f64
+    # for both types)
     slots = ne if double else ne + ne % 2
     E1p = torch.empty((-(-N1h // _E1_ROW_PAD) * _E1_ROW_PAD, (ty + ty % 2) * slots),
                       dtype=specA.dtype, device=dev)
     T1 = torch.empty((npairs, N0, R1), dtype=specA.dtype, device=dev)
-    part = torch.empty((npairs, _U_RANGES, R0, R1), dtype=real, device=dev)
+    part = torch.empty((npairs, _U_RANGES, R0, R1), dtype=torch.float64, device=dev)
     out = torch.empty((npairs, R0, R1), dtype=real, device=dev)
     entry = "sfft_corr_window_c128" if double else "sfft_corr_window_c64"
     with torch.cuda.device(dev):
@@ -589,7 +590,7 @@ def greek_tables_separate(
     Returns (Pbs_raw, Pss_raw, Pgs_raw, Pts_raw) unscaled CC tables:
       Pbs: CC(SI_a, SSc_b) window +-w; Pss: CC(SSc_a, SSc_b)[0];
       Pgs: CC(SSc_a, T_q)[0]; Pts: CC(SSc_a, J)[0].
-    Backends 'fft' and 'exact' are ported.
+    Backends 'fft', 'fft32' (f32 tables) and 'exact' are ported.
     """
     N0, N1 = J.shape
     if backend == "exact":
@@ -612,13 +613,18 @@ def greek_tables_separate(
             specT = _half_spectra(ST, plain)
             Pgs = exact_corr_window(specS, specT, N0, N1, 0, 0, plain=plain)[:, :, 0, 0]
         return _pad_scaling(Pbs, Pss, Pgs, Pts, SSc.shape[0] - Fs)
-    if backend != "fft":
+    if backend not in ("fft", "fft32"):
         raise NotImplementedError(
             f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1); use 'fft' or 'exact'")
+            "(ROADMAP queue 1); use 'fft', 'fft32' or 'exact'")
     Pss = dot_planes(SSc, SSc)
     Pgs = dot_planes(SSc, ST)
     Pts = dot_planes(SSc, J[None])[:, 0]
+    if backend == "fft32":
+        # c64 spectra into the windowed correlation (K1 in c64 on the card);
+        # the lag-zero blocks stay f64 inner products, cast to f32
+        SI, SSc = SI.to(torch.float32), SSc.to(torch.float32)
+        Pss, Pgs, Pts = (t.to(torch.float32) for t in (Pss, Pgs, Pts))
     specI = torch.fft.rfft2(SI)
     specS = torch.fft.rfft2(SSc)
     Pbs = corr_window_fft(specI, specS, N0, N1, w0, w1, chunk=chunk, plain=plain)
@@ -646,7 +652,8 @@ def greek_tables(
       Cdel: (Fpq,)     lag 0
 
     Unscaled CC values; the engine applies the SCALE powers that map CC to the
-    reference's Pre tables. Backends 'fft' and 'exact' are ported ('exact':
+    reference's Pre tables. Backends 'fft', 'fft32' (f32 compute and f32
+    tables) and 'exact' are ported ('exact':
     the sliced-integer pair-FFT and windowed correlation for the data x data
     blocks; with `bg_spec`, the background basis, rolled-basis exact moments
     for everything against the background planes, else the generic spectral
@@ -675,12 +682,19 @@ def greek_tables(
                                      plain=plain)[:, :, 0, 0]
             Cdel = exact_corr_window(specT, specJ, N0, N1, 0, 0, plain=plain)[:, 0, 0, 0]
         return Comg, Cgam, Cthe, Cphi, Cdel
-    if backend != "fft":
+    if backend not in ("fft", "fft32"):
         raise NotImplementedError(
             f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1); use 'fft' or 'exact'")
+            "(ROADMAP queue 1); use 'fft', 'fft32' or 'exact'")
+    # lag-zero blocks are plain inner products, in the input dtype
     Cphi = dot_planes(ST, ST)
     Cdel = dot_planes(ST, J[None])[:, 0]
+    if backend == "fft32":
+        # f32 compute: the inputs cast to f32 go through the fft route (K1 in
+        # c64 on the card), so the correlation tables come out f32 and the
+        # assembly runs in f32; Cphi and Cdel are the f64 products cast
+        SI, ST, J = (t.to(torch.float32) for t in (SI, ST, J))
+        Cphi, Cdel = Cphi.to(torch.float32), Cdel.to(torch.float32)
     stack = torch.cat([J[None], SI, ST], dim=0)
     specs = torch.fft.rfft2(stack)
     Fij = SI.shape[0]

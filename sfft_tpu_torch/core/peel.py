@@ -1,5 +1,6 @@
 """Smooth/fluctuation-peeled Greek assembly (counterpart of
-sfft_tpu/core/peel.py), polynomial bases.
+sfft_tpu/core/peel.py), polynomial bases; B-spline bases dispatch to the
+piecewise peel of core/peel_pw.py.
 
 Each input image splits exactly as I = P_I + F_I, with P_I a low-degree
 polynomial fit. Every Greek correlation CC(I*beta_a, I*beta_b)[lag] expands
@@ -367,9 +368,11 @@ def peeled_greek_tables(
     if (cfg.kernel_basis.kind != "polynomial"
             or cfg.bg_basis.kind != "polynomial"
             or (separate_varying and cfg.scaling_basis.kind != "polynomial")):
-        raise NotImplementedError(
-            "peeled tables for B-spline bases (sfft_tpu/core/peel_pw.py) are not "
-            "ported to sfft_tpu_torch yet (ROADMAP queue 1, TPU-precision engines)")
+        # B-spline bases: the truncated-power generalization handles them
+        # (it raises where its knot layout is not supported)
+        from sfft_tpu_torch.core.peel_pw import peeled_pw_greek_tables
+
+        return peeled_pw_greek_tables(I, J, cfg, plain=plain)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dmu = cfg.peel_degree
     dk = cfg.kernel_basis.degree

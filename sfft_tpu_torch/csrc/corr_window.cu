@@ -7,7 +7,7 @@
 // wrapper's schedule of the npairs pairs (see corr_stage1); E0 (R0, N0), E1
 // (N1h, R1) complex; scratch: E1p (N1h rounded up to a multiple of 64, (ty +
 // ty % 2) * slots) complex with slots = ne rounded up to even (c64) or ne
-// (c128), T1 (npairs, N0, R1) complex, part (npairs, 32, R0, R1) real; out
+// (c128), T1 (npairs, N0, R1) complex, part (npairs, 32, R0, R1) f64; out
 // (npairs, R0, R1) real. sym: E1's columns are conjugate-symmetric about the
 // middle one (R1 odd). ne is 5 or 9; ty * ne covers the lag slots (R1,
 // or R1 / 2 + 1 with sym) and (ty - 1) * ne does not. Returns the first CUDA

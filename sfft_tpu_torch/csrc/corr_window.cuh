@@ -13,30 +13,29 @@
 // Templated on float (complex64, the peeled path's fluctuation spectra) and
 // double (complex128, the f64 'fft' greek backend).
 //
+// Sums are f64 in both instantiations: the c64 spectra's products are formed
+// in f32 and widened, stage 1's register sums and stage 2's are f64, and
+// T1 and the output are rounded to the spectra's type once. The window
+// values are small differences of the sums' terms (the images' power sits
+// at low frequencies), and f32 sums there made the v2 fft32 mode five times
+// worse than the irfft twin on the NIRCam configuration (0.63 against 0.12
+// RMS from f64); with f64 sums it is 0.073, and the 4096^2 fast slice
+// 2.3e-4 against the twins' 4.6e-4 (PERF.md).
+//
 // What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W; measured with
 // chip_smoke.py --kernels on the 4096^2 windows of the peeled path). Stage
 // 1, T1[c, u, e] = sum_v H[c, u, v] E1[v, e], is R1 complex multiply-adds per
-// element of the Hadamard product for general weights: 46 GFLOP of FP32 for
-// the 21 pairs of the 33 x 33 OMG window, 0.69 ms at the card's 67 TFLOP/s.
-// With the window's conjugate-pair weights (below) it is 17 rather than 33
-// sets of four multiply-adds: 25 GFLOP, 0.37 ms with stage 2, and that is
-// the yardstick of the launches the port makes. The 6 pairs of the 17 x 17
-// THE window are bound by their 470 MB of spectra (0.14 ms). Three things
-// kept the first design (one pair per block, 2 rows x 5 lags per thread,
-// plain loads between barriers) at 2.2 + 0.5 ms: the FP32 pipe ran too much
-// besides FFMAs, every pair pulled both of its spectra through L2 (2.8 GB
-// for OMG), and nothing was in flight while a block computed. This design
-// takes 1.04-1.10 + 0.24 ms: OMG at about a third of what the conjugate-pair
-// arithmetic needs, THE at half of its bytes' time. What holds it now: OMG
-// costs the same when all 21 pairs read one plane, so it is the SM, not the
-// bytes: per column a warp runs 36 FFMAs and 4 for the product against 12
-// shared-memory wavefronts (two for each 16-byte weight load, as a warp
-// holds two lag groups): over an SM's four schedulers the shared-memory pipe
-// (48 wavefronts per 40 scheduler cycles) is the tighter of the two, and at 16
-// warps per SM neither is kept busy: the warps wait on the shared loads that
-// feed their FFMAs. (A warp of one lag group and two pairs, 9 wavefronts,
-// was slower on both windows.) THE moves its bytes at 2.0 TB/s in 256-byte
-// row pieces.
+// element of the Hadamard product for general weights. With the window's
+// conjugate-pair weights (below) it is 17 rather than 33 sets of four
+// multiply-adds for the 21 pairs of the 33 x 33 OMG window: 25 GFLOP, 0.37
+// ms of FP32 at the card's 67 TFLOP/s (0.74 ms at FP64's 34), the yardstick
+// of the launches the port makes. The 6 pairs of the 17 x 17 THE window are
+// bound by their 470 MB of spectra (0.14 ms). The kernel takes 2.49 ms
+// (OMG) and 0.62 ms (THE): the DFMAs of the f64 sums run at half the FFMA
+// rate, 36 f64 accumulators hold a thread at 168 registers (three blocks
+// per SM), and the warps wait on the shared-memory loads that feed them
+// (per column a warp runs 36 multiply-adds against 12 shared-memory
+// wavefronts, two for each 16-byte weight load).
 //
 // Design of stage 1:
 //  * Half the multiply-adds. The window's weights come in conjugate pairs,
@@ -44,7 +43,7 @@
 //    real products of h = a * conj(b) with e = E1[v, w + d] give both lags:
 //    with P1 = sum hx ex, P2 = sum hy ey, P3 = sum hx ey, P4 = sum hy ex,
 //    T1[w + d] = (P1 - P2, P3 + P4) and T1[w - d] = (P1 + P2, P4 - P3).
-//    Four FFMAs into four accumulators serve two lags. A caller with other
+//    Four multiply-adds into four accumulators serve two lags. A caller with other
 //    weights (sym = 0) gets the plain complex multiply-add.
 //  * A quarter to a half of the bytes. A block works on a group of up to 4
 //    pairs that share up to 4 planes (2 x 2, 3 x 1; the wrapper's schedule),
@@ -69,17 +68,15 @@
 //    of lags with sym); a warp is 16 row lanes x 2 lag groups, so a raw load
 //    is one wavefront and a weight load two 16-byte broadcasts; TY lag
 //    groups (TY / 2 warps per pair) cover the slots. With sym RU = 1 (36
-//    accumulator registers at NE = 9 in c64, 123 registers, four 128-thread
-//    blocks per SM): more warps per SM hid more latency than a second row's
-//    reuse of the weights saved. Without, RU = 4 (c64) or 2 (c128).
-//  * Sums: in f32 the registers hold the sum of kFlush columns, which is
-//    then added into T1 in (L2-resident) device memory by the thread that
-//    owns it: two levels, to keep the rounding growth small, without a
-//    second set of registers; in f64 one running sum. No atomics and a fixed
-//    order: two launches give the same bits.
+//    f64 accumulators at NE = 9): more warps per SM hid more latency than a
+//    second row's reuse of the weights saved (with f32 sums). Without, RU =
+//    2.
+//  * Sums: one running f64 sum per accumulator, written to T1 once. No
+//    atomics and a fixed order: two launches give the same bits.
 // Stage 1 leaves T1 (pairs, N0, R1), about R1 / N1h (1.6%) of the product's
 // bytes; stage 2 contracts T1 over u with E0 and keeps the real part, with
-// 8 independent loads in flight per thread.
+// 8 independent loads in flight per thread, R0 * R1 * N0 f64 multiply-adds
+// per pair, a few percent of stage 1's.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -163,12 +160,11 @@ constexpr int kMaxTY = 8;        // lag groups per pair: at most 4 warps
 constexpr int kMaxWarps = 4;     // warps per block
 constexpr int kSlots = 4;        // planes per group
 constexpr int kMaxVT = 64;       // E1 is packed to a multiple of this many rows
-constexpr int kFlush = 512;      // f32: columns summed in registers between adds into T1
 constexpr int kGroupInts = 18;   // ints per row of the group table
 
-// rows per thread: one with sym; 4 / 2 in c64 / c128 without
+// rows per thread: one with sym, two without
 template <typename R, bool SYM>
-__host__ __device__ constexpr int rows_per_thread() { return SYM ? 1 : sizeof(R) == 4 ? 4 : 2; }
+__host__ __device__ constexpr int rows_per_thread() { return SYM ? 1 : 2; }
 
 // lag slots per group in shared memory: c64 groups start 16-byte aligned
 template <typename R, int NE>
@@ -211,7 +207,7 @@ __global__ void corr_pack_e1(const typename CplxOf<R>::T* __restrict__ E1,
 // ints per group: npairs, nslots, the slots' planes [4] and stacks [4] (0: A,
 // 1: B), the pairs' slots sa + 4 * sb [4] and output indices c [4].
 template <typename R, int NE, int VT, int ST, bool SYM>
-__global__ void __launch_bounds__(32 * kMaxWarps, (SYM && sizeof(R) == 4) ? 4 : 3)
+__global__ void __launch_bounds__(32 * kMaxWarps, 3)
 corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
             const typename CplxOf<R>::T* __restrict__ B,
             const int* __restrict__ groups,
@@ -223,10 +219,8 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
   constexpr int UT = kRL * RU;             // spectrum rows per block
   constexpr int NEP = lag_slots<R, NE>();
   constexpr int LD = row_stride<R, VT>();
-  constexpr int NACC = SYM ? 4 : 2;        // real accumulators per row and lag slot
-  constexpr bool kTwoLevel = sizeof(R) == 4;
-  constexpr int kFlushTiles = kFlush / VT;
-  static_assert(kFlush % VT == 0 && kMaxVT % VT == 0, "tiles divide the flush and pack periods");
+  constexpr int NACC = SYM ? 4 : 2;        // f64 accumulators per row and lag slot
+  static_assert(kMaxVT % VT == 0, "tiles divide the pack period");
   static_assert(VT % 2 == 0, "tiles keep a row's phase");
   extern __shared__ __align__(16) unsigned char smem[];
   const int EW = row_slots<R, NE>(TY);     // lag slots per E1 row
@@ -306,7 +300,7 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
                 (unsigned int)(VT * EW * sizeof(C)), full + buf);
   };
 
-  R acc[RU][NE][NACC];
+  double acc[RU][NE][NACC];
 #pragma unroll
   for (int i = 0; i < RU; ++i)
 #pragma unroll
@@ -325,48 +319,30 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
   C* t1 = T1 + ((size_t)grp[14 + (active ? pair : 0)] * N0 + u0 + rl) * R1;  // row i: + kRL * i * R1
   const int w = R1 / 2;
 
-  // the register sums into T1: the first time as they are, later added to
-  // what is there (a row's loads all started before its first store). Lag
-  // slot j of group g is column d = g * NE + j, or with sym the columns
-  // w + d and (d > 0) w - d.
-  auto flush = [&](bool first) {
+  // the register sums into T1, rounded to R once. Lag slot j of group g is
+  // column d = g * NE + j, or with sym the columns w + d and (d > 0) w - d.
+  auto store = [&]() {
     if (!active) return;
 #pragma unroll
     for (int i = 0; i < RU; ++i) {
       if (u0 + rl + kRL * i >= N0) continue;
       C* p = t1 + (size_t)kRL * i * R1;
-      constexpr int NV = SYM ? 2 : 1;
-      C old[NE][NV];
 #pragma unroll
       for (int j = 0; j < NE; ++j) {
         const int d = g * NE + j;
-#pragma unroll
-        for (int m = 0; m < NV; ++m) old[j][m] = czero<C>();
-        if (first) continue;
+        C v;
         if constexpr (SYM) {
-          if (d <= w) old[j][0] = p[w + d];
-          if (d <= w && d > 0) old[j][1] = p[w - d];
+          v.x = static_cast<R>(acc[i][j][0] - acc[i][j][1]);
+          v.y = static_cast<R>(acc[i][j][2] + acc[i][j][3]);
+          if (d <= w) p[w + d] = v;
+          v.x = static_cast<R>(acc[i][j][0] + acc[i][j][1]);
+          v.y = static_cast<R>(acc[i][j][3] - acc[i][j][2]);
+          if (d <= w && d > 0) p[w - d] = v;
         } else {
-          if (d < R1) old[j][0] = p[d];
+          v.x = static_cast<R>(acc[i][j][0]);
+          v.y = static_cast<R>(acc[i][j][1]);
+          if (d < R1) p[d] = v;
         }
-      }
-#pragma unroll
-      for (int j = 0; j < NE; ++j) {
-        const int d = g * NE + j;
-        if constexpr (SYM) {
-          old[j][0].x += acc[i][j][0] - acc[i][j][1];
-          old[j][0].y += acc[i][j][2] + acc[i][j][3];
-          old[j][1].x += acc[i][j][0] + acc[i][j][1];
-          old[j][1].y += acc[i][j][3] - acc[i][j][2];
-          if (d <= w) p[w + d] = old[j][0];
-          if (d <= w && d > 0) p[w - d] = old[j][1];
-        } else {
-          old[j][0].x += acc[i][j][0];
-          old[j][0].y += acc[i][j][1];
-          if (d < R1) p[d] = old[j][0];
-        }
-#pragma unroll
-        for (int q = 0; q < NACC; ++q) acc[i][j][q] = 0;
       }
     }
   };
@@ -382,50 +358,53 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
     if (!active) continue;   // a warp without a pair only helps with the copies
 #pragma unroll 8
     for (int k = 0; k < VT; ++k) {
-      C h[RU];
+      double hx[RU], hy[RU];   // the product in R, widened
 #pragma unroll
-      for (int i = 0; i < RU; ++i)
-        h[i] = cmul_conj(raw[offa[i] + k], raw[offb[i] + k]);
+      for (int i = 0; i < RU; ++i) {
+        const C h = cmul_conj(raw[offa[i] + k], raw[offb[i] + k]);
+        hx[i] = h.x;
+        hy[i] = h.y;
+      }
       C e[NE];
       load_lags<NE>(es + k * EW, e);
 #pragma unroll
-      for (int j = 0; j < NE; ++j)
+      for (int j = 0; j < NE; ++j) {
+        const double ex = e[j].x, ey = e[j].y;
 #pragma unroll
         for (int i = 0; i < RU; ++i) {
           if constexpr (SYM) {
-            acc[i][j][0] = fma(h[i].x, e[j].x, acc[i][j][0]);
-            acc[i][j][1] = fma(h[i].y, e[j].y, acc[i][j][1]);
-            acc[i][j][2] = fma(h[i].x, e[j].y, acc[i][j][2]);
-            acc[i][j][3] = fma(h[i].y, e[j].x, acc[i][j][3]);
+            acc[i][j][0] = fma(hx[i], ex, acc[i][j][0]);
+            acc[i][j][1] = fma(hy[i], ey, acc[i][j][1]);
+            acc[i][j][2] = fma(hx[i], ey, acc[i][j][2]);
+            acc[i][j][3] = fma(hy[i], ex, acc[i][j][3]);
           } else {
-            acc[i][j][0] = fma(h[i].x, e[j].x, fma(-h[i].y, e[j].y, acc[i][j][0]));
-            acc[i][j][1] = fma(h[i].x, e[j].y, fma(h[i].y, e[j].x, acc[i][j][1]));
+            acc[i][j][0] = fma(hx[i], ex, fma(-hy[i], ey, acc[i][j][0]));
+            acc[i][j][1] = fma(hx[i], ey, fma(hy[i], ex, acc[i][j][1]));
           }
         }
+      }
     }
-    if (kTwoLevel && (it + 1) % kFlushTiles == 0 && it + 1 < ntiles)
-      flush(it + 1 == kFlushTiles);
   }
-  flush(!kTwoLevel || ntiles <= kFlushTiles);
+  store();
 }
 
 // Stage 2 is small (R0 * R1 outputs per pair, N0 terms each) and all latency:
 // the u axis is cut into kUSplit ranges, one block each, a thread per
 // output with 8 independent loads in flight; a second pass adds the ranges'
-// partial sums in order (two levels again, and deterministic).
+// partial sums in order (deterministic).
 constexpr int kLanes = 64;    // R1 <= 64
 constexpr int kUSplit = 32;   // ranges of u
 constexpr int kInFlight = 8;  // u steps loaded before the first is used
 constexpr int kRG = 4;        // output rows r per thread
 
-// part[c, s, r, e] = Re sum_{u in range s} E0[r, u] * T1[c, u, e]; a thread
-// owns kRG rows r of one e, so a T1 value serves kRG products and the E0
-// values are warp-wide broadcasts
+// part[c, s, r, e] = Re sum_{u in range s} E0[r, u] * T1[c, u, e], summed in
+// f64; a thread owns kRG rows r of one e, so a T1 value serves kRG products
+// and the E0 values are warp-wide broadcasts
 template <typename R>
 __global__ void __launch_bounds__(256)
 corr_stage2(const typename CplxOf<R>::T* __restrict__ T1,
             const typename CplxOf<R>::T* __restrict__ E0,
-            R* __restrict__ part, int N0, int R0, int R1) {
+            double* __restrict__ part, int N0, int R0, int R1) {
   using C = typename CplxOf<R>::T;
   const int o = blockIdx.z * blockDim.x + threadIdx.x;
   const int nrg = (R0 + kRG - 1) / kRG;
@@ -438,7 +417,7 @@ corr_stage2(const typename CplxOf<R>::T* __restrict__ T1,
   const C* w0[kRG];   // rows past R0 read row R0 - 1 and are not stored
 #pragma unroll
   for (int j = 0; j < kRG; ++j) w0[j] = E0 + (size_t)min(r0 + j, R0 - 1) * N0;
-  R acc[kRG];
+  double acc[kRG];
 #pragma unroll
   for (int j = 0; j < kRG; ++j) acc[j] = 0;
   int u = ub;
@@ -451,7 +430,7 @@ corr_stage2(const typename CplxOf<R>::T* __restrict__ T1,
 #pragma unroll
       for (int k = 0; k < kInFlight; ++k) {
         const C w = w0[j][u + k];
-        acc[j] = fma(w.x, tv[k].x, fma(-w.y, tv[k].y, acc[j]));
+        acc[j] = fma((double)w.x, (double)tv[k].x, fma(-(double)w.y, (double)tv[k].y, acc[j]));
       }
   }
   for (; u < ue; ++u) {
@@ -459,7 +438,7 @@ corr_stage2(const typename CplxOf<R>::T* __restrict__ T1,
 #pragma unroll
     for (int j = 0; j < kRG; ++j) {
       const C w = w0[j][u];
-      acc[j] = fma(w.x, tv.x, fma(-w.y, tv.y, acc[j]));
+      acc[j] = fma((double)w.x, (double)tv.x, fma(-(double)w.y, (double)tv.y, acc[j]));
     }
   }
 #pragma unroll
@@ -467,17 +446,17 @@ corr_stage2(const typename CplxOf<R>::T* __restrict__ T1,
     if (r0 + j < R0) part[(((size_t)c * kUSplit + s) * R0 + r0 + j) * R1 + e] = acc[j];
 }
 
-// out[c, r, e] = sum_s part[c, s, r, e], in range order
+// out[c, r, e] = sum_s part[c, s, r, e], in range order, in f64
 template <typename R>
-__global__ void corr_stage2_sum(const R* __restrict__ part, R* __restrict__ out, int n_out,
+__global__ void corr_stage2_sum(const double* __restrict__ part, R* __restrict__ out, int n_out,
                                 int per_pair) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_out) return;
-  const R* p = part + (size_t)(i / per_pair) * kUSplit * per_pair + i % per_pair;
-  R acc = 0;
+  const double* p = part + (size_t)(i / per_pair) * kUSplit * per_pair + i % per_pair;
+  double acc = 0;
 #pragma unroll 8
   for (int s = 0; s < kUSplit; ++s) acc += p[(size_t)s * per_pair];
-  out[i] = acc;
+  out[i] = static_cast<R>(acc);
 }
 
 template <typename R, int NE, int VT, int ST, bool SYM>
@@ -545,13 +524,13 @@ int launch(const void* A, const void* B, const void* groups, const void* E0, con
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid2(kUSplit, npairs, ((R0 + kRG - 1) / kRG * R1 + 255) / 256);
-  corr_stage2<R><<<grid2, 256, 0, st>>>(t1, static_cast<const C*>(E0), static_cast<R*>(part),
-                                        N0, R0, R1);
+  corr_stage2<R><<<grid2, 256, 0, st>>>(t1, static_cast<const C*>(E0),
+                                        static_cast<double*>(part), N0, R0, R1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_out = npairs * R0 * R1;
   corr_stage2_sum<R><<<(n_out + 255) / 256, 256, 0, st>>>(
-      static_cast<const R*>(part), static_cast<R*>(out), n_out, R0 * R1);
+      static_cast<const double*>(part), static_cast<R*>(out), n_out, R0 * R1);
   return static_cast<int>(cudaGetLastError());
 }
 

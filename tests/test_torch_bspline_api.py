@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import sfft_tpu  # noqa: F401  (x64)
 from sfft_tpu.api import bspline as jbsp
@@ -24,6 +25,9 @@ from sfft_tpu_torch.core import solve as tsolve
 from sfft_tpu_torch.post import solution as tsolution
 
 import v2_cases
+
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
 
 N0, N1 = v2_cases.N0, v2_cases.N1
 # the NIRCam configuration's shape at a small size: degree-2 B-spline kernel
@@ -109,7 +113,10 @@ def test_bsp_fits_in_fits_out_matches_reference(files, force):
 def test_bsp_exact_trio_matches_reference_and_walks_sliced_solve(files, monkeypatch):
     """The contract trio through BSP, masked == unmasked (one shared pass of
     plane spectra), with the size gate of the large-system solve lowered so
-    the path runs _refined_solve_f64's sliced route on the CPU."""
+    the path runs _refined_solve_f64's sliced route on the CPU. plain=True
+    reaches the solve too; that routing is checked on the f64 fft tables
+    (the same solve, without the exact engine's tables), where both runs
+    are the plain twins on the CPU."""
     trio = dict(greek_backend="exact", fdiff_backend="exact", solver="exact")
     same = (files["mref"], files["msci"], files["mref"], files["msci"])
     sj, dj = jbsp.BSplinePacket.BSP(*same, GKerHW=2, **KW, **trio)
@@ -120,10 +127,12 @@ def test_bsp_exact_trio_matches_reference_and_walks_sliced_solve(files, monkeypa
     monkeypatch.setattr(tsolve, "LARGE_NEQ", 64)
     st, dt = tbsp.BSplinePacket.BSP(*same, GKerHW=2, device="cpu", **KW, **trio)
     assert calls == [dict(plain=False)]
-    sp, dp = tbsp.BSplinePacket.BSP(*same, GKerHW=2, device="cpu", plain=True, **KW, **trio)
-    assert calls[1:] == [dict(plain=True)]
-    np.testing.assert_array_equal(sp, st)       # on the CPU both are the plain twins
-    np.testing.assert_array_equal(dp, dt)
+    cheap = dict(trio, greek_backend="fft", fdiff_backend="fft")
+    sc, dc = tbsp.BSplinePacket.BSP(*same, GKerHW=2, device="cpu", **KW, **cheap)
+    sp, dp = tbsp.BSplinePacket.BSP(*same, GKerHW=2, device="cpu", plain=True, **KW, **cheap)
+    assert calls[1:] == [dict(plain=False), dict(plain=True)]
+    np.testing.assert_array_equal(sp, sc)       # on the CPU both are the plain twins
+    np.testing.assert_array_equal(dp, dc)
     sj, dj = np.asarray(sj), np.asarray(dj)
     np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6 * np.abs(sj).max())
     np.testing.assert_allclose(dt, dj, rtol=0, atol=1e-8 * 2000.0)

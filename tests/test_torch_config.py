@@ -22,6 +22,9 @@ from sfft_tpu_torch import config as tconfig
 from sfft_tpu_torch.core import basis as tbasis
 from sfft_tpu_torch.core import indices as tindices
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 
 def _spec_pair(kind, degree, kx=(), ky=()):
     return (jconfig.BasisSpec(kind, degree, kx, ky),

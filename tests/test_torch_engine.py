@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import sfft_tpu  # noqa: F401  (x64)
+import jax
 import jax.numpy as jnp
 from sfft_tpu.config import BasisSpec as JB, SFFTConfig as JC, make_config as jmake
 from sfft_tpu.core import engine as jengine
@@ -31,6 +32,9 @@ from sfft_tpu_torch.core import solve as tsolve
 
 import test_engine
 from oracle import design_matrix, model_image, solve_oracle
+
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,7 +77,7 @@ def t(x):
 def test_assemble_system_matches_reference_and_oracle(w, cpr):
     I, J = make_pair(1)
     jc, tc = cfgs(w=w, cpr=cpr)
-    lhs_j, rhs_j = jengine.normal_equations_fn(jc)(jnp.asarray(I), jnp.asarray(J))
+    lhs_j, rhs_j = jax.jit(jengine.normal_equations_fn(jc))(jnp.asarray(I), jnp.asarray(J))
     lhs_t, rhs_t = tengine.normal_equations_fn(tc)(t(I), t(J))
     lhs_j, rhs_j = np.asarray(lhs_j), np.asarray(rhs_j)
     assert lhs_t.dtype == torch.float64 and tuple(lhs_t.shape) == (tc.NEQ, tc.NEQ)
@@ -116,8 +120,8 @@ def test_solve_system_matches_reference(solver):
     converges both to the f64 solution."""
     I, J = make_pair(3)
     jc, tc = cfgs(solver=solver)
-    lhs, rhs = jengine.normal_equations_fn(jc)(jnp.asarray(I), jnp.asarray(J))
-    ref = np.asarray(jsolve.solve_system(jc, lhs, rhs))
+    lhs, rhs = jax.jit(jengine.normal_equations_fn(jc))(jnp.asarray(I), jnp.asarray(J))
+    ref = np.asarray(jax.jit(lambda a, b: jsolve.solve_system(jc, a, b))(lhs, rhs))
     out = tsolve.solve_system(tc, t(lhs), t(rhs)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-8 * np.abs(ref).max())
     removed = np.setdiff1d(np.arange(tc.NEQ), tsolve._tweak_plan(tc)[0])
@@ -309,19 +313,21 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
 
 
 def test_unported_backends_raise():
-    """greek 'fft32' / 'corr', fdiff 'conv' and solvers 'blocked_cho' /
-    'host' wait for later slices. greek and fdiff 'exact' and lambda > 0 run
-    (held to sfft_tpu in test_torch_v2_exact.py and test_torch_v2_engine.py)."""
+    """greek 'corr', fdiff 'conv' and solvers 'blocked_cho' / 'host' wait for
+    later slices. greek 'fft32', greek and fdiff 'exact' and lambda > 0 run
+    (held to sfft_tpu in test_torch_v2_fast.py, test_torch_v2_exact.py and
+    test_torch_v2_engine.py)."""
     I, J = make_pair(10)
-    for kw in [dict(greek_backend="fft32"), dict(greek_backend="corr"),
-               dict(fdiff_backend="conv"), dict(solver="blocked_cho"), dict(solver="host")]:
+    for kw in [dict(greek_backend="corr"), dict(fdiff_backend="conv"),
+               dict(solver="blocked_cho"), dict(solver="host")]:
         _, tc = cfgs(**kw)
         with pytest.raises(NotImplementedError):
             tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
-    _, tc = cfgs(greek_backend="exact", fdiff_backend="exact", regularize_lambda=0.1,
-                 reg_xy=((5.0, 5.0),))
-    sol, diff = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
-    assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
+    for kw in [dict(greek_backend="exact", fdiff_backend="exact", regularize_lambda=0.1,
+                    reg_xy=((5.0, 5.0),)), dict(greek_backend="fft32")]:
+        _, tc = cfgs(**kw)
+        sol, diff = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
+        assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
 
 
 def test_standard_kernel_coeffs_match_reference():
@@ -344,7 +350,9 @@ def test_import_leaves_jax_out():
             "sfft_tpu_torch.core.exact_fft, sfft_tpu_torch.core.slicing, "
             "sfft_tpu_torch.core.pexact, sfft_tpu_torch.core.solve, "
             "sfft_tpu_torch.core.regularize, sfft_tpu_torch.api.bspline, "
-            "sfft_tpu_torch.post.solution; "
+            "sfft_tpu_torch.core.peel_pw, sfft_tpu_torch.core.fdiff, "
+            "sfft_tpu_torch.post.solution, sfft_tpu_torch.post.fftkits, "
+            "sfft_tpu_torch.post.decorrelation, sfft_tpu_torch.post.grid_convolve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'sfft_tpu' or m.startswith('sfft_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

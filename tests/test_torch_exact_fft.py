@@ -19,6 +19,9 @@ from sfft_tpu_torch.core import peel as tpeel
 from sfft_tpu_torch.core import slicing as tsl
 from sfft_tpu_torch.core.statics import Static
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 SLICE_SHAPES = [(64, 384), (3, 40, 256), (130, 120)]
 
 

@@ -15,6 +15,9 @@ import torch
 
 from sfft_tpu_torch.core import greek as tgreek
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 
 @pytest.fixture
 def cuda():
@@ -126,9 +129,11 @@ def test_greek_tables_fft_match_reference(w):
 
 def test_greek_tables_unported_backends_raise():
     SI = torch.zeros((6, 32, 32), dtype=torch.float64)
-    for backend in ("fft32", "corr"):
-        with pytest.raises(NotImplementedError):
-            tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend=backend)
+    with pytest.raises(NotImplementedError):
+        tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="corr")
+    # 'fft32' is ported (f32 tables; held to sfft_tpu in test_torch_v2_fast.py)
+    out = tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="fft32")
+    assert all(o.dtype == torch.float32 for o in out)
     # 'exact' is ported (held to sfft_tpu in test_torch_v2_engine.py)
     out = tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="exact")
     assert tuple(out[0].shape) == (6, 6, 5, 5) and not any(bool(o.any()) for o in out)

@@ -14,6 +14,9 @@ import torch
 
 from sfft_tpu_torch.core import moments as tmom
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 SHAPES = [(3, 300, 257), (16, 512, 130), (20, 256, 129)]
 
 

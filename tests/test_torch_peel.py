@@ -24,6 +24,9 @@ from sfft_tpu_torch.core import peel as tpeel
 
 import test_peel
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 NAMES = ["Comg", "Cgam", "Cthe", "Cphi", "Cdel"]
 
 
@@ -144,9 +147,15 @@ def test_peeled_separate_varying_tables_match_reference():
 
 
 def test_peeled_bspline_raises():
+    """B-spline bases dispatch to the piecewise peel (core/peel_pw.py, held to
+    sfft_tpu in test_torch_peel_pw.py), which raises where its knot layout is
+    not supported (a knot closer than 2W to the edge)."""
+    from sfft_tpu_torch.core import peel_pw as tpw
+
     jc, tc = _cfgs(1, fluct_dtype="float64")
     tc = dataclasses.replace(tc, kernel_basis=dataclasses.replace(
-        tc.kernel_basis, kind="bspline", int_knots_x=(20.0,)))
-    with pytest.raises(NotImplementedError):
+        tc.kernel_basis, kind="bspline", int_knots_x=(2.0,)))
+    assert not tpw.pw_supported(tc)
+    with pytest.raises(ValueError, match="edge"):
         tpeel.peeled_greek_tables(torch.zeros((48, 40), dtype=torch.float64),
                                   torch.zeros((48, 40), dtype=torch.float64), tc)

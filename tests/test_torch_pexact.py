@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import sfft_tpu  # noqa: F401  (x64)
+import jax
 import jax.numpy as jnp
 from sfft_tpu.config import BasisSpec
 from sfft_tpu.core import engine as jengine
@@ -33,6 +34,9 @@ from sfft_tpu_torch.core import pexact as tpexact
 from sfft_tpu_torch.core import solve as tsolve
 
 from test_pexact import _cfg, _pair
+
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
 
 CASES = {
     "contract": dict(solver="transformed"),
@@ -75,7 +79,8 @@ def contract_system():
     """sfft_tpu's pexact normal equations of the contract case."""
     I, J = _pair_for("contract")
     jc, _ = _cfgs("contract")
-    lhs, rhs = jengine._normal_equations_impl(jc, jnp.asarray(I), jnp.asarray(J))
+    lhs, rhs = jax.jit(lambda a, b: jengine._normal_equations_impl(jc, a, b))(
+        jnp.asarray(I), jnp.asarray(J))
     return np.array(lhs), np.array(rhs)
 
 
@@ -143,7 +148,8 @@ def test_solve_system_matches_reference(contract_system, solver):
     jc, tc = _cfgs("contract")
     jc = dataclasses.replace(jc, solver=solver)
     tc = dataclasses.replace(tc, solver=solver)
-    ref = np.asarray(jsolve.solve_system(jc, jnp.asarray(lhs), jnp.asarray(rhs)))
+    ref = np.asarray(jax.jit(lambda a, b: jsolve.solve_system(jc, a, b))(
+        jnp.asarray(lhs), jnp.asarray(rhs)))
     out = tsolve.solve_system(tc, torch.as_tensor(lhs), torch.as_tensor(rhs)).numpy()
     assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
     removed = np.setdiff1d(np.arange(tc.NEQ), tsolve._tweak_plan(tc)[0])

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import sfft_tpu  # noqa: F401  (x64)
+import jax
 import jax.numpy as jnp
 from sfft_tpu.config import BasisSpec as JB, SFFTConfig as JC
 from sfft_tpu.core import basis as jbasis
@@ -26,6 +27,9 @@ from sfft_tpu_torch.core import engine as tengine
 from sfft_tpu_torch.core import regularize as treg
 
 import test_v2_engine
+
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
 
 
 def _xy(seed, n=12):
@@ -101,9 +105,9 @@ def test_regularization_streamed_equals_dense_and_reference(mode):
     assert float((lhs_dense - lhs_raw).abs().max()) > 1e-6 * scale   # the terms are live
     np.testing.assert_allclose(lhs_str.numpy(), lhs_dense.numpy(), rtol=0, atol=1e-12 * scale)
     np.testing.assert_array_equal(rhs_str.numpy(), rhs_raw.numpy())
-    lhs_j, rhs_j = jengine.normal_equations_fn(jc)(jnp.asarray(I), jnp.asarray(J))
+    lhs_j, rhs_j = jax.jit(jengine.normal_equations_fn(jc))(jnp.asarray(I), jnp.asarray(J))
     np.testing.assert_allclose(lhs_str.numpy(), np.asarray(lhs_j), rtol=0, atol=1e-10 * scale)
-    lhs_jd = jreg.apply_regularization(jc, jengine.normal_equations_fn(jc0)(
+    lhs_jd = jreg.apply_regularization(jc, jax.jit(jengine.normal_equations_fn(jc0))(
         jnp.asarray(I), jnp.asarray(J))[0])
     np.testing.assert_allclose(lhs_dense.numpy(), np.asarray(lhs_jd), rtol=0,
                                atol=1e-10 * scale)

@@ -17,6 +17,9 @@ import torch
 from sfft_tpu_torch.core import exact_fft as tef
 from sfft_tpu_torch.core import slicing as tsl
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 
 def _triple_parts(v):
     """Exact three-way f32 split of an f64 array."""

@@ -22,6 +22,9 @@ import torch
 from sfft_tpu_torch.core import slicing as tsl
 from sfft_tpu_torch.core import solve as tsolve
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 
 def _wide_pair(seed, shape, zero_row=False, scale=1.0):
     """A (hi, lo) f32 pair of values over ~14 decades (optionally a zero

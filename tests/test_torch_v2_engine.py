@@ -24,6 +24,9 @@ from sfft_tpu_torch.core import greek as tgreek
 import test_v2_engine
 import v2_cases
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 
 def _close(out, ref, tol, scale=None):
     ref = np.asarray(ref)
@@ -109,4 +112,7 @@ def test_unported_backends_raise():
     with pytest.raises(NotImplementedError):
         tgreek.greek_tables(SI, ST, J, 1, 1, backend="corr")
     with pytest.raises(NotImplementedError):
-        tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="fft32")
+        tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="corr")
+    # 'fft32' is ported (f32 tables; held to sfft_tpu in test_torch_v2_fast.py)
+    out = tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="fft32")
+    assert all(o.dtype == torch.float32 for o in out)

@@ -24,18 +24,32 @@ from sfft_tpu_torch.core import solve as tsolve
 
 import v2_cases
 
+# the suite runs in several worker processes on one CPU: two threads each
+torch.set_num_threads(2)
+
 EXACT = dict(greek_backend="exact", fdiff_backend="exact", solver="exact")
+_STEPS = {}
+
+
+def _same_step(case):
+    """The port's shared-spectra step of a case on the module's pair, computed
+    once per module."""
+    if case not in _STEPS:
+        I, J = v2_cases.make_pair()
+        _, tc = v2_cases.configs(case, **EXACT)
+        _STEPS[case] = tengine.solve_and_subtract_same_fn(tc)(torch.as_tensor(I),
+                                                              torch.as_tensor(J))
+    return _STEPS[case]
 
 
 @pytest.mark.parametrize("case", sorted(v2_cases.CASES))
 def test_v2_exact_path_matches_reference(case):
     I, J = v2_cases.make_pair()
-    jc, tc = v2_cases.configs(case, **EXACT)
+    jc, _ = v2_cases.configs(case, **EXACT)
     sol_j, diff_j = jax.jit(jengine.solve_and_subtract_same_fn(jc))(
         jnp.asarray(I), jnp.asarray(J))
     sol_j, diff_j = np.asarray(sol_j), np.asarray(diff_j)
-    sol_t, diff_t = tengine.solve_and_subtract_same_fn(tc)(torch.as_tensor(I),
-                                                           torch.as_tensor(J))
+    sol_t, diff_t = _same_step(case)
     np.testing.assert_allclose(sol_t.numpy(), sol_j, rtol=0, atol=1e-6 * np.abs(sol_j).max())
     np.testing.assert_allclose(diff_t.numpy(), diff_j, rtol=0, atol=1e-8 * np.abs(J).max())
     # and the port's own f64 fft/fft/lu path as the yardstick of the contract
@@ -49,11 +63,11 @@ def test_v2_exact_path_matches_reference(case):
 def test_shared_spectra_step_equals_two_call_step(case):
     """Masked == unmasked: the step computes the plane spectra once and hands
     them to the tables and the difference; the numbers are those of the two
-    separate calls."""
-    I, J = v2_cases.make_pair(3)
+    separate calls. The shared step is the one the parity test above ran on
+    the same pair."""
+    I, J = v2_cases.make_pair()
     _, tc = v2_cases.configs(case, **EXACT)
-    sol_s, diff_s = tengine.solve_and_subtract_same_fn(tc)(torch.as_tensor(I),
-                                                           torch.as_tensor(J))
+    sol_s, diff_s = _same_step(case)
     sol_2, diff_2 = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     assert torch.equal(sol_s, sol_2) and torch.equal(diff_s, diff_2)
     # GSS takes the shared step for the same arrays and two calls otherwise
