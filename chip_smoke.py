@@ -5,8 +5,8 @@
 
 Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
 against its plain PyTorch twin on the card (K3 moments, K1 windowed
-correlation, K2 fused model spectrum, K4 and K5 integer slicers: bit for
-bit), then drives the port's
+correlation, K2 fused model spectrum; K4 and K5 integer slicers and K7, the
+epilogue of the sliced int8 products, bit for bit), then drives the port's
 paths at full size. On a 4096^2 pair (the benchmark pair's generator),
 KerHW=8, poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
 GeneralSFFT.GSS:
@@ -15,7 +15,7 @@ GeneralSFFT.GSS:
     runs K3, K1 and K2;
   * the 'contract' path (pexact tables and difference at pexact_prof
     (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
-    K3 and K4; and once with the 'exact' solver.
+    K3, K4 and K7; and once with the 'exact' solver.
 
 And on a 900^2 pair of the same generator, written to FITS, through
 BSplinePacket.BSP -> GeneralSFFT.GSS:
@@ -25,7 +25,7 @@ BSplinePacket.BSP -> GeneralSFFT.GSS:
     kernel with 2 x 2 internal knots, SEPARATE-VARYING degree-2 polynomial
     scaling, degree-0 background, Tikhonov lambda = 3e-5 on 512 seeded
     points: NEQ = 13226) with the exact / exact / exact backends, which runs
-    K4 (every sliced product of the exact engine) and K5 (the sliced
+    K4 and K7 (every sliced product of the exact engine) and K5 (the sliced
     residuals of the large f64 solve). The NIRCam image pair itself is not
     in the repository; the generated pair stands in for it.
 
@@ -49,13 +49,17 @@ held to the f64 one with K2 and with K2's twin, and its K3 and K2 calls to
 their twins on the path's own operands.
 
 Each path is driven with the launch counts set to 0 just before it and read
-just after, and must have launched its kernels. Two more steps of the
-contract path and of the v2 path, the first with the static-table caches
-emptied, hold every launch of the K4 and K5 slicing stages of the step (the
-static tables' and the data's, on the views, depths and padded widths the
-path gives them) bit for bit against the stage twins on the same inputs
-(slices, scales, and the f32 matrix of the K5 setup), and time each stage
-and its twin on each distinct launch's inputs. The v2 path is held to the f64 fft/fft/lu
+just after, and must have launched its kernels. The contract and the v2
+step run once more with K7 alone on its twin, which must give the same
+bits (solution and difference), and once under the profiler (busy time,
+launches, idle share). Two more steps of the contract path and of the v2
+path, the first with the static-table caches emptied, hold every launch of
+the K4 and K5 slicing stages of the step (the static tables' and the
+data's, on the views, depths and padded widths the path gives them) and
+every K7 launch of the second (steady) step bit for bit against the twins
+on the same inputs (slices, scales, the f32 matrix of the K5 setup, K7's
+pair planes), and time each stage and its twin on each distinct launch's
+inputs. The v2 path is held to the f64 fft/fft/lu
 path of the same configuration (difference within 1e-6 RMS, solution within
 1e-6 of its maximum), and its large solve (f32 Cholesky refined with sliced
 residuals) to the same solve with f64-matvec residuals (1e-9). The 4096^2
@@ -73,9 +77,14 @@ nothing of JAX. Takes a few minutes on an H100.
 
     python3 chip_smoke.py --profile OUT_DIR
 
-builds the kernels and profiles one step of each path (contract, fast, v2,
-v2-fast-fft32, v2-fast-peeled) instead (device busy time, idle share, top operations; the full tables go to
-OUT_DIR).
+builds the kernels and times (median of three steps) and profiles one step
+of each path (contract, fast, v2, v2-fast-fft32, v2-fast-peeled) instead
+(device busy time, idle share, top operations; the full tables go to
+OUT_DIR); then splits the contract and the v2 step's device time by
+function (SPLIT: K7, K6's pair products, the K4 stage, the int8 products,
+concatenation copies, the solve, the rest) and counts K6's bound. It runs in
+a checkout of an older commit too (copy the script into it), which is how
+parent and change compare on one card.
 
     python3 chip_smoke.py --steady PAIRS
 
@@ -92,9 +101,10 @@ kernels on one clock when the script is run in a checkout of each.
 
 build the kernels with the compiler's resource report (registers, shared
 memory, spills; written to OUT_DIR/build_report.txt) and run phase 3's
-checks and timings of K3, K1 (also at the v2 fast widths) and K2 (with a
-profile of one call of K3 and K1 at the fast slice's shapes: device time of
-each stage by kernel name), or of the K4 and K5 slicing stages, alone.
+checks and timings of K3, K1 (also at the v2 fast widths), K2 and K7 (with a
+profile of K3, K1 and K2 at the fast slice's shapes and K2 at the v2 ones:
+device time of each stage by kernel name), or of the K4 and K5 slicing
+stages, alone.
 
     python3 chip_smoke.py --fidelity
 
@@ -982,6 +992,125 @@ def phase_fidelity(I, J):
     log(json.dumps({"fidelity": out}))
 
 
+def k7_table(K, M, kind, seed):
+    """A seeded static table (K, M) for the K7 cases: complex, or real ('r')."""
+    rng = np.random.default_rng(seed)
+    W = rng.normal(size=(K, M))
+    return W if kind == "r" else W + 1j * rng.normal(size=(K, M))
+
+
+def k7_data(shape, kind, seed, dev):
+    """A seeded pair operand over ~6 decades of row magnitudes on the card:
+    real, or complex ('c')."""
+    from sfft_tpu_torch.core import exact_fft
+
+    rng = np.random.default_rng(seed)
+    planes = []
+    for _ in range(2 if kind == "c" else 1):
+        x = rng.normal(size=shape) * 10.0 ** rng.integers(-3, 4, size=shape[:-1] + (1,))
+        hi = x.astype(np.float32)
+        planes += [hi, (x - hi.astype(np.float64)).astype(np.float32)]
+    planes += [None] * (4 - len(planes))
+    import torch
+
+    return exact_fft.CPair(*(None if v is None else torch.as_tensor(v, device=dev)
+                             for v in planes))
+
+
+def k7_bound(P, plan, sd):
+    """K7's bound for one call: the int32 values its terms need read once
+    (every combo of every group, M true columns), the scales read once, the
+    output planes written once; per element and term one integer add per
+    combo and ~8 f32 operations per f32 value of the chain (two with the
+    2^12 split), 6 for the scale and renormalisation, 16 for the
+    recombination."""
+    rows = int(np.prod(plan.lead))
+    n = rows * plan.M
+    terms = [t for t in plan.terms if t is not None]
+    combos = sum(len(c) for c in plan.slabs)
+    nout = 2 if plan.mode == 2 else 4
+    nbytes = 4 * (len(terms) * combos * n + nout * n + sum(s.numel() for s in sd) + len(terms))
+    vals = len(plan.slabs) * (2 if plan.split else 1)
+    return bound(nbytes, n * (len(terms) * (combos + 8 * vals + 6) + 16), FP32_FLOP_PER_S)
+
+
+def k7_signature(P, plan, sd):
+    """The launch signature of a K7 call: products' shape, the plan (its
+    static scales by kind), the data scales' shape."""
+    terms = tuple(None if t is None else (t[0], t[1], type(t[2]).__name__) for t in plan.terms)
+    return (tuple(P.shape), plan.lead, plan.M, plan.slabs, plan.weights, plan.split,
+            plan.slab_stride, plan.ncols, terms, plan.mode, tuple(sd[0].shape))
+
+
+def phase_k7():
+    """K7 (the sliced product's epilogue) against its twin, bit for bit, on
+    every route: shallow (K < 1024) and deep, the 2^12 split or not (shallow
+    K = 1000), m <= 16 rows (the padded product), global and rowwise
+    scales, static scales given as floats (small tables) and as device
+    scalars (big tables), real data, complex data, real_out and a table
+    with no imaginary part, at the profiles (9, 8, 8), (8, 7, 6) and
+    (6, 6, 5); one launch per call, two launches bit-equal. Every K7 launch
+    of a contract and a v2 step is held to the twin again in phases 6 and
+    7."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft
+    from sfft_tpu_torch.core.statics import Static
+
+    dev = torch.device("cuda")
+    routes = {"shallow": (64, 64, (3, 40)), "shallow m<=16": (64, 33, (5,)),
+              "shallow split": (1000, 17, (6, 9)), "deep": (2049, 17, (4, 5)),
+              "deep m<=16": (1030, 23, (2,))}
+    kinds = {"real data": ("r", "c", False), "complex": ("c", "c", False),
+             "real_out": ("c", "c", True), "real table": ("c", "r", False)}
+    real = exact_fft.sliced_epilogue
+    n = 0
+    seen = set()
+    for ri, (route, (K, M, lead)) in enumerate(routes.items()):
+        for ki, (kind, (dk, wk, real_out)) in enumerate(kinds.items()):
+            data = k7_data(lead + (K,), dk, 10 * ri + ki, dev)
+            W = Static(k7_table, (K, M, wk, 10 * ri + ki))
+            for prof in [(9, 8, 8), (8, 7, 6), (6, 6, 5)]:
+                for rowwise in (False, True):
+                    plans = []
+
+                    def capture(P, plan, sd):
+                        plans.append(plan)
+                        return real(P, plan, sd)
+
+                    run = lambda: exact_fft._cmatmul_sliced(
+                        data, W, rowwise=rowwise, real_out=real_out,
+                        prof=exact_fft.SliceProfile(*prof))
+                    before = real.launches
+                    exact_fft.sliced_epilogue = capture
+                    try:
+                        got = run()
+                        again = run()
+                    finally:
+                        exact_fft.sliced_epilogue = real
+                    torch.cuda.synchronize()
+                    assert real.launches == before + 2, (route, kind, prof)
+                    exact_fft.sliced_epilogue = exact_fft.sliced_epilogue_plain
+                    try:
+                        ref = run()
+                    finally:
+                        exact_fft.sliced_epilogue = real
+                    for g, a, r in zip(got, again, ref):
+                        assert (g is None) == (r is None), (route, kind, prof, rowwise)
+                        assert g is None or (torch.equal(g, a) and torch.equal(g, r)), \
+                            f"K7 {route} {kind} {prof} rowwise={rowwise}: differs from the twin"
+                    pl = plans[0]
+                    seen.add((pl.split, pl.mode, isinstance(pl.terms[0][2], torch.Tensor),
+                              pl.terms[1] is None))
+                    n += 1
+    # every route of the kernel was taken: split or not, the three modes,
+    # static scales as floats and as device scalars, a table without an
+    # imaginary part
+    assert {k[0] for k in seen} == {True, False} and {k[1] for k in seen} == {0, 1, 2}
+    assert {k[2] for k in seen} == {True, False} and {k[3] for k in seen} == {True, False}
+    log(f"phase 3 K7 sliced_epilogue: {n} calls (5 routes x 4 kinds x 3 profiles x global / "
+        f"rowwise scales) bit-identical to the twin, one launch each, two launches bit-equal")
+
+
 def phase_kernels():
     import torch
     from sfft_tpu_torch.core import exact_fft
@@ -993,6 +1122,7 @@ def phase_kernels():
     torch.cuda.empty_cache()
     report["k1_v2"] = phase_k1_v2()
     report["fdiff_model"] = phase_k2()
+    phase_k7()
 
     # K4: bit for bit against the twin (slices and scales), rowwise and
     # global, on wide-range values: odd widths (the scalar path: a row
@@ -1259,10 +1389,14 @@ def k5_bound(shape, nsl, rowwise, out_cols):
 
 def slicers_on_path(run, phase, path):
     """Two steps of one path (`run` drives one) with every K4 and K5 launch
-    checked: its outputs (slices, scales, and Ah of the K5 matrix stage)
-    against the plain stage twin on the same inputs, bit for bit. The first
-    step runs with the static-table caches emptied, so the big static tables
-    are sliced again; the second is a steady-state step. Then each distinct
+    and the steady step's K7 launches checked: their outputs (slices,
+    scales, and Ah of the K5 matrix stage; the K7 pair planes) against the
+    plain twin on the same inputs, bit for bit. K7 launches are timed where
+    their signature first appears in the steady step (their int32 products
+    are too large to keep): device time (graph replay), the twin's, the
+    bound. The first step runs with the static-table caches emptied, so the
+    big static tables are sliced again; the second is a steady-state step.
+    Then each distinct
     launch signature (shape, strides, alignment, rowwise, nsl, padded width,
     parts) is timed on its first inputs: the stage's device time (calls
     replayed in a CUDA graph), back to back from Python, its plain twin,
@@ -1317,10 +1451,34 @@ def slicers_on_path(run, phase, path):
              lambda: (x.clone(), out.clone()))
         return s
 
+    epi7 = exact_fft.sliced_epilogue
+    counts7 = [{}, {}]
+    rep7 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                bytes_ms=0.0, first=0, steady=0, signatures=0)
+    timed7 = {}
+
+    def checked7(P, plan, sd):
+        got = epi7(P, plan, sd)
+        sig = k7_signature(P, plan, sd)
+        counts7[step[0]][sig] = counts7[step[0]].get(sig, 0) + 1
+        if step[0] == 0:
+            return got
+        ref = exact_fft.sliced_epilogue_plain(P, plan, sd)
+        assert all((g is None) == (r is None) and (g is None or torch.equal(g, r))
+                   for g, r in zip(got, ref)), \
+            f"sliced_epilogue on the {path} path {sig[:3]} mode {plan.mode}: differs from the twin"
+        if sig not in timed7:
+            big = P.numel() > 2 ** 26
+            ms = graph_ms(lambda: epi7(P, plan, sd), calls=3 if big else 20, reps=3 if big else 7)
+            pms = cuda_ms(lambda: exact_fft.sliced_epilogue_plain(P, plan, sd), reps=3, inner=1)
+            timed7[sig] = (ms, pms) + k7_bound(P, plan, sd)
+        return got
+
     exact_fft._static_slices_for.cache_clear()
     exact_fft._stacked.cache_clear()
     slicing._launch_pairs = checked4
     solve.slice_rows_f64, solve.slice_vec_f64 = checked_rows, checked_vec
+    exact_fft.sliced_epilogue = checked7
     try:
         for step[0] in (0, 1):
             run()
@@ -1328,6 +1486,23 @@ def slicers_on_path(run, phase, path):
     finally:
         slicing._launch_pairs = launch4
         solve.slice_rows_f64, solve.slice_vec_f64 = rows5, vec5
+        exact_fft.sliced_epilogue = epi7
+    for sig, (ms, pms, bms, by) in sorted(timed7.items(), key=lambda kv: str(kv[0])):
+        count = counts7[1][sig]
+        rep7["ms"] += count * ms
+        rep7["plain_ms"] += count * pms
+        rep7["bound_ms"] += count * bms
+        rep7["bytes_ms"] += count * bms * (by == "bytes")
+        rep7["first"] += counts7[0].get(sig, 0)
+        rep7["steady"] += count
+        rep7["signatures"] += 1
+        log(f"phase {phase} sliced_epilogue on the {path} path P {sig[0]} out "
+            f"{sig[1] + (sig[2],)} groups {len(sig[3])} combos "
+            f"{sum(len(c) for c in sig[3])} split={sig[5]} mode {sig[9]} terms "
+            f"{sum(t is not None for t in sig[8])}: {counts7[0].get(sig, 0)} launches at first "
+            f"use, {count} per steady step, bit-identical to the twin; device {ms:.4f} ms "
+            f"(graph replay), plain twin {pms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{100 * bms / ms:.1f}% of it)")
     reports = {}
     for sig, tensors in sorted(inputs.items(), key=lambda kv: str(kv[0])):
         name, shape, strides, aligned, rowwise, nsl, Kp, nparts, given = sig
@@ -1394,6 +1569,17 @@ def slicers_on_path(run, phase, path):
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
             f"computes it")
+    if rep7["steady"]:
+        rep7["bound_by"] = "bytes" if 2 * rep7.pop("bytes_ms") >= rep7["bound_ms"] else \
+            "operations"
+        reports["sliced_epilogue"] = rep7
+        log(f"phase {phase} sliced_epilogue on the {path} path: {rep7['first']} launches at "
+            f"first use and {rep7['steady']} per steady step, {rep7['signatures']} signatures, "
+            f"the steady step's bit-identical to the twin; per steady step device "
+            f"{rep7['ms']:.4f} ms, plain "
+            f"twin {rep7['plain_ms']:.4f} ms, bound {rep7['bound_ms']:.4f} ms "
+            f"({rep7['bound_by']}, {100 * rep7['bound_ms'] / rep7['ms']:.1f}% of the device "
+            f"time); no single PyTorch call computes it")
     return reports
 
 
@@ -1649,6 +1835,34 @@ def phase_stages(I, J, out_dir):
         json.dump(report, f, indent=1)
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _on_device(e):
+    # kernels and copies carry the device type; the host operators that
+    # launched them report the same time again
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def profile_step(step):
+    """torch.profiler over one call of `step` (ending in a synchronize):
+    (profile, wall s, device busy s (kernels and copies), their count, idle
+    share of the wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if _on_device(e)]
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    return prof, wall, busy, sum(e.count for e in kernels), 1 - busy / wall
+
+
 def run_pcp(I, J, cfg, plain, reps):
     """One warm-up and `reps` timed solve+subtract runs through PCP;
     returns (solution, difference, median seconds)."""
@@ -1740,8 +1954,8 @@ def phase_contract(I, J, sol64, diff64):
     the kernels and on the plain twins, then once with the 'exact' solver;
     each held to the f64 fft/fft/exact path."""
     import torch
-    from sfft_tpu_torch import make_config
-    from sfft_tpu_torch.core import greek, moments, slicing
+    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+    from sfft_tpu_torch.core import exact_fft, greek, moments, slicing
 
     cfg = make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
                       solver="transformed")
@@ -1765,14 +1979,17 @@ def phase_contract(I, J, sol64, diff64):
     moments.moments.launches = 0
     greek.corr_window.launches = 0
     slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
+    exact_fft.sliced_epilogue.launches = 0
     sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
     # K4: its slicing launches and its global-max launches (one source)
     launches = {"moments": moments.moments.launches,
                 "corr_window": greek.corr_window.launches,
                 "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
-                "slice_pair_scale": slicing.slice_pair.scale_launches}
+                "slice_pair_scale": slicing.slice_pair.scale_launches,
+                "sliced_epilogue": exact_fft.sliced_epilogue.launches}
     peak = torch.cuda.max_memory_allocated()
-    assert launches["moments"] > 0 and launches["slice_pair"] > 0, \
+    assert (launches["moments"] > 0 and launches["slice_pair"] > 0
+            and launches["sliced_epilogue"] > 0), \
         f"a kernel of the contract path never launched: {launches}"
     rms, drms, srel = check("contract", sol, diff)
     log(f"phase 6 contract {N}^2 KerHW={KERHW} pexact/pexact/transformed prof (8, 7, 6): "
@@ -1780,7 +1997,19 @@ def phase_contract(I, J, sol64, diff64):
         f"peak memory {peak / 2**30:.2f} GiB; central diff RMS {rms:.4f}; "
         f"RMS(diff - diff_f64) = {drms:.3e} (bound 1e-6); "
         f"max|sol - sol_f64|/max|sol_f64| = {srel:.3e} (bound 1e-6)")
-    del sol, diff
+    # the same step with K7 alone on its twin: the same bits
+    step = lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)
+    tsol, tdiff = one_twin(exact_fft, "sliced_epilogue", exact_fft.sliced_epilogue_plain, step)
+    assert torch.equal(tsol, sol) and torch.equal(tdiff, diff), \
+        "contract: the step with K7 differs from the step with K7 on its twin"
+    del sol, diff, tsol, tdiff
+    _, wall, busy, nk, idle = profile_step(step)
+    prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
+                wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
+    log(f"phase 6 contract step with K7 alone on its twin: solution and difference "
+        f"bit-identical; per step {prof['k7_launches']:.0f} K7 launches; one profiled step: "
+        f"wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in {nk} kernels "
+        f"and copies, idle share {idle:.3f}")
     psol, pdiff, plain_s = run_pcp(I, J, cfg, plain=True, reps=3)
     check("contract plain", psol, pdiff)
     log(f"phase 6 same contract path on the plain twins: median step {plain_s * 1e3:.1f} ms")
@@ -1792,12 +2021,8 @@ def phase_contract(I, J, sol64, diff64):
     log(f"phase 6 contract with solver='exact': step {exact_s * 1e3:.1f} ms; "
         f"RMS(diff - diff_f64) = {edrms:.3e}; max|sol - sol_f64|/max = {esrel:.3e}")
     del esol, ediff
-    from sfft_tpu_torch import PureTorchCustomizedPacket
-
-    k4 = slicers_on_path(
-        lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg),
-        6, "contract")["slice_pair"]
-    return launches, step_s, plain_s, peak, drms, srel, k4
+    on_path = slicers_on_path(step, 6, "contract")
+    return launches, step_s, plain_s, peak, drms, srel, on_path, prof
 
 
 def nircam_config(lam=V2_LAMBDA, **backends):
@@ -1859,13 +2084,14 @@ def phase_v2():
 
     import torch
     from sfft_tpu_torch import BSplinePacket, read_bspline_solution_fits
-    from sfft_tpu_torch.core import greek, moments, slicing, solve
+    from sfft_tpu_torch.core import exact_fft, greek, moments, slicing, solve
     from sfft_tpu_torch.io import fits
 
     n = V2_N
     c = slice(n // 4, 3 * n // 4)
     counters = {"moments": moments.moments, "corr_window": greek.corr_window,
-                "slice_pair": slicing.slice_pair, "slice_triple": slicing.slice_triple}
+                "slice_pair": slicing.slice_pair, "slice_triple": slicing.slice_triple,
+                "sliced_epilogue": exact_fft.sliced_epilogue}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ref, sci = write_pair_fits(d)
@@ -1899,7 +2125,8 @@ def phase_v2():
         launches["slice_pair_scale"] = slicing.slice_pair.scale_launches
         launches["slice_pair"] += launches["slice_pair_scale"]
         peak = torch.cuda.max_memory_allocated()
-        assert launches["slice_pair"] > 0 and launches["slice_triple"] > 0, \
+        assert (launches["slice_pair"] > 0 and launches["slice_triple"] > 0
+                and launches["sliced_epilogue"] > 0), \
             f"a kernel of the v2 path never launched: {launches}"
         assert sol.shape == (cfg.NEQ,) and diff.shape == (n, n)
         assert np.isfinite(sol).all() and np.isfinite(diff).all()
@@ -1928,6 +2155,21 @@ def phase_v2():
             f"{rms:.4f}; f64 fft/fft/lu yardstick step {y_s * 1e3:.1f} ms; RMS(diff - diff_f64) "
             f"= {drms:.3e} (bound 1e-6); max|sol - sol_f64|/max|sol_f64| = {srel:.3e} "
             f"(bound 1e-6)")
+
+        # the same step with K7 alone on its twin: the same bits
+        step = lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg)
+        tsol, tdiff = one_twin(exact_fft, "sliced_epilogue", exact_fft.sliced_epilogue_plain,
+                               step)
+        assert np.array_equal(tsol, sol) and np.array_equal(tdiff, diff), \
+            "v2: the step with K7 differs from the step with K7 on its twin"
+        del tsol, tdiff
+        _, wall, busy, nk, idle = profile_step(step)
+        prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
+                    wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
+        log(f"phase 7 v2 step with K7 alone on its twin: solution and difference "
+            f"bit-identical; per step {prof['k7_launches']:.0f} K7 launches; one profiled "
+            f"step: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in {nk} "
+            f"kernels and copies, idle share {idle:.3f}")
 
         # the same path on the plain twins
         psol, pdiff, plain_s = run_bsp(ref, sci, cfg, plain=True, reps=3)
@@ -1964,8 +2206,7 @@ def phase_v2():
 
         solve._refined_solve_f64 = recording
         try:
-            slicers = slicers_on_path(
-                lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=cfg), 7, "v2")
+            slicers = slicers_on_path(step, 7, "v2")
         finally:
             solve._refined_solve_f64 = real_solve
     assert seen, "the v2 path did not reach _refined_solve_f64"
@@ -2010,7 +2251,7 @@ def phase_v2():
     log(f"phase 7 v2 one residual product ({V2_SOLVE_N} dofs): sliced int8 "
         f"{mv_sliced:.3f} ms, f64 matvec {mv_f64:.3f} ms; max-rel difference {mrel:.3e}")
     return dict(launches=launches, step_s=step_s, plain_s=plain_s, first_s=first_s, peak=peak,
-                ydiff=ydiff,
+                ydiff=ydiff, prof=prof,
                 drms=drms, srel=srel, rms=rms, lam=lam, yardstick_s=y_s, slicers=slicers,
                 steps=info["steps"], rel_residual=info["rel_residual"],
                 route_ms={k: r[2] * 1e3 for k, r in routes.items()},
@@ -2099,12 +2340,17 @@ def slice_kernel_calls():
 
 def phase_kernel_profile(out_dir):
     """torch.profiler over three calls of K3 and of K1's two c64 windows at
-    the fast slice's shapes: device time per kernel name (K1's two stages
-    and the mirror's glue apart). The table goes to out_dir too."""
+    the fast slice's shapes, and of K2 (c64) at the fast and the v2 shapes:
+    device time per kernel name (K1's two stages and the mirror's glue, K2's
+    two launches apart). The table goes to out_dir too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     each = slice_kernel_calls()
+    for name, (Fij, Fpq, nS, n, w) in {"K2 fast": (6, 6, 0, N, KERHW),
+                                       "K2 v2": (25, 1, 6, V2_N, V2_KERHW)}.items():
+        args, fdiff = k2_inputs(Fij, Fpq, nS, n, n, w, torch.complex64)
+        each[name] = lambda args=args, fdiff=fdiff: fdiff.fdiff_model(*args)
 
     def calls():
         for fn in each.values():
@@ -2117,25 +2363,192 @@ def phase_kernel_profile(out_dir):
             calls()
         torch.cuda.synchronize()
     ev = prof.key_averages()
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0)
-    kernels = [e for e in ev if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        log(f"kernel profile: {e.key[:90]:90s} {dev_us(e) / e.count / 1e3:9.4f} ms x{e.count}")
+    kernels = [e for e in ev if _on_device(e)]
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:12]:
+        log(f"kernel profile: {e.key[:90]:90s} {_dev_us(e) / e.count / 1e3:9.4f} ms x{e.count}")
     with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
         f.write(ev.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=120))
+    # K2's two launches at each shape apart (one kernel name serves both)
+    for name in ("K2 fast", "K2 v2"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                each[name]()
+            torch.cuda.synchronize()
+        for e in sorted((e for e in prof.key_averages() if _on_device(e)), key=_dev_us,
+                        reverse=True):
+            log(f"kernel profile {name}: {e.key[:70]:70s} {_dev_us(e) / e.count / 1e3:9.4f} ms "
+                f"x{e.count}")
+
+
+# --profile's split of the exact paths' device time by function: (category,
+# the functions whose launches it takes, as (module, name), and the hand
+# kernels it takes by name); a function that a checkout lacks is skipped, so
+# the split runs in an older checkout too. Each function is wrapped from
+# outside in a profiler range; a library kernel counts for the innermost
+# range around the operator that launched it. The hand kernels launch from
+# ctypes, outside any operator, and count by their names; concatenation
+# copies by theirs.
+SPLIT = [
+    ("K7 epilogue", [("exact_fft", "sliced_epilogue"), ("exact_fft", "sliced_epilogue_plain"),
+                     ("exact_fft", "_accum")], ["sliced_epilogue_kernel"]),
+    ("K6 pair products", [("exact_fft", f) for f in ("_pair_hadamard_conj", "_pair_mul_static",
+                                                     "_pair_mul_static_rr", "pair_sep_mul",
+                                                     "_two_prod")], []),
+    ("K4 slicing stage", [("exact_fft", "_slice_pairs")],
+     ["absmax_kernel", "pairs_row_kernel", "pairs_tile_kernel", "rowmax_tile_kernel"]),
+    ("int8 products", [("exact_fft", "_int_mm")], []),
+    ("rest of _cmatmul_sliced", [("exact_fft", "_cmatmul_sliced")], []),
+    ("K3 moments", [("moments", "moments")], ["moments_kernel"]),
+    ("K5 slicing", [], ["rows_f64_kernel", "triple_f32_kernel", "vec_f64_kernel"]),
+    ("solve", [("solve", "solve_system")], []),
+]
+
+
+def wrap_everywhere(fn, wrapper, undo):
+    """Replace fn by functools.wraps(fn)(wrapper) (its counters ride along)
+    in every loaded module of the package that holds it; undo collects
+    (module, name, fn) to restore."""
+    import functools
+
+    wrapped = functools.wraps(fn)(wrapper)
+    for name, m in list(sys.modules.items()):
+        if name.startswith("sfft_tpu_torch") and m is not None:
+            for k, v in list(vars(m).items()):
+                if v is fn:
+                    setattr(m, k, wrapped)
+                    undo.append((m, k, fn))
+
+
+def split_ranges():
+    """Wrap SPLIT's functions, wherever the package's modules hold them, in
+    profiler ranges named 'split:<category>'; returns the function that
+    restores them."""
+    import importlib
+
+    import torch
+
+    undo = []
+    for cat, funcs, _ in SPLIT:
+        for mod, name in funcs:
+            fn = getattr(importlib.import_module(f"sfft_tpu_torch.core.{mod}"), name, None)
+            if fn is None:
+                continue
+
+            def ranged(*args, _fn=fn, _label="split:" + cat, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*args, **kw)
+
+            wrap_everywhere(fn, ranged, undo)
+
+    def restore():
+        for m, k, fn in undo:
+            setattr(m, k, fn)
+
+    return restore
+
+
+def device_split(prof):
+    """Device time (ms) of a profiled step by SPLIT category, and the total
+    (kernels and copies; the ranges' own device annotations left out). Each
+    device event counts once: by name (hand kernels, concatenation copies),
+    else for the innermost range around the CUDA runtime call that launched
+    it (the call carries the event's correlation id; operators' ids are
+    another count and may collide with it)."""
+    def by_name(name):
+        if "CatArrayBatchedCopy" in name:
+            return "concatenation copies"
+        return next((c for c, _, kernels in SPLIT if any(k in name for k in kernels)), None)
+
+    calls = {e.id: e for e in prof.events() if not _on_device(e) and e.name.startswith("cu")}
+    out = dict.fromkeys([c for c, _, _ in SPLIT] + ["concatenation copies", "rest",
+                                                    "no runtime call found"], 0.0)
+    total = 0.0
+    for e in prof.events():
+        if not _on_device(e) or e.name.startswith("split:"):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        total += ms
+        cat = by_name(e.name)
+        if cat is None:
+            p = calls.get(e.id)
+            cat = "rest" if p is not None else "no runtime call found"
+            while p is not None:
+                if p.name.startswith("split:"):
+                    cat = p.name[len("split:"):]
+                    break
+                p = p.cpu_parent
+        out[cat] += ms
+    return out, total
+
+
+# K6's functions (the pair products, not yet a hand kernel) and the f32
+# operations per output element of each: TwoProd 17, TwoSum 6, the rest
+# one each
+K6_OPS = {"_pair_hadamard_conj": 94, "_pair_mul_static": 94, "_pair_mul_static_rr": 21,
+          "pair_sep_mul": 42, "_two_prod": 17}
+
+
+def k6_bound(step):
+    """K6's bound over one step: every outermost call of K6_OPS's functions
+    (pair_sep_mul's two inner products, and TwoProds inside the others, are
+    part of their caller) reads its tensors and static tables once (a
+    table's f32 (hi, lo) planes at its own shape, however broadcast) and
+    writes its output planes once; operations per output element from
+    K6_OPS. Returns (bound_ms, bound_by, calls)."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft
+    from sfft_tpu_torch.core.statics import Static
+
+    depth, acc = [0], dict(nbytes=0, flops=0, calls=0)
+
+    def nbytes(x, planes):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, Static):
+            return planes * 4 * int(np.asarray(x.host()).size)
+        if isinstance(x, (tuple, list)):
+            return sum(nbytes(v, planes) for v in x if v is not None)
+        return 0
+
+    undo = []
+    for name, ops in K6_OPS.items():
+        # a complex static factor is four f32 planes (re, im; hi, lo), a real one two
+        planes = 4 if name == "_pair_mul_static" else 2
+
+        def counted(*args, _fn=getattr(exact_fft, name), _ops=ops, _planes=planes, **kw):
+            depth[0] += 1
+            try:
+                out = _fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                acc["nbytes"] += nbytes(args, _planes) + nbytes(out, _planes)
+                acc["flops"] += _ops * out[0].numel()
+                acc["calls"] += 1
+            return out
+
+        wrap_everywhere(getattr(exact_fft, name), counted, undo)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for m, k, fn in undo:
+            setattr(m, k, fn)
+    return bound(acc["nbytes"], acc["flops"], FP32_FLOP_PER_S) + (acc["calls"],)
 
 
 def phase_profile(I, J, out_dir):
-    """--profile: torch.profiler over one step of each path (after two
-    warm-ups; the v2 path's step is one BSplinePacket.BSP call on FITS
-    files in a temporary directory): device busy time (kernels and copies), idle share of the
-    profiled wall, and the top operations by device and by host time. The
-    full tables go to out_dir/profile_<path>.txt."""
+    """--profile: the step time of each path (median of three, after two
+    warm-ups), then torch.profiler over one more step (the v2 path's step is
+    one BSplinePacket.BSP call on FITS files in a temporary directory):
+    device busy time (kernels and copies),
+    idle share of the profiled wall, and the top operations by device and by
+    host time; the full tables go to out_dir/profile_<path>.txt. The
+    contract and the v2 step are then profiled once more with SPLIT's ranges
+    and their device time split by function (out_dir/split_<path>.json)."""
     import torch
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
     from sfft_tpu_torch import BSplinePacket, PureTorchCustomizedPacket, make_config
 
     os.makedirs(out_dir, exist_ok=True)
@@ -2144,14 +2557,6 @@ def phase_profile(I, J, out_dir):
     v2cfg = nircam_config(**EXACT_TRIO)
     fft32cfg = nircam_config(**FAST_TRIO)
     peeledcfg = nircam_config(**PEELED_TRIO)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    def on_device(e):
-        # kernels and copies carry the device type; the host operators that
-        # launched them report the same time again
-        return str(getattr(e, "device_type", "")).endswith("CUDA")
 
     def pcp(**backends):
         cfg = make_config(N, N, KERHW, **backends)
@@ -2168,29 +2573,50 @@ def phase_profile(I, J, out_dir):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        times = []
+        for _ in range(3):
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            times.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        prof, wall, busy, nk, idle = profile_step(step)
         peak = torch.cuda.max_memory_allocated()
         ev = prof.key_averages()
-        kernels = [e for e in ev if on_device(e)]
-        busy = sum(dev_us(e) for e in kernels) / 1e6
-        cat = sum(dev_us(e) for e in kernels if "CatArrayBatchedCopy" in e.key) / 1e3
-        log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in "
-            f"{sum(e.count for e in kernels)} kernels and copies, idle share "
-            f"{1 - busy / wall:.3f}; concatenation copies {cat:.2f} ms; peak memory "
-            f"{peak / 2**30:.2f} GiB")
-        for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-            log(f"profile {name} device: {e.key[:60]:60s} {dev_us(e) / 1e3:9.2f} ms "
+        kernels = [e for e in ev if _on_device(e)]
+        cat = sum(_dev_us(e) for e in kernels if "CatArrayBatchedCopy" in e.key) / 1e3
+        log(f"profile {name}: step {statistics.median(times) * 1e3:.1f} ms (median of 3, "
+            f"unprofiled); profiled step: wall {wall * 1e3:.1f} ms, device busy "
+            f"{busy * 1e3:.1f} ms in {nk} kernels and copies, idle share {idle:.3f}; "
+            f"concatenation copies {cat:.2f} ms; peak memory {peak / 2**30:.2f} GiB")
+        for e in sorted(kernels, key=_dev_us, reverse=True)[:12]:
+            log(f"profile {name} device: {e.key[:60]:60s} {_dev_us(e) / 1e3:9.2f} ms "
                 f"x{e.count}")
         for e in sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
             log(f"profile {name} host: {e.key[:60]:60s} {e.self_cpu_time_total / 1e3:9.2f} ms "
                 f"x{e.count}")
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(ev.table(sort_by="self_cuda_time_total", row_limit=80))
+        if name not in ("contract", "v2"):
+            continue
+        restore = split_ranges()
+        try:
+            prof, swall, _, _, _ = profile_step(step)
+        finally:
+            restore()
+        split, total = device_split(prof)
+        b6, by6, calls6 = k6_bound(step)
+        with open(os.path.join(out_dir, f"split_{name}.json"), "w") as f:
+            json.dump(dict(wall_ms=swall * 1e3, busy_ms=total, split=split,
+                           k6=dict(bound_ms=b6, bound_by=by6, calls=calls6),
+                           unranged=dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk,
+                                         idle=idle)), f, indent=1)
+        log(f"profile {name} split of the device time (a step with the ranges: busy "
+            f"{total:.1f} ms): " + "; ".join(
+                f"{k} {v:.2f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+        log(f"profile {name} K6 pair products: {calls6} calls a step, bound {b6:.3f} ms "
+            f"({by6}); {split['K6 pair products']:.2f} ms on the device, "
+            f"{100 * b6 / split['K6 pair products']:.1f}% of it")
     tmp.cleanup()
 
 
@@ -2222,6 +2648,7 @@ def main():
             phase_k1()
             phase_k1_v2()
             phase_k2()
+            phase_k7()
             phase_kernel_profile(sys.argv[2])
         else:
             rng = np.random.default_rng(6)
@@ -2249,7 +2676,9 @@ def main():
         log(smi)
         print(ok_line, flush=True)
         return 0
+    t_start = time.perf_counter()
     report = phase_kernels()
+    log(f"phases 2-3 done at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     I, J = make_pair(N)
     dev = torch.device("cuda")
@@ -2259,16 +2688,26 @@ def main():
     diff_fast, diff_k2twin, launches, step_s, plain_s, on_path = phase_slice(I, J)
     sol64, diff64, rms64, rms64_twin = phase_f64(I, J, diff_fast, diff_k2twin)
     del diff_fast, diff_k2twin
-    c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, report["slice_pair"] = \
+    c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, c_on_path, c_prof = \
         phase_contract(I, J, sol64, diff64)
+    report["slice_pair"] = c_on_path["slice_pair"]
     del I, J, sol64, diff64
     torch.cuda.empty_cache()
+    log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
     v2 = phase_v2()
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
     report["slice_triple"] = v2["slicers"]["slice_triple"]
     v2_k4 = v2["slicers"]["slice_pair"]
+    # K7: summed over a steady contract step's launches and a steady v2 step's
+    c7, v7 = c_on_path["sliced_epilogue"], v2["slicers"]["sliced_epilogue"]
+    report["sliced_epilogue"] = dict(
+        {k: c7[k] + v7[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+        library_ms=None,
+        bound_by=c7["bound_by"] if c7["bound_by"] == v7["bound_by"] else "bytes")
     torch.cuda.empty_cache()
     fast = phase_v2_fast(v2["lam"], v2["ydiff"])
     pw = fast["v2-fast-peeled"]
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     post = phase_post(pw["sol"], pw["diff"], pw["cfg"])
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
@@ -2281,11 +2720,13 @@ def main():
         ("slice_triple", "sfft_tpu_torch/csrc/slice_triple.cu",
          "sfft_tpu/core/pallas_slice.py:214"),
         ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90"),
+        ("sliced_epilogue", "sfft_tpu_torch/csrc/sliced_epilogue.cu",
+         "sfft_tpu/core/exact_fft.py:372"),
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
         # the two v2 fast modes); times: K3, K1 and K2 alone at the fast
         # slice's shapes, K4 summed over a steady contract step's launches,
-        # K5 over a steady v2 step's
+        # K5 over a steady v2 step's, K7 over both
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=(launches.get(name, 0) + c_launches.get(name, 0)
@@ -2310,6 +2751,8 @@ def main():
                     "contract_peak_bytes": c_peak, "contract_vs_f64_rms": c_drms,
                     "contract_vs_f64_sol_rel": c_srel,
                     "contract_launches_per_step": {k: v / 4 for k, v in c_launches.items()},
+                    "contract_step_profile": c_prof, "v2_step_profile": v2["prof"],
+                    "k7_per_step": {"contract": c7, "v2": v7},
                     "v2_step_ms": v2["step_s"] * 1e3, "v2_step_plain_ms": v2["plain_s"] * 1e3,
                     "v2_first_call_s": v2["first_s"], "v2_yardstick_step_ms":
                     v2["yardstick_s"] * 1e3, "v2_lambda": v2["lam"],

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "sfft_corr_window_c128": [_P] * 9 + [_I] * 9 + [_P],
     "sfft_fdiff_model_c64": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
     "sfft_fdiff_model_c128": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
+    "sfft_sliced_epilogue": [_P, _P],
     "sfft_cuda_error_string": [_I],
 }
 

@@ -25,11 +25,16 @@ The algorithms, slicing depths and chunk sizes are sfft_tpu's. What differs:
   * The lax.map bodies are Python loops over the same chunks.
 
 Every public function takes ``plain`` (default False): True slices with the
-plain twin of K4 instead of the kernel.
+plain twin of K4 and combines the products with the plain twin of K7
+(``sliced_epilogue_plain``) instead of the kernels. K7 (``sliced_epilogue``,
+csrc/sliced_epilogue.cu) is a sliced product's whole epilogue: the group
+sums of the int32 products, the compensated chain, the scale and the complex
+recombination, one launch per ``_cmatmul_sliced`` call.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
@@ -303,79 +308,257 @@ def _stacked(keys: tuple, kind) -> torch.Tensor:
     return got.contiguous()
 
 
-def _int_mm(A: torch.Tensor, BT: torch.Tensor) -> torch.Tensor:
+def _int_mm(A: torch.Tensor, BT: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A (m, k) int8 @ BT.T with BT (n, k) int8 contiguous -> (m, n) int32,
     exact. k and n are multiples of 8 (callers pad); m <= 16 is padded,
-    since torch._int_mm on CUDA needs more than 16 rows."""
+    since torch._int_mm on CUDA needs more than 16 rows. out: a contiguous
+    (max(m, 17), n) int32 buffer to write into (the padded rows too)."""
     m = A.shape[0]
     if m <= 16:
         A = F.pad(A, (0, 0, 0, 17 - m))
-    return torch._int_mm(A, BT.t())[:m]
+    if out is None:
+        return torch._int_mm(A, BT.t())[:m]
+    return torch._int_mm(A, BT.t(), out=out)[:m]
 
 
-def _sliced_dot_multi(dsl, s_d, parts, K: int, M: int, kmax: Optional[int] = None):
-    """Exact product of ONE data slice set against SEVERAL static slice sets
-    (typically a complex matrix's real and imaginary parts).
+class _Epilogue(NamedTuple):
+    """The host plan of one sliced product's epilogue (K7): how to read the
+    int32 products (``_sliced_products``) and combine them.
 
-    dsl: (nsl_d, ..., Kp) int8 data slices (contraction axis padded to Kp);
-    parts: _Static slice sets with K true rows and M true columns. Returns
-    one f32 (hi, lo) pair (..., M) per part. Products accumulate in int32
-    exactly (|prod| <= 2^12, depth < 2^19).
+    The products of data part d lie in ``P[d]``, viewed as slabs (nslab,
+    rows, ncols) with strides (slab_stride, ncols, 1). Weight group g sums
+    the values at (slab, column offset) of ``slabs[g]`` (one per group in
+    the shallow route, the group's slice combos in the deep route) and
+    carries ``weights[g]``; ``split``: the sums may pass f32's exact-integer
+    range. A term (rr, ri, ir, ii) is (data part, first column of its static
+    part, static scale: a float or a 0-d tensor), or None when its part is
+    absent. mode 0: real data, the pair (rr, ri); 1: complex recombination;
+    2: real_out (re only)."""
 
-    Deep K (>= 1024): one product per data slice against every static slice
-    of every part. Shallow K: one product per weight group with the group's
-    slice pairs concatenated along the contraction axis."""
-    nsl_d = dsl.shape[0]
-    nsl_w = parts[0].slT.shape[0]
-    Mp = parts[0].slT.shape[1]
-    Kp = dsl.shape[-1]
-    lead = tuple(dsl.shape[1:-1])
+    lead: tuple
+    M: int
+    slabs: tuple
+    weights: tuple
+    split: bool
+    slab_stride: int
+    ncols: int
+    terms: tuple
+    mode: int
+
+
+def _sliced_products(dsets, K: int, M: int, kmax: Optional[int], terms, mode: int):
+    """The exact int8 slice products of one _cmatmul_sliced call and the plan
+    of their epilogue: each data slice set (nsl_d, ..., Kp) of ``dsets``
+    against its static slice sets (_Static parts with K true rows and M true
+    columns), written into ONE int32 buffer P (data part first). terms: per
+    term (rr, ri, ir, ii), (data part, index of the static part among that
+    data part's, static scale) or None. Returns (P, _Epilogue).
+
+    Deep K (>= 1024): one product per data part, its slices folded into
+    the rows, against every static slice of every part; P[d] is (ni rows,
+    ncols). Shallow K: one product per weight group with the group's slice
+    pairs concatenated along the contraction axis and the parts along the
+    output axis; P[d, g] is (rows, ncols). Rows are padded to 17 where the
+    product needs it (``_int_mm``). Products accumulate in int32 exactly
+    (|prod| <= 2^12, depth < 2^19)."""
+    dsl0, parts0 = dsets[0]
+    nsl_d = dsl0.shape[0]
+    nsl_w = parts0[0].slT.shape[0]
+    Mp = parts0[0].slT.shape[1]
+    Kp = dsl0.shape[-1]
+    lead = tuple(dsl0.shape[1:-1])
+    rows = int(np.prod(lead, dtype=np.int64))
     groups = _group_combos(nsl_d, nsl_w, KMAX if kmax is None else kmax)
-    keys = tuple(p.key for p in parts)
     assert 64 * 64 * Kp * max(len(c) for _, c in groups) < 2 ** 31, "int32 depth bound"
-
-    def scaled(s_w):
-        return s_d * (s_w if isinstance(s_w, torch.Tensor) else float(np.float32(s_w)))
+    weights = tuple(2.0 ** (-NB * (s_ + 2)) for s_, _ in groups)
+    dev = dsl0.device
 
     if K >= 1024:
         ni = min(nsl_d, groups[-1][0] + 1)
-        per_i = _int_mm(dsl[:ni].reshape(-1, Kp), _stacked(keys, "deep"))
-        per_i = per_i.reshape((ni,) + lead + (-1,))
-        results = []
-        for p, part in enumerate(parts):
-            outs, weights = [], []
-            for s_, combos in groups:
-                acc = None
-                for i, j in combos:
-                    off = (p * nsl_w + j) * Mp
-                    piece = per_i[i][..., off:off + M]
-                    acc = piece if acc is None else acc + piece
-                outs.append(acc)
-                weights.append(2.0 ** (-NB * (s_ + 2)))
-            results.append(_accum(outs, weights, scaled(part.scale), big=True))
-        return results
+        ncols = len(parts0) * nsl_w * Mp
+        P = torch.empty((len(dsets), max(ni * rows, 17), ncols), dtype=torch.int32, device=dev)
+        for d, (dsl, parts) in enumerate(dsets):
+            _int_mm(dsl[:ni].reshape(-1, Kp), _stacked(tuple(q.key for q in parts), "deep"),
+                    out=P[d])
+        slabs = tuple(tuple((i, j * Mp) for i, j in combos) for _, combos in groups)
+        split, slab_stride, pstride = True, rows * ncols, nsl_w * Mp
+    else:
+        ncols = len(parts0) * Mp
+        P = torch.empty((len(dsets), len(groups), max(rows, 17), ncols), dtype=torch.int32,
+                        device=dev)
+        for d, (dsl, parts) in enumerate(dsets):
+            keys = tuple(q.key for q in parts)
+            for g, (s_, combos) in enumerate(groups):
+                dcat = torch.cat([dsl[i] for i, _ in combos], dim=-1)
+                _int_mm(dcat.reshape(-1, dcat.shape[-1]), _stacked(keys, tuple(combos)),
+                        out=P[d, g])
+        slabs = tuple(((g, 0),) for g in range(len(groups)))
+        # exact-int32-in-f32 bound (sfft_tpu's): the leading slice reaches 64,
+        # later ones stay <= 33, on the TRUE depth K
+        split = 64 * 33 * max(len(c) for _, c in groups) * K >= 2 ** 24
+        slab_stride, pstride = max(rows, 17) * ncols, Mp
+    terms = tuple(None if t is None else (t[0], t[1] * pstride, t[2]) for t in terms)
+    return P, _Epilogue(lead, M, slabs, weights, split, slab_stride, ncols, terms, mode)
 
-    group_outs = []
-    for s_, combos in groups:
-        dcat = torch.cat([dsl[i] for i, _ in combos], dim=-1)
-        out = _int_mm(dcat.reshape(-1, dcat.shape[-1]), _stacked(keys, tuple(combos)))
-        group_outs.append(out.reshape(lead + (-1,)))
-    # exact-int32-in-f32 bound (sfft_tpu's): the leading slice reaches 64,
-    # later ones stay <= 33, on the TRUE depth K
-    big = 64 * 33 * max(len(c) for _, c in groups) * K >= 2 ** 24
-    results = []
-    for p, part in enumerate(parts):
-        outs = [g[..., p * Mp: p * Mp + M] for g in group_outs]
-        weights = [2.0 ** (-NB * (s_ + 2)) for s_, _ in groups]
-        results.append(_accum(outs, weights, scaled(part.scale), big=big))
-    return results
+
+def _scaled(s_d: torch.Tensor, s_w) -> torch.Tensor:
+    """A term's scale: the data scale times the static one (powers of two)."""
+    return s_d * (s_w if isinstance(s_w, torch.Tensor) else float(np.float32(s_w)))
+
+
+def sliced_epilogue_plain(P: torch.Tensor, plan: _Epilogue, sd) -> CPair:
+    """The plain PyTorch twin of K7 (the chain sfft_tpu's ``_sliced_dot_multi``
+    and ``_cmatmul_sliced`` run after the products): for each term, the
+    group sums of the int32 products (combos added in int32 in the deep
+    route), ``_accum`` under the term's scale, then the recombination. sd:
+    the data parts' scales (shape () or lead + (1,))."""
+    lead, M = plan.lead, plan.M
+    rows = int(np.prod(lead, dtype=np.int64))
+
+    def term(t):
+        if plan.terms[t] is None:
+            return None
+        d, base, s_w = plan.terms[t]
+        S = P[d].as_strided((P[d].numel() // plan.slab_stride, rows, plan.ncols),
+                            (plan.slab_stride, plan.ncols, 1))
+        outs = []
+        for combos in plan.slabs:
+            acc = None
+            for slab, off in combos:
+                piece = S[slab][:, base + off: base + off + M]
+                acc = piece if acc is None else acc + piece
+            outs.append(acc.reshape(lead + (M,)))
+        return _accum(outs, plan.weights, _scaled(sd[d], s_w), big=plan.split)
+
+    rr_h, rr_l = term(0)
+    if plan.mode == 2:
+        ii_h, ii_l = term(3)
+        zr_h, e1 = _two_sum(rr_h, -ii_h)
+        return CPair(zr_h, rr_l - ii_l + e1, None, None)
+    ri = term(1)
+    ri_h, ri_l = ri if ri is not None else (torch.zeros_like(rr_h),) * 2
+    if plan.mode == 0:
+        return CPair(rr_h, rr_l, ri_h, ri_l)
+    ir_h, ir_l = term(2)
+    ii = term(3)
+    ii_h, ii_l = ii if ii is not None else (torch.zeros_like(ir_h),) * 2
+    # (r + i i)(wr + i wi): re = r wr - i wi ; im = r wi + i wr
+    zr_h, e1 = _two_sum(rr_h, -ii_h)
+    zr_l = rr_l - ii_l + e1
+    zi_h, e2 = _two_sum(ri_h, ir_h)
+    zi_l = ri_l + ir_l + e2
+    return CPair(zr_h, zr_l, zi_h, zi_l)
+
+
+_EPI_GROUPS = 9             # sliced_epilogue.cu kMaxGroups
+_EPI_COMBOS = 9             # sliced_epilogue.cu kMaxCombos
+
+
+class _EpiArgs(ctypes.Structure):
+    """sliced_epilogue.cu ``Epi``."""
+    _fields_ = [("prod", ctypes.c_void_p * 2), ("sd", ctypes.c_void_p * 2),
+                ("swp", ctypes.c_void_p * 4), ("out", ctypes.c_void_p * 4),
+                ("off", (ctypes.c_longlong * _EPI_COMBOS) * _EPI_GROUPS),
+                ("row_stride", ctypes.c_longlong), ("rows", ctypes.c_longlong),
+                ("w", ctypes.c_float * _EPI_GROUPS), ("swv", ctypes.c_float * 4),
+                ("ncombo", ctypes.c_int * _EPI_GROUPS), ("term_d", ctypes.c_int * 4),
+                ("term_base", ctypes.c_int * 4), ("M", ctypes.c_int), ("ngroups", ctypes.c_int),
+                ("nbig", ctypes.c_int), ("split", ctypes.c_int), ("sd_rowwise", ctypes.c_int),
+                ("mode", ctypes.c_int)]
+
+
+def _epi_args(P: torch.Tensor, plan: _Epilogue, sd, outs) -> _EpiArgs:
+    """K7's launch arguments (the plan as the kernel reads it): product and
+    scale pointers, each combo's element offset from a row's start, the
+    terms, and the number of leading groups that _chain sums by TwoSum."""
+    a = _EpiArgs()
+    for d in range(P.shape[0]):
+        a.prod[d] = P[d].data_ptr()
+    for d, s in enumerate(sd):
+        a.sd[d] = s.data_ptr()
+    a.sd_rowwise = int(sd[0].dim() > 0)
+    for t, term in enumerate(plan.terms):
+        if term is None:
+            a.term_d[t] = -1
+            continue
+        d, base, s_w = term
+        a.term_d[t], a.term_base[t] = d, base
+        if isinstance(s_w, torch.Tensor):
+            a.swp[t] = s_w.data_ptr()
+        else:
+            a.swv[t] = float(np.float32(s_w))
+    for g, combos in enumerate(plan.slabs):
+        a.ncombo[g] = len(combos)
+        a.w[g] = plan.weights[g]
+        for k, (slab, off) in enumerate(combos):
+            a.off[g][k] = slab * plan.slab_stride + off
+    a.row_stride, a.rows, a.M = plan.ncols, int(np.prod(plan.lead, dtype=np.int64)), plan.M
+    a.ngroups = len(plan.slabs)
+    w0 = plan.weights[0]
+    a.nbig = sum(w > w0 * 2.0 ** -24 for w in plan.weights)   # _chain's big terms
+    a.split, a.mode = int(plan.split), plan.mode
+    for k, o in enumerate(outs):
+        a.out[k] = o.data_ptr()
+    return a
+
+
+def sliced_epilogue(P: torch.Tensor, plan: _Epilogue, sd) -> CPair:
+    """K7: the epilogue of one sliced product (``sliced_epilogue_plain``'s
+    arguments) -> the CPair (lead + (M,)) the caller receives. CUDA tensors:
+    one launch of csrc/sliced_epilogue.cu, bit-identical to the twin; CPU
+    tensors: ``sliced_epilogue_plain``. ``sliced_epilogue.launches`` counts
+    the launches."""
+    if P.dtype != torch.int32 or not P.is_contiguous() or P.dim() < 3:
+        raise ValueError("sliced_epilogue needs the contiguous int32 products")
+    sd = list(sd)
+    ndp = len(sd)
+    if (sorted({t[0] for t in plan.terms if t is not None}) != list(range(ndp))
+            or P.shape[0] != ndp or plan.terms[0] is None or plan.mode not in (0, 1, 2)):
+        raise ValueError("sliced_epilogue: terms, data parts and scales disagree")
+    shape = plan.lead + (1,)
+    if any(s.dtype != torch.float32 or not s.is_contiguous() or s.device != P.device
+           or tuple(s.shape) != tuple(sd[0].shape) or tuple(s.shape) not in ((), shape)
+           for s in sd):
+        raise ValueError("sliced_epilogue needs float32 data scales, all of shape () or all "
+                         "of shape lead + (1,)")
+    if any(isinstance(t[2], torch.Tensor) and (t[2].dtype != torch.float32 or t[2].dim() != 0
+                                               or t[2].device != P.device)
+           for t in plan.terms if t is not None):
+        raise ValueError("sliced_epilogue needs 0-d float32 static scales on P's device")
+    if P.device.type == "cpu":
+        return sliced_epilogue_plain(P, plan, sd)
+    if P.device.type != "cuda":
+        raise ValueError(f"sliced_epilogue runs on cpu or cuda tensors, not {P.device}")
+    n = int(np.prod(plan.lead, dtype=np.int64)) * plan.M
+    if (len(plan.slabs) > _EPI_GROUPS or any(len(c) > _EPI_COMBOS for c in plan.slabs)
+            or not 1 <= n < 2 ** 31):
+        raise ValueError("sliced_epilogue: at most 9 weight groups of 9 combos, and a "
+                         "non-empty output of fewer than 2^31 elements")
+    from sfft_tpu_torch import _kernels
+
+    outs = [torch.empty(plan.lead + (plan.M,), dtype=torch.float32, device=P.device)
+            for _ in range(2 if plan.mode == 2 else 4)]
+    a = _epi_args(P, plan, sd, outs)
+    with torch.cuda.device(P.device):
+        err = _kernels.lib().sfft_sliced_epilogue(ctypes.addressof(a), _kernels.stream_ptr(P))
+    _K7.launches += 1
+    _kernels.check(err, "sliced_epilogue kernel launch")
+    return CPair(*outs) if len(outs) == 4 else CPair(outs[0], outs[1], None, None)
+
+
+sliced_epilogue.launches = 0
+# the counter's owner: the module attribute may be replaced by a caller
+# that intercepts the calls (chip_smoke.py, the tests)
+_K7 = sliced_epilogue
 
 
 def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: bool = False,
                     prof: Optional[SliceProfile] = None, plain: bool = False) -> CPair:
     """Exact complex matmul: data (..., K) pair @ the static (complex or
     real) table W (K, M). Returns the pair (..., M). real_out=True (complex
-    data and W): only the real part (re = dr.wr - di.wi)."""
+    data and W): only the real part (re = dr.wr - di.wi). The int8 products
+    go into one int32 buffer; their epilogue is K7 (``sliced_epilogue``,
+    one launch on CUDA tensors) or, with plain=True, its twin."""
     p = prof or SliceProfile(NSL_DATA, NSL_STATIC, KMAX)
     dev = data.rh.device
     K, M = W.host().shape
@@ -388,36 +571,19 @@ def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: boo
     # for the real and the imaginary part, padded to Kp by the slicer
     pairs = [(data.rh, data.rl)] + ([] if data.is_real else [(data.ih, data.il)])
     sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain)
-    dr_sl, sdr = sliced[0]
-    if not data.is_real:
-        di_sl, sdi = sliced[1]
-
+    sd = [s for _, s in sliced]
     if real_out and not data.is_real and have_wi:
-        rr_h, rr_l = _sliced_dot_multi(dr_sl, sdr, parts[:1], K, M, p.kmax)[0]
-        ii_h, ii_l = _sliced_dot_multi(di_sl, sdi, parts[1:], K, M, p.kmax)[0]
-        zr_h, e1 = _two_sum(rr_h, -ii_h)
-        return CPair(zr_h, rr_l - ii_l + e1, None, None)
-
-    outs_r = _sliced_dot_multi(dr_sl, sdr, parts, K, M, p.kmax)
-    rr_h, rr_l = outs_r[0]
-    if have_wi:
-        ri_h, ri_l = outs_r[1]
+        # re = dr.wr - di.wi: the two products alone
+        dsets = [(sliced[0][0], [wr]), (sliced[1][0], [wi])]
+        terms, mode = ((0, 0, wr.scale), None, None, (1, 0, wi.scale)), 2
     else:
-        ri_h = ri_l = torch.zeros_like(rr_h)
-    if not data.is_real:
-        outs_i = _sliced_dot_multi(di_sl, sdi, parts, K, M, p.kmax)
-        ir_h, ir_l = outs_i[0]
-        if have_wi:
-            ii_h, ii_l = outs_i[1]
-        else:
-            ii_h = ii_l = torch.zeros_like(ir_h)
-        # (r + i i)(wr + i wi): re = r wr - i wi ; im = r wi + i wr
-        zr_h, e1 = _two_sum(rr_h, -ii_h)
-        zr_l = rr_l - ii_l + e1
-        zi_h, e2 = _two_sum(ri_h, ir_h)
-        zi_l = ri_l + ir_l + e2
-        return CPair(zr_h, zr_l, zi_h, zi_l)
-    return CPair(rr_h, rr_l, ri_h, ri_l)
+        dsets = [(sl, parts) for sl, _ in sliced]
+        ri = (0, 1, wi.scale) if have_wi else None
+        ii = (1, 1, wi.scale) if have_wi else None
+        terms, mode = (((0, 0, wr.scale), ri, None, None), 0) if data.is_real else \
+            (((0, 0, wr.scale), ri, (1, 0, wr.scale), ii), 1)
+    P, plan = _sliced_products(dsets, K, M, p.kmax, terms, mode)
+    return (sliced_epilogue_plain if plain else sliced_epilogue)(P, plan, sd)
 
 
 # ---------------------------------------------------------------------------

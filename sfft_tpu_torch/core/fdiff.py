@@ -154,7 +154,7 @@ def fdiff_model(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch.Tenso
         return fdiff_model_plain(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
     if specs.device.type != "cuda":
         raise ValueError(f"fdiff_model runs on cpu or cuda tensors, not {specs.device}")
-    if specs.numel() >= 2 ** 31 or Fij * L0 > 65535:
+    if specs.numel() >= 2 ** 31 or Fij * (L0 + 1) > 65535:
         raise ValueError("fdiff_model kernel takes int32 extents")
     return _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
 

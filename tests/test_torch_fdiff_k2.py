@@ -9,7 +9,9 @@ difference that cancels two planes of ~2e3). Cases: odd N1, SEPARATE-VARYING
 scaling (the port hands the difference its active scaling planes only, the
 padded ones being zeros) and Fpq = 1. The CUDA kernel is held to the twin on
 the card by the `gpu`-marked cases (and by chip_smoke.py): c64 within 1e-5
-of max|twin|, c128 within 1e-12, ragged shapes, two launches bit-equal.
+of max|twin|, c128 within 1e-12, ragged shapes (rows off the 32- and
+64-row tiles, odd N1h, both row counts per thread, shared tiles past 48 KB),
+two launches bit-equal.
 The reference is imported inside the CPU tests, so the `gpu` cases also run
 where jax is absent (``pytest --noconftest -m gpu``).
 """
@@ -144,6 +146,9 @@ def _model_inputs(Fij, Fpq, nS, N0, N1, w0, w1, cdt, dev, seed=3):
     (6, 6, 0, 256, 256, 8, 8),        # the fast slice's counts
     (25, 1, 6, 130, 121, 11, 11),     # the v2 counts; odd N1, N0 off the row tile
     (4, 0, 4, 37, 20, 2, 3),          # no background, ragged rows
+    (6, 6, 0, 33, 63, 8, 8),          # 4 rows a thread: N0 one past a tile, N1h 32
+    (13, 2, 3, 71, 65, 10, 9),        # 8 rows a thread (Fij L0 >= 256): odd N1h 33
+    (10, 1, 2, 50, 47, 13, 13),       # 8 rows: c128's shared tiles past 48 KB
 ])
 def test_fdiff_model_kernel_matches_twin_on_gpu(cuda, cdt, tol, Fij, Fpq, nS, N0, N1, w0, w1):
     args = _model_inputs(Fij, Fpq, nS, N0, N1, w0, w1, cdt, cuda)
