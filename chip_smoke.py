@@ -5,9 +5,10 @@
 
 Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
 against its plain PyTorch twin on the card (K3 moments, K1 windowed
-correlation, K2 fused model spectrum; K4 and K5 integer slicers and K7, the
-epilogue of the sliced int8 products, bit for bit), then drives the port's
-paths at full size. On a 4096^2 pair (the benchmark pair's generator),
+correlation, K2 fused model spectrum; K4 and K5 integer slicers, K7, the
+epilogue of the sliced int8 products, and K6, the exact paths' pair
+products (K6a pair_products, K6m pair_model, K6p pair_poly), bit for bit),
+then drives the port's paths at full size. On a 4096^2 pair (the benchmark pair's generator),
 KerHW=8, poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
 GeneralSFFT.GSS:
 
@@ -15,7 +16,7 @@ GeneralSFFT.GSS:
     runs K3, K1 and K2;
   * the 'contract' path (pexact tables and difference at pexact_prof
     (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
-    K3, K4 and K7; and once with the 'exact' solver.
+    K3, K4, K7 and K6 (K6a, K6m, K6p); and once with the 'exact' solver.
 
 And on a 900^2 pair of the same generator, written to FITS, through
 BSplinePacket.BSP -> GeneralSFFT.GSS:
@@ -25,8 +26,9 @@ BSplinePacket.BSP -> GeneralSFFT.GSS:
     kernel with 2 x 2 internal knots, SEPARATE-VARYING degree-2 polynomial
     scaling, degree-0 background, Tikhonov lambda = 3e-5 on 512 seeded
     points: NEQ = 13226) with the exact / exact / exact backends, which runs
-    K4 and K7 (every sliced product of the exact engine) and K5 (the sliced
-    residuals of the large f64 solve). The NIRCam image pair itself is not
+    K4 and K7 (every sliced product of the exact engine), K6a and K6m (its
+    pair products and model spectrum) and K5 (the sliced residuals of the
+    large f64 solve). The NIRCam image pair itself is not
     in the repository; the generated pair stands in for it.
 
 and, on the same 900^2 pair and configuration, the two v2 fast modes:
@@ -50,16 +52,16 @@ their twins on the path's own operands.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
-step run once more with K7 alone on its twin, which must give the same
-bits (solution and difference), and once under the profiler (busy time,
-launches, idle share). Two more steps of the contract path and of the v2
+step run once more with K7 alone on its twin and once with K6 alone on its
+twins, which must give the same bits (solution and difference), and once
+under the profiler (busy time, launches, idle share). Two more steps of the contract path and of the v2
 path, the first with the static-table caches emptied, hold every launch of
 the K4 and K5 slicing stages of the step (the static tables' and the
 data's, on the views, depths and padded widths the path gives them) and
-every K7 launch of the second (steady) step bit for bit against the twins
-on the same inputs (slices, scales, the f32 matrix of the K5 setup, K7's
-pair planes), and time each stage and its twin on each distinct launch's
-inputs. The v2 path is held to the f64 fft/fft/lu
+every K7 and K6 launch of the second (steady) step bit for bit against
+the twins on the same inputs (slices, scales, the f32 matrix of the K5
+setup, the pair planes of K7 and K6), and time each stage and kernel and
+its twin on each distinct launch's inputs. The v2 path is held to the f64 fft/fft/lu
 path of the same configuration (difference within 1e-6 RMS, solution within
 1e-6 of its maximum), and its large solve (f32 Cholesky refined with sliced
 residuals) to the same solve with f64-matvec residuals (1e-9). The 4096^2
@@ -81,8 +83,9 @@ builds the kernels and times (median of three steps) and profiles one step
 of each path (contract, fast, v2, v2-fast-fft32, v2-fast-peeled) instead
 (device busy time, idle share, top operations; the full tables go to
 OUT_DIR); then splits the contract and the v2 step's device time by
-function (SPLIT: K7, K6's pair products, the K4 stage, the int8 products,
-concatenation copies, the solve, the rest) and counts K6's bound. It runs in
+function (SPLIT: K7, K6's pair products and kernels, the K4 stage, the
+int8 products, concatenation copies, the solve, the rest) and counts K6's
+bound. It runs in
 a checkout of an older commit too (copy the script into it), which is how
 parent and change compare on one card.
 
@@ -101,7 +104,7 @@ kernels on one clock when the script is run in a checkout of each.
 
 build the kernels with the compiler's resource report (registers, shared
 memory, spills; written to OUT_DIR/build_report.txt) and run phase 3's
-checks and timings of K3, K1 (also at the v2 fast widths), K2 and K7 (with a
+checks and timings of K3, K1 (also at the v2 fast widths), K2, K7 and K6 (with a
 profile of K3, K1 and K2 at the fast slice's shapes and K2 at the v2 ones:
 device time of each stage by kernel name), or of the K4 and K5 slicing
 stages, alone.
@@ -896,6 +899,21 @@ def one_twin(mod, name, twin, run):
         setattr(mod, name, real)
 
 
+def k6_on_twins(run):
+    """`run()` with K6's three kernel wrappers (core/pairs.py) replaced by
+    their plain twins."""
+    from sfft_tpu_torch.core import pairs
+
+    real = {name: getattr(pairs, name) for name in K6_TWINS}
+    for name, twin in K6_TWINS.items():
+        setattr(pairs, name, getattr(pairs, twin))
+    try:
+        return run()
+    finally:
+        for name, fn in real.items():
+            setattr(pairs, name, fn)
+
+
 def k1_matmul_twin(a, b, ia, ib, E0, E1, sym=False):
     from sfft_tpu_torch.core import greek
 
@@ -1111,6 +1129,248 @@ def phase_k7():
         f"rowwise scales) bit-identical to the twin, one launch each, two launches bit-equal")
 
 
+# K6's kernel wrappers (core/pairs.py) and their plain twins
+K6_TWINS = {"pair_products": "pair_products_plain", "pair_model": "pair_model_spectrum_plain",
+            "pair_poly": "pair_poly_plain"}
+# f32 operations per output element: TwoProd 17, TwoSum 6, the rest one each
+K6A_OPS = {"hadamard_conj": 94, "mul_static": 94, "mul_static_rr": 21, "sep_mul": 42}
+
+
+def k6_call_bound(name, args):
+    """The bound of one K6 wrapper call (k6_call_work)."""
+    return bound(*k6_call_work(name, args), FP32_FLOP_PER_S)
+
+
+def k6_call_work(name, args):
+    """(bytes, operations) of one K6 wrapper call: every plane of its operands read
+    once at its own size (a broadcast table as the table; of the model's
+    plane spectra the 1 + Fk + nss planes it reads), the scalars read once,
+    the output planes written once; operations per output element: K6A_OPS
+    (both lanes of a complex pair in 'mul_static_rr'), per ij of the model
+    118 (the shift, the product, the compensated add) and 58 per scaling
+    plane plus 62, per term of the polynomial 29."""
+    planes = lambda p: [v for v in p if v is not None]          # noqa: E731
+    if name == "pair_products":
+        mode, A, B = args[:3]
+        C = args[3] if len(args) > 3 else None
+        ops = [A, B] + ([C] if C is not None else [])
+        shape = np.broadcast_shapes(*(tuple(p.rh.shape) for p in ops))
+        n = int(np.prod(shape))
+        nout = 2 if A.ih is None else 4
+        nbytes = 4 * (sum(v.numel() for p in ops for v in planes(p)) + nout * n)
+        flops = n * K6A_OPS[mode] * (nout // 2 if mode == "mul_static_rr" else 1)
+    elif name == "pair_model":
+        sp, K, c, a00, scale, fold = args
+        Fk, N0, N1h = K.rh.shape
+        nss = 0 if a00 is None else a00.shape[0]
+        n = N0 * N1h
+        nbytes = (16 * n * (1 + Fk + nss + Fk + 1) + 8 * (Fk + nss) + 8
+                  + (0 if fold is None else 4 * N1h))
+        flops = n * (118 * Fk + 58 * nss + 62)
+    else:
+        Uh, Ul, Mh, Ml = args
+        SP, N0 = Uh.shape
+        n = N0 * Mh.shape[1]
+        nbytes = 8 * SP * (N0 + Mh.shape[1]) + 8 * n
+        flops = n * 29 * SP
+    return nbytes, flops
+
+
+def k6_rand_pair(shape, seed, dev, real=False, view=None):
+    """A seeded pair operand on the card over ~8 decades (lo ~2^-25 of hi);
+    view(base) cuts each plane from a larger base tensor (an offset, a
+    stride)."""
+    import torch
+    from sfft_tpu_torch.core import pairs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    out = []
+    for _ in range(1 if real else 2):
+        mag = 10.0 ** (8 * torch.rand(shape, device=dev, generator=g) - 4)
+        hi = (torch.randn(shape, device=dev, generator=g) * mag).float()
+        lo = (hi * torch.randn(shape, device=dev, generator=g) * 2.0 ** -25).float()
+        out += [hi, lo]
+    if view is not None:
+        out = [view(v) for v in out]
+    return pairs.CPair(*out, *([None] * (4 - len(out))))
+
+
+def k6_edge_pair(shape, seed, dev, real=False, ex=60):
+    """A pair operand over 2^-ex .. 2^ex with +-0 and subnormal lo parts,
+    as views at an offset of 1 element into their storage."""
+    import torch
+    from sfft_tpu_torch.core import pairs
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(1 if real else 2):
+        x = rng.normal(size=shape) * 2.0 ** rng.integers(-ex, ex + 1, size=shape)
+        hi = x.astype(np.float32)
+        lo = (x - hi.astype(np.float64)).astype(np.float32)
+        k = hi.size
+        fh, fl = hi.reshape(-1), lo.reshape(-1)
+        fh[: k // 8] = np.where(np.arange(k // 8) % 2, -0.0, 0.0)
+        fl[: k // 8] = fh[: k // 8]
+        fl[k // 8: k // 4] = rng.normal(size=k // 4 - k // 8) * 2.0 ** -135
+        perm = rng.permutation(k)
+        for v in (fh[perm], fl[perm]):
+            base = torch.zeros(k + 1, dtype=torch.float32, device=dev)
+            base[1:] = torch.as_tensor(v, device=dev)
+            out.append(base[1:].view(shape))
+    return pairs.CPair(*out, *([None] * (4 - len(out))))
+
+
+def k6_equal(got, ref):
+    """Two pairs' planes equal bit for bit (values, whatever the layout)."""
+    import torch
+
+    return all((g is None) == (r is None) and (g is None or torch.equal(g, r))
+               for g, r in zip(got, ref))
+
+
+def phase_k6():
+    """K6 (the exact paths' pair products) against its twins, bit for bit,
+    at the paths' shapes: the twiddles of a 4096-point DFT stage (2049 rows
+    of (64, 64), the static table broadcast), A * conj(B) on a contract
+    chunk (3 pairs at 4096 x 2049) and a v2 chunk (16 pairs at 900 x 451),
+    the row weighting of both lanes of a strided (4096, 2049) view, a real
+    plane times a row and a scalar, the separable weights at 900^2, the
+    model spectrum at 4096 x 2049 (Fij 6) and 900 x 451 (Fij 25 + 6
+    scaling planes), the polynomial plane at 4096^2 (SP 6); each launched
+    twice (bit-equal, one launch each) and timed (graph replay) against its
+    byte bound and its twin; then every mode on +-0, subnormal lo parts and
+    magnitudes near 2^+-60 on views at an offset. Every K6 launch of a
+    contract and a v2 step is held to the twins again in phases 6 and 7."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, pairs
+    from sfft_tpu_torch.core.fdiff import _fold_weights
+    from sfft_tpu_torch.core.statics import Static, table
+
+    dev = torch.device("cuda")
+    N1h = N // 2 + 1
+    V1h = V2_N // 2 + 1
+
+    def wr(shape, seed):
+        return pairs.CPair(*exact_fft._split_on(Static(k6_table, (shape, seed)), dev), None,
+                           None)
+
+    def model_args(Fk, nss, n0, n1, seed):
+        n1h = n1 // 2 + 1
+        rng = np.random.default_rng(seed)
+        sp = k6_rand_pair((1 + Fk + nss, n0, n1h), seed, dev)
+        K = k6_rand_pair((Fk, n0, n1h), seed + 1, dev)
+        c = torch.as_tensor(rng.normal(size=Fk) * 10.0 ** rng.uniform(-3, 1, Fk), device=dev)
+        a00 = torch.as_tensor(rng.normal(size=nss), device=dev) if nss else None
+        scale = exact_fft._split_on(Static(np.float64, (1.0 / (n0 * n1) * 1.1,)), dev)
+        return sp, K, c, a00, scale, table(Static(_fold_weights, (n1,)), dev)
+
+    tw = Static(exact_fft._dft_stage_mat, (N, False, "tw"))
+    R, S = exact_fft._factor(N)
+    cases = [
+        ("pair_products", f"twiddle ({N1h}, {R}, {S}) x ({R}, {S})",
+         lambda: ("mul_static", k6_rand_pair((N1h, R, S), 1, dev),
+                  pairs.CPair(*exact_fft._split_on(Static(np.real, (tw,)), dev),
+                              *exact_fft._split_on(Static(np.imag, (tw,)), dev)))),
+        ("pair_products", f"A conj(B) contract chunk (3, {N}, {N1h})",
+         lambda: ("hadamard_conj", k6_rand_pair((3, N, N1h), 2, dev),
+                  k6_rand_pair((3, N, N1h), 3, dev))),
+        ("pair_products", f"A conj(B) v2 chunk (16, {V2_N}, {V1h})",
+         lambda: ("hadamard_conj", k6_rand_pair((16, V2_N, V1h), 4, dev),
+                  k6_rand_pair((16, V2_N, V1h), 5, dev))),
+        ("pair_products", f"row weighting, both lanes of a ({N}, {N1h}) view of row stride "
+         f"{(R // 2 + 1) * S}",
+         lambda: ("mul_static_rr", k6_rand_pair((N, (R // 2 + 1) * S), 6, dev,
+                                                view=lambda v: v[:, :N1h]), wr((N, 1), 7))),
+        ("pair_products", f"real ({N}, {N}) x a row (1, {N})",
+         lambda: ("mul_static_rr", k6_rand_pair((N, N), 8, dev, real=True), wr((1, N), 9))),
+        ("pair_products", f"real ({N}, {N}) x a scalar",
+         lambda: ("mul_static_rr", k6_rand_pair((N, N), 10, dev, real=True), wr((), 11))),
+        ("pair_products", f"separable weights ({V2_N}, {V2_N}) x ({V2_N}, 1) x (1, {V2_N})",
+         lambda: ("sep_mul", k6_rand_pair((V2_N, V2_N), 12, dev, real=True), wr((V2_N, 1), 13),
+                  wr((1, V2_N), 14))),
+        ("pair_model", f"contract model ({N}, {N1h}) Fij 6", lambda: model_args(6, 0, N, N, 15)),
+        ("pair_model", f"v2 model ({V2_N}, {V1h}) Fij 25 + 6",
+         lambda: model_args(25, 6, V2_N, V2_N, 17)),
+        ("pair_poly", f"polynomial plane ({N}, {N}) SP 6",
+         lambda: k6_poly_args(6, N, N, 19, dev)),
+    ]
+    report = {}
+    for name, label, make in cases:
+        args = make()
+        wrapper, twin = getattr(pairs, name), getattr(pairs, K6_TWINS[name])
+        before = wrapper.launches
+        got = wrapper(*args)
+        again = wrapper(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, (name, label)
+        ref = twin(*args)
+        assert k6_equal(got, again), f"K6 {name} {label}: two launches differ"
+        assert k6_equal(got, ref), f"K6 {name} {label}: differs from the twin"
+        big = got[0].numel() > 2 ** 24
+        ms = graph_ms(lambda: wrapper(*args), calls=3 if big else 20, reps=3 if big else 7)
+        pms = cuda_ms(lambda: twin(*args), reps=3, inner=1)
+        bms, by = k6_call_bound(name, args)
+        report[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        log(f"phase 3 K6 {name} {label}: bit-identical to the twin, two launches bit-equal; "
+            f"device {ms:.4f} ms (graph replay), plain twin {pms:.3f} ms, bound {bms:.4f} ms "
+            f"({by}; {100 * bms / ms:.1f}% of it)")
+        del args, got, again, ref
+    torch.cuda.empty_cache()
+
+    # +-0, subnormal lo parts, magnitudes near 2^+-60, views at an offset
+    shape = (3, 33, 47)
+    A, B = k6_edge_pair(shape, 20, dev), k6_edge_pair(shape, 21, dev)
+    real = pairs.CPair(A.rh, A.rl, None, None)
+    # the tables of the real modes span 2^-30 .. 2^30, so that the chained
+    # product of three factors stays finite
+    col = k6_edge_pair((33, 1), 22, dev, real=True, ex=30)
+    row = k6_edge_pair((1, 47), 23, dev, real=True, ex=30)
+    n = 0
+    for args in [("hadamard_conj", A, B), ("mul_static", A, k6_edge_pair((33, 47), 24, dev)),
+                 ("mul_static_rr", A, col), ("mul_static_rr", real, row),
+                 ("sep_mul", real, col, row)]:
+        assert k6_equal(pairs.pair_products(*args), pairs.pair_products_plain(*args)), \
+            f"K6 pair_products {args[0]} on edge values: differs from the twin"
+        n += 1
+    margs = model_args(5, 2, 40, 38, 25)
+    margs = (margs[0], k6_edge_pair((5, 40, 20), 26, dev)) + margs[2:]
+    assert k6_equal(pairs.pair_model(*margs), pairs.pair_model_spectrum_plain(*margs)), \
+        "K6 pair_model on edge values: differs from the twin"
+    Uh, Ul = k6_edge_pair((4, 50), 27, dev, real=True)[:2]
+    Mh, Ml = k6_edge_pair((4, 70), 28, dev, real=True)[:2]
+    assert k6_equal(pairs.pair_poly(Uh, Ul, Mh, Ml), pairs.pair_poly_plain(Uh, Ul, Mh, Ml)), \
+        "K6 pair_poly on edge values: differs from the twin"
+    torch.cuda.synchronize()
+    log(f"phase 3 K6 on +-0, subnormal lo parts and magnitudes 2^-60 .. 2^60 (views at an "
+        f"offset, broadcast tables): {n} pair_products modes, pair_model and pair_poly "
+        f"bit-identical to the twins")
+    return report
+
+
+def k6_table(shape, seed):
+    """A seeded real static table for the K6 cases."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=shape) * 10.0 ** rng.uniform(-2, 2, size=shape)
+
+
+def k6_poly_args(SP, n0, n1, seed, dev):
+    """pair_poly's tables as pair_poly_plane makes them from seeded
+    coefficients: U = coordinate powers (SP, n0), M = C @ V (SP, n1)."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, peel
+    from sfft_tpu_torch.core.statics import Static, table
+
+    rng = np.random.default_rng(seed)
+    C = torch.as_tensor(rng.normal(size=(SP, SP)) * 10.0 ** rng.uniform(-3, 3, (SP, SP)),
+                        device=dev)
+    M = C @ table(Static(peel.coord_powers, (n1, SP, 0, n1)), dev)
+    Mh = M.to(torch.float32)
+    Ml = (M - Mh.to(torch.float64)).to(torch.float32)
+    Uh, Ul = exact_fft._split_on(Static(peel.coord_powers, (n0, SP, 0, n0)), dev)
+    return Uh, Ul, Mh, Ml
+
+
 def phase_kernels():
     import torch
     from sfft_tpu_torch.core import exact_fft
@@ -1123,6 +1383,8 @@ def phase_kernels():
     report["k1_v2"] = phase_k1_v2()
     report["fdiff_model"] = phase_k2()
     phase_k7()
+    report["k6_alone"] = phase_k6()
+    torch.cuda.empty_cache()
 
     # K4: bit for bit against the twin (slices and scales), rowwise and
     # global, on wide-range values: odd widths (the scalar path: a row
@@ -1387,6 +1649,33 @@ def k5_bound(shape, nsl, rowwise, out_cols):
                  n * (16 + 4 * nsl), FP32_FLOP_PER_S)
 
 
+def k6_signature(name, args):
+    """The launch signature of a K6 wrapper call: its name, the mode, and
+    each tensor operand's shape and strides (scalars and tables by shape)."""
+    def sig(x):
+        if x is None or isinstance(x, str):
+            return x
+        if isinstance(x, tuple):
+            return tuple(sig(v) for v in x)
+        return (tuple(x.shape), tuple(x.stride()))
+
+    return (name,) + tuple(sig(a) for a in args)
+
+
+def k6_label(sig):
+    """A K6 signature as a log reads it: the mode and each operand's shape
+    and strides (of a pair, its first plane's)."""
+    def one(v):
+        if isinstance(v, str):
+            return v
+        if len(v) == 2 and all(isinstance(t, tuple) and all(isinstance(i, int) for i in t)
+                               for t in v):
+            return "x".join(map(str, v[0])) + f"/{v[1]}"
+        return one(v[0])
+
+    return " ".join(one(v) for v in sig[1:] if v is not None)
+
+
 def slicers_on_path(run, phase, path):
     """Two steps of one path (`run` drives one) with every K4 and K5 launch
     and the steady step's K7 launches checked: their outputs (slices,
@@ -1401,10 +1690,12 @@ def slicers_on_path(run, phase, path):
     parts) is timed on its first inputs: the stage's device time (calls
     replayed in a CUDA graph), back to back from Python, its plain twin,
     the kernels one call launches and its bound, summed over the steady
-    step's launches. Returns the report of each slicer that the path
-    launched."""
+    step's launches. Every K6 launch of the steady step (pair_products,
+    pair_model, pair_poly) is held to its twin bit for bit and timed the same
+    way, summed per steady step. Returns the report of each slicer and K6
+    kernel that the path launched."""
     import torch
-    from sfft_tpu_torch.core import exact_fft, slicing, solve
+    from sfft_tpu_torch.core import exact_fft, pairs, slicing, solve
 
     launch4 = slicing._launch_pairs
     rows5, vec5 = solve.slice_rows_f64, solve.slice_vec_f64
@@ -1474,11 +1765,39 @@ def slicers_on_path(run, phase, path):
             timed7[sig] = (ms, pms) + k7_bound(P, plan, sd)
         return got
 
+    # K6: the callers reach the wrappers through the module, so replacing
+    # them there intercepts every launch
+    k6 = {name: getattr(pairs, name) for name in K6_TWINS}
+    counts6 = [{}, {}]
+    timed6 = {}
+
+    def checked6(name):
+        real, twin = k6[name], getattr(pairs, K6_TWINS[name])
+
+        def run6(*args):
+            got = real(*args)
+            sig = k6_signature(name, args)
+            counts6[step[0]][sig] = counts6[step[0]].get(sig, 0) + 1
+            if step[0] == 0:
+                return got
+            assert k6_equal(got, twin(*args)), \
+                f"{name} on the {path} path {k6_label(sig)}: differs from the twin"
+            if sig not in timed6:
+                big = got[0].numel() > 2 ** 24
+                ms = graph_ms(lambda: real(*args), calls=3 if big else 20, reps=3 if big else 7)
+                pms = cuda_ms(lambda: twin(*args), reps=3, inner=1)
+                timed6[sig] = (ms, pms) + k6_call_bound(name, args)
+            return got
+
+        return run6
+
     exact_fft._static_slices_for.cache_clear()
     exact_fft._stacked.cache_clear()
     slicing._launch_pairs = checked4
     solve.slice_rows_f64, solve.slice_vec_f64 = checked_rows, checked_vec
     exact_fft.sliced_epilogue = checked7
+    for name in k6:
+        setattr(pairs, name, checked6(name))
     try:
         for step[0] in (0, 1):
             run()
@@ -1487,6 +1806,23 @@ def slicers_on_path(run, phase, path):
         slicing._launch_pairs = launch4
         solve.slice_rows_f64, solve.slice_vec_f64 = rows5, vec5
         exact_fft.sliced_epilogue = epi7
+        for name, fn in k6.items():
+            setattr(pairs, name, fn)
+    rep6 = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                       bytes_ms=0.0, first=0, steady=0, signatures=0) for name in k6}
+    for sig, (ms, pms, bms, by) in sorted(timed6.items(), key=lambda kv: str(kv[0])):
+        count, r = counts6[1][sig], rep6[sig[0]]
+        r["ms"] += count * ms
+        r["plain_ms"] += count * pms
+        r["bound_ms"] += count * bms
+        r["bytes_ms"] += count * bms * (by == "bytes")
+        r["first"] += counts6[0].get(sig, 0)
+        r["steady"] += count
+        r["signatures"] += 1
+        log(f"phase {phase} {sig[0]} on the {path} path {k6_label(sig)}: {counts6[0].get(sig, 0)} "
+            f"launches at first use, {count} per steady step, bit-identical to the twin; device "
+            f"{ms:.4f} ms (graph replay), plain twin {pms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{100 * bms / ms:.1f}% of it)")
     for sig, (ms, pms, bms, by) in sorted(timed7.items(), key=lambda kv: str(kv[0])):
         count = counts7[1][sig]
         rep7["ms"] += count * ms
@@ -1566,6 +1902,17 @@ def slicers_on_path(run, phase, path):
             f"counters), {r['signatures']} signatures, all bit-identical to the twins; per "
             f"steady step device "
             f"{r['ms']:.4f} ms, back to back {r['eager_ms']:.4f} ms, plain twin "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
+            f"computes it")
+    for name, r in rep6.items():
+        if not r["steady"]:
+            continue
+        r["bound_by"] = "bytes" if 2 * r.pop("bytes_ms") >= r["bound_ms"] else "operations"
+        reports[name] = r
+        log(f"phase {phase} {name} on the {path} path: {r['first']} launches at first use and "
+            f"{r['steady']} per steady step, {r['signatures']} signatures, the steady step's "
+            f"bit-identical to the twin; per steady step device {r['ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
             f"computes it")
@@ -1955,7 +2302,7 @@ def phase_contract(I, J, sol64, diff64):
     each held to the f64 fft/fft/exact path."""
     import torch
     from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
-    from sfft_tpu_torch.core import exact_fft, greek, moments, slicing
+    from sfft_tpu_torch.core import exact_fft, greek, moments, pairs, slicing
 
     cfg = make_config(N, N, KERHW, greek_backend="pexact", fdiff_backend="pexact",
                       solver="transformed")
@@ -1980,6 +2327,9 @@ def phase_contract(I, J, sol64, diff64):
     greek.corr_window.launches = 0
     slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
     exact_fft.sliced_epilogue.launches = 0
+    for name in K6_TWINS:
+        getattr(pairs, name).launches = 0
+    pairs.pair_products.copies = pairs.pair_model.copies = 0
     sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
     # K4: its slicing launches and its global-max launches (one source)
     launches = {"moments": moments.moments.launches,
@@ -1987,9 +2337,14 @@ def phase_contract(I, J, sol64, diff64):
                 "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
                 "slice_pair_scale": slicing.slice_pair.scale_launches,
                 "sliced_epilogue": exact_fft.sliced_epilogue.launches}
+    launches.update({name: getattr(pairs, name).launches for name in K6_TWINS})
+    # operand planes that K6 had to make contiguous (planes of one pair with
+    # different strides)
+    launches["pair_copies"] = pairs.pair_products.copies + pairs.pair_model.copies
     peak = torch.cuda.max_memory_allocated()
     assert (launches["moments"] > 0 and launches["slice_pair"] > 0
-            and launches["sliced_epilogue"] > 0), \
+            and launches["sliced_epilogue"] > 0
+            and all(launches[name] > 0 for name in K6_TWINS)), \
         f"a kernel of the contract path never launched: {launches}"
     rms, drms, srel = check("contract", sol, diff)
     log(f"phase 6 contract {N}^2 KerHW={KERHW} pexact/pexact/transformed prof (8, 7, 6): "
@@ -2002,12 +2357,18 @@ def phase_contract(I, J, sol64, diff64):
     tsol, tdiff = one_twin(exact_fft, "sliced_epilogue", exact_fft.sliced_epilogue_plain, step)
     assert torch.equal(tsol, sol) and torch.equal(tdiff, diff), \
         "contract: the step with K7 differs from the step with K7 on its twin"
+    # and with K6 (its three kernels) alone on its twins
+    tsol, tdiff = k6_on_twins(step)
+    assert torch.equal(tsol, sol) and torch.equal(tdiff, diff), \
+        "contract: the step with K6 differs from the step with K6 on its twins"
     del sol, diff, tsol, tdiff
     _, wall, busy, nk, idle = profile_step(step)
     prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
+                k6_launches={name: launches[name] / 4 for name in K6_TWINS},
                 wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
-    log(f"phase 6 contract step with K7 alone on its twin: solution and difference "
-        f"bit-identical; per step {prof['k7_launches']:.0f} K7 launches; one profiled step: "
+    log(f"phase 6 contract step with K7 alone on its twin and with K6 alone on its twins: "
+        f"solution and difference bit-identical; per step {prof['k7_launches']:.0f} K7 "
+        f"launches, K6 {prof['k6_launches']}; one profiled step: "
         f"wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in {nk} kernels "
         f"and copies, idle share {idle:.3f}")
     psol, pdiff, plain_s = run_pcp(I, J, cfg, plain=True, reps=3)
@@ -2084,7 +2445,7 @@ def phase_v2():
 
     import torch
     from sfft_tpu_torch import BSplinePacket, read_bspline_solution_fits
-    from sfft_tpu_torch.core import exact_fft, greek, moments, slicing, solve
+    from sfft_tpu_torch.core import exact_fft, greek, moments, pairs, slicing, solve
     from sfft_tpu_torch.io import fits
 
     n = V2_N
@@ -2092,6 +2453,7 @@ def phase_v2():
     counters = {"moments": moments.moments, "corr_window": greek.corr_window,
                 "slice_pair": slicing.slice_pair, "slice_triple": slicing.slice_triple,
                 "sliced_epilogue": exact_fft.sliced_epilogue}
+    counters.update({name: getattr(pairs, name) for name in K6_TWINS})
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ref, sci = write_pair_fits(d)
@@ -2120,13 +2482,17 @@ def phase_v2():
         for f in counters.values():
             f.launches = 0
         slicing.slice_pair.scale_launches = 0
+        pairs.pair_products.copies = pairs.pair_model.copies = 0
         sol, diff, step_s = run_bsp(ref, sci, cfg, plain=False, reps=3)
         launches = {k: f.launches for k, f in counters.items()}
+        launches["pair_copies"] = pairs.pair_products.copies + pairs.pair_model.copies
         launches["slice_pair_scale"] = slicing.slice_pair.scale_launches
         launches["slice_pair"] += launches["slice_pair_scale"]
         peak = torch.cuda.max_memory_allocated()
+        # (the v2 exact path has no polynomial plane: pair_poly is pexact's)
         assert (launches["slice_pair"] > 0 and launches["slice_triple"] > 0
-                and launches["sliced_epilogue"] > 0), \
+                and launches["sliced_epilogue"] > 0 and launches["pair_products"] > 0
+                and launches["pair_model"] > 0), \
             f"a kernel of the v2 path never launched: {launches}"
         assert sol.shape == (cfg.NEQ,) and diff.shape == (n, n)
         assert np.isfinite(sol).all() and np.isfinite(diff).all()
@@ -2162,12 +2528,17 @@ def phase_v2():
                                step)
         assert np.array_equal(tsol, sol) and np.array_equal(tdiff, diff), \
             "v2: the step with K7 differs from the step with K7 on its twin"
+        tsol, tdiff = k6_on_twins(step)
+        assert np.array_equal(tsol, sol) and np.array_equal(tdiff, diff), \
+            "v2: the step with K6 differs from the step with K6 on its twins"
         del tsol, tdiff
         _, wall, busy, nk, idle = profile_step(step)
         prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
+                    k6_launches={name: launches[name] / 4 for name in K6_TWINS},
                     wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
-        log(f"phase 7 v2 step with K7 alone on its twin: solution and difference "
-            f"bit-identical; per step {prof['k7_launches']:.0f} K7 launches; one profiled "
+        log(f"phase 7 v2 step with K7 alone on its twin and with K6 alone on its twins: "
+            f"solution and difference bit-identical; per step {prof['k7_launches']:.0f} K7 "
+            f"launches, K6 {prof['k6_launches']}; one profiled "
             f"step: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms in {nk} "
             f"kernels and copies, idle share {idle:.3f}")
 
@@ -2380,6 +2751,17 @@ def phase_kernel_profile(out_dir):
                 f"x{e.count}")
 
 
+# K6's functions as (module, name) and the f32 operations per output element
+# of each (TwoProd 17, TwoSum 6, the rest one each), or None where
+# k6_call_work counts the call (the kernel wrappers and their callers that
+# take plain tensors); a function a checkout lacks is skipped
+K6_FUNCS = {("exact_fft", "_pair_hadamard_conj"): 94, ("exact_fft", "_pair_mul_static"): 94,
+            ("exact_fft", "_pair_mul_static_rr"): 21, ("exact_fft", "pair_sep_mul"): 42,
+            ("exact_fft", "_two_prod"): 17, ("pexact", "pair_poly_plane"): None,
+            ("pairs", "pair_products"): None, ("pairs", "pair_model"): None,
+            ("pairs", "pair_poly"): None}
+
+
 # --profile's split of the exact paths' device time by function: (category,
 # the functions whose launches it takes, as (module, name), and the hand
 # kernels it takes by name); a function that a checkout lacks is skipped, so
@@ -2391,9 +2773,8 @@ def phase_kernel_profile(out_dir):
 SPLIT = [
     ("K7 epilogue", [("exact_fft", "sliced_epilogue"), ("exact_fft", "sliced_epilogue_plain"),
                      ("exact_fft", "_accum")], ["sliced_epilogue_kernel"]),
-    ("K6 pair products", [("exact_fft", f) for f in ("_pair_hadamard_conj", "_pair_mul_static",
-                                                     "_pair_mul_static_rr", "pair_sep_mul",
-                                                     "_two_prod")], []),
+    ("K6 pair products", list(K6_FUNCS), ["pair_products_kernel", "pair_model_kernel",
+                                          "pair_poly_kernel"]),
     ("K4 slicing stage", [("exact_fft", "_slice_pairs")],
      ["absmax_kernel", "pairs_row_kernel", "pairs_tile_kernel", "rowmax_tile_kernel"]),
     ("int8 products", [("exact_fft", "_int_mm")], []),
@@ -2423,14 +2804,12 @@ def split_ranges():
     """Wrap SPLIT's functions, wherever the package's modules hold them, in
     profiler ranges named 'split:<category>'; returns the function that
     restores them."""
-    import importlib
-
     import torch
 
     undo = []
     for cat, funcs, _ in SPLIT:
         for mod, name in funcs:
-            fn = getattr(importlib.import_module(f"sfft_tpu_torch.core.{mod}"), name, None)
+            fn = package_attr(mod, name)
             if fn is None:
                 continue
 
@@ -2481,22 +2860,25 @@ def device_split(prof):
     return out, total
 
 
-# K6's functions (the pair products, not yet a hand kernel) and the f32
-# operations per output element of each: TwoProd 17, TwoSum 6, the rest
-# one each
-K6_OPS = {"_pair_hadamard_conj": 94, "_pair_mul_static": 94, "_pair_mul_static_rr": 21,
-          "pair_sep_mul": 42, "_two_prod": 17}
+def package_attr(mod, name):
+    """sfft_tpu_torch.core.<mod>.<name>, or None where the checkout lacks it."""
+    import importlib
+
+    try:
+        return getattr(importlib.import_module(f"sfft_tpu_torch.core.{mod}"), name, None)
+    except ModuleNotFoundError:
+        return None
 
 
 def k6_bound(step):
-    """K6's bound over one step: every outermost call of K6_OPS's functions
-    (pair_sep_mul's two inner products, and TwoProds inside the others, are
-    part of their caller) reads its tensors and static tables once (a
-    table's f32 (hi, lo) planes at its own shape, however broadcast) and
-    writes its output planes once; operations per output element from
-    K6_OPS. Returns (bound_ms, bound_by, calls)."""
+    """K6's bound over one step: every outermost call of K6_FUNCS (the
+    kernel wrappers inside _pair_hadamard_conj and the like, pair_sep_mul's
+    two inner products and TwoProds inside the others are part of their
+    caller) reads its tensors and static tables once (a table's f32 (hi,
+    lo) planes at its own shape, however broadcast) and writes its output
+    planes once; operations per output element from K6_FUNCS, or the
+    call's from k6_call_work. Returns (bound_ms, bound_by, calls)."""
     import torch
-    from sfft_tpu_torch.core import exact_fft
     from sfft_tpu_torch.core.statics import Static
 
     depth, acc = [0], dict(nbytes=0, flops=0, calls=0)
@@ -2510,24 +2892,36 @@ def k6_bound(step):
             return sum(nbytes(v, planes) for v in x if v is not None)
         return 0
 
+    def work(name, ops, planes, args, out):
+        if ops is not None:
+            return nbytes(args, planes) + nbytes(out, planes), ops * out[0].numel()
+        if name == "pair_poly_plane":
+            C, n0, n1 = args[:3]
+            return 8 * n0 * n1 + nbytes(C, 2), 29 * C.shape[0] * n0 * n1
+        return k6_call_work(name, args)
+
     undo = []
-    for name, ops in K6_OPS.items():
+    for (mod, name), ops in K6_FUNCS.items():
+        fn = package_attr(mod, name)
+        if fn is None:
+            continue
         # a complex static factor is four f32 planes (re, im; hi, lo), a real one two
         planes = 4 if name == "_pair_mul_static" else 2
 
-        def counted(*args, _fn=getattr(exact_fft, name), _ops=ops, _planes=planes, **kw):
+        def counted(*args, _fn=fn, _name=name, _ops=ops, _planes=planes, **kw):
             depth[0] += 1
             try:
                 out = _fn(*args, **kw)
             finally:
                 depth[0] -= 1
             if depth[0] == 0:
-                acc["nbytes"] += nbytes(args, _planes) + nbytes(out, _planes)
-                acc["flops"] += _ops * out[0].numel()
+                b, f = work(_name, _ops, _planes, args, out)
+                acc["nbytes"] += b
+                acc["flops"] += f
                 acc["calls"] += 1
             return out
 
-        wrap_everywhere(getattr(exact_fft, name), counted, undo)
+        wrap_everywhere(fn, counted, undo)
     try:
         step()
         torch.cuda.synchronize()
@@ -2649,6 +3043,7 @@ def main():
             phase_k1_v2()
             phase_k2()
             phase_k7()
+            phase_k6()
             phase_kernel_profile(sys.argv[2])
         else:
             rng = np.random.default_rng(6)
@@ -2704,6 +3099,17 @@ def main():
         {k: c7[k] + v7[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
         library_ms=None,
         bound_by=c7["bound_by"] if c7["bound_by"] == v7["bound_by"] else "bytes")
+    # K6: summed over a steady contract step's launches and a steady v2
+    # step's (pair_poly runs on the contract path alone)
+    k6_steps = {}
+    for name in K6_TWINS:
+        parts = [r[name] for r in (c_on_path, v2["slicers"]) if name in r]
+        report[name] = dict(
+            {k: sum(r[k] for r in parts) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+            library_ms=None,
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in parts) else "operations")
+        k6_steps[name] = {path: r[name] for path, r in (("contract", c_on_path),
+                                                          ("v2", v2["slicers"])) if name in r}
     torch.cuda.empty_cache()
     fast = phase_v2_fast(v2["lam"], v2["ydiff"])
     pw = fast["v2-fast-peeled"]
@@ -2722,11 +3128,15 @@ def main():
         ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90"),
         ("sliced_epilogue", "sfft_tpu_torch/csrc/sliced_epilogue.cu",
          "sfft_tpu/core/exact_fft.py:372"),
+        ("pair_products", "sfft_tpu_torch/csrc/pair_products.cu",
+         "sfft_tpu/core/exact_fft.py:963"),
+        ("pair_model", "sfft_tpu_torch/csrc/pair_model.cu", "sfft_tpu/core/pexact.py:397"),
+        ("pair_poly", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:71"),
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
         # the two v2 fast modes); times: K3, K1 and K2 alone at the fast
         # slice's shapes, K4 summed over a steady contract step's launches,
-        # K5 over a steady v2 step's, K7 over both
+        # K5 over a steady v2 step's, K7 and K6 over both
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=(launches.get(name, 0) + c_launches.get(name, 0)
@@ -2753,6 +3163,7 @@ def main():
                     "contract_launches_per_step": {k: v / 4 for k, v in c_launches.items()},
                     "contract_step_profile": c_prof, "v2_step_profile": v2["prof"],
                     "k7_per_step": {"contract": c7, "v2": v7},
+                    "k6_per_step": k6_steps, "k6_alone": report["k6_alone"],
                     "v2_step_ms": v2["step_s"] * 1e3, "v2_step_plain_ms": v2["plain_s"] * 1e3,
                     "v2_first_call_s": v2["first_s"], "v2_yardstick_step_ms":
                     v2["yardstick_s"] * 1e3, "v2_lambda": v2["lam"],

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "sfft_fdiff_model_c64": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
     "sfft_fdiff_model_c128": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
     "sfft_sliced_epilogue": [_P, _P],
+    "sfft_pair_products": [_P, _P],
+    "sfft_pair_model": [_P, _P],
+    "sfft_pair_poly": [_P] * 6 + [_I] * 3 + [_P],
     "sfft_cuda_error_string": [_I],
 }
 

@@ -25,11 +25,15 @@ The algorithms, slicing depths and chunk sizes are sfft_tpu's. What differs:
   * The lax.map bodies are Python loops over the same chunks.
 
 Every public function takes ``plain`` (default False): True slices with the
-plain twin of K4 and combines the products with the plain twin of K7
-(``sliced_epilogue_plain``) instead of the kernels. K7 (``sliced_epilogue``,
-csrc/sliced_epilogue.cu) is a sliced product's whole epilogue: the group
-sums of the int32 products, the compensated chain, the scale and the complex
-recombination, one launch per ``_cmatmul_sliced`` call.
+plain twin of K4, combines the products with the plain twin of K7
+(``sliced_epilogue_plain``) and runs the pair products on the plain twin of
+K6a (``pairs.pair_products_plain``) instead of the kernels. K7
+(``sliced_epilogue``, csrc/sliced_epilogue.cu) is a sliced product's whole
+epilogue: the group sums of the int32 products, the compensated chain, the
+scale and the complex recombination, one launch per ``_cmatmul_sliced``
+call. K6a (core/pairs.py ``pair_products``, csrc/pair_products.cu) is every
+elementwise pair product here: the twiddles, A * conj(B), the basis and row
+weightings, one launch per product.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import torch.nn.functional as F
 # the kernel wrappers in core/slicing.py
 from sfft_tpu_torch.core.slicing import (NB, _padk, _pow2ceil_scalar, slice_pairs,
                                           slice_pairs_plain, slice_triple, slice_triple_plain)
+from sfft_tpu_torch.core import pairs
+from sfft_tpu_torch.core.pairs import CPair, _two_prod, _two_sum  # noqa: F401
 from sfft_tpu_torch.core.statics import Static, index, table
 
 NSL_DATA = 9            # data slices (54 bits)
@@ -62,22 +68,9 @@ class SliceProfile(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# pair (double-float) helpers — all f32 elementwise
+# pair (double-float) helpers — all f32 elementwise (the pair type, TwoSum,
+# TwoProd and the K6 kernels live in core/pairs.py)
 # ---------------------------------------------------------------------------
-
-
-class CPair(NamedTuple):
-    """Complex tensor as four f32 planes (real hi/lo, imag hi/lo); imag
-    parts None for a real tensor."""
-
-    rh: torch.Tensor
-    rl: torch.Tensor
-    ih: Optional[torch.Tensor]
-    il: Optional[torch.Tensor]
-
-    @property
-    def is_real(self) -> bool:
-        return self.ih is None
 
 
 def _pmap(p: CPair, fn) -> CPair:
@@ -96,28 +89,6 @@ def pair_to_c128(p: CPair) -> torch.Tensor:
     if p.ih is None:
         return re
     return torch.complex(re, p.ih.to(torch.float64) + p.il)
-
-
-def _two_sum(a, b):
-    """Knuth TwoSum in f32: a + b = s + e exactly."""
-    s = a + b
-    v = s - a
-    e = (a - (s - v)) + (b - v)
-    return s, e
-
-
-def _two_prod(a, b):
-    """Dekker TwoProd in f32 (Veltkamp split, no FMA): a * b = p + e exactly."""
-    C = 4097.0
-    p = a * b
-    a1 = a * C
-    b1 = b * C
-    ah = a1 - (a1 - a)
-    al = a - ah
-    bh = b1 - (b1 - b)
-    bl = b - bh
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
 
 
 def _chain(groups, weights):
@@ -614,45 +585,47 @@ def _dft_stage_mat(N: int, inverse: bool, name: str) -> np.ndarray:
     return np.exp(sgn * np.outer(np.arange(R), np.arange(S)) / N)     # (a, d)
 
 
-def _pair_mul_static(v: CPair, W: Static) -> CPair:
+def _k6a(plain: bool):
+    """K6a (core/pairs.py pair_products), or its twin with plain=True; looked
+    up at each call, so that a caller may intercept the module's wrapper."""
+    return pairs.pair_products_plain if plain else pairs.pair_products
+
+
+def _pair_mul_static(v: CPair, W: Static, plain: bool = False) -> CPair:
     """Elementwise complex pair product v * W with a static complex factor
-    (broadcast over leading dims), accurate to ~2^-48 relative."""
+    (broadcast over leading dims), accurate to ~2^-48 relative: one K6a
+    launch on CUDA tensors."""
     dev = v.rh.device
     wr, wr_l = _split_on(Static(np.real, (W,)), dev)
     wi, wi_l = _split_on(Static(np.imag, (W,)), dev)
-    prr, err = _two_prod(v.rh, wr)
-    pii, eii = _two_prod(v.ih, wi)
-    pri, eri = _two_prod(v.rh, wi)
-    pir, eir = _two_prod(v.ih, wr)
-    cr = err - eii + v.rh * wr_l + v.rl * wr - v.ih * wi_l - v.il * wi
-    ci = eri + eir + v.rh * wi_l + v.rl * wi + v.ih * wr_l + v.il * wr
-    ur, e1 = _two_sum(prr, -pii)
-    ui, e2 = _two_sum(pri, pir)
-    return CPair(ur, cr + e1, ui, ci + e2)
+    return _k6a(plain)("mul_static", v, CPair(wr, wr_l, wi, wi_l))
 
 
-def _pair_mul_static_rr(v: CPair, W: Static) -> CPair:
+def _pair_mul_static_rr(v: CPair, W: Static, plain: bool = False) -> CPair:
     """REAL pair * static REAL factor (broadcastable), ~2^-48 relative."""
+    if not v.is_real:
+        raise ValueError("_pair_mul_static_rr takes a real pair")
     wh, wl = _split_on(W, v.rh.device)
-    p, e = _two_prod(v.rh, wh.expand(torch.broadcast_shapes(v.rh.shape, wh.shape)))
-    lo = e + v.rh * wl + v.rl * wh
-    return CPair(p, lo, None, None)
+    return _k6a(plain)("mul_static_rr", v, CPair(wh, wl, None, None))
 
 
-def pair_sep_mul(p: CPair, u: Static, v: Static) -> CPair:
+def pair_sep_mul(p: CPair, u: Static, v: Static, plain: bool = False) -> CPair:
     """p * u * v for a real pair p (N0, N1) and static factors u (N0, 1) and
-    v (1, N1): exact-grade basis-plane weighting in pair arithmetic."""
-    return _pair_mul_static_rr(_pair_mul_static_rr(p, u), v)
+    v (1, N1): exact-grade basis-plane weighting in pair arithmetic, the two
+    products in one K6a launch."""
+    dev = p.rh.device
+    return _k6a(plain)("sep_mul", p, CPair(*_split_on(u, dev), None, None),
+                       CPair(*_split_on(v, dev), None, None))
 
 
-def pair_stack(pairs) -> CPair:
+def pair_stack(parts) -> CPair:
     """Stack CPairs along a new leading axis (imag parts must match)."""
-    rh = torch.stack([q.rh for q in pairs])
-    rl = torch.stack([q.rl for q in pairs])
-    if pairs[0].ih is None:
+    rh = torch.stack([q.rh for q in parts])
+    rl = torch.stack([q.rl for q in parts])
+    if parts[0].ih is None:
         return CPair(rh, rl, None, None)
-    return CPair(rh, rl, torch.stack([q.ih for q in pairs]),
-                 torch.stack([q.il for q in pairs]))
+    return CPair(rh, rl, torch.stack([q.ih for q in parts]),
+                 torch.stack([q.il for q in parts]))
 
 
 def _swap(v: torch.Tensor) -> torch.Tensor:
@@ -679,7 +652,7 @@ def exact_dft_axis(x: CPair, N: int, inverse: bool = False, real_out: bool = Fal
                                prof=prof, plain=plain)
     # stage 1: G[a, d] = sum_b x[b, a] DS[b, d] — contraction axis last
     G = _cmatmul_sliced(_pmap(data, _swap), DS, prof=prof, plain=plain)
-    U = _pair_mul_static(G, tw)
+    U = _pair_mul_static(G, tw, plain)
     # stage 2: X[S c + d] = sum_a U[a, d] DR[a, c]
     Rc = R // 2 + 1 if half_out else R
     DRc = Static(_cols, (DR, Rc)) if half_out else DR
@@ -739,7 +712,7 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
 
     planes1 = list(head)
     for k, ones in firsts:
-        planes1.append(base if ones else _pair_mul_static_rr(base, Static(_row, (V, k))))
+        planes1.append(base if ones else _pair_mul_static_rr(base, Static(_row, (V, k)), plain))
     T = [exact_dft_axis(pl_, N1, half_out=True, prof=prof, plain=plain) for pl_ in planes1]
     del planes1
 
@@ -747,17 +720,11 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
     Wh, Wl = _split_on(Static(_ones_above, (U, nh)), dev)
     out = []
     for k, t in enumerate(src):
-        Tk = T[int(t)]
-        wh, wl = Wh[k][:, None], Wl[k][:, None]
-
-        def one(h, l):
-            p, e = _two_prod(h, wh.expand(h.shape))
-            return p, e + h * wl + l * wh
-
-        zrh, zrl = one(Tk.rh, Tk.rl)
-        zih, zil = one(Tk.ih, Tk.il)
-        zt = exact_dft_axis(_pmap(CPair(zrh, zrl, zih, zil), _swap), N0, prof=prof,
-                            plain=plain)
+        # the row weighting: both lanes of the spectrum times U[k] (one K6a
+        # launch)
+        z = _k6a(plain)("mul_static_rr", T[int(t)], CPair(Wh[k][:, None], Wl[k][:, None],
+                                                          None, None))
+        zt = exact_dft_axis(_pmap(z, _swap), N0, prof=prof, plain=plain)
         out.append(_pmap(zt, _swap))
     return pair_stack(out)
 
@@ -832,7 +799,7 @@ def exact_idft_halfin_real(x: CPair, N: int, prof: Optional[SliceProfile] = None
     # x[a + R b] == x[..., :M].reshape(S, R)[b, a]; contract b
     d1 = _pmap(x, lambda v: _swap(v[..., :M].reshape(sh + (S, R))))    # (..., a, b)
     H = _cmatmul_sliced(d1, ES, prof=prof, plain=plain)                 # (..., a, m)
-    U = _pair_mul_static(H, tw)
+    U = _pair_mul_static(H, tw, plain)
     Y = _cmatmul_sliced(_pmap(U, _swap), ER, real_out=True, prof=prof,
                         plain=plain)                                   # (..., m, t)
     yh = _swap(Y.rh).reshape(sh + (N,))                                # n = m_ t + m
@@ -849,17 +816,10 @@ def exact_idft_halfin_real(x: CPair, N: int, prof: Optional[SliceProfile] = None
 # ---------------------------------------------------------------------------
 
 
-def _pair_hadamard_conj(A: CPair, B: CPair) -> CPair:
-    """H = A * conj(B) elementwise, pair-accurate (~2^-48)."""
-    prr, err = _two_prod(A.rh, B.rh)
-    pii, eii = _two_prod(A.ih, B.ih)
-    pri, eri = _two_prod(A.rh, B.ih)
-    pir, eir = _two_prod(A.ih, B.rh)
-    cr = err + eii + A.rh * B.rl + A.rl * B.rh + A.ih * B.il + A.il * B.ih
-    ci = eir - eri + A.ih * B.rl + A.il * B.rh - A.rh * B.il - A.rl * B.ih
-    hr, e1 = _two_sum(prr, pii)
-    hi, e2 = _two_sum(pir, -pri)
-    return CPair(hr, cr + e1, hi, ci + e2)
+def _pair_hadamard_conj(A: CPair, B: CPair, plain: bool = False) -> CPair:
+    """H = A * conj(B) elementwise, pair-accurate (~2^-48): one K6a launch
+    on CUDA tensors."""
+    return _k6a(plain)("hadamard_conj", A, B)
 
 
 def _corr_emat(N0: int, N1: int, wx: int, wy: int, half: bool, name: str) -> np.ndarray:
@@ -915,7 +875,7 @@ def exact_corr_window(specA: CPair, specB: CPair, N0: int, N1: int, wx: int, wy:
         jbb = index(jb[c0:c0 + chunk], dev)
         A = _pmap(specA, lambda v: v.index_select(0, iaa))
         B = _pmap(specB, lambda v: v.index_select(0, jbb))
-        H = _pair_hadamard_conj(A, B)                                  # (c, N0, N1h)
+        H = _pair_hadamard_conj(A, B, plain)                           # (c, N0, N1h)
         del A, B
         Y = _cmatmul_sliced(H, E1, rowwise=True, prof=prof, plain=plain)  # (c, N0, R1)
         del H

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core import pairs
 from sfft_tpu_torch.core.basis import basis_1d_tables
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.statics import Static, index, table
@@ -201,6 +202,28 @@ def _fold_weights(N1: int) -> np.ndarray:
     return fold
 
 
+def pair_model_spectrum(cfg: SFFTConfig, sp, K, a00: torch.Tensor, s_nc: torch.Tensor,
+                        nss: int, plain: bool = False):
+    """The exact differences' model spectrum, shared by fdiff_exact and
+    fdiff_pexact: FD = sp[0] - SCALE * sum_i sp[1+i] (K_i + c_i) (+ the
+    SEPARATE-VARYING scaling planes sp[1+Fij+s] times a00_s, s < nss),
+    compensated, times the Hermitian fold. Per-ij factor (reference
+    Construct_FDIFF): for the ENTANGLED center dof the delta-basis term is
+    a00 * 1, so c_i = a00_i - s_nc_i; SEPARATE-VARYING applies a00 to the
+    scaling planes and c_i = -s_nc_i. K6m (core/pairs.py ``pair_model``, one
+    launch on CUDA tensors), or its twin with plain=True."""
+    from sfft_tpu_torch.core.exact_fft import _split_on
+
+    dev = sp.rh.device
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    c = -s_nc if separate_varying else a00 - s_nc
+    model = pairs.pair_model_spectrum_plain if plain else pairs.pair_model
+    return model(sp, K, c.to(torch.float64),
+                 a00[:nss].to(torch.float64) if separate_varying else None,
+                 _split_on(Static(np.float64, (float(cfg.SCALE),)), dev),
+                 table(Static(_fold_weights, (cfg.N1,)), dev))
+
+
 def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: torch.Tensor,
                 shared=None, plain: bool = False) -> torch.Tensor:
     """Exact-grade (f32 pair) difference construction, any spatial basis.
@@ -211,20 +234,18 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
         `shared` when the caller has the solve's;
       * per-ij kernel spectra K = W0 @ A_ij @ W1 as two sliced products
         against the static phase matrices;
-      * the model spectrum as compensated pair Hadamard sums;
+      * the model spectrum as compensated pair Hadamard sums
+        (``pair_model_spectrum``, K6m on the card);
       * the inverse transform of the Hermitian half with the weight-2 fold:
         axis 0 first at half width, then the real-only axis-1 inverse;
       * the background term exactly in image space (separable U B V^T).
-    plain=True slices with the plain twin of K4."""
-    from sfft_tpu_torch.core.exact_fft import (CPair, _cmatmul_sliced, _pair_hadamard_conj,
-                                               _pmap, _split_on, _swap, _two_prod, _two_sum,
-                                               exact_dft_axis, exact_idft_halfin_real,
-                                               pair_from_f64)
+    plain=True runs the plain twins of K4, K6 and K7."""
+    from sfft_tpu_torch.core.exact_fft import (_cmatmul_sliced, _pmap, _swap, exact_dft_axis,
+                                               exact_idft_halfin_real, pair_from_f64)
     from sfft_tpu_torch.core.greek import exact_plane_spectra
 
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     N1h = N1 // 2 + 1
-    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
     if shared is None:
         shared = exact_plane_spectra(I, J, cfg, plain=plain)
     _Jp, _SIp, SScp, sp = shared
@@ -243,57 +264,10 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
     T1 = _cmatmul_sliced(pair_from_f64(Ap.transpose(1, 2)), W0T, plain=plain)
     K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
 
-    def split64(c):
-        c32 = c.to(torch.float32)
-        return c32, (c - c32.to(torch.float64)).to(torch.float32)
-
-    def shift_pair(P, c):
-        """pair + f64 scalar, compensated."""
-        c32, cres = split64(c)
-        h, e = _two_sum(P.rh, c32.expand(P.rh.shape))
-        return CPair(h, P.rl + e + cres, P.ih, P.il)
-
-    def scale_pair(P, c32, cres):
-        """pair * f64 scalar, compensated (TwoProd on the hi lane)."""
-        pr, er = _two_prod(P.rh, c32.expand(P.rh.shape))
-        pi, ei = _two_prod(P.ih, c32.expand(P.ih.shape))
-        return CPair(pr, er + P.rl * c32 + P.rh * cres,
-                     pi, ei + P.il * c32 + P.ih * cres)
-
-    def addp(acc, term):
-        if acc is None:
-            return term
-        hr, er = _two_sum(acc.rh, term.rh)
-        hi, ei = _two_sum(acc.ih, term.ih)
-        return CPair(hr, acc.rl + term.rl + er, hi, acc.il + term.il + ei)
-
-    def plane(P, k):
-        return _pmap(P, lambda v: v[k])
-
-    # --- model spectrum: compensated pair sum over ij ----------------------
-    # per-ij spectral factor (reference Construct_FDIFF): for the ENTANGLED
-    # center dof the delta-basis term is a00 * 1, so the combined factor is
-    # K'[u, v] + (a00 - s_nc); SEPARATE-VARYING applies a00 to the FS planes
-    acc = None
-    for i in range(cfg.Fij):
-        c_i = -s_nc[i] if separate_varying else a00[i] - s_nc[i]
-        Ki = shift_pair(plane(K, i), c_i)
-        # the Hadamard helper computes A * conj(B): pass conj(K) for A * K
-        acc = addp(acc, _pair_hadamard_conj(plane(sp, 1 + i),
-                                            CPair(Ki.rh, Ki.rl, -Ki.ih, -Ki.il)))
-    if separate_varying:
-        for i in range(nss):
-            acc = addp(acc, scale_pair(plane(sp, 1 + cfg.Fij + i), *split64(a00[i])))
-
-    # FDIFF = FJ - SCALE * acc (SCALE is no power of two in general)
-    m = scale_pair(acc, *_split_on(Static(np.float64, (float(cfg.SCALE),)), dev))
-    dr, er = _two_sum(sp.rh[0], -m.rh)
-    di, ei = _two_sum(sp.ih[0], -m.ih)
-    FD = CPair(dr, sp.rl[0] - m.rl + er, di, sp.il[0] - m.il + ei)
+    # --- model spectrum: compensated pair sum over ij, folded --------------
+    FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, nss, plain=plain)
 
     # --- inverse transform of the Hermitian half ---------------------------
-    foldj = table(Static(_fold_weights, (N1,)), dev)
-    FDw = _pmap(FD, lambda v: v * foldj)
     zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, plain=plain)    # (N1h, N0)
     z = _pmap(zt, _swap)
     if N1 % 2 == 0:

@@ -464,7 +464,7 @@ def exact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg, plain: bool = Fal
 
     def weighted(spec):
         return [pair_sep_mul(Ip, Static(_basis_factor, (spec, N0, N1, 0, int(i))),
-                             Static(_basis_factor, (spec, N0, N1, 1, int(j))))
+                             Static(_basis_factor, (spec, N0, N1, 1, int(j))), plain)
                 for (i, j) in ref_basis_exponents(spec)]
 
     # image-domain weighted planes (the background moments consume them)

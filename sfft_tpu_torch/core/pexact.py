@@ -14,7 +14,7 @@ convolution of polynomial planes with the fitted kernel) is closed-form
 shift algebra plus wrap corrections on the <= w-wide boundary bands.
 
 Requires polynomial kernel, background and scaling bases. Every function
-takes ``plain``: True runs the plain twins of K3 and K4.
+takes ``plain``: True runs the plain twins of K3, K4, K6 and K7.
 """
 
 from __future__ import annotations
@@ -25,13 +25,13 @@ import numpy as np
 import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
+from sfft_tpu_torch.core import pairs
 from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _cmatmul_sliced,
-                                           _pair_hadamard_conj, _pair_mul_static_rr,
-                                           _pmap, _split_on, _swap, _two_prod, _two_sum,
-                                           exact_corr_window, exact_dft_axis,
+                                           _pair_mul_static_rr, _pmap, _split_on, _swap,
+                                           _two_sum, exact_corr_window, exact_dft_axis,
                                            exact_idft_halfin_real,
                                            exact_sep_weighted_spectra, pair_from_f64)
-from sfft_tpu_torch.core.fdiff import (_fold_weights, phase_matrix, split_solution,
+from sfft_tpu_torch.core.fdiff import (pair_model_spectrum, phase_matrix, split_solution,
                                         standard_kernel_coeffs)
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.peel import (AxisStatic, MomentSet, _axis_field, _exps_key,
@@ -52,12 +52,13 @@ def pair_sub(a: CPair, b: CPair) -> CPair:
     return CPair(h, a.rl - b.rl + e, None, None)
 
 
-def pair_poly_plane(C: torch.Tensor, N0: int, N1: int) -> CPair:
+def pair_poly_plane(C: torch.Tensor, N0: int, N1: int, plain: bool = False) -> CPair:
     """Grid evaluation of a ScaledFortranCoor polynomial as a real pair.
 
     C: (SP, SP) f64 coefficients over c0^s c1^t with c = (idx+1)/N. The
     y-contraction is a tiny f64 product; the x-axis accumulation runs in f32
-    pair arithmetic (~2^-48 of the plane scale)."""
+    pair arithmetic (~2^-48 of the plane scale): K6p (core/pairs.py
+    ``pair_poly``, one launch on CUDA tensors), or its twin with plain=True."""
     SP = C.shape[0]
     dev = C.device
     V = table(Static(coord_powers, (N1, SP, 0, N1)), dev)       # (SP, N1) f64
@@ -65,17 +66,7 @@ def pair_poly_plane(C: torch.Tensor, N0: int, N1: int) -> CPair:
     Mh = M.to(torch.float32)
     Ml = (M - Mh.to(torch.float64)).to(torch.float32)
     Uh, Ul = _split_on(Static(coord_powers, (N0, SP, 0, N0)), dev)
-    hi = lo = None
-    for s in range(SP):
-        uh, ul = Uh[s][:, None], Ul[s][:, None]
-        p, e = _two_prod(uh, Mh[s][None, :])
-        plo = e + uh * Ml[s][None, :] + ul * Mh[s][None, :]
-        if hi is None:
-            hi, lo = p, plo
-        else:
-            hi, e2 = _two_sum(hi, p)
-            lo = lo + plo + e2
-    return CPair(hi, lo, None, None)
+    return (pairs.pair_poly_plain if plain else pairs.pair_poly)(Uh, Ul, Mh, Ml)
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +147,8 @@ def pexact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     mJ = fit_poly_coeffs(momJ_g.M, g.dmu, g.ax0g, g.ax1g)
     # exact-pair fluctuations: F = pair(I) - pair-eval(P), with the same
     # coefficients the moment algebra uses
-    FIp = pair_sub(pair_from_f64(I), pair_poly_plane(mI, N0, N1))
-    FJp = pair_sub(pair_from_f64(J), pair_poly_plane(mJ, N0, N1))
+    FIp = pair_sub(pair_from_f64(I), pair_poly_plane(mI, N0, N1, plain))
+    FJp = pair_sub(pair_from_f64(J), pair_poly_plane(mJ, N0, N1, plain))
     prof = SliceProfile(*cfg.pexact_prof)
     U = Static(coord_powers_of, (N0, tuple(int(i) for i, _ in g.exps_k)))
     V = Static(coord_powers_of, (N1, tuple(int(j) for _, j in g.exps_k)))
@@ -328,50 +319,11 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     T1 = _cmatmul_sliced(Adat, W0T, plain=plain)
     K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
 
-    def split64(c):
-        c32 = c.to(torch.float32)
-        return c32, (c - c32.to(torch.float64)).to(torch.float32)
-
-    def shift_pair(P, c):
-        c32, cres = split64(c)
-        h, e = _two_sum(P.rh, c32.expand(P.rh.shape))
-        return CPair(h, P.rl + e + cres, P.ih, P.il)
-
-    def scale_pair(P, c32, cres):
-        pr, er = _two_prod(P.rh, c32.expand(P.rh.shape))
-        pi, ei = _two_prod(P.ih, c32.expand(P.ih.shape))
-        return CPair(pr, er + P.rl * c32 + P.rh * cres,
-                     pi, ei + P.il * c32 + P.ih * cres)
-
-    def addp(acc, term):
-        if acc is None:
-            return term
-        hr, er = _two_sum(acc.rh, term.rh)
-        hi, ei = _two_sum(acc.ih, term.ih)
-        return CPair(hr, acc.rl + term.rl + er, hi, acc.il + term.il + ei)
-
-    def plane(P, k):
-        return _pmap(P, lambda v: v[k])
-
-    acc = None
-    for i in range(Fk):
-        c_i = (a00[i] - s_nc[i]) if not separate_varying else -s_nc[i]
-        Ki = shift_pair(plane(K, i), c_i)
-        acc = addp(acc, _pair_hadamard_conj(plane(sp, 1 + i),
-                                            CPair(Ki.rh, Ki.rl, -Ki.ih, -Ki.il)))
-    if separate_varying:
-        for i in range(Fs):
-            acc = addp(acc, scale_pair(plane(sp, 1 + Fk + i), *split64(a00[i])))
-
-    m = scale_pair(acc, *_split_on(Static(np.float64, (float(cfg.SCALE),)), dev))
-    dr, er = _two_sum(sp.rh[0], -m.rh)
-    di, ei = _two_sum(sp.ih[0], -m.ih)
-    FD = CPair(dr, sp.rl[0] - m.rl + er, di, sp.il[0] - m.il + ei)
+    # the model spectrum, FD = sp[0] - SCALE * sum (compensated), folded
+    FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, Fs, plain=plain)
 
     # inverse of the Hermitian half: axis 0 first at half width, then the
-    # weight-2 fold and the real-only axis-1 inverse
-    foldj = table(Static(_fold_weights, (N1,)), dev)
-    FDw = _pmap(FD, lambda v: v * foldj)
+    # real-only axis-1 inverse
     zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, prof=prof, plain=plain)
     z = _pmap(zt, _swap)
     if N1 % 2 == 0:
@@ -379,7 +331,7 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     else:
         zp = _pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - N1h)))
         y = exact_dft_axis(zp, N1, inverse=True, real_out=True, prof=prof, plain=plain)
-    Dfl = _pair_mul_static_rr(y, Static(np.float64, (1.0 / (N0 * N1),)))
+    Dfl = _pair_mul_static_rr(y, Static(np.float64, (1.0 / (N0 * N1),)), plain)
 
     # --- smooth model: closed-form shift algebra ----------------------------
     dmu, dk = g.dmu, cfg.kernel_basis.degree
@@ -424,7 +376,7 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
         exps_s = ref_basis_exponents(cfg.scaling_basis)
         for k, (i, j) in enumerate(exps_s):
             Ctot[i: i + dmu + 1, j: j + dmu + 1] += -s * a00[k] * mI
-    main = pair_poly_plane(Ctot, N0, N1)
+    main = pair_poly_plane(Ctot, N0, N1, plain)
 
     # combine fluct + main in pair arithmetic; ONE f64 materialisation
     h, e = _two_sum(Dfl.rh, main.rh)

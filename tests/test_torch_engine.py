@@ -347,7 +347,8 @@ def test_make_config_resolution_matches_reference():
 
 def test_import_leaves_jax_out():
     code = ("import sys, sfft_tpu_torch, sfft_tpu_torch.core.peel, sfft_tpu_torch._kernels, "
-            "sfft_tpu_torch.core.exact_fft, sfft_tpu_torch.core.slicing, "
+            "sfft_tpu_torch.core.exact_fft, sfft_tpu_torch.core.pairs, "
+            "sfft_tpu_torch.core.slicing, "
             "sfft_tpu_torch.core.pexact, sfft_tpu_torch.core.solve, "
             "sfft_tpu_torch.core.regularize, sfft_tpu_torch.api.bspline, "
             "sfft_tpu_torch.core.peel_pw, sfft_tpu_torch.core.fdiff, "
