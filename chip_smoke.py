@@ -7,7 +7,9 @@ Builds the hand-written CUDA kernels from sfft_tpu_torch/csrc, holds each
 against its plain PyTorch twin on the card (K3 moments, K1 windowed
 correlation, K2 fused model spectrum; K4 and K5 integer slicers, K7, the
 epilogue of the sliced int8 products, and K6, the exact paths' pair
-products (K6a pair_products, K6m pair_model, K6p pair_poly), bit for bit),
+products (K6a pair_products, K6m pair_model, K6p the polynomial-plane stage
+in its three modes pair_poly, pair_poly_sub, pair_poly_add64), bit for
+bit),
 then drives the port's paths at full size. On a 4096^2 pair (the benchmark pair's generator),
 KerHW=8, poly2/poly2 (NEQ = 1740), through PureTorchCustomizedPacket.PCP ->
 GeneralSFFT.GSS:
@@ -16,7 +18,8 @@ GeneralSFFT.GSS:
     runs K3, K1 and K2;
   * the 'contract' path (pexact tables and difference at pexact_prof
     (8, 7, 6), transformed solve; what sfft_tpu runs on the TPU), which runs
-    K3, K4, K7 and K6 (K6a, K6m, K6p); and once with the 'exact' solver.
+    K3, K4, K7 and K6 (K6a, K6m, and K6p in its sub and add64 modes, three
+    launches a step); and once with the 'exact' solver.
 
 And on a 900^2 pair of the same generator, written to FITS, through
 BSplinePacket.BSP -> GeneralSFFT.GSS:
@@ -154,6 +157,10 @@ V2_SOLVE_N = 13207
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+# f32 operations that are not fused multiply-adds (K6's _rn arithmetic): one
+# per lane per clock, 132 SMs x 128 lanes x 1.98 GHz (half the FMA-counted
+# FP32 rate)
+FP32_NONFMA_OPS_PER_S = 33.5e12
 
 
 def bound(nbytes, flops, peak):
@@ -900,8 +907,8 @@ def one_twin(mod, name, twin, run):
 
 
 def k6_on_twins(run):
-    """`run()` with K6's three kernel wrappers (core/pairs.py) replaced by
-    their plain twins."""
+    """`run()` with K6's kernel wrappers (core/pairs.py; K6p's three modes
+    each) replaced by their plain twins."""
     from sfft_tpu_torch.core import pairs
 
     real = {name: getattr(pairs, name) for name in K6_TWINS}
@@ -1129,16 +1136,39 @@ def phase_k7():
         f"rowwise scales) bit-identical to the twin, one launch each, two launches bit-equal")
 
 
-# K6's kernel wrappers (core/pairs.py) and their plain twins
+# K6's kernel wrappers (core/pairs.py) and their plain twins; K6p's three
+# modes are three wrappers of one kernel
 K6_TWINS = {"pair_products": "pair_products_plain", "pair_model": "pair_model_spectrum_plain",
-            "pair_poly": "pair_poly_plain"}
+            "pair_poly": "pair_poly_plain", "pair_poly_sub": "pair_poly_sub_plain",
+            "pair_poly_add64": "pair_poly_add64_plain"}
+# K6's kernels, by the wrapper that carries the launch counter, and the
+# wrappers (modes) that launch each
+K6_KERNELS = {"pair_products": ("pair_products",), "pair_model": ("pair_model",),
+              "pair_poly": ("pair_poly", "pair_poly_sub", "pair_poly_add64")}
+# K6p's modes by wrapper (pair_poly.mode_launches' keys)
+K6P_MODES = {"pair_poly": "plane", "pair_poly_sub": "sub", "pair_poly_add64": "add64"}
 # f32 operations per output element: TwoProd 17, TwoSum 6, the rest one each
 K6A_OPS = {"hadamard_conj": 94, "mul_static": 94, "mul_static_rr": 21, "sep_mul": 42}
 
 
 def k6_call_bound(name, args):
-    """The bound of one K6 wrapper call (k6_call_work)."""
-    return bound(*k6_call_work(name, args), FP32_FLOP_PER_S)
+    """The bound of one K6 wrapper call (k6_call_work): its f32 operations,
+    none of which is a fused multiply-add, at the issue rate."""
+    return bound(*k6_call_work(name, args), FP32_NONFMA_OPS_PER_S)
+
+
+def k6p_work(mode, SP, n0, n1):
+    """(bytes, operations) of K6p in `mode` at (n0, n1) with SP terms: the
+    tables (SP x (n0 + n1) f32 pairs) read once, the image (sub, f64) or the
+    pair Dfl (add64) read once, the output (a pair, or f64) written once;
+    per element 13 operations for the first term and 21 for each other (the
+    splits hoisted: 4 per table value), plus sub's 12 (TwoSum, the lo terms,
+    the image's split: three conversions and an f64 subtraction) or add64's
+    11 (TwoSum, two adds, two conversions, an f64 add)."""
+    n = n0 * n1
+    epi = {"plane": 0, "sub": 12, "add64": 11}[mode]
+    nbytes = 8 * SP * (n0 + n1) + (8 * n if mode != "plane" else 0) + 8 * n
+    return nbytes, n * (13 + 21 * (SP - 1) + epi) + 4 * SP * (n0 + n1)
 
 
 def k6_call_work(name, args):
@@ -1148,7 +1178,7 @@ def k6_call_work(name, args):
     the output planes written once; operations per output element: K6A_OPS
     (both lanes of a complex pair in 'mul_static_rr'), per ij of the model
     118 (the shift, the product, the compensated add) and 58 per scaling
-    plane plus 62, per term of the polynomial 29."""
+    plane plus 62; K6p's from k6p_work."""
     planes = lambda p: [v for v in p if v is not None]          # noqa: E731
     if name == "pair_products":
         mode, A, B = args[:3]
@@ -1168,12 +1198,44 @@ def k6_call_work(name, args):
                   + (0 if fold is None else 4 * N1h))
         flops = n * (118 * Fk + 58 * nss + 62)
     else:
-        Uh, Ul, Mh, Ml = args
-        SP, N0 = Uh.shape
-        n = N0 * Mh.shape[1]
-        nbytes = 8 * SP * (N0 + Mh.shape[1]) + 8 * n
-        flops = n * 29 * SP
+        Uh, Ul, Mh, Ml = args[-4:]
+        nbytes, flops = k6p_work(K6P_MODES[name], Uh.shape[0], Uh.shape[1], Mh.shape[1])
     return nbytes, flops
+
+
+def k6_library(name, args):
+    """The yardstick of a K6 call: one PyTorch call that computes its
+    function in f64 / complex128 on the same values (each pair operand
+    summed into one tensor beforehand), as a callable, or None where no
+    single call does (the separable weights' two products, the model
+    spectrum). A * conj(B) and the table products: torch.mul; K6p: the
+    plane U^T M as torch.matmul, I - U^T M and Dfl + U^T M as torch.addmm
+    (K = SP). Timed here only; the port never calls them."""
+    import torch
+
+    def f64(p):
+        re = p.rh.double() + p.rl
+        return re if p.ih is None else torch.complex(re, p.ih.double() + p.il)
+
+    if name == "pair_products":
+        mode, A, B = args[:3]
+        if mode == "sep_mul":
+            return None
+        a, b = f64(A), f64(B)
+        if mode == "hadamard_conj":
+            return lambda: torch.mul(a, b.conj())
+        return lambda: torch.mul(a, b)
+    if name in K6P_MODES:
+        Uh, Ul, Mh, Ml = args[-4:]
+        UT, M = (Uh.double() + Ul).t(), Mh.double() + Ml
+        if name == "pair_poly":
+            return lambda: torch.matmul(UT, M)
+        if name == "pair_poly_sub":
+            I = args[0]
+            return lambda: torch.addmm(I, UT, M, alpha=-1)
+        D = f64(args[0])
+        return lambda: torch.addmm(D, UT, M)
+    return None
 
 
 def k6_rand_pair(shape, seed, dev, real=False, view=None):
@@ -1222,11 +1284,21 @@ def k6_edge_pair(shape, seed, dev, real=False, ex=60):
 
 
 def k6_equal(got, ref):
-    """Two pairs' planes equal bit for bit (values, whatever the layout)."""
+    """Two pairs' planes (or two tensors) equal bit for bit (values,
+    whatever the layout)."""
     import torch
 
+    if isinstance(got, torch.Tensor):
+        return isinstance(ref, torch.Tensor) and torch.equal(got, ref)
     return all((g is None) == (r is None) and (g is None or torch.equal(g, r))
                for g, r in zip(got, ref))
+
+
+def k6_numel(out):
+    """Elements of a K6 call's first output plane."""
+    import torch
+
+    return (out if isinstance(out, torch.Tensor) else out[0]).numel()
 
 
 def phase_k6():
@@ -1237,11 +1309,16 @@ def phase_k6():
     the row weighting of both lanes of a strided (4096, 2049) view, a real
     plane times a row and a scalar, the separable weights at 900^2, the
     model spectrum at 4096 x 2049 (Fij 6) and 900 x 451 (Fij 25 + 6
-    scaling planes), the polynomial plane at 4096^2 (SP 6); each launched
-    twice (bit-equal, one launch each) and timed (graph replay) against its
-    byte bound and its twin; then every mode on +-0, subnormal lo parts and
-    magnitudes near 2^+-60 on views at an offset. Every K6 launch of a
-    contract and a v2 step is held to the twins again in phases 6 and 7."""
+    scaling planes), K6p's three modes at 4096^2 (the plane and the
+    materialised difference at SP 6, the fluctuation at SP 4, as the
+    contract path gives them); each launched twice (bit-equal, one launch
+    each) and timed (graph replay) against its bound, its twin and, where
+    one exists, the PyTorch call that computes the same function
+    (k6_library); then every mode on +-0, subnormal lo parts and magnitudes
+    near 2^+-60 on views at an offset, and K6p's modes on widths that are
+    not a multiple of its column tile, odd widths and transposed inputs.
+    Every K6 launch of a contract and a v2 step is held to the twins again
+    in phases 6 and 7."""
     import torch
     from sfft_tpu_torch.core import exact_fft, pairs
     from sfft_tpu_torch.core.fdiff import _fold_weights
@@ -1294,28 +1371,46 @@ def phase_k6():
          lambda: model_args(25, 6, V2_N, V2_N, 17)),
         ("pair_poly", f"polynomial plane ({N}, {N}) SP 6",
          lambda: k6_poly_args(6, N, N, 19, dev)),
+        ("pair_poly_sub", f"image - polynomial plane ({N}, {N}) SP 4",
+         lambda: k6_poly_args(4, N, N, 20, dev, "sub")),
+        ("pair_poly_add64", f"pair + polynomial plane as f64 ({N}, {N}) SP 6",
+         lambda: k6_poly_args(6, N, N, 21, dev, "add64")),
     ]
     report = {}
     for name, label, make in cases:
         args = make()
         wrapper, twin = getattr(pairs, name), getattr(pairs, K6_TWINS[name])
-        before = wrapper.launches
+        # K6p's modes count on pair_poly
+        counter = pairs.pair_poly if name in K6P_MODES else wrapper
+        before = counter.launches
         got = wrapper(*args)
         again = wrapper(*args)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 2, (name, label)
+        assert counter.launches == before + 2, (name, label)
         ref = twin(*args)
         assert k6_equal(got, again), f"K6 {name} {label}: two launches differ"
         assert k6_equal(got, ref), f"K6 {name} {label}: differs from the twin"
-        big = got[0].numel() > 2 ** 24
+        big = k6_numel(got) > 2 ** 24
         ms = graph_ms(lambda: wrapper(*args), calls=3 if big else 20, reps=3 if big else 7)
         pms = cuda_ms(lambda: twin(*args), reps=3, inner=1)
+        lib = k6_library(name, args)
+        lms = None if lib is None else graph_ms(lib, calls=3 if big else 20, reps=3 if big else 7)
         bms, by = k6_call_bound(name, args)
-        report[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        report[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms)
+        copy = ""
+        if name in ("pair_poly_sub", "pair_poly_add64"):
+            # the memory floor in practice: a copy of an f64 plane (the
+            # bytes these modes move)
+            plane = torch.empty(got.rh.shape if name == "pair_poly_sub" else got.shape,
+                                dtype=torch.float64, device=dev)
+            report[label]["copy_ms"] = graph_ms(lambda: plane.clone(), calls=3, reps=3)
+            copy = f", an f64 copy of the same bytes {report[label]['copy_ms']:.4f} ms"
+            del plane
         log(f"phase 3 K6 {name} {label}: bit-identical to the twin, two launches bit-equal; "
-            f"device {ms:.4f} ms (graph replay), plain twin {pms:.3f} ms, bound {bms:.4f} ms "
-            f"({by}; {100 * bms / ms:.1f}% of it)")
-        del args, got, again, ref
+            f"device {ms:.4f} ms (graph replay), plain twin {pms:.3f} ms, library call "
+            + ("none" if lms is None else f"{lms:.4f} ms") +
+            f"{copy}, bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it)")
+        del args, got, again, ref, lib
     torch.cuda.empty_cache()
 
     # +-0, subnormal lo parts, magnitudes near 2^+-60, views at an offset
@@ -1337,14 +1432,24 @@ def phase_k6():
     margs = (margs[0], k6_edge_pair((5, 40, 20), 26, dev)) + margs[2:]
     assert k6_equal(pairs.pair_model(*margs), pairs.pair_model_spectrum_plain(*margs)), \
         "K6 pair_model on edge values: differs from the twin"
-    Uh, Ul = k6_edge_pair((4, 50), 27, dev, real=True)[:2]
-    Mh, Ml = k6_edge_pair((4, 70), 28, dev, real=True)[:2]
-    assert k6_equal(pairs.pair_poly(Uh, Ul, Mh, Ml), pairs.pair_poly_plain(Uh, Ul, Mh, Ml)), \
-        "K6 pair_poly on edge values: differs from the twin"
+    # K6p's modes: edge values, then ragged widths (not a multiple of the
+    # 128-column tile, odd: the scalar epilogue) and transposed inputs
+    npoly = 0
+    for n0, n1, edge, transposed in [(50, 70, True, False), (70, 50, True, True),
+                                     (1000, 998, False, False), (130, 97, False, False),
+                                     (998, 1000, False, True), (97, 130, False, True)]:
+        for name in ("pair_poly", "pair_poly_sub", "pair_poly_add64"):
+            if transposed and name == "pair_poly":
+                continue
+            args = k6_poly_args(4, n0, n1, 27, dev, K6P_MODES[name], edge, transposed)
+            assert k6_equal(getattr(pairs, name)(*args), getattr(pairs, K6_TWINS[name])(*args)), \
+                f"K6 {name} ({n0}, {n1}) edge={edge} transposed={transposed}: differs from the twin"
+            npoly += 1
     torch.cuda.synchronize()
     log(f"phase 3 K6 on +-0, subnormal lo parts and magnitudes 2^-60 .. 2^60 (views at an "
-        f"offset, broadcast tables): {n} pair_products modes, pair_model and pair_poly "
-        f"bit-identical to the twins")
+        f"offset, broadcast tables): {n} pair_products modes, pair_model and K6p's modes "
+        f"bit-identical to the twins; {npoly} K6p calls (edge values, ragged and odd widths, "
+        f"transposed inputs) bit-identical to the twins")
     return report
 
 
@@ -1354,21 +1459,37 @@ def k6_table(shape, seed):
     return rng.normal(size=shape) * 10.0 ** rng.uniform(-2, 2, size=shape)
 
 
-def k6_poly_args(SP, n0, n1, seed, dev):
-    """pair_poly's tables as pair_poly_plane makes them from seeded
-    coefficients: U = coordinate powers (SP, n0), M = C @ V (SP, n1)."""
+def k6_poly_args(SP, n0, n1, seed, dev, mode="plane", edge=False, transposed=False):
+    """K6p's arguments in `mode`: the tables as pexact makes them from
+    seeded coefficients (U = coordinate powers (SP, n0), M = C @ V (SP,
+    n1)), after an f64 image (sub) or a pair Dfl (add64) at the plane's
+    scale over 3 decades; with edge=True the tables and the image or Dfl
+    span 2^-60 .. 2^60 with +-0 and subnormal lo parts; transposed lays the
+    image or Dfl out with strides (1, n0)."""
     import torch
-    from sfft_tpu_torch.core import exact_fft, peel
-    from sfft_tpu_torch.core.statics import Static, table
+    from sfft_tpu_torch.core import pairs, pexact
 
     rng = np.random.default_rng(seed)
     C = torch.as_tensor(rng.normal(size=(SP, SP)) * 10.0 ** rng.uniform(-3, 3, (SP, SP)),
                         device=dev)
-    M = C @ table(Static(peel.coord_powers, (n1, SP, 0, n1)), dev)
-    Mh = M.to(torch.float32)
-    Ml = (M - Mh.to(torch.float64)).to(torch.float32)
-    Uh, Ul = exact_fft._split_on(Static(peel.coord_powers, (n0, SP, 0, n0)), dev)
-    return Uh, Ul, Mh, Ml
+    tabs = pexact._poly_tables(C, n0, n1)
+    if edge:
+        tabs = (k6_edge_pair((SP, n0), seed + 1, dev, real=True)[:2]
+                + k6_edge_pair((SP, n1), seed + 2, dev, real=True)[:2])
+    if mode == "plane":
+        return tuple(tabs)
+    if edge:
+        d = k6_edge_pair((n0, n1), seed + 3, dev, real=True)
+    else:
+        x = rng.normal(size=(n0, n1)) * 10.0 ** rng.uniform(-2, 1, (n0, n1))
+        x = torch.as_tensor(x, device=dev) * float(tabs[2].abs().max())
+        hi = x.to(torch.float32)
+        d = pairs.CPair(hi, (x - hi.double()).to(torch.float32), None, None)
+    if transposed:
+        d = pairs.CPair(*(v.t().contiguous().t() for v in d[:2]), None, None)
+    if mode == "sub":
+        return (d.rh.double() + d.rl,) + tuple(tabs)
+    return (d,) + tuple(tabs)
 
 
 def phase_kernels():
@@ -1783,10 +1904,13 @@ def slicers_on_path(run, phase, path):
             assert k6_equal(got, twin(*args)), \
                 f"{name} on the {path} path {k6_label(sig)}: differs from the twin"
             if sig not in timed6:
-                big = got[0].numel() > 2 ** 24
+                big = k6_numel(got) > 2 ** 24
                 ms = graph_ms(lambda: real(*args), calls=3 if big else 20, reps=3 if big else 7)
                 pms = cuda_ms(lambda: twin(*args), reps=3, inner=1)
-                timed6[sig] = (ms, pms) + k6_call_bound(name, args)
+                lib = k6_library(name, args)
+                lms = None if lib is None else graph_ms(lib, calls=3 if big else 20,
+                                                        reps=3 if big else 7)
+                timed6[sig] = (ms, pms, lms) + k6_call_bound(name, args)
             return got
 
         return run6
@@ -1808,12 +1932,15 @@ def slicers_on_path(run, phase, path):
         exact_fft.sliced_epilogue = epi7
         for name, fn in k6.items():
             setattr(pairs, name, fn)
-    rep6 = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+    # library_ms: the yardsticks summed where every signature has one
+    rep6 = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                        bytes_ms=0.0, first=0, steady=0, signatures=0) for name in k6}
-    for sig, (ms, pms, bms, by) in sorted(timed6.items(), key=lambda kv: str(kv[0])):
+    for sig, (ms, pms, lms, bms, by) in sorted(timed6.items(), key=lambda kv: str(kv[0])):
         count, r = counts6[1][sig], rep6[sig[0]]
         r["ms"] += count * ms
         r["plain_ms"] += count * pms
+        r["library_ms"] = None if lms is None or r["library_ms"] is None else \
+            r["library_ms"] + count * lms
         r["bound_ms"] += count * bms
         r["bytes_ms"] += count * bms * (by == "bytes")
         r["first"] += counts6[0].get(sig, 0)
@@ -1821,8 +1948,9 @@ def slicers_on_path(run, phase, path):
         r["signatures"] += 1
         log(f"phase {phase} {sig[0]} on the {path} path {k6_label(sig)}: {counts6[0].get(sig, 0)} "
             f"launches at first use, {count} per steady step, bit-identical to the twin; device "
-            f"{ms:.4f} ms (graph replay), plain twin {pms:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{100 * bms / ms:.1f}% of it)")
+            f"{ms:.4f} ms (graph replay), plain twin {pms:.4f} ms, library call "
+            + ("none" if lms is None else f"{lms:.4f} ms") +
+            f", bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it)")
     for sig, (ms, pms, bms, by) in sorted(timed7.items(), key=lambda kv: str(kv[0])):
         count = counts7[1][sig]
         rep7["ms"] += count * ms
@@ -1914,8 +2042,9 @@ def slicers_on_path(run, phase, path):
             f"{r['steady']} per steady step, {r['signatures']} signatures, the steady step's "
             f"bit-identical to the twin; per steady step device {r['ms']:.4f} ms, plain twin "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); no single PyTorch call "
-            f"computes it")
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the device time); library calls "
+            + ("none for some signature" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms"))
     if rep7["steady"]:
         rep7["bound_by"] = "bytes" if 2 * rep7.pop("bytes_ms") >= rep7["bound_ms"] else \
             "operations"
@@ -2327,8 +2456,9 @@ def phase_contract(I, J, sol64, diff64):
     greek.corr_window.launches = 0
     slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
     exact_fft.sliced_epilogue.launches = 0
-    for name in K6_TWINS:
+    for name in K6_KERNELS:
         getattr(pairs, name).launches = 0
+    pairs.pair_poly.mode_launches = dict.fromkeys(pairs.pair_poly.mode_launches, 0)
     pairs.pair_products.copies = pairs.pair_model.copies = 0
     sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=3)
     # K4: its slicing launches and its global-max launches (one source)
@@ -2337,15 +2467,22 @@ def phase_contract(I, J, sol64, diff64):
                 "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
                 "slice_pair_scale": slicing.slice_pair.scale_launches,
                 "sliced_epilogue": exact_fft.sliced_epilogue.launches}
-    launches.update({name: getattr(pairs, name).launches for name in K6_TWINS})
+    launches.update({name: getattr(pairs, name).launches for name in K6_KERNELS})
+    launches.update({name: pairs.pair_poly.mode_launches[mode]
+                     for name, mode in K6P_MODES.items() if name != "pair_poly"})
     # operand planes that K6 had to make contiguous (planes of one pair with
     # different strides)
     launches["pair_copies"] = pairs.pair_products.copies + pairs.pair_model.copies
     peak = torch.cuda.max_memory_allocated()
     assert (launches["moments"] > 0 and launches["slice_pair"] > 0
             and launches["sliced_epilogue"] > 0
-            and all(launches[name] > 0 for name in K6_TWINS)), \
+            and all(launches[name] > 0 for name in K6_KERNELS)), \
         f"a kernel of the contract path never launched: {launches}"
+    # K6p: the two fluctuations (sub) and the difference (add64), one launch
+    # each a step, never a bare plane
+    assert (pairs.pair_poly.mode_launches == {"plane": 0, "sub": 8, "add64": 4}
+            and launches["pair_poly"] == 12), \
+        f"K6p on the contract path: {pairs.pair_poly.mode_launches} in 4 runs"
     rms, drms, srel = check("contract", sol, diff)
     log(f"phase 6 contract {N}^2 KerHW={KERHW} pexact/pexact/transformed prof (8, 7, 6): "
         f"median step {step_s * 1e3:.1f} ms over 3 runs; launches {launches} in 4 runs; "
@@ -2364,7 +2501,7 @@ def phase_contract(I, J, sol64, diff64):
     del sol, diff, tsol, tdiff
     _, wall, busy, nk, idle = profile_step(step)
     prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
-                k6_launches={name: launches[name] / 4 for name in K6_TWINS},
+                k6_launches={name: launches[name] / 4 for name in K6_KERNELS},
                 wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
     log(f"phase 6 contract step with K7 alone on its twin and with K6 alone on its twins: "
         f"solution and difference bit-identical; per step {prof['k7_launches']:.0f} K7 "
@@ -2453,7 +2590,7 @@ def phase_v2():
     counters = {"moments": moments.moments, "corr_window": greek.corr_window,
                 "slice_pair": slicing.slice_pair, "slice_triple": slicing.slice_triple,
                 "sliced_epilogue": exact_fft.sliced_epilogue}
-    counters.update({name: getattr(pairs, name) for name in K6_TWINS})
+    counters.update({name: getattr(pairs, name) for name in K6_KERNELS})
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ref, sci = write_pair_fits(d)
@@ -2534,7 +2671,7 @@ def phase_v2():
         del tsol, tdiff
         _, wall, busy, nk, idle = profile_step(step)
         prof = dict(step_ms=step_s * 1e3, k7_launches=launches["sliced_epilogue"] / 4,
-                    k6_launches={name: launches[name] / 4 for name in K6_TWINS},
+                    k6_launches={name: launches[name] / 4 for name in K6_KERNELS},
                     wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
         log(f"phase 7 v2 step with K7 alone on its twin and with K6 alone on its twins: "
             f"solution and difference bit-identical; per step {prof['k7_launches']:.0f} K7 "
@@ -2759,7 +2896,8 @@ K6_FUNCS = {("exact_fft", "_pair_hadamard_conj"): 94, ("exact_fft", "_pair_mul_s
             ("exact_fft", "_pair_mul_static_rr"): 21, ("exact_fft", "pair_sep_mul"): 42,
             ("exact_fft", "_two_prod"): 17, ("pexact", "pair_poly_plane"): None,
             ("pairs", "pair_products"): None, ("pairs", "pair_model"): None,
-            ("pairs", "pair_poly"): None}
+            ("pairs", "pair_poly"): None, ("pairs", "pair_poly_sub"): None,
+            ("pairs", "pair_poly_add64"): None}
 
 
 # --profile's split of the exact paths' device time by function: (category,
@@ -2877,7 +3015,8 @@ def k6_bound(step):
     caller) reads its tensors and static tables once (a table's f32 (hi,
     lo) planes at its own shape, however broadcast) and writes its output
     planes once; operations per output element from K6_FUNCS, or the
-    call's from k6_call_work. Returns (bound_ms, bound_by, calls)."""
+    call's from k6_call_work, at the issue rate (none is a fused
+    multiply-add). Returns (bound_ms, bound_by, calls)."""
     import torch
     from sfft_tpu_torch.core.statics import Static
 
@@ -2897,7 +3036,7 @@ def k6_bound(step):
             return nbytes(args, planes) + nbytes(out, planes), ops * out[0].numel()
         if name == "pair_poly_plane":
             C, n0, n1 = args[:3]
-            return 8 * n0 * n1 + nbytes(C, 2), 29 * C.shape[0] * n0 * n1
+            return k6p_work("plane", C.shape[0], n0, n1)
         return k6_call_work(name, args)
 
     undo = []
@@ -2928,7 +3067,7 @@ def k6_bound(step):
     finally:
         for m, k, fn in undo:
             setattr(m, k, fn)
-    return bound(acc["nbytes"], acc["flops"], FP32_FLOP_PER_S) + (acc["calls"],)
+    return bound(acc["nbytes"], acc["flops"], FP32_NONFMA_OPS_PER_S) + (acc["calls"],)
 
 
 def phase_profile(I, J, out_dir):
@@ -3100,16 +3239,24 @@ def main():
         library_ms=None,
         bound_by=c7["bound_by"] if c7["bound_by"] == v7["bound_by"] else "bytes")
     # K6: summed over a steady contract step's launches and a steady v2
-    # step's (pair_poly runs on the contract path alone)
-    k6_steps = {}
-    for name in K6_TWINS:
-        parts = [r[name] for r in (c_on_path, v2["slicers"]) if name in r]
-        report[name] = dict(
+    # step's, each kernel over its modes (K6p runs on the contract path
+    # alone: its sub and add64 modes also on their own); the yardsticks
+    # summed where every launch has one
+    def k6_sum(parts):
+        lib = [r["library_ms"] for r in parts]
+        return dict(
             {k: sum(r[k] for r in parts) for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
-            library_ms=None,
+            library_ms=None if None in lib else sum(lib),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in parts) else "operations")
-        k6_steps[name] = {path: r[name] for path, r in (("contract", c_on_path),
-                                                          ("v2", v2["slicers"])) if name in r}
+
+    for kernel, names in K6_KERNELS.items():
+        report[kernel] = k6_sum([r[name] for r in (c_on_path, v2["slicers"]) for name in names
+                                 if name in r])
+    for name in ("pair_poly_sub", "pair_poly_add64"):
+        report[name] = k6_sum([c_on_path[name]])
+    k6_steps = {name: {path: r[name] for path, r in (("contract", c_on_path),
+                                                       ("v2", v2["slicers"])) if name in r}
+                for name in K6_TWINS}
     torch.cuda.empty_cache()
     fast = phase_v2_fast(v2["lam"], v2["ydiff"])
     pw = fast["v2-fast-peeled"]
@@ -3132,6 +3279,8 @@ def main():
          "sfft_tpu/core/exact_fft.py:963"),
         ("pair_model", "sfft_tpu_torch/csrc/pair_model.cu", "sfft_tpu/core/pexact.py:397"),
         ("pair_poly", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:71"),
+        ("pair_poly_sub", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:185"),
+        ("pair_poly_add64", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:488"),
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
         # the two v2 fast modes); times: K3, K1 and K2 alone at the fast

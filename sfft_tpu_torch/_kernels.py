@@ -53,7 +53,7 @@ _SIGNATURES = {
     "sfft_sliced_epilogue": [_P, _P],
     "sfft_pair_products": [_P, _P],
     "sfft_pair_model": [_P, _P],
-    "sfft_pair_poly": [_P] * 6 + [_I] * 3 + [_P],
+    "sfft_pair_poly": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
     "sfft_cuda_error_string": [_I],
 }
 

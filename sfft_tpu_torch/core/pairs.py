@@ -19,14 +19,17 @@ plain twin here:
   * K6m ``pair_model`` (csrc/pair_model.cu): the exact difference's model
     spectrum, sp[0] - SCALE * (sum_i sp[1+i] (K_i + c_i) + sum_s a00_s
     sp[1+Fk+s]), compensated, times the Hermitian fold, in one pass;
-  * K6p ``pair_poly`` (csrc/pair_poly.cu): a polynomial's grid evaluation as
-    a pair plane, sum_s U[s, x] M[s, y].
+  * K6p (csrc/pair_poly.cu): a polynomial's grid evaluation, sum_s U[s, x]
+    M[s, y], with what consumes it, in three modes of one kernel:
+    ``pair_poly`` the pair plane; ``pair_poly_sub`` an f64 image minus the
+    plane, as a pair (pexact's fluctuations); ``pair_poly_add64`` a pair
+    plus the plane, materialised in f64 (pexact's difference).
 
 CUDA tensors launch the kernel or raise; CPU tensors take the twin. The
 callers take the twins on the card with ``plain=True``. Each wrapper counts
-its launches (``pair_products.launches``, ...) on a fixed alias, so that a
-caller that replaces the module attribute to intercept the calls loses no
-counts.
+its launches (``pair_products.launches``, ...; K6p's three modes on
+``pair_poly.launches``) on a fixed alias, so that a caller that replaces the
+module attribute to intercept the calls loses no counts.
 """
 
 from __future__ import annotations
@@ -428,10 +431,10 @@ _K6M = pair_model
 
 
 def pair_poly_plain(Uh, Ul, Mh, Ml) -> CPair:
-    """The plain twin of K6p (sfft_tpu's pair_poly_plane loop): the real
-    pair (N0, N1) of sum_s (Uh + Ul)[s, x] (Mh + Ml)[s, y], TwoProd of the
-    hi parts, TwoSum into hi, the cross and error terms into lo, in s's
-    order."""
+    """The plain twin of K6p's plane mode (sfft_tpu's pair_poly_plane loop):
+    the real pair (N0, N1) of sum_s (Uh + Ul)[s, x] (Mh + Ml)[s, y], TwoProd
+    of the hi parts, TwoSum into hi, the cross and error terms into lo, in
+    s's order."""
     hi = lo = None
     for s in range(Uh.shape[0]):
         uh, ul = Uh[s][:, None], Ul[s][:, None]
@@ -445,41 +448,146 @@ def pair_poly_plain(Uh, Ul, Mh, Ml) -> CPair:
     return CPair(hi, lo, None, None)
 
 
-def pair_poly(Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
-              Ml: torch.Tensor) -> CPair:
-    """K6p: ``pair_poly_plain`` on the f32 tables U (SP, N0) and M (SP, N1),
-    as (hi, lo) pairs, in one kernel launch on CUDA tensors (bit for bit),
-    the twin on CPU tensors. ``pair_poly.launches`` counts the launches."""
-    tabs = [Uh, Ul, Mh, Ml]
+def pair_poly_sub_plain(I, Uh, Ul, Mh, Ml) -> CPair:
+    """The plain twin of K6p's sub mode: pair(I) - the plane, for an f64
+    image I (sfft_tpu's pexact fluctuation, pair_sub(pair_from_f64(I),
+    pair_poly_plane(...))): hi by TwoSum(f32(I), -plane.hi), lo = (f32(I -
+    f32(I)) - plane.lo) + e."""
+    P = pair_poly_plain(Uh, Ul, Mh, Ml)
+    ih = I.to(torch.float32)
+    il = (I - ih.to(torch.float64)).to(torch.float32)
+    h, e = _two_sum(ih, -P.rh)
+    return CPair(h, il - P.rl + e, None, None)
+
+
+def pair_poly_add64_plain(Dfl: CPair, Uh, Ul, Mh, Ml) -> torch.Tensor:
+    """The plain twin of K6p's add64 mode: the pair Dfl plus the plane,
+    materialised in f64 (sfft_tpu's fdiff_pexact combination): h, e =
+    TwoSum(Dfl.hi, plane.hi); f64(h) + f64((Dfl.lo + plane.lo) + e)."""
+    P = pair_poly_plain(Uh, Ul, Mh, Ml)
+    h, e = _two_sum(Dfl.rh, P.rh)
+    return h.to(torch.float64) + (Dfl.rl + P.rl + e)
+
+
+# the kernel's modes: sfft_pair_poly's first argument
+_POLY_MODES = {"plane": 0, "sub": 1, "add64": 2}
+_POLY_MAX_SP = 32       # csrc/pair_poly.cu kMaxSP
+
+
+def _poly_tables(name, tabs):
+    """The tables' rules; returns (SP, N0, N1)."""
     if any(t.dtype != torch.float32 or t.dim() != 2 for t in tabs):
-        raise ValueError("pair_poly takes 2-D float32 tables")
-    if any(t.device != Uh.device for t in tabs):
-        raise ValueError("pair_poly operands on more than one device")
+        raise ValueError(f"{name} takes 2-D float32 tables")
+    if any(t.device != tabs[0].device for t in tabs):
+        raise ValueError(f"{name} operands on more than one device")
+    Uh, Ul, Mh, Ml = tabs
     SP, N0 = Uh.shape
     N1 = Mh.shape[1]
     if SP < 1 or Ul.shape != Uh.shape or tuple(Mh.shape) != (SP, N1) or Ml.shape != Mh.shape:
-        raise ValueError("pair_poly: U (SP, N0) and M (SP, N1) pairs")
-    dev = Uh.device
-    if dev.type == "cpu":
-        return pair_poly_plain(Uh, Ul, Mh, Ml)
+        raise ValueError(f"{name}: U (SP, N0) and M (SP, N1) pairs")
+    if SP > _POLY_MAX_SP:
+        raise ValueError(f"{name}: at most {_POLY_MAX_SP} terms")
+    return SP, N0, N1
+
+
+def _transposed(name, planes, shape):
+    """Whether the planes (all of one layout) lie with strides (1, N0)
+    rather than row-major; any other layout raises (the kernel copies
+    nothing)."""
+    if any(tuple(v.shape) != tuple(shape) for v in planes):
+        raise ValueError(f"{name}: planes of shape {tuple(shape)}")
+    if all(v.is_contiguous() for v in planes):
+        return False
+    if all(v.t().is_contiguous() for v in planes):
+        return True
+    raise ValueError(f"{name}: planes row-major or transposed (strides (N1, 1) or (1, N0)), "
+                     "all of one layout")
+
+
+def _poly_launch(name, mode, tabs, ins, shape, out_dtype, nout):
+    """One K6p launch on CUDA tensors: `nout` fresh output planes in the
+    layout of the inputs `ins` (row-major for the plane mode)."""
+    SP, N0, N1 = shape
+    dev = tabs[0].device
     if dev.type != "cuda":
-        raise ValueError(f"pair_poly runs on cpu or cuda tensors, not {dev}")
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
     if N0 * N1 >= 2 ** 31:
-        raise ValueError("pair_poly: a plane of fewer than 2^31 elements")
+        raise ValueError(f"{name}: a plane of fewer than 2^31 elements")
     from sfft_tpu_torch import _kernels
 
+    transposed = bool(ins) and _transposed(name, ins, (N0, N1))
     tabs = [t.contiguous() for t in tabs]
-    hi = torch.empty((N0, N1), dtype=torch.float32, device=dev)
-    lo = torch.empty((N0, N1), dtype=torch.float32, device=dev)
+    if transposed:
+        outs = [torch.empty((N1, N0), dtype=out_dtype, device=dev).t() for _ in range(nout)]
+    else:
+        outs = [torch.empty((N0, N1), dtype=out_dtype, device=dev) for _ in range(nout)]
+    ptrs = [v.data_ptr() for v in ins] + [None] * (2 - len(ins))
+    optrs = [v.data_ptr() for v in outs] + [None] * (2 - nout)
     with torch.cuda.device(dev):
-        err = _kernels.lib().sfft_pair_poly(*(t.data_ptr() for t in tabs), hi.data_ptr(),
-                                            lo.data_ptr(), SP, N0, N1,
-                                            _kernels.stream_ptr(Uh))
+        err = _kernels.lib().sfft_pair_poly(_POLY_MODES[mode], int(transposed),
+                                            *(t.data_ptr() for t in tabs), *ptrs, *optrs,
+                                            SP, N0, N1, _kernels.stream_ptr(tabs[0]))
     _K6P.launches += 1
-    _kernels.check(err, "pair_poly kernel launch")
+    _K6P.mode_launches[mode] += 1
+    _kernels.check(err, f"{name} kernel launch")
+    return outs
+
+
+def pair_poly(Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
+              Ml: torch.Tensor) -> CPair:
+    """K6p, plane mode: ``pair_poly_plain`` on the f32 tables U (SP, N0) and
+    M (SP, N1), as (hi, lo) pairs, in one kernel launch on CUDA tensors (bit
+    for bit), the twin on CPU tensors. ``pair_poly.launches`` counts the
+    launches of every mode, ``pair_poly.mode_launches`` each mode's."""
+    tabs = [Uh, Ul, Mh, Ml]
+    shape = _poly_tables("pair_poly", tabs)
+    if Uh.device.type == "cpu":
+        return pair_poly_plain(*tabs)
+    hi, lo = _poly_launch("pair_poly", "plane", tabs, [], shape, torch.float32, 2)
     return CPair(hi, lo, None, None)
 
 
-pair_poly.launches = 0
-_K6P = pair_poly
+def pair_poly_sub(I: torch.Tensor, Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
+                  Ml: torch.Tensor) -> CPair:
+    """K6p, sub mode: ``pair_poly_sub_plain``, the pair I - plane for an f64
+    image I (N0, N1), row-major or transposed, in one kernel launch on CUDA
+    tensors (bit for bit; the output in I's layout), the twin on CPU
+    tensors."""
+    tabs = [Uh, Ul, Mh, Ml]
+    shape = _poly_tables("pair_poly_sub", tabs)
+    if I.dtype != torch.float64:
+        raise ValueError("pair_poly_sub takes a float64 image")
+    if I.device != Uh.device:
+        raise ValueError("pair_poly_sub operands on more than one device")
+    if tuple(I.shape) != shape[1:]:
+        raise ValueError(f"pair_poly_sub: an image of shape {shape[1:]}")
+    if I.device.type == "cpu":
+        return pair_poly_sub_plain(I, *tabs)
+    hi, lo = _poly_launch("pair_poly_sub", "sub", tabs, [I], shape, torch.float32, 2)
+    return CPair(hi, lo, None, None)
 
+
+def pair_poly_add64(Dfl: CPair, Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
+                    Ml: torch.Tensor) -> torch.Tensor:
+    """K6p, add64 mode: ``pair_poly_add64_plain``, the real pair Dfl (N0, N1)
+    plus the plane as one f64 plane, in one kernel launch on CUDA tensors
+    (bit for bit; the output in Dfl's layout), the twin on CPU tensors."""
+    tabs = [Uh, Ul, Mh, Ml]
+    shape = _poly_tables("pair_poly_add64", tabs)
+    if not Dfl.is_real:
+        raise ValueError("pair_poly_add64 takes a real pair")
+    planes = [Dfl.rh, Dfl.rl]
+    if any(v.dtype != torch.float32 for v in planes):
+        raise ValueError("pair_poly_add64 takes float32 planes")
+    if any(v.device != Uh.device for v in planes):
+        raise ValueError("pair_poly_add64 operands on more than one device")
+    if any(tuple(v.shape) != shape[1:] for v in planes):
+        raise ValueError(f"pair_poly_add64: planes of shape {shape[1:]}")
+    if Uh.device.type == "cpu":
+        return pair_poly_add64_plain(Dfl, *tabs)
+    return _poly_launch("pair_poly_add64", "add64", tabs, planes, shape, torch.float64, 1)[0]
+
+
+pair_poly.launches = 0
+pair_poly.mode_launches = dict.fromkeys(_POLY_MODES, 0)
+_K6P = pair_poly

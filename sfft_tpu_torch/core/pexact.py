@@ -28,7 +28,7 @@ from sfft_tpu_torch.config import SFFTConfig, torch_dtype
 from sfft_tpu_torch.core import pairs
 from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _cmatmul_sliced,
                                            _pair_mul_static_rr, _pmap, _split_on, _swap,
-                                           _two_sum, exact_corr_window, exact_dft_axis,
+                                           exact_corr_window, exact_dft_axis,
                                            exact_idft_halfin_real,
                                            exact_sep_weighted_spectra, pair_from_f64)
 from sfft_tpu_torch.core.fdiff import (pair_model_spectrum, phase_matrix, split_solution,
@@ -42,23 +42,14 @@ from sfft_tpu_torch.core.statics import Static, index, table
 
 
 # ---------------------------------------------------------------------------
-# pair helpers
+# the polynomial plane (K6p)
 # ---------------------------------------------------------------------------
 
 
-def pair_sub(a: CPair, b: CPair) -> CPair:
-    """Real pair minus real pair (TwoSum on the hi lanes)."""
-    h, e = _two_sum(a.rh, -b.rh)
-    return CPair(h, a.rl - b.rl + e, None, None)
-
-
-def pair_poly_plane(C: torch.Tensor, N0: int, N1: int, plain: bool = False) -> CPair:
-    """Grid evaluation of a ScaledFortranCoor polynomial as a real pair.
-
-    C: (SP, SP) f64 coefficients over c0^s c1^t with c = (idx+1)/N. The
-    y-contraction is a tiny f64 product; the x-axis accumulation runs in f32
-    pair arithmetic (~2^-48 of the plane scale): K6p (core/pairs.py
-    ``pair_poly``, one launch on CUDA tensors), or its twin with plain=True."""
+def _poly_tables(C: torch.Tensor, N0: int, N1: int):
+    """K6p's tables for a ScaledFortranCoor polynomial C (SP, SP) f64 over
+    c0^s c1^t with c = (idx+1)/N: U = c0^s (SP, N0) and M = C @ c1^t (SP,
+    N1, a tiny f64 product), each split into f32 (hi, lo)."""
     SP = C.shape[0]
     dev = C.device
     V = table(Static(coord_powers, (N1, SP, 0, N1)), dev)       # (SP, N1) f64
@@ -66,7 +57,16 @@ def pair_poly_plane(C: torch.Tensor, N0: int, N1: int, plain: bool = False) -> C
     Mh = M.to(torch.float32)
     Ml = (M - Mh.to(torch.float64)).to(torch.float32)
     Uh, Ul = _split_on(Static(coord_powers, (N0, SP, 0, N0)), dev)
-    return (pairs.pair_poly_plain if plain else pairs.pair_poly)(Uh, Ul, Mh, Ml)
+    return Uh, Ul, Mh, Ml
+
+
+def pair_poly_plane(C: torch.Tensor, N0: int, N1: int, plain: bool = False) -> CPair:
+    """Grid evaluation of a ScaledFortranCoor polynomial as a real pair: the
+    x-axis accumulation in f32 pair arithmetic (~2^-48 of the plane scale),
+    K6p's plane mode (core/pairs.py ``pair_poly``, one launch on CUDA
+    tensors), or its twin with plain=True. The paths call the fused modes
+    (``pair_poly_sub``, ``pair_poly_add64``) instead."""
+    return (pairs.pair_poly_plain if plain else pairs.pair_poly)(*_poly_tables(C, N0, N1))
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +146,11 @@ def pexact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     mI = fit_poly_coeffs(momI_o.M, g.dmu, g.ax0o, g.ax1o)
     mJ = fit_poly_coeffs(momJ_g.M, g.dmu, g.ax0g, g.ax1g)
     # exact-pair fluctuations: F = pair(I) - pair-eval(P), with the same
-    # coefficients the moment algebra uses
-    FIp = pair_sub(pair_from_f64(I), pair_poly_plane(mI, N0, N1, plain))
-    FJp = pair_sub(pair_from_f64(J), pair_poly_plane(mJ, N0, N1, plain))
+    # coefficients the moment algebra uses; plane and subtraction in one
+    # K6p launch each
+    sub = pairs.pair_poly_sub_plain if plain else pairs.pair_poly_sub
+    FIp = sub(I.to(torch.float64), *_poly_tables(mI, N0, N1))
+    FJp = sub(J.to(torch.float64), *_poly_tables(mJ, N0, N1))
     prof = SliceProfile(*cfg.pexact_prof)
     U = Static(coord_powers_of, (N0, tuple(int(i) for i, _ in g.exps_k)))
     V = Static(coord_powers_of, (N1, tuple(int(j) for _, j in g.exps_k)))
@@ -376,11 +378,10 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
         exps_s = ref_basis_exponents(cfg.scaling_basis)
         for k, (i, j) in enumerate(exps_s):
             Ctot[i: i + dmu + 1, j: j + dmu + 1] += -s * a00[k] * mI
-    main = pair_poly_plane(Ctot, N0, N1, plain)
-
-    # combine fluct + main in pair arithmetic; ONE f64 materialisation
-    h, e = _two_sum(Dfl.rh, main.rh)
-    D = h.to(torch.float64) + (Dfl.rl + main.rl + e)
+    # fluct + the main polynomial's plane in pair arithmetic, ONE f64
+    # materialisation: one K6p launch
+    add64 = pairs.pair_poly_add64_plain if plain else pairs.pair_poly_add64
+    D = add64(Dfl, *_poly_tables(Ctot, N0, N1))
 
     # --- wrap-correction strips (f64, tiny) ---------------------------------
     def pows(N, lo, hi):

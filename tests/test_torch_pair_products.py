@@ -18,16 +18,26 @@ On the CPU:
   * K6a's launch plan (collapsed axes, broadcast strides, plane pointers,
     mode) emulated in numpy: the operands it gathers, run through the twin,
     give the twin's bits;
-  * the dispatch: with the three kernel wrappers replaced by stubs and the
-    twins refusing calls from anywhere else, the pexact and the v2 exact
-    path run every pair product through the wrappers (plain=False) and none
-    with plain=True;
+  * K6p's fused modes: the twins of ``pair_poly_sub`` and
+    ``pair_poly_add64`` bit for bit against the chains pexact ran before
+    them (copied below), row-major and transposed, on wide-range and edge
+    values; each against sfft_tpu's chain (pair_sub(pair_from_f64(I),
+    pair_poly_plane(C)) and fdiff_pexact's f64 materialisation) within
+    1e-13 of max;
+  * the dispatch: with the kernel wrappers replaced by stubs and the twins
+    refusing calls from anywhere else, the pexact and the v2 exact path run
+    every pair product through the wrappers (plain=False; the polynomial
+    planes through the fused K6p modes, never the plane mode) and none with
+    plain=True;
   * refusals: complex input where a real pair is required, shapes that do
-    not broadcast, wrong types and inconsistent model shapes.
+    not broadcast, wrong types and inconsistent model shapes; K6p's wrong
+    dtypes, shapes, devices and layouts.
 
 The `gpu` cases hold each kernel mode to its twin on the card with
 torch.equal, on strided and offset views, +-0, subnormal lo parts and
-magnitudes near 2^+-60. The reference is imported inside the CPU tests, so
+magnitudes near 2^+-60; K6p's three modes at SP 1, 4 and 6 on widths that
+are not a multiple of its 128-column tile, odd widths, transposed inputs
+and 4096^2. The reference is imported inside the CPU tests, so
 they also run where jax is absent (``pytest --noconftest -m gpu``).
 """
 
@@ -140,6 +150,148 @@ def test_pair_poly_plane_matches_reference():
         got = tpexact.pair_poly_plane(torch.as_tensor(C), N0, N1)
         assert pairs.pair_poly.launches == before       # the CPU twin launches nothing
         _close(_c128(got), np.asarray(ref.rh, np.float64) + np.asarray(ref.rl))
+
+
+# --- K6p's fused modes: the chains pexact ran before them (core/pexact.py
+# pexact_plane_spectra and fdiff_pexact), for the bit-for-bit check
+
+
+def _old_sub_chain(I, Uh, Ul, Mh, Ml):
+    """pair_sub(pair_from_f64(I), pair_poly_plane(...)) as pexact ran it."""
+    from sfft_tpu_torch.core.pairs import _two_sum
+
+    plane = pairs.pair_poly_plain(Uh, Ul, Mh, Ml)
+    hi = I.to(torch.float32)
+    a = tef.CPair(hi, (I - hi.to(torch.float64)).to(torch.float32), None, None)
+    h, e = _two_sum(a.rh, -plane.rh)
+    return tef.CPair(h, a.rl - plane.rl + e, None, None)
+
+
+def _old_add64_chain(Dfl, Uh, Ul, Mh, Ml):
+    """fdiff_pexact's combination of the fluctuation pair and the main plane."""
+    from sfft_tpu_torch.core.pairs import _two_sum
+
+    main = pairs.pair_poly_plain(Uh, Ul, Mh, Ml)
+    h, e = _two_sum(Dfl.rh, main.rh)
+    return h.to(torch.float64) + (Dfl.rl + main.rl + e)
+
+
+def _poly_coeffs(SP, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(SP, SP)) * 10.0 ** rng.uniform(-3, 3, size=(SP, SP))
+
+
+def _poly_inputs(SP, N0, N1, seed, dev="cpu", edge=False, transposed=False):
+    """K6p's tables as pexact makes them from seeded coefficients, an f64
+    image of the plane's scale and a pair Dfl; with edge=True, tables, image
+    and Dfl over 2^-60 .. 2^60 with +-0 and subnormal lo parts; transposed
+    lays image and Dfl out with strides (1, N0)."""
+    from sfft_tpu_torch.core import pexact as tpexact
+
+    tabs = list(tpexact._poly_tables(torch.as_tensor(_poly_coeffs(SP, seed), device=dev), N0, N1))
+    rng = np.random.default_rng(seed + 1)
+    if edge:
+        tabs = _edge((SP, N0), seed + 2, dev) + _edge((SP, N1), seed + 3, dev)
+        dh, dl = _edge((N0, N1), seed + 4, dev)
+        ih, il = _edge((N0, N1), seed + 5, dev)
+        I = ih.double() + il
+    else:
+        scale = float(tabs[2].abs().max())
+        I = torch.as_tensor(rng.normal(size=(N0, N1)) * scale * 10.0 ** rng.uniform(-2, 1, (N0, N1)),
+                            device=dev)
+        dh, dl = (torch.as_tensor(v, device=dev) for v in _split(
+            rng.normal(size=(N0, N1)) * scale * 10.0 ** rng.uniform(-2, 1, (N0, N1))))
+    if transposed:
+        I, dh, dl = (v.t().contiguous().t() for v in (I, dh, dl))
+    return tabs, I, pairs.CPair(dh, dl, None, None)
+
+
+@pytest.mark.parametrize("case", ["SP 6", "SP 4 transposed", "SP 1", "edge values"])
+def test_pair_poly_fused_twins_equal_the_old_chains(case):
+    """The twins of K6p's sub and add64 modes give the bits of the chains
+    they replace (torch against torch, bit for bit)."""
+    SP, N0, N1 = {"SP 6": (6, 37, 50), "SP 4 transposed": (4, 41, 29), "SP 1": (1, 9, 7),
+                  "edge values": (5, 33, 47)}[case]
+    tabs, I, Dfl = _poly_inputs(SP, N0, N1, 40, edge=case == "edge values",
+                                transposed="transposed" in case)
+    assert _equal(pairs.pair_poly_sub_plain(I, *tabs), _old_sub_chain(I, *tabs))
+    assert torch.equal(pairs.pair_poly_add64_plain(Dfl, *tabs), _old_add64_chain(Dfl, *tabs))
+    # the CPU wrappers take the twins and launch nothing
+    before = (pairs.pair_poly.launches, dict(pairs.pair_poly.mode_launches))
+    assert _equal(pairs.pair_poly_sub(I, *tabs), _old_sub_chain(I, *tabs))
+    assert torch.equal(pairs.pair_poly_add64(Dfl, *tabs), _old_add64_chain(Dfl, *tabs))
+    assert (pairs.pair_poly.launches, pairs.pair_poly.mode_launches) == before
+
+
+@pytest.mark.parametrize("SP, N0, N1", [(6, 48, 40), (4, 128, 96)])
+def test_pair_poly_fused_modes_match_reference(SP, N0, N1):
+    """K6p's sub mode against sfft_tpu's pair_sub(pair_from_f64(I),
+    pair_poly_plane(C)) and its add64 mode against fdiff_pexact's f64
+    materialisation (sfft_tpu/core/pexact.py:488-489) on the same pair,
+    within 1e-13 of their maximum."""
+    import jax
+    import jax.numpy as jnp
+    from sfft_tpu.core import pexact as jpexact
+
+    from sfft_tpu_torch.core import pexact as tpexact
+
+    jef = _jef()
+    C = _poly_coeffs(SP, 41)
+    tabs, I, Dfl = _poly_inputs(SP, N0, N1, 41)
+    Inp = I.numpy()
+
+    def ref_sub(c, x):
+        return jpexact.pair_sub(jef.pair_from_f64(x), jpexact.pair_poly_plane(c, N0, N1))
+
+    def ref_add64(c, dh, dl):
+        main = jpexact.pair_poly_plane(c, N0, N1)
+        h, e = jef._two_sum(dh, main.rh)
+        return h.astype(jnp.float64) + (dl + main.rl + e)
+
+    ref = jax.jit(ref_sub)(jnp.asarray(C), jnp.asarray(Inp))
+    got = pairs.pair_poly_sub(I, *tpexact._poly_tables(torch.as_tensor(C), N0, N1))
+    _close(_c128(got), np.asarray(ref.rh, np.float64) + np.asarray(ref.rl))
+    ref = jax.jit(ref_add64)(jnp.asarray(C), Dfl.rh.numpy(), Dfl.rl.numpy())
+    got = pairs.pair_poly_add64(Dfl, *tpexact._poly_tables(torch.as_tensor(C), N0, N1))
+    _close(got.numpy(), np.asarray(ref))
+
+
+def test_pair_poly_refusals():
+    tabs, I, Dfl = _poly_inputs(3, 12, 10, 42)
+    before = (pairs.pair_poly.launches, dict(pairs.pair_poly.mode_launches))
+    with pytest.raises(ValueError, match="float64 image"):
+        pairs.pair_poly_sub(I.float(), *tabs)
+    with pytest.raises(ValueError, match="shape"):
+        pairs.pair_poly_sub(I[:, :9], *tabs)
+    with pytest.raises(ValueError, match="float32 planes"):
+        pairs.pair_poly_add64(pairs.CPair(Dfl.rh.double(), Dfl.rl.double(), None, None), *tabs)
+    with pytest.raises(ValueError, match="real pair"):
+        pairs.pair_poly_add64(pairs.CPair(Dfl.rh, Dfl.rl, Dfl.rh, Dfl.rl), *tabs)
+    with pytest.raises(ValueError, match="shape"):
+        pairs.pair_poly_add64(pairs.CPair(Dfl.rh[1:], Dfl.rl[1:], None, None), *tabs)
+    with pytest.raises(ValueError, match="float32 tables"):
+        pairs.pair_poly_sub(I, *(t.double() for t in tabs))
+    with pytest.raises(ValueError, match="at most 32 terms"):
+        pairs.pair_poly(*(torch.ones(33, 4) for _ in range(4)))
+    # a device that is neither the CPU nor CUDA
+    meta = [t.to("meta") for t in tabs]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pairs.pair_poly_sub(I.to("meta"), *meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pairs.pair_poly_add64(pairs.CPair(Dfl.rh.to("meta"), Dfl.rl.to("meta"), None, None),
+                              *meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pairs.pair_poly(*meta)
+    # the kernel takes row-major or transposed planes of one layout and
+    # copies nothing: any other layout raises
+    assert pairs._transposed("k", [I], I.shape) is False
+    assert pairs._transposed("k", [I.t().contiguous().t()], I.shape) is True
+    with pytest.raises(ValueError, match="row-major or transposed"):
+        pairs._transposed("k", [Dfl.rh, Dfl.rl.t().contiguous().t()], I.shape)
+    wide = torch.zeros(12, 20, dtype=torch.float64)
+    with pytest.raises(ValueError, match="row-major or transposed"):
+        pairs._transposed("k", [wide[:, ::2]], I.shape)
+    assert (pairs.pair_poly.launches, pairs.pair_poly.mode_launches) == before
 
 
 def _f32(x):
@@ -412,12 +564,15 @@ def test_paths_run_every_pair_product_through_the_wrappers(monkeypatch):
     """A CUDA-less stub in place of each kernel wrapper: with plain=False
     every pair product of the pexact and the v2 exact path goes through the
     wrappers (the twins refuse calls from anywhere else), every K6a mode
-    among them; with plain=True none does, and the bits are the same."""
+    among them, the polynomial planes through K6p's fused modes (two sub
+    launches and one add64 a step, no plane); with plain=True none does,
+    and the bits are the same."""
     from sfft_tpu_torch.core import engine
 
     I, J, cfgs = _dispatch_cases()
     wrappers = {"pair_products": "pair_products_plain", "pair_model": "pair_model_spectrum_plain",
-                "pair_poly": "pair_poly_plain"}
+                "pair_poly": "pair_poly_plain", "pair_poly_sub": "pair_poly_sub_plain",
+                "pair_poly_add64": "pair_poly_add64_plain"}
     twins = {k: getattr(pairs, t) for k, t in wrappers.items()}
     inside = [0]
     calls = {}
@@ -445,7 +600,10 @@ def test_paths_run_every_pair_product_through_the_wrappers(monkeypatch):
         monkeypatch.setattr(pairs, twin_name, guarded(twin_name, twins[name]))
     got = {k: engine.GeneralSFFT.GSS(I, J, I, J, cfg, device="cpu")[:2]
            for k, cfg in cfgs.items()}
-    assert all(calls.get(k, 0) > 0 for k in wrappers), calls
+    assert all(calls.get(k, 0) > 0 for k in wrappers if k != "pair_poly"), calls
+    # one step each (masked == unmasked): the pexact step's planes
+    assert (calls.get("pair_poly", 0), calls["pair_poly_sub"], calls["pair_poly_add64"]) == \
+        (0, 2, 1), calls
     assert {k[1:] for k in calls if isinstance(k, tuple)} == {
         ("hadamard_conj", False), ("mul_static", False), ("mul_static_rr", True),
         ("mul_static_rr", False), ("sep_mul", True)}, calls
@@ -577,3 +735,33 @@ def test_pair_poly_kernel_bit_identical_to_twin_on_gpu(cuda):
     Uh, Ul = _edge((4, 50), 38, cuda)
     Mh, Ml = _edge((4, 70), 39, cuda)
     assert _equal(pairs.pair_poly(Uh, Ul, Mh, Ml), pairs.pair_poly_plain(Uh, Ul, Mh, Ml))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["plane", "sub", "add64"])
+@pytest.mark.parametrize("SP", [1, 4, 6])
+def test_pair_poly_modes_kernel_bit_identical_to_twin_on_gpu(cuda, mode, SP):
+    """Each K6p mode against its twin, bit for bit, one launch a call: a
+    width that is not a multiple of the 128-column tile (and rows not of
+    the 32-row tile), an odd width (the scalar epilogue), transposed inputs,
+    edge values, and 4096^2."""
+    shapes = [(70, 300, False, False), (45, 97, False, False), (33, 47, False, True),
+              (4096, 4096, False, False)]
+    if mode != "plane":
+        shapes += [(300, 70, True, False), (97, 45, True, False), (47, 33, True, True)]
+    for N0, N1, transposed, edge in shapes:
+        tabs, I, Dfl = _poly_inputs(SP, N0, N1, 43 + SP, cuda, edge=edge, transposed=transposed)
+        before = pairs.pair_poly.launches
+        if mode == "plane":
+            got, want = pairs.pair_poly(*tabs), pairs.pair_poly_plain(*tabs)
+        elif mode == "sub":
+            got, want = pairs.pair_poly_sub(I, *tabs), pairs.pair_poly_sub_plain(I, *tabs)
+            assert got.rh.stride() == I.to(torch.float32).stride()
+        else:
+            got = pairs.pair_poly_add64(Dfl, *tabs)
+            want = pairs.pair_poly_add64_plain(Dfl, *tabs)
+            assert got.stride() == Dfl.rh.stride()
+        torch.cuda.synchronize()
+        assert pairs.pair_poly.launches == before + 1
+        same = _equal(got, want) if mode != "add64" else torch.equal(got, want)
+        assert same, (mode, SP, N0, N1, transposed, edge)
