@@ -44,14 +44,40 @@ and, on the same 900^2 pair and configuration, the two v2 fast modes:
 
 each held to the v2 f64 fft/fft/lu difference within the fast bound (RMS
 < 0.05) or, where the mode's plain twins are farther than that (the fft32
-mode's own f32 error on this system), no farther than the twins; K3 and K2
-held to their twins on each mode's own operands; and then the NIRCam
+mode's own f32 error on this system), no farther than the twins; K3, K1 and
+K2 held to their twins on each mode's own operands; and then the NIRCam
 post-processing on the peeled mode's solution (matching kernels on the tile
 grid, BSplineDeCorrelation.BDC kernels from Gaussian PSFs made here,
 BSplineGridConvolve.GSVC of the difference), on the card and on the CPU
 within 1e-9. The fast slice runs K2 too (K3, K1, K2), its difference is
-held to the f64 one with K2 and with K2's twin, and its K3 and K2 calls to
-their twins on the path's own operands.
+held to the f64 one with K2 and with K2's twin, and its K3, K1 and K2 calls
+to their twins on the path's own operands.
+
+Then phase 10, the automatic pipelines, on pairs made here from seeds and
+written to FITS: EasySparsePacket.ESP on a DECam CCD (2046 x 4094, 2,500
+stars, 8 galaxies, a transient, FWHM 3.2 / 4.1 px, PostAnomalyCheck) and
+EasyCrowdedPacket.ECP on a TESS CCD (2048 x 2048, 20,000 stars, saturated
+at 28000, MaskSatContam: GSS's contamination route). Each packet's prep
+runs once on the host (numpy and the native C++ extension, which must
+load); its subtraction then runs five times on the card: the default trio
+(fft / fft / lu: K1 and K2 in complex128) with the kernels and on the
+plain twins; the contract trio (pexact / pexact / exact at (8, 7, 6): K3,
+K4, K6, K7) with the kernels, held to f64 fft / fft / exact on the plain
+twins (RMS < 1e-6, solution within 1e-6 of its maximum); and fft / fft /
+exact with the kernels (K1, K2), held to the same run on the twins
+(difference within 1e-8 max|J|, solution within 1e-6). The default trio's
+unrefined LU is not reproducible to those bounds on these systems (the
+sparse one's condition number is ~1e18), so its two runs are reported
+beside their distances from the refined solve. All runs must make the
+same decisions (ConvdSide, KerHW, sub-sources, active pixels,
+Post-Anomaly count; the NaN and contamination masks, which may differ only
+at ties of the -0.001 threshold), write a difference FITS that reads back
+equal, and leave a difference at the pair's noise level; every K1 and K2
+launch of a default run and every K4, K6 and K7 launch of a contract run is
+held to its twin on the path's operands, and one run of each trio is
+profiled. Last, the contract trio on the golden sparse pair of tests/data
+at pexact_prof (8, 7, 6) (reported: it misses the contract bound on that
+masked system) and (10, 9, 8) (held to the bound).
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
@@ -121,6 +147,10 @@ f64; it runs in a checkout of an older commit too (copy the script into
 it), which is how a change to a kernel's summation order is followed across
 commits in one call.
 
+    python3 chip_smoke.py --easy
+
+builds the kernels and runs phase 10 (the automatic pipelines) alone.
+
     python3 chip_smoke.py --stages OUT_DIR
 
 times the slicing stages of one steady contract step and one steady v2 step
@@ -132,6 +162,7 @@ wrapper chain the callers ran before them, so that two commits compare on
 one card.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -682,17 +713,19 @@ def phase_k1_v2():
 
 
 def kernels_on_path(run, path, phase):
-    """Drive one step (`run`) with the K3 and K2 wrappers recording the
-    operands of their first call at each shape, then hold each shape's
-    kernel result to its twin on those operands, launched twice (bit-equal),
-    and time it: K3 scaled by max(|W| @ |G|) (the products' own magnitude:
-    these sums cancel) within 1e-13; K2 on the model FJ - FDIFF within 1e-5
+    """Drive one step (`run`) with the K3, K1 (greek._corr_window, which
+    corr_window_fft calls) and K2 wrappers recording the operands of their
+    first call at each shape, then hold each shape's kernel result to its
+    twin on those operands, launched twice (bit-equal), and time it: K3
+    scaled by max(|W| @ |G|) (the products' own magnitude: these sums
+    cancel) within 1e-13; K1 against corr_pairs_plain within 1e-5 (c64) or
+    1e-11 (c128) of its maximum; K2 on the model FJ - FDIFF within 1e-5
     (c64) or 1e-12 (c128) of its maximum."""
     import torch
-    from sfft_tpu_torch.core import fdiff, moments, peel
+    from sfft_tpu_torch.core import fdiff, greek, moments, peel
 
-    seen3, seen2 = {}, {}
-    real3, real2 = moments.moments, fdiff.fdiff_model
+    seen3, seen1, seen2 = {}, {}, {}
+    real3, real1, real2 = moments.moments, greek._corr_window, fdiff.fdiff_model
 
     def recording3(W, G):
         key = (W.shape[0], W.shape[1], G.shape[1])
@@ -700,6 +733,17 @@ def kernels_on_path(run, path, phase):
             seen3[key] = [W.clone(), G.clone(), 0]
         seen3[key][2] += 1
         return real3(W, G)
+
+    def recording1(specA, specB, ia, ib, E0, E1, sym=False):
+        same = specA.data_ptr() == specB.data_ptr() and specA.shape == specB.shape
+        key = (tuple(specA.shape), tuple(specB.shape), len(ia), tuple(E0.shape),
+               tuple(E1.shape), str(specA.dtype), bool(sym), same)
+        if key not in seen1:
+            a = specA.clone()
+            seen1[key] = [(a, a if same else specB.clone(), np.array(ia), np.array(ib), E0, E1,
+                           sym), 0]
+        seen1[key][1] += 1
+        return real1(specA, specB, ia, ib, E0, E1, sym=sym)
 
     def recording2(specs, FS, solution, W0, W1, *rest):
         key = (tuple(specs.shape), 0 if FS is None else FS.shape[0], str(specs.dtype))
@@ -711,14 +755,15 @@ def kernels_on_path(run, path, phase):
 
     recording2.launches = 0
     # every f64 product of the peel goes through peel._exact_skinny_matmul,
-    # which calls the wrapper by its name in core/peel.py; fdiff_fft calls
+    # which calls the wrapper by its name in core/peel.py; corr_window_fft
+    # calls _corr_window by its name in core/greek.py, fdiff_fft calls
     # fdiff_model by its name in core/fdiff.py
-    peel.moments, fdiff.fdiff_model = recording3, recording2
+    peel.moments, greek._corr_window, fdiff.fdiff_model = recording3, recording1, recording2
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        peel.moments, fdiff.fdiff_model = real3, real2
+        peel.moments, greek._corr_window, fdiff.fdiff_model = real3, real1, real2
     rows = {}
     for (S, N0, N1), (W, G, count) in sorted(seen3.items()):
         out = real3(W, G)
@@ -737,6 +782,28 @@ def kernels_on_path(run, path, phase):
         log(f"phase {phase} K3 moments on the {path} path {(S, N0, N1)}: {count} calls per "
             f"step; max|d| = {err:.3e} of max(|W| @ |G|) (bound 1e-13), two launches "
             f"bit-equal; kernel {ms:.4f} ms (graph replay), bound {bms:.4f} ms ({by})")
+    for key, (args, count) in sorted(seen1.items(), key=lambda kv: str(kv[0])):
+        specA, specB, ia, ib, E0, E1, sym = args
+        call = lambda: real1(specA, specB, ia, ib, E0, E1, sym=sym)
+        out, again = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"K1 {path} {key}: two launches differ"
+        c64 = specA.dtype == torch.complex64
+        tol = 1e-5 if c64 else 1e-11
+        err = rel_err(out, greek.corr_pairs_plain(specA, specB, ia, ib, E0, E1))
+        assert err <= tol, f"K1 {path} {key}: rel err {err:.3e} > {tol:g}"
+        ms = graph_ms(call, calls=3, reps=3)
+        nspec = specA.shape[0] + (0 if key[-1] else specB.shape[0])
+        bms, by = k1_bound(len(ia), nspec, specA.shape[1], specA.shape[2], E0.shape[0],
+                           E1.shape[1], specA.element_size(),
+                           FP32_FLOP_PER_S if c64 else FP64_FLOP_PER_S, sym)
+        rows[f"K1 {key[:3]} R {E0.shape[0]}x{E1.shape[1]}"] = dict(
+            calls=count, rel_err=err, ms=ms, bound_ms=bms, bound_by=by)
+        log(f"phase {phase} K1 corr_window on the {path} path, spectra {key[0]} x {key[1]} "
+            f"{len(ia)} pairs window {E0.shape[0]} x {E1.shape[1]} "
+            f"{'c64' if c64 else 'c128'} sym={sym}: {count} calls per step; max|d|/max|ref| = "
+            f"{err:.3e} (bound {tol:g}), two launches bit-equal; kernel {ms:.4f} ms (graph "
+            f"replay), bound {bms:.4f} ms ({by})")
     for (shape, nS, _), (args, count) in sorted(seen2.items()):
         out = real2(*args)
         again = real2(*args)
@@ -3153,8 +3220,479 @@ def phase_profile(I, J, out_dir):
     tmp.cleanup()
 
 
+# --- phase 10: the automatic pipelines (EasySparsePacket.ESP, EasyCrowdedPacket.ECP) ---
+
+# a DECam CCD (NAXIS1 x NAXIS2, the reference's sparse example) and a TESS
+# CCD (its crowded example)
+EASY_SPARSE = (2046, 4094)
+EASY_CROWDED = (2048, 2048)
+
+
+def render_gaussians(shape, xs, ys, fluxes, vx, vy, hw):
+    """Elliptical Gaussians of total flux `fluxes` and variances (vx, vy)
+    (pixels^2, per object) evaluated at pixel centres within +-hw px of each
+    object's nearest pixel: an image of `shape` (axis 0 = x). Objects lie
+    at least hw px inside the image."""
+    img = np.zeros(shape)
+    off = np.arange(-hw, hw + 1)
+    vx = np.broadcast_to(np.asarray(vx, float), xs.shape)
+    vy = np.broadcast_to(np.asarray(vy, float), xs.shape)
+    for k in range(0, len(xs), 2048):
+        s = slice(k, k + 2048)
+        px = np.rint(xs[s]).astype(np.int64)[:, None] + off
+        py = np.rint(ys[s]).astype(np.int64)[:, None] + off
+        gx = np.exp(-(px - xs[s, None]) ** 2 / (2 * vx[s, None]))
+        gy = np.exp(-(py - ys[s, None]) ** 2 / (2 * vy[s, None]))
+        amp = fluxes[s] / (2 * np.pi * np.sqrt(vx[s] * vy[s]))
+        np.add.at(img, (px[:, :, None], py[:, None, :]),
+                  amp[:, None, None] * gx[:, :, None] * gy[:, None, :])
+    return img
+
+
+def sparse_fields():
+    """A DECam-like sparse pair at EASY_SPARSE (axis 0 = x): 2,500 point
+    sources (fluxes 10^2.8-10^4.8) and 8 galaxies, FWHM 3.2 px in REF and
+    4.1 px in SCI, flux ratio 1.18, a background offset of 0.6 in SCI (the
+    sparse prep takes the images as sky-subtracted: BACK_VALUE 0), unit
+    noise, and one transient in SCI. Returns (ref, sci, transient (x, y),
+    the difference's expected noise RMS)."""
+    rng = np.random.default_rng(10)
+    shape, n, ng = EASY_SPARSE, 2500, 8
+    xs, ys = rng.uniform(20, shape[0] - 20, n), rng.uniform(20, shape[1] - 20, n)
+    fl = 10 ** rng.uniform(2.8, 4.8, n)
+    gx, gy = rng.uniform(60, shape[0] - 60, ng), rng.uniform(60, shape[1] - 60, ng)
+    gs2 = rng.uniform(3, 6, ng) ** 2
+    gf = rng.uniform(2e3, 2e4, ng)
+    vr, vs = (3.2 / 2.355) ** 2, (4.1 / 2.355) ** 2
+    ref = (render_gaussians(shape, xs, ys, fl, vr, vr, 15)
+           + render_gaussians(shape, gx, gy, gf, gs2 + vr, 2 * gs2 + vr, 45))
+    sci = 1.18 * (render_gaussians(shape, xs, ys, fl, vs, vs, 15)
+                  + render_gaussians(shape, gx, gy, gf, gs2 + vs, 2 * gs2 + vs, 45))
+    t = (701.3, 1503.6)
+    sci += render_gaussians(shape, np.array([t[0]]), np.array([t[1]]), np.array([4e4]), vs, vs,
+                            15)
+    ref += rng.normal(0, 1.0, shape)
+    sci += 0.6 + rng.normal(0, 1.0, shape)
+    # SCI's noise plus REF's through the matching kernel (a Gaussian of
+    # variance vs - vr and sum 1.18: sum of squares 1.18^2 / (4 pi (vs - vr)))
+    noise = np.sqrt(1.0 + 1.18 ** 2 / (4 * np.pi * (vs - vr)))
+    return ref, sci, t, noise
+
+
+def crowded_fields():
+    """A TESS-like crowded pair at EASY_CROWDED: 20,000 stars at FWHM 3.0
+    px (fluxes 10^2.8-10^4.8, 200 of them 10^5-10^5.8) on a background of
+    600 with noise 2.5, clipped at SATURATE = 28000; SCI = 1.12 (REF - 600)
+    + 640 + noise, clipped (tools/make_golden_fixtures.py:60-68). Returns
+    (ref, sci, the difference's expected noise RMS)."""
+    rng = np.random.default_rng(11)
+    shape, n = EASY_CROWDED, 20000
+    xs, ys = rng.uniform(20, shape[0] - 20, n), rng.uniform(20, shape[1] - 20, n)
+    fl = 10 ** np.concatenate([rng.uniform(2.8, 4.8, n - 200), rng.uniform(5.0, 5.8, 200)])
+    v = (3.0 / 2.355) ** 2
+    ref = np.minimum(600.0 + render_gaussians(shape, xs, ys, fl, v, v, 15)
+                     + rng.normal(0, 2.5, shape), 28000.0)
+    sci = np.minimum(1.12 * (ref - 600.0) + 640.0 + rng.normal(0, 2.5, shape), 28000.0)
+    return ref, sci, 2.5
+
+
+def write_easy_pair(d, name, ref, sci, keys):
+    """ref and sci (axis 0 = x) as float32 FITS files in d, with header
+    keys."""
+    from sfft_tpu_torch.io import fits
+
+    hdr = fits.Header()
+    for k, v in keys.items():
+        hdr.add(k, v)
+    paths = []
+    for tag, img in (("ref", ref), ("sci", sci)):
+        paths.append(os.path.join(d, f"{name}_{tag}.fits"))
+        fits.write(paths[-1], img.T.astype(np.float32), hdr)
+    return tuple(paths)
+
+
+EASY_TRIOS = [
+    # (label, backends, plain): the default trio with the kernels and on
+    # the plain twins; the contract trio (sfft_tpu's TPU trio at pexact_prof
+    # (8, 7, 6)) with the kernels and its yardstick, f64 fft / fft / exact,
+    # on the plain twins; and fft / fft / exact with the kernels (K1, K2),
+    # which holds the kernels' solution to the twins' through a refined
+    # solve (an unrefined LU of these systems, cond ~1e18, moves the
+    # solution by ~1e-6 of its maximum for rounding-level changes of the
+    # tables)
+    ("default", {}, False),
+    ("default plain", {}, True),
+    ("contract", dict(greek_backend="pexact", fdiff_backend="pexact", solver="exact"), False),
+    ("fft/fft/exact plain", dict(solver="exact"), True),
+    ("fft/fft/exact", dict(solver="exact"), False),
+]
+
+
+def zero_kernel_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from sfft_tpu_torch.core import exact_fft, fdiff, greek, moments, pairs, slicing
+
+    moments.moments.launches = 0
+    greek.corr_window.launches = 0
+    fdiff.fdiff_model.launches = 0
+    slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
+    slicing.slice_triple.launches = 0
+    exact_fft.sliced_epilogue.launches = 0
+    for name in K6_KERNELS:
+        getattr(pairs, name).launches = 0
+    pairs.pair_poly.mode_launches = dict.fromkeys(pairs.pair_poly.mode_launches, 0)
+
+
+def kernel_counts():
+    """The wrappers' launch counts by the names of the kernels line (K4:
+    its slicing and its scale launches; K6p: all modes, and each path mode
+    on its own)."""
+    from sfft_tpu_torch.core import exact_fft, fdiff, greek, moments, pairs, slicing
+
+    counts = {"moments": moments.moments.launches,
+              "corr_window": greek.corr_window.launches,
+              "fdiff_model": fdiff.fdiff_model.launches,
+              "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
+              "slice_triple": slicing.slice_triple.launches,
+              "sliced_epilogue": exact_fft.sliced_epilogue.launches}
+    counts.update({name: getattr(pairs, name).launches for name in K6_KERNELS})
+    counts.update({name: pairs.pair_poly.mode_launches[mode]
+                   for name, mode in K6P_MODES.items() if name != "pair_poly"})
+    return counts
+
+
+@contextlib.contextmanager
+def host_spans():
+    """Host time and calls of the source extractor (prep/sex.py calls
+    extract_sources, which calls _deblend_region per detected island),
+    while the block runs: {name: [calls, seconds]}."""
+    from sfft_tpu_torch.prep import extract, sex
+
+    spans = {"extract_sources": [0, 0.0], "_deblend_region": [0, 0.0]}
+    real = (sex.extract_sources, extract._deblend_region)
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[name][0] += 1
+                spans[name][1] += time.perf_counter() - t0
+        return wrapper
+
+    sex.extract_sources = timed("extract_sources", real[0])
+    extract._deblend_region = timed("_deblend_region", real[1])
+    try:
+        yield spans
+    finally:
+        sex.extract_sources, extract._deblend_region = real
+
+
+def robust_rms(a):
+    """1.4826 x the median absolute deviation of the finite values."""
+    a = a[np.isfinite(a)]
+    return float(1.4826 * np.median(np.abs(a - np.median(a))))
+
+
+def easy_packet(name, d):
+    """One automatic packet on its pair: the pair made and written to FITS,
+    *_Prep once on the host, then *_Subtract five times on the card
+    (EASY_TRIOS) with the counts zeroed before each run and read after it;
+    the checks of phase 10; K1 / K2 of a default run and K4 / K6 / K7 of two
+    contract runs held to their twins on the path's operands; one profiled
+    run of each trio with the kernels. Returns the report."""
+    import torch
+    from sfft_tpu_torch import EasyCrowdedPacket, EasySparsePacket, make_config, native
+    from sfft_tpu_torch.io import fits
+
+    t0 = time.perf_counter()
+    if name == "sparse":
+        ref, sci, transient, noise = sparse_fields()
+        paths = write_easy_pair(d, name, ref, sci, {"GAIN": 1.0, "ESATUR": 1e9})
+        kw = dict(PostAnomalyCheck=True)
+        prep_fn, sub = EasySparsePacket.ESP_Prep, EasySparsePacket.ESP_Subtract
+        label = f"ESP {EASY_SPARSE[0]} x {EASY_SPARSE[1]} (DECam)"
+    else:
+        ref, sci, noise = crowded_fields()
+        transient = None
+        paths = write_easy_pair(d, name, ref, sci, {"GAIN": 1.0, "SATURATE": 28000.0})
+        kw = dict(MaskSatContam=True)
+        prep_fn, sub = EasyCrowdedPacket.ECP_Prep, EasyCrowdedPacket.ECP_Subtract
+        label = f"ECP {EASY_CROWDED[0]} x {EASY_CROWDED[1]} (TESS)"
+    del ref, sci
+    make_s = time.perf_counter() - t0
+    assert native.available(), "the native extension did not build or load"
+    t0 = time.perf_counter()
+    with host_spans() as spans:
+        prep = prep_fn(*paths, VERBOSE_LEVEL=0, **kw)
+    prep_s = time.perf_counter() - t0
+    cfg = prep["cfg"]
+    assert (cfg.greek_backend, cfg.fdiff_backend, cfg.solver) == ("fft", "fft", "lu")
+    SS = prep["SFFTPrepDict"].get("SExCatalog-SubSource")
+    nss = None if SS is None else len(SS)
+    active = int(np.sum(prep["SFFTPrepDict"]["Active-Mask"]))
+    nan_u = 0 if prep["NaNmask_U"] is None else int(prep["NaNmask_U"].sum())
+    nsat = int(prep["SFFTPrepDict"]["REF-SAT-Mask"].sum()
+               + prep["SFFTPrepDict"]["SCI-SAT-Mask"].sum())
+    log(f"phase 10 {label}: pair made and written in {make_s:.1f} s; prep (host, numpy and "
+        f"the native extension: loaded) {prep_s:.1f} s: ConvdSide {prep['ConvdSide']}, FWHM "
+        f"REF {prep['FWHM_REF']:.3f} SCI {prep['FWHM_SCI']:.3f} -> KerHW {prep['KerHW']} "
+        f"(NEQ {cfg.NEQ}), {nss} sub-sources, {active} active pixels, {nsat} saturated "
+        f"pixels, masked pair {'==' if prep['PixA_mI'] is prep['PixA_I'] else '!='} unmasked, "
+        f"layouts I {prep['PixA_I'].strides} mI {prep['PixA_mI'].strides}; in the prep: "
+        + ", ".join(f"{n} {v[1]:.1f} s in {v[0]} calls" for n, v in spans.items()))
+
+    def trio_prep(backends):
+        if not backends:
+            return prep
+        return dict(prep, cfg=make_config(cfg.N0, cfg.N1, prep["KerHW"],
+                                          KerPolyOrder=cfg.kernel_basis.degree,
+                                          BGPolyOrder=cfg.bg_basis.degree,
+                                          ConstPhotRatio=cfg.const_phot_ratio, **backends))
+
+    def subtract(p, plain, fits_diff=None):
+        return sub(p, *paths, FITS_DIFF=fits_diff, VERBOSE_LEVEL=0, plain=plain, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for tlabel, backends, plain in EASY_TRIOS:
+        p = trio_prep(backends)
+        out = os.path.join(d, f"{name}_{tlabel.replace(' ', '_').replace('/', '_')}.fits")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        res = subtract(p, plain, out)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = kernel_counts()
+        diff, sol = res[0], res[2]
+        assert isinstance(diff, np.ndarray) and isinstance(sol, np.ndarray)
+        assert sol.shape == (p["cfg"].NEQ,) and np.isfinite(sol).all()
+        npa = None if SS is None else int(np.sum(SS["MASK_PostAnomaly"]))
+        fdiff_img, hdr = fits.read(out)
+        assert np.array_equal(fdiff_img.T, diff, equal_nan=True), \
+            f"{name} {tlabel}: the difference FITS differs from the difference returned"
+        decisions = dict(ConvdSide=hdr["CONVD"], KerHW=hdr["KERHW"], subsources=nss,
+                         active=active, post_anomaly=npa)
+        runs[tlabel] = dict(diff=diff, sol=sol, s=sec, counts=counts, decisions=decisions,
+                            cfg=p["cfg"], plain=plain)
+        nnan = int(np.isnan(diff).sum())
+        log(f"phase 10 {label} {tlabel} ({p['cfg'].greek_backend}/{p['cfg'].fdiff_backend}/"
+            f"{p['cfg'].solver}{', plain twins' if plain else ''}): subtract {sec:.2f} s "
+            f"(first call); launches {counts}; decisions {decisions}; NaN pixels {nnan} "
+            f"({nnan - nan_u} contaminated); flux scaling {res[3]:.6f}")
+    peak = torch.cuda.max_memory_allocated()
+    k, kp, c, cy, kx = (runs[t[0]] for t in EASY_TRIOS)
+    # the kernels ran where they should, and nowhere else
+    for r in (k, kx):
+        assert r["counts"]["corr_window"] > 0 and r["counts"]["fdiff_model"] > 0, \
+            f"{name} fft/fft: K1 or K2 never launched: {r['counts']}"
+    need = ("moments", "slice_pair", "sliced_epilogue", "pair_products", "pair_model",
+            "pair_poly")
+    assert all(c["counts"][n] > 0 for n in need), \
+        f"{name} contract: a kernel never launched: {c['counts']}"
+    assert not any(kp["counts"].values()) and not any(cy["counts"].values()), \
+        f"{name}: a kernel launched on the plain twins: {kp['counts']} {cy['counts']}"
+    # the same discrete decisions in all five runs
+    for r in runs.values():
+        assert r["decisions"] == k["decisions"], \
+            f"{name}: decisions differ: {r['decisions']} vs {k['decisions']}"
+    # the NaN masks: the union NaN mask, and the contamination mask (GSS:
+    # the mask image convolved with the solution's kernel, below -0.001),
+    # recomputed here for each run. A pixel may leave or join the mask only
+    # where the threshold lies between the run's contamination image and
+    # the f64 yardstick's (fft / fft / exact on the twins): a tie. The
+    # images are the difference of the pair (mask, 0): with the kernels,
+    # fft / fft / exact is held to the yardstick within 1e-8 of max|mask|
+    # (the difference's bound), the contract trio within 1e-6 (its RMS
+    # bound); the LU's images move with its solution (reported; their
+    # differences are held above)
+    nan_k = np.isnan(k["diff"])
+    ties, spreads = {}, {}
+    if prep["ContamMask_I"] is not None:
+        from sfft_tpu_torch.core.engine import ElementalSFFT
+
+        tI = torch.as_tensor(prep["ContamMask_I"], device="cuda").to(torch.float64)
+        nan_u_mask = np.zeros(tI.shape, bool) if prep["NaNmask_U"] is None else \
+            prep["NaNmask_U"]
+        tD = {}
+        for t, r in runs.items():
+            tsol = torch.as_tensor(r["sol"], device="cuda").clone()
+            tsol[-r["cfg"].Fpq:] = 0.0
+            tD[t] = ElementalSFFT.ESS(tI, torch.zeros_like(tI), r["cfg"], tsol, Subtract=True,
+                                      plain=r["plain"])[1].cpu().numpy()
+            assert np.array_equal(np.isnan(r["diff"]),
+                                  nan_u_mask | (tD[t] < -0.001) | prep["ContamMask_J"]), \
+                f"{name} {t}: the NaN mask is not the NaN union and the contamination masks"
+        yard = tD["fft/fft/exact plain"]
+        for t, img in tD.items():
+            spreads[t] = float(np.abs(img - yard).max())
+            flips = (img < -0.001) != (yard < -0.001)
+            ties[t] = int(flips.sum())
+            log(f"phase 10 {label} {t}: contamination image {spreads[t]:.3e} from the "
+                f"yardstick's, {int((img < -0.001).sum())} pixels below -0.001, {ties[t]} "
+                f"flipped")
+            assert (np.abs(yard[flips] + 0.001) <= spreads[t]).all(), \
+                f"{name} {t}: the contamination mask differs away from the threshold"
+        assert spreads["fft/fft/exact"] <= 1e-8 and spreads["contract"] <= 1e-6, \
+            f"{name}: contamination images {spreads}"
+        del tD, yard
+    else:
+        for r in runs.values():
+            assert np.array_equal(np.isnan(r["diff"]), nan_k), f"{name}: NaN masks differ"
+    ok = ~np.any([np.isnan(r["diff"]) for r in runs.values()], axis=0)
+    J = np.nan_to_num(prep["PixA_J"])
+    dbound = 1e-8 * np.abs(J).max()
+
+    def dist(a, b):
+        return (float(np.abs(a["diff"][ok] - b["diff"][ok]).max()),
+                float(np.sqrt(np.mean((a["diff"][ok] - b["diff"][ok]) ** 2))),
+                float(np.abs(a["sol"] - b["sol"]).max() / np.abs(b["sol"]).max()))
+
+    # what the LU's spread rests on: the default trio's tables with the
+    # kernels and on the twins, and the normal matrix's condition number
+    from sfft_tpu_torch.core import engine
+
+    mI, mJ = (torch.as_tensor(prep[k], device="cuda") for k in ("PixA_mI", "PixA_mJ"))
+    (A, rhs), (Ap, rhsp) = (engine._normal_equations_impl(cfg, mI, mJ, plain=pl)
+                            for pl in (False, True))
+    tables = dict(lhs_rel=float((A - Ap).abs().max() / Ap.abs().max()),
+                  rhs_rel=float((rhs - rhsp).abs().max() / rhsp.abs().max()),
+                  cond=float(torch.linalg.cond(Ap)))
+    del mI, mJ, A, rhs, Ap, rhsp
+    # K1 and K2 against their twins end to end: fft / fft / exact with the
+    # kernels against the same on the plain twins, at the bounds of
+    # tests/test_engine.py:56-58. The default trio's unrefined LU is not
+    # reproducible to those bounds on these systems (the sparse system's
+    # condition number is ~1e18: tables that agree to ~1e-17 give solutions
+    # ~1e-6 of their maximum apart): its two runs are reported beside their
+    # distances from the refined solve
+    dmax, lu_k_rms, lu_srel = dist(k, kp)
+    xdmax, _, srel = dist(kx, cy)
+    _, crms, csrel = dist(c, cy)
+    _, lu_rms, lu_exact_srel = dist(kp, cy)
+    _, lu_k_yard_rms, lu_k_yard_srel = dist(k, cy)
+    assert xdmax <= dbound, \
+        f"{name} fft/fft/exact: max|diff - diff_plain| {xdmax:.3e} > 1e-8 max|J|"
+    assert srel <= 1e-6, \
+        f"{name} fft/fft/exact: solution {srel:.3e} of max from the plain twins' > 1e-6"
+    assert crms < 1e-6, f"{name} contract: RMS(diff - diff_f64) {crms:.3e} >= 1e-6"
+    assert csrel <= 1e-6, f"{name} contract: solution {csrel:.3e} of max from f64 > 1e-6"
+    # the difference at the pair's noise level (robust: the transient and
+    # the residuals of saturated stars are outliers)
+    n0, n1 = k["diff"].shape
+    centre = (slice(n0 // 4, 3 * n0 // 4), slice(n1 // 4, 3 * n1 // 4))
+    for t, r in runs.items():
+        rrms = robust_rms(r["diff"][centre])
+        assert abs(rrms / noise - 1) < 0.1, \
+            f"{name} {t}: central robust RMS {rrms:.4f}, the pair's noise {noise:.4f}"
+    rrms = robust_rms(k["diff"][centre])
+    prms = float(np.sqrt(np.nanmean(k["diff"][centre] ** 2)))
+    if transient is not None:
+        tx, ty = (int(round(v)) for v in transient)
+        peak_t = float(np.nanmax(np.abs(k["diff"][tx - 5:tx + 6, ty - 5:ty + 6])))
+        assert peak_t > 20 * rrms, f"{name}: the transient {peak_t:.1f} is lost"
+    log(f"phase 10 {label}: fft/fft/exact with the kernels vs the plain twins max|d| = "
+        f"{xdmax:.3e} (bound 1e-8 max|J| = {dbound:.3e}), solution {srel:.3e} of max (bound "
+        f"1e-6); contract vs fft/fft/exact RMS(diff) = {crms:.3e} (bound 1e-6), solution "
+        f"{csrel:.3e} of max (bound 1e-6); default (lu) with the kernels vs the plain twins "
+        f"max|d| = {dmax:.3e}, RMS {lu_k_rms:.3e}, solutions {lu_srel:.3e} of max apart (their "
+        f"tables {tables['lhs_rel']:.1e} (matrix) and {tables['rhs_rel']:.1e} (vector) of max "
+        f"apart, the matrix's condition number {tables['cond']:.2e}); from "
+        f"the refined solve: the LU with the kernels RMS(diff) {lu_k_yard_rms:.3e}, solution "
+        f"{lu_k_yard_srel:.3e}, on the twins {lu_rms:.3e}, {lu_exact_srel:.3e}; the same "
+        f"decisions in all five runs and the same NaN masks but for "
+        f"ties at the contamination threshold {ties}; every difference FITS reads back "
+        f"equal; central RMS {prms:.4f}, robust {rrms:.4f} (the pair's noise {noise:.4f})"
+        + ("" if transient is None else f"; transient peak {peak_t:.1f}")
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    # K1 and K2 of a steady default run, and K4 / K6 / K7 of two contract
+    # runs, held to their twins on the path's own operands
+    on_path = kernels_on_path(lambda: subtract(prep, False), f"{name} default", 10)
+    assert {r[:2] for r in on_path} == {"K1", "K2"}, \
+        f"{name} default: K1 or K2 was not called: {sorted(on_path)}"
+    pc = trio_prep(EASY_TRIOS[2][1])
+    slicers = slicers_on_path(lambda: subtract(pc, False), 10, f"{name} contract")
+    prof = {}
+    for tlabel, p in (("default", prep), ("contract", pc)):
+        _, wall, busy, nk, idle = profile_step(lambda: subtract(p, False))
+        prof[tlabel] = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle)
+        log(f"phase 10 {label} {tlabel}: one profiled subtract (steady): wall "
+            f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in {nk} kernels and copies, "
+            f"idle share {idle:.3f}")
+    return dict(label=label, prep_s=prep_s, prep_spans=spans, make_s=make_s,
+                KerHW=prep["KerHW"], NEQ=cfg.NEQ, ConvdSide=prep["ConvdSide"], peak_bytes=peak,
+                subtract_s={t: r["s"] for t, r in runs.items()},
+                launches={t: r["counts"] for t, r in runs.items()},
+                decisions=dict(k["decisions"], nan=int(nan_k.sum())),
+                contamination_ties=ties, contamination_spreads=spreads,
+                kernels_vs_plain=dict(exact_max_abs=xdmax, exact_sol_rel=srel, lu_max_abs=dmax,
+                                      lu_rms=lu_k_rms, lu_sol_rel=lu_srel),
+                contract_vs_f64=dict(rms=crms, sol_rel=csrel), default_tables=tables,
+                lu_vs_refined=dict(kernels_rms=lu_k_yard_rms, kernels_sol_rel=lu_k_yard_srel,
+                                   plain_rms=lu_rms, plain_sol_rel=lu_exact_srel),
+                central_rms=prms, robust_rms=rrms, noise=noise, profile=prof,
+                on_path=on_path, slicers=slicers)
+
+
+def golden_contract():
+    """The contract trio on the golden sparse pair of tests/data (360 x
+    340, KerHWLimit (2, 6): KerHW 6, a masked system with 3.6% of its
+    pixels active) at pexact_prof (8, 7, 6) and (10, 9, 8) with the kernels,
+    against fft / fft / exact on the plain twins. (8, 7, 6) is reported (it
+    misses the contract bound on this pair); (10, 9, 8) must meet it.
+    Returns {prof: (RMS, solution rel)}."""
+    from sfft_tpu_torch import EasySparsePacket, make_config
+
+    paths = [os.path.join(HERE, "tests", "data", f"golden_sparse_{s}.fits")
+             for s in ("ref", "sci")]
+    kw = dict(KerHWLimit=(2, 6), PostAnomalyCheck=True)
+    prep = EasySparsePacket.ESP_Prep(*paths, VERBOSE_LEVEL=0, **kw)
+    cfg = prep["cfg"]
+
+    def run(plain, **backends):
+        p = dict(prep, cfg=make_config(cfg.N0, cfg.N1, prep["KerHW"], **backends))
+        diff, _, sol = EasySparsePacket.ESP_Subtract(p, *paths, VERBOSE_LEVEL=0, plain=plain,
+                                                     **kw)[:3]
+        return diff, sol
+
+    yd, ys = run(True, solver="exact")
+    out = {}
+    for prof in ((8, 7, 6), (10, 9, 8)):
+        d, sol = run(False, greek_backend="pexact", fdiff_backend="pexact", solver="exact",
+                     pexact_prof=prof)
+        out[prof] = (float(np.sqrt(np.mean((d - yd) ** 2))),
+                     float(np.abs(sol - ys).max() / np.abs(ys).max()))
+    log(f"phase 10 golden sparse pair {cfg.N0} x {cfg.N1} KerHW {prep['KerHW']}: contract trio "
+        f"vs fft/fft/exact on the twins: " + "; ".join(
+            f"pexact_prof {prof}: RMS(diff) {r:.3e}, solution {q:.3e} of max"
+            for prof, (r, q) in out.items()) + " (bound 1e-6; (8, 7, 6) reported)")
+    r, q = out[(10, 9, 8)]
+    assert r < 1e-6 and q <= 1e-6, f"golden sparse pair, pexact (10, 9, 8): {r:.3e}, {q:.3e}"
+    return out
+
+
+def phase_easy():
+    """Phase 10: EasySparsePacket.ESP on a DECam-size pair and
+    EasyCrowdedPacket.ECP on a TESS-size pair (FITS in a temporary
+    directory), each through easy_packet, then the contract trio on the
+    golden sparse pair (golden_contract). Returns {packet: report}."""
+    import tempfile
+
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in ("sparse", "crowded"):
+            out[name] = easy_packet(name, d)
+            torch.cuda.empty_cache()
+    out["golden_contract"] = {str(k): v for k, v in golden_contract().items()}
+    return out
+
+
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
-         "--fidelity | "
+         "--fidelity | --easy | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -3193,6 +3731,11 @@ def main():
         return 0
     if sys.argv[1:] == ["--fidelity"]:
         phase_fidelity(*(torch.as_tensor(a, device="cuda") for a in make_pair(N)))
+        log(smi)
+        print(ok_line, flush=True)
+        return 0
+    if sys.argv[1:] == ["--easy"]:
+        phase_easy()
         log(smi)
         print(ok_line, flush=True)
         return 0
@@ -3262,6 +3805,9 @@ def main():
     pw = fast["v2-fast-peeled"]
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     post = phase_post(pw["sol"], pw["diff"], pw["cfg"])
+    torch.cuda.empty_cache()
+    easy = phase_easy()
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
@@ -3283,15 +3829,20 @@ def main():
         ("pair_poly_add64", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:488"),
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
-        # the two v2 fast modes); times: K3, K1 and K2 alone at the fast
-        # slice's shapes, K4 summed over a steady contract step's launches,
-        # K5 over a steady v2 step's, K7 and K6 over both
+        # the two v2 fast modes, and the automatic packets' runs with the
+        # kernels); times: K3, K1 and K2 alone at the fast slice's
+        # shapes, K4 summed over a steady contract step's launches, K5 over
+        # a steady v2 step's, K7 and K6 over both
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=(launches.get(name, 0) + c_launches.get(name, 0)
                                       + v2["launches"].get(name, 0)
                                       + fast["v2-fast-fft32"]["launches"].get(name, 0)
-                                      + fast["v2-fast-peeled"]["launches"].get(name, 0)),
+                                      + fast["v2-fast-peeled"]["launches"].get(name, 0)
+                                      + sum(easy[p]["launches"][t].get(name, 0)
+                                            for p in ("sparse", "crowded")
+                                            for t in ("default", "contract",
+                                                      "fft/fft/exact"))),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -3331,6 +3882,8 @@ def main():
                                  for k in ("omg", "the", "omg_general", "c128_omg")},
                     "k3_eager_ms": {k: report["moments"][k]
                                     for k in ("eager_ms", "library_eager_ms")},
+                    "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}
+                                 if p != "golden_contract" else e) for p, e in easy.items()},
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -17,7 +17,10 @@ bases) and 'pexact' greek backends, the 'fft', 'fft32', 'exact' and 'pexact'
 difference backends, the 'lu', 'cho', 'refined', 'exact' (with its
 large-system route) and 'transformed' solvers, Tikhonov regularization,
 polynomial and B-spline bases in the ENTANGLED / SEPARATE scaling modes, the
-customized packets and the B-spline packet with its solution FITS, and the
+customized packets and the B-spline packet with its solution FITS, the
+automatic packets EasySparsePacket.ESP and EasyCrowdedPacket.ECP with their
+host preprocessing (prep/, utils/, and native/, a C++ host extension built
+with g++ at first use) and RICE_1 tile-compressed FITS, and the
 post-processing (matching-kernel realization, decorrelation kernels, grid
 convolution). Numpy input runs on the CUDA card unless the caller
 passes device="cpu".
@@ -31,6 +34,8 @@ from sfft_tpu_torch.core.engine import (
     general_subtract,
 )
 from sfft_tpu_torch.api.customized import CustomizedPacket, PureTorchCustomizedPacket
+from sfft_tpu_torch.api.easy_crowded import EasyCrowdedPacket
+from sfft_tpu_torch.api.easy_sparse import EasySparsePacket
 from sfft_tpu_torch.api.bspline import (
     BSplineMatchingKernel,
     BSplinePacket,
@@ -52,6 +57,8 @@ __all__ = [
     "general_subtract",
     "CustomizedPacket",
     "PureTorchCustomizedPacket",
+    "EasySparsePacket",
+    "EasyCrowdedPacket",
     "BSplinePacket",
     "BSplineMatchingKernel",
     "make_bspline_config",

@@ -194,6 +194,8 @@ def _decompress_tiled_image(hdr: "Header", table: bytes, heap: bytes) -> np.ndar
     Supports RICE_1 (BYTEPIX 4) and GZIP_1 codecs, NO_DITHER /
     SUBTRACTIVE_DITHER_1 quantization (CFITSIO conventions).
     """
+    from sfft_tpu_torch import native
+
     zbitpix = int(hdr["ZBITPIX"])
     znaxis = int(hdr["ZNAXIS"])
     zdims = [int(hdr[f"ZNAXIS{k}"]) for k in range(1, znaxis + 1)]  # (x, y)
@@ -268,9 +270,7 @@ def _decompress_tiled_image(hdr: "Header", table: bytes, heap: bytes) -> np.ndar
         npix = sx * sy
         if cmptype == "RICE_1":
             assert bytepix == 4, "only BYTEPIX=4 RICE implemented"
-            raise NotImplementedError(
-                "RICE_1 tiles need the native decoder, which sfft_tpu_torch "
-                "does not carry yet (ROADMAP queue 1, easy pipelines)")
+            ints = native.rice_decode(stream, npix, blocksize)
         elif cmptype.startswith("GZIP"):
             import zlib
 

@@ -353,7 +353,16 @@ def test_import_leaves_jax_out():
             "sfft_tpu_torch.core.regularize, sfft_tpu_torch.api.bspline, "
             "sfft_tpu_torch.core.peel_pw, sfft_tpu_torch.core.fdiff, "
             "sfft_tpu_torch.post.solution, sfft_tpu_torch.post.fftkits, "
-            "sfft_tpu_torch.post.decorrelation, sfft_tpu_torch.post.grid_convolve; "
+            "sfft_tpu_torch.post.decorrelation, sfft_tpu_torch.post.grid_convolve, "
+            "sfft_tpu_torch.io.fits, sfft_tpu_torch.native, sfft_tpu_torch.utils.table, "
+            "sfft_tpu_torch.utils.quantile, sfft_tpu_torch.utils.match, "
+            "sfft_tpu_torch.utils.hough, sfft_tpu_torch.utils.canny, "
+            "sfft_tpu_torch.prep.background, sfft_tpu_torch.prep.extract, "
+            "sfft_tpu_torch.prep.sex, sfft_tpu_torch.prep.morph_classifier, "
+            "sfft_tpu_torch.prep.sparse_prep, sfft_tpu_torch.prep.crowded_prep, "
+            "sfft_tpu_torch.prep.sky_subtract, sfft_tpu_torch.api.easy_sparse, "
+            "sfft_tpu_torch.api.easy_crowded; "
+            "assert sfft_tpu_torch.native.available(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'sfft_tpu' or m.startswith('sfft_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -364,7 +373,7 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["PCP", "ESS", "GSS", "CP", "BSP"])
+@pytest.mark.parametrize("entry", ["PCP", "ESS", "GSS", "CP", "BSP", "ESP", "ECP"])
 def test_numpy_input_without_device_never_runs_on_cpu(entry, tmp_path, monkeypatch):
     """Numpy input with no device goes to the CUDA card: on a machine
     without one the entry points raise instead of falling back to the CPU."""
@@ -378,6 +387,14 @@ def test_numpy_input_without_device_never_runs_on_cpu(entry, tmp_path, monkeypat
             tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True)
         elif entry == "GSS":
             tengine.GeneralSFFT.GSS(I, J, I.copy(), J.copy(), tc)
+        elif entry == "ESP":
+            sfft_tpu_torch.EasySparsePacket.ESP(
+                *(os.path.join(DATA, f"golden_sparse_{s}.fits") for s in ("ref", "sci")),
+                KerHWLimit=(2, 6), VERBOSE_LEVEL=0)
+        elif entry == "ECP":
+            sfft_tpu_torch.EasyCrowdedPacket.ECP(
+                *(os.path.join(DATA, f"golden_crowded_{s}.fits") for s in ("ref", "sci")),
+                ForceConv="REF", GKerHW=3, MaskSatContam=True, VERBOSE_LEVEL=0)
         else:
             from sfft_tpu_torch.io import fits
 
