@@ -79,6 +79,26 @@ profiled. Last, the contract trio on the golden sparse pair of tests/data
 at pexact_prof (8, 7, 6) (reported: it misses the contract bound on that
 masked system) and (10, 9, 8) (held to the bound).
 
+Then phase 11, the survey entry points (sfft_tpu_torch.parallel, serve):
+MultiEasySparsePacket.MESP on four DECam tasks (phase 10's pair, two more
+seeds of its generator, and a pair whose SCI FITS has another shape) with
+two prep threads and one subtract worker: statuses {2, 2, 2, -1}, task 0
+bit for bit phase 10's single ESP call (decisions, solution, difference
+FITS), every difference at its noise, K1 and K2 launched; each task's prep
+and subtraction seconds, the subtractions again with no prep thread
+running, and the overlap share 1 - wall / (sum prep + sum subtract); the
+upload time of one pair's four planes from pinned memory; batched_subtract
+on the OK tasks from the prep products MESP left, each pair bit for bit its
+MESP result; an EngineServer on the card in a thread of this process,
+driven by a client process that never initialises CUDA (warm, the 4096^2
+pair in fast mode bit for bit phase 4's step, task 0's planes under the
+contract trio bit for bit phase 10's contract run with K3, K4, K6 and K7
+launched, apply-only, a float32 difference, mismatched masks refused while
+ping answers), then a fresh daemon spawned by ensure_server, whose time to
+first difference is printed beside the warm server's; and the solvers
+'host' and 'blocked_cho' on the 4096^2 pair's f64 fft / fft tables, within
+1e-6 of the refined 'exact' solve.
+
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
 step run once more with K7 alone on its twin and once with K6 alone on its
@@ -151,6 +171,15 @@ commits in one call.
 
 builds the kernels and runs phase 10 (the automatic pipelines) alone.
 
+    python3 chip_smoke.py --survey
+
+builds the kernels and runs phase 11 alone (its references, phase 10's
+single ESP calls and phase 4's fast step, are run first), with the heavier
+parts: MESP(MESH_BATCH=True) on the same queue, each task bit for bit its
+per-task result, and MultiEasyCrowdedPacket.MECP on two TESS pairs (two
+seeds of phase 10's crowded generator, MaskSatContam), whose statuses,
+decisions and results must equal single ECP calls.
+
     python3 chip_smoke.py --stages OUT_DIR
 
 times the slicing stages of one steady contract step and one steady v2 step
@@ -168,6 +197,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2460,7 +2490,7 @@ def phase_slice(I, J):
         fdiff.fdiff_model = real
     on_path = kernels_on_path(
         lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg), "fast", 4)
-    return diff, diff_k2twin, launches, step_s, plain_s, on_path
+    return sol, diff, diff_k2twin, launches, step_s, plain_s, on_path
 
 
 def phase_f64(I, J, diff_fast, diff_k2twin):
@@ -3249,14 +3279,14 @@ def render_gaussians(shape, xs, ys, fluxes, vx, vy, hw):
     return img
 
 
-def sparse_fields():
-    """A DECam-like sparse pair at EASY_SPARSE (axis 0 = x): 2,500 point
-    sources (fluxes 10^2.8-10^4.8) and 8 galaxies, FWHM 3.2 px in REF and
-    4.1 px in SCI, flux ratio 1.18, a background offset of 0.6 in SCI (the
-    sparse prep takes the images as sky-subtracted: BACK_VALUE 0), unit
-    noise, and one transient in SCI. Returns (ref, sci, transient (x, y),
-    the difference's expected noise RMS)."""
-    rng = np.random.default_rng(10)
+def sparse_fields(seed=10):
+    """A DECam-like sparse pair at EASY_SPARSE (axis 0 = x) from `seed`:
+    2,500 point sources (fluxes 10^2.8-10^4.8) and 8 galaxies, FWHM 3.2 px
+    in REF and 4.1 px in SCI, flux ratio 1.18, a background offset of 0.6 in
+    SCI (the sparse prep takes the images as sky-subtracted: BACK_VALUE 0),
+    unit noise, and one transient in SCI. Returns (ref, sci, transient (x,
+    y), the difference's expected noise RMS)."""
+    rng = np.random.default_rng(seed)
     shape, n, ng = EASY_SPARSE, 2500, 8
     xs, ys = rng.uniform(20, shape[0] - 20, n), rng.uniform(20, shape[1] - 20, n)
     fl = 10 ** rng.uniform(2.8, 4.8, n)
@@ -3279,13 +3309,14 @@ def sparse_fields():
     return ref, sci, t, noise
 
 
-def crowded_fields():
-    """A TESS-like crowded pair at EASY_CROWDED: 20,000 stars at FWHM 3.0
-    px (fluxes 10^2.8-10^4.8, 200 of them 10^5-10^5.8) on a background of
-    600 with noise 2.5, clipped at SATURATE = 28000; SCI = 1.12 (REF - 600)
-    + 640 + noise, clipped (tools/make_golden_fixtures.py:60-68). Returns
-    (ref, sci, the difference's expected noise RMS)."""
-    rng = np.random.default_rng(11)
+def crowded_fields(seed=11):
+    """A TESS-like crowded pair at EASY_CROWDED from `seed`: 20,000 stars at
+    FWHM 3.0 px (fluxes 10^2.8-10^4.8, 200 of them 10^5-10^5.8) on a
+    background of 600 with noise 2.5, clipped at SATURATE = 28000; SCI =
+    1.12 (REF - 600) + 640 + noise, clipped
+    (tools/make_golden_fixtures.py:60-68). Returns (ref, sci, the
+    difference's expected noise RMS)."""
+    rng = np.random.default_rng(seed)
     shape, n = EASY_CROWDED, 20000
     xs, ys = rng.uniform(20, shape[0] - 20, n), rng.uniform(20, shape[1] - 20, n)
     fl = 10 ** np.concatenate([rng.uniform(2.8, 4.8, n - 200), rng.uniform(5.0, 5.8, 200)])
@@ -3621,7 +3652,10 @@ def easy_packet(name, d):
         log(f"phase 10 {label} {tlabel}: one profiled subtract (steady): wall "
             f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms in {nk} kernels and copies, "
             f"idle share {idle:.3f}")
-    return dict(label=label, prep_s=prep_s, prep_spans=spans, make_s=make_s,
+    # phase 11 holds the survey entry points to these single calls
+    single = dict(paths=paths, noise=noise, prep_s=prep_s,
+                  default=dict(k, fits=os.path.join(d, f"{name}_default.fits")), contract=c)
+    return dict(label=label, prep_s=prep_s, prep_spans=spans, make_s=make_s, single=single,
                 KerHW=prep["KerHW"], NEQ=cfg.NEQ, ConvdSide=prep["ConvdSide"], peak_bytes=peak,
                 subtract_s={t: r["s"] for t, r in runs.items()},
                 launches={t: r["counts"] for t, r in runs.items()},
@@ -3673,26 +3707,650 @@ def golden_contract():
     return out
 
 
-def phase_easy():
+def phase_easy(d):
     """Phase 10: EasySparsePacket.ESP on a DECam-size pair and
-    EasyCrowdedPacket.ECP on a TESS-size pair (FITS in a temporary
-    directory), each through easy_packet, then the contract trio on the
-    golden sparse pair (golden_contract). Returns {packet: report}."""
-    import tempfile
-
+    EasyCrowdedPacket.ECP on a TESS-size pair (FITS in the directory d),
+    each through easy_packet, then the contract trio on the golden sparse
+    pair (golden_contract). Returns {packet: report}."""
     import torch
 
     out = {}
-    with tempfile.TemporaryDirectory() as d:
-        for name in ("sparse", "crowded"):
-            out[name] = easy_packet(name, d)
-            torch.cuda.empty_cache()
+    for name in ("sparse", "crowded"):
+        out[name] = easy_packet(name, d)
+        torch.cuda.empty_cache()
     out["golden_contract"] = {str(k): v for k, v in golden_contract().items()}
     return out
 
 
+# --- phase 11: the survey entry points (MESP / MECP, batched dispatch, the server, solvers) ---
+
+# tasks 1 and 2 of the MESP queue (task 0 is phase 10's pair, seed 10), and
+# the two TESS pairs of MECP (--survey)
+SURVEY_SEEDS = (12, 13)
+TESS_SEEDS = (11, 14)
+PLANES = ("PixA_I", "PixA_J", "PixA_mI", "PixA_mJ")
+FAST_CFG = dict(greek_backend="peeled", fdiff_backend="fft32", solver="refined")
+CONTRACT_CFG = dict(greek_backend="pexact", fdiff_backend="pexact", solver="exact")
+
+# the client of phase 11's server: a process of its own, which must never
+# initialise CUDA (argv: repo, socket, directory of the inputs)
+SURVEY_CLIENT = r'''
+import json, pickle, sys, time
+import numpy as np
+import torch
+
+
+def _no_cuda(*args, **kwargs):
+    raise AssertionError("the client initialised CUDA")
+
+
+torch.cuda._lazy_init = _no_cuda
+sys.path.insert(0, sys.argv[1])
+from sfft_tpu_torch.serve import EngineClient, EngineServerError
+
+sock, d = sys.argv[2], sys.argv[3]
+with open(f"{d}/configs.pkl", "rb") as f:
+    cfgs = pickle.load(f)
+load = lambda name: np.load(f"{d}/{name}.npy")
+out, times = {}, {}
+with EngineClient(sock) as c:
+    t0 = time.perf_counter()
+    while not c.ping()["warm"]:
+        time.sleep(0.05)
+    times["boot_wait_s"] = time.perf_counter() - t0
+    times["warm_s"] = c.warm(cfgs["fast"])
+    I, J = load("bench_I"), load("bench_J")
+    t0 = time.perf_counter()
+    out["fast_sol"], out["fast_diff"], _ = c.subtract(I, J, cfgs["fast"])
+    times["fast_s"] = time.perf_counter() - t0
+    out["fast_diff32"] = c.subtract(I, J, cfgs["fast"], diff_dtype="float32")[1]
+    P = [load(f"task0_{k}") for k in ("I", "J", "mI", "mJ")]
+    t0 = time.perf_counter()
+    out["contract_sol"], out["contract_diff"], _ = c.subtract(P[0], P[1], cfgs["contract"],
+                                                              mI=P[2], mJ=P[3])
+    times["contract_s"] = time.perf_counter() - t0
+    out["apply_diff"] = c.subtract(P[0], P[1], cfgs["contract"],
+                                   solution=out["contract_sol"])[1]
+    try:
+        c.subtract(P[0], P[1], cfgs["contract"], mI=P[2])
+        raise SystemExit("mismatched masks were accepted")
+    except EngineServerError as e:
+        assert "both mI and mJ" in str(e), e
+    pong = c.ping()
+    assert pong["ok"] and pong["warm"], pong
+np.savez(f"{d}/client_out.npz", **out)
+assert not torch.cuda.is_initialized(), "the client initialised CUDA"
+print(json.dumps(dict(times, ping=pong, cuda_initialized=torch.cuda.is_initialized())))
+'''
+
+
+def packet_view(prep, diff):
+    """A GSS difference as ESP_Subtract returns it (no MaskSatContam):
+    negated when SCI was convolved, NaN on the union NaN mask."""
+    if prep["ConvdSide"] == "SCI":
+        diff = -diff
+    if prep["NaNmask_U"] is not None:
+        diff = np.where(prep["NaNmask_U"], np.nan, diff)
+    return diff
+
+
+def host_plane(x):
+    """A plane as numpy in its own layout (a device tensor comes back with
+    its strides)."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+@contextlib.contextmanager
+def stage_spans(packet, names):
+    """Wall intervals of the packet's stages while the block runs, by the
+    FITS_SCI keyword: {stage: {sci: (t0, t1)}}. The stages are replaced on
+    the class, where MultiEasy* looks them up at call time."""
+    spans = {n: {} for n in names}
+    real = {n: packet.__dict__[n] for n in names}
+
+    def timed(n, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[n][kwargs.get("FITS_SCI")] = (t0, time.perf_counter())
+        return staticmethod(wrapper)
+
+    for n in names:
+        setattr(packet, n, timed(n, real[n].__func__))
+    try:
+        yield spans
+    finally:
+        for n in names:
+            setattr(packet, n, real[n])
+
+
+def busy_within(span, others):
+    """Seconds of `span` during which at least one of `others` ran."""
+    a, b = span
+    cuts = sorted((max(a, s), min(b, e)) for s, e in others if min(b, e) > max(a, s))
+    total, end = 0.0, a
+    for s, e in cuts:
+        s = max(s, end)
+        if e > s:
+            total, end = total + e - s, e
+    return total
+
+
+def esp_single(d, paths, dev):
+    """Phase 10's single ESP calls of the sparse pair (default trio and the
+    contract trio, with the kernels), for phase 11 run alone."""
+    from sfft_tpu_torch import EasySparsePacket, make_config
+
+    t0 = time.perf_counter()
+    prep = EasySparsePacket.ESP_Prep(*paths, VERBOSE_LEVEL=0, PostAnomalyCheck=True)
+    prep_s = time.perf_counter() - t0
+    cfg = prep["cfg"]
+    pc = dict(prep, cfg=make_config(cfg.N0, cfg.N1, prep["KerHW"], **CONTRACT_CFG))
+    out = {}
+    for label, p in (("default", prep), ("contract", pc)):
+        f = os.path.join(d, f"sparse_{label}.fits")
+        res = EasySparsePacket.ESP_Subtract(p, *paths, FITS_DIFF=f, VERBOSE_LEVEL=0,
+                                            PostAnomalyCheck=True, device=dev)
+        out[label] = dict(diff=res[0], sol=res[2], cfg=p["cfg"], fits=f,
+                          decisions=esp_decisions(res, f))
+    return dict(out, paths=paths, prep_s=prep_s)
+
+
+def esp_decisions(result, fits_path):
+    """An ESP call's decisions as phase 10 records them (the difference
+    FITS header's CONVD and KERHW, sub-sources, active pixels, Post-Anomaly
+    sub-sources)."""
+    from sfft_tpu_torch.io import fits
+
+    hdr = fits.read(fits_path)[1]
+    pd = result[1]
+    SS = pd["SExCatalog-SubSource"]
+    return dict(ConvdSide=hdr["CONVD"], KerHW=hdr["KERHW"], subsources=len(SS),
+                active=int(np.sum(pd["Active-Mask"])),
+                post_anomaly=int(np.sum(SS["MASK_PostAnomaly"])))
+
+
+def survey_pairs(d, single):
+    """The MESP queue: phase 10's pair, two more seeds of its generator, and
+    a broken pair (phase 10's REF with a SCI of another shape)."""
+    from sfft_tpu_torch.io import fits
+
+    pairs = [single["paths"]]
+    for seed in SURVEY_SEEDS:
+        ref, sci, _, _ = sparse_fields(seed)
+        pairs.append(write_easy_pair(d, f"survey{seed}", ref, sci, {"GAIN": 1.0, "ESATUR": 1e9}))
+    hdr = fits.Header()
+    hdr.add("GAIN", 1.0)
+    broken = os.path.join(d, "survey_broken_sci.fits")
+    fits.write(broken, sci.T[:sci.shape[1] // 4, :sci.shape[0] // 4].astype(np.float32), hdr)
+    return pairs + [(pairs[0][0], broken)]
+
+
+def survey_mesp(d, single, dev, noise, pairs, threads=2):
+    """MESP on the four DECam tasks of `pairs` with `threads` prep threads
+    and one subtract worker: statuses, task 0 bit for bit against phase 10's
+    single call, every difference at its noise, K1 / K2 launched; the prep /
+    subtraction timeline, and the subtractions again with no prep thread
+    running."""
+    import filecmp
+
+    import torch
+    from sfft_tpu_torch import EasySparsePacket, MultiEasySparsePacket
+
+    diffs = [os.path.join(d, f"mesp{threads}_{t}.fits") for t in range(4)]
+    mesp = MultiEasySparsePacket([p[0] for p in pairs], [p[1] for p in pairs],
+                                 FITS_DIFF_Queue=diffs, PostAnomalyCheck=True,
+                                 **({} if dev.type == "cuda" else {"device": dev}))
+    zero_kernel_counts()
+    with stage_spans(EasySparsePacket, ("ESP_Prep", "ESP_Subtract")) as spans:
+        t0 = time.perf_counter()
+        status, products = mesp.MESP(NUM_THREADS_4PREPROC=threads, NUM_THREADS_4SUBTRACT=1,
+                                     VERBOSE_LEVEL=0)
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    assert status == {0: 2, 1: 2, 2: 2, 3: -1}, f"MESP statuses {status}"
+    if dev.type == "cuda":
+        assert counts["corr_window"] > 0 and counts["fdiff_model"] > 0, \
+            f"MESP: K1 or K2 never launched: {counts}"
+    # task 0: phase 10's single call, bit for bit
+    res0 = products[0]["result"]
+    ref0 = single["default"]
+    assert np.array_equal(res0[2], ref0["sol"]), "MESP task 0: solution differs from phase 10's"
+    assert np.array_equal(res0[0], ref0["diff"], equal_nan=True), \
+        "MESP task 0: difference differs from phase 10's"
+    assert filecmp.cmp(diffs[0], ref0["fits"], shallow=False), \
+        "MESP task 0: difference FITS differs from phase 10's"
+    dec0 = esp_decisions(res0, diffs[0])
+    assert dec0 == ref0["decisions"], f"MESP task 0 decisions {dec0} vs {ref0['decisions']}"
+    rrms = []
+    for t in range(3):
+        diff = products[t]["result"][0]
+        n0, n1 = diff.shape
+        rrms.append(float(robust_rms(diff[n0 // 4:3 * n0 // 4, n1 // 4:3 * n1 // 4])))
+        assert abs(rrms[-1] / noise - 1) < 0.1, f"MESP task {t}: robust RMS {rrms[-1]:.4f}"
+    prep_spans = [spans["ESP_Prep"][p[1]] for p in pairs]
+    sub_spans = [spans["ESP_Subtract"][p[1]] for p in pairs[:3]]
+    prep_s = [b - a for a, b in prep_spans]
+    sub_s = [b - a for a, b in sub_spans]
+    with_prep = [busy_within(s, prep_spans) / (s[1] - s[0]) for s in sub_spans]
+    overlap = 1 - wall / (sum(prep_s) + sum(sub_s))
+    # the same subtractions again with no prep thread running
+    alone = []
+    for t in range(3):
+        prep = products[t]["prep"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        EasySparsePacket.ESP_Subtract(prep, *pairs[t], FITS_DIFF=os.path.join(d, "alone.fits"),
+                                      VERBOSE_LEVEL=0, PostAnomalyCheck=True, device=dev)
+        alone.append(time.perf_counter() - t0)
+    log(f"phase 11 MESP: 4 DECam tasks ({EASY_SPARSE[0]} x {EASY_SPARSE[1]}), {threads} prep "
+        f"thread(s), 1 subtract worker, default trio: statuses {status}; run {wall:.2f} s; prep "
+        f"s {[round(v, 2) for v in prep_s]} (the broken pair's last; task 0's prep alone "
+        f"{single['prep_s']:.2f} s); subtract s {[round(v, 3) for v in sub_s]}, with a prep thread "
+        f"running for {[round(v, 2) for v in with_prep]} of each; the same subtractions alone "
+        f"{[round(v, 3) for v in alone]} s; overlap share 1 - wall / (sum prep + sum subtract) "
+        f"= {overlap:.3f}; prefetched (uploaded during an earlier task's subtraction): tasks "
+        f"{[t for t in range(3) if products[t].get('prefetched')]}; task 0 bit for bit phase "
+        f"10's single ESP call (solution, difference, "
+        f"difference FITS, decisions {dec0}); robust central RMS {[round(v, 4) for v in rrms]} "
+        f"(noise {noise:.4f}); launches {counts}")
+    return dict(status=status, products=products, counts=counts, report=dict(
+        threads=threads, wall_s=wall, prep_alone_s=single["prep_s"], prep_s=prep_s,
+        subtract_s=sub_s, with_prep_share=with_prep, subtract_alone_s=alone,
+        overlap_share=overlap, prefetched=[t for t in range(3) if products[t].get("prefetched")],
+        robust_rms=rrms, decisions=dec0))
+
+
+def survey_prefetch(mesp, pairs, dev):
+    """The scheduler's per-task path with every prep done before the
+    subtract worker starts (run_prep_only, as in tests/test_parallel.py's
+    prefetch test), so that it uploads tasks 1 and 2 on its side stream
+    during the subtractions before them (_prefetch_pair_planes, then
+    await_prefetch when each starts): every plane on the card with the
+    strides it has on the host, and each result bit for bit its MESP
+    result."""
+    from sfft_tpu_torch import EasySparsePacket
+    from sfft_tpu_torch.parallel.scheduler import (MultiTaskScheduler, _prefetch_pair_planes,
+                                                   await_prefetch, worker_device)
+
+    products = mesp["products"]
+    preps = {}
+    for t in range(3):
+        prep = {k: v for k, v in products[t]["prep"].items() if k != "h2d_event"}
+        preps[t] = dict(prep, **{k: host_plane(prep[k]) for k in PLANES})
+
+    def subtract_fn(t, prep):
+        await_prefetch(prep)
+        return EasySparsePacket.ESP_Subtract(prep, *pairs[t], VERBOSE_LEVEL=0,
+                                             PostAnomalyCheck=True, device=worker_device())
+
+    sched = MultiTaskScheduler(3, lambda t: preps[t], subtract_fn, NUM_THREADS_4PREPROC=1,
+                               VERBOSE_LEVEL=0, prefetch_fn=_prefetch_pair_planes,
+                               devices=[dev])
+    sched.run_prep_only()
+    t0 = time.perf_counter()
+    status, prods = sched.run()
+    sec = time.perf_counter() - t0
+    assert status == {0: 2, 1: 2, 2: 2}, f"prefetch run statuses {status}"
+    fetched = [t for t in range(3) if prods[t].get("prefetched")]
+    assert len(fetched) == 2, f"prefetched {fetched}"
+    for t in range(3):
+        if dev.type == "cuda" and t in fetched:
+            for k in PLANES:
+                x, h = prods[t]["prep"][k], preps[t][k]
+                assert x.device.type == "cuda" and \
+                    x.stride() == tuple(v // h.itemsize for v in h.strides), (t, k)
+        a, b = prods[t]["result"], products[t]["result"]
+        assert np.array_equal(a[2], b[2]) and np.array_equal(a[0], b[0], equal_nan=True), \
+            f"prefetched task {t} differs from its MESP result"
+    log(f"phase 11 prefetch: every prep done first, 3 subtractions in {sec:.2f} s; tasks "
+        f"{fetched} uploaded on the side stream during the subtraction before them, each plane "
+        f"with its host strides; every result bit for bit its MESP result")
+    return dict(s=sec, prefetched=fetched)
+
+
+def pinned_upload_ms(prep, dev):
+    """Device time of one pair's four planes going up from pinned memory
+    (non_blocking copies into tensors of the same strides; median of 5)."""
+    import torch
+
+    host = [torch.as_tensor(host_plane(prep[k])).pin_memory() for k in PLANES]
+    out = [torch.empty_strided(h.shape, h.stride(), dtype=h.dtype, device=dev) for h in host]
+
+    def up():
+        for o, h in zip(out, host):
+            o.copy_(h, non_blocking=True)
+
+    ms = cuda_ms(up, reps=5, inner=1)
+    return ms, sum(h.numel() * h.element_size() for h in host)
+
+
+def survey_batched(mesp, dev):
+    """batched_subtract on MESP's OK tasks of task 0's config, from the prep
+    products MESP left, each pair bit for bit against its MESP result."""
+    import torch
+    from sfft_tpu_torch.parallel.batch import batched_subtract
+
+    products = mesp["products"]
+    cfg = products[0]["prep"]["cfg"]
+    group = [t for t in range(3) if products[t]["prep"]["cfg"] == cfg]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    sols, diffs, rms = batched_subtract(*([products[t]["prep"][k] for t in group] for k in PLANES),
+                                        cfg, devices=[dev])
+    sols, diffs, rms = sols.cpu().numpy(), diffs.cpu().numpy(), rms.cpu().numpy()
+    sec = time.perf_counter() - t0
+    counts = kernel_counts()
+    for i, t in enumerate(group):
+        res = products[t]["result"]
+        assert np.array_equal(sols[i], res[2]), f"batched pair {t}: solution differs from MESP's"
+        assert np.array_equal(packet_view(products[t]["prep"], diffs[i]), res[0], equal_nan=True), \
+            f"batched pair {t}: difference differs from MESP's"
+    if dev.type == "cuda":
+        assert counts["corr_window"] > 0 and counts["fdiff_model"] > 0, counts
+    log(f"phase 11 batched_subtract: {len(group)} pairs of one config on {dev} in {sec:.2f} s "
+        f"(with the copies to the host), RMS {[round(float(v), 4) for v in rms]}; each pair bit "
+        f"for bit its MESP result (solution, difference); launches {counts}")
+    return dict(pairs=len(group), s=sec, counts=counts)
+
+
+def survey_server(d, dev, single, mesp, fast_ref, bench):
+    """An EngineServer on `dev` in a thread of this process (so that the
+    wrappers' counters can be read here), driven by a client subprocess
+    that never initialises CUDA; results bit for bit against the in-process
+    fast step and phase 10's contract run; then ensure_server spawns a fresh
+    daemon, whose time to first difference is taken beside the warm one's."""
+    import pickle
+    import signal
+    import threading
+
+    from sfft_tpu_torch import EngineClient, EngineServer, ensure_server, make_config
+
+    I, J = bench
+    cfg_fast = make_config(I.shape[0], I.shape[1], KERHW, **FAST_CFG)
+    cfg_contract = single["contract"]["cfg"]
+    prep0 = mesp["products"][0]["prep"]
+    with open(os.path.join(d, "configs.pkl"), "wb") as f:
+        pickle.dump({"fast": cfg_fast, "contract": cfg_contract}, f)
+    np.save(os.path.join(d, "bench_I.npy"), I)
+    np.save(os.path.join(d, "bench_J.npy"), J)
+    for k, key in zip(("I", "J", "mI", "mJ"), PLANES):
+        np.save(os.path.join(d, f"task0_{k}.npy"), host_plane(prep0[key]))
+
+    sock = os.path.join(d, "engine.sock")
+    srv = EngineServer(sock, device=dev)
+    per_request = []
+
+    def counted(op, real):
+        def handler(req):
+            before, t0 = kernel_counts(), time.perf_counter()
+            try:
+                return real(req)
+            finally:
+                per_request.append((op, time.perf_counter() - t0, {
+                    k: v - before[k] for k, v in kernel_counts().items()}))
+        return handler
+
+    srv._op_warm = counted("warm", srv._op_warm)
+    srv._op_subtract = counted("subtract", srv._op_subtract)
+    thread = threading.Thread(target=srv.serve_forever, name="survey-server", daemon=True)
+    thread.start()
+    try:
+        client = subprocess.run([sys.executable, "-c", SURVEY_CLIENT, HERE, sock, d],
+                                capture_output=True, text=True, timeout=600)
+        assert client.returncode == 0, f"server client failed:\n{client.stdout}\n{client.stderr}"
+        times = json.loads(client.stdout.strip().splitlines()[-1])
+    finally:
+        EngineClient(sock).shutdown()
+        thread.join(30)
+    assert not thread.is_alive(), "the server thread did not stop"
+    assert times["cuda_initialized"] is False and times["ping"]["platform"] == dev.type
+    out = np.load(os.path.join(d, "client_out.npz"))
+    assert np.array_equal(out["fast_sol"], fast_ref[0]) and \
+        np.array_equal(out["fast_diff"], fast_ref[1]), "server fast step differs from in-process"
+    assert np.array_equal(out["fast_diff32"], fast_ref[1].astype(np.float32))
+    c = single["contract"]
+    assert np.array_equal(out["contract_sol"], c["sol"]), "server contract solution differs"
+    assert np.array_equal(packet_view(prep0, out["contract_diff"]), c["diff"], equal_nan=True), \
+        "server contract difference differs from phase 10's contract run"
+    assert np.array_equal(out["apply_diff"], out["contract_diff"]), "apply-only differs"
+    ops = [(op, {k: v for k, v in n.items() if v}) for op, _, n in per_request]
+    if dev.type == "cuda":
+        fast_n, contract_n = per_request[1][2], per_request[3][2]
+        assert all(fast_n[k] > 0 for k in ("moments", "corr_window", "fdiff_model")), fast_n
+        need = ("moments", "slice_pair", "pair_products", "pair_model", "pair_poly",
+                "sliced_epilogue")
+        assert all(contract_n[k] > 0 for k in need), f"server contract launches {contract_n}"
+    counts = {k: sum(n[k] for _, _, n in per_request) for k in kernel_counts()}
+
+    # a fresh daemon: spawn, first difference, shutdown
+    sock2 = os.path.join(d, "cold.sock")
+    t0 = time.perf_counter()
+    pong = ensure_server(sock2, spawn_timeout=300.0,
+                         device=None if dev.type == "cuda" else "cpu")
+    spawn_s = time.perf_counter() - t0
+    try:
+        with EngineClient(sock2) as cl:
+            sol, diff, _ = cl.subtract(I, J, cfg_fast)
+            ttfd_cold = time.perf_counter() - t0
+            while not (pong := cl.ping())["warm"]:
+                time.sleep(0.05)
+            cl.shutdown()
+    finally:
+        deadline = time.time() + 30
+        while os.path.exists(sock2) and time.time() < deadline:
+            time.sleep(0.1)
+        try:
+            os.kill(pong["pid"], signal.SIGTERM)  # gone already unless shutdown failed
+        except ProcessLookupError:
+            pass
+    # (on the CPU a process of another thread count sums in another order)
+    if dev.type == "cuda":
+        assert np.array_equal(sol, fast_ref[0]) and np.array_equal(diff, fast_ref[1]), \
+            "the fresh daemon's fast step differs"
+    report = dict(client=times, requests=[(op, s) for op, s, _ in per_request],
+                  ttfd_warm_s=times["fast_s"], ttfd_cold_s=ttfd_cold, spawn_s=spawn_s,
+                  cold_attach_s=pong["attach_s"], warm_attach_s=times["ping"]["attach_s"])
+    log(f"phase 11 server on {times['ping']['device']} (a thread of this process; the client a "
+        f"process that never initialised CUDA): attach {times['ping']['attach_s']:.2f} s; warm "
+        f"{I.shape[0]}^2 fast {times['warm_s']:.2f} s; first difference ({I.shape[0]}^2 fast, "
+        f"client wall) "
+        f"{times['fast_s']:.2f} s, bit for bit the in-process step; task 0's planes under the "
+        f"contract trio {times['contract_s']:.2f} s, bit for bit phase 10's contract run; "
+        f"apply-only and diff_dtype float32 equal; mismatched masks raised EngineServerError and "
+        f"ping answered; launches per request {ops}. A fresh daemon (ensure_server): answered "
+        f"ping after {spawn_s:.2f} s, first difference {ttfd_cold:.2f} s after the spawn "
+        f"(attach {pong['attach_s']:.2f} s), bit for bit the warm server's; shut down")
+    return report, counts
+
+
+def survey_solvers(bench, dev):
+    """host and blocked_cho on the 4096^2 pair's f64 fft / fft tables.
+    blocked_cho (a Cholesky factor-and-solve) is held to the refined exact
+    solve within 1e-6 of its maximum. host is sfft_tpu's unrefined LAPACK
+    LU, whose forward error on this system is the grade of an unrefined LU
+    (6.3e-6 of the maximum on an H100), as the card's f64 LU
+    ('lu', the default trio's solver) shows beside it (6.3e-5): it is held
+    to no farther from exact than 'lu', and to the backward error an LU
+    guarantees, ||A x - b|| / (||A|| ||x|| + ||b||) <= 1e-12 (infinity
+    norms)."""
+    import dataclasses
+
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.core import engine
+    from sfft_tpu_torch.core.solve import _tweak_plan, solve_system
+
+    cfg = make_config(bench[0].shape[0], bench[0].shape[1], KERHW)
+    I, J = (torch.as_tensor(a, device=dev) for a in bench)
+    zero_kernel_counts()
+    lhs, rhs = engine._normal_equations_impl(cfg, I, J)
+    counts = kernel_counts()
+    out, ms = {}, {}
+    for solver in ("exact", "lu", "host", "blocked_cho"):
+        c = dataclasses.replace(cfg, solver=solver)
+        solve_system(c, lhs, rhs)  # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[solver] = solve_system(c, lhs, rhs).cpu().numpy()
+        ms[solver] = (time.perf_counter() - t0) * 1e3
+    ref = out["exact"]
+    rel = {s: float(np.abs(out[s] - ref).max() / np.abs(ref).max())
+           for s in ("lu", "host", "blocked_cho")}
+    A, b = lhs.cpu().numpy(), rhs.cpu().numpy()
+    keep = _tweak_plan(cfg)[0]  # the dofs the solve keeps (ConstPhotRatio's stripes go)
+    keep = np.arange(cfg.NEQ) if keep is None else keep
+    Ak, x = A[np.ix_(keep, keep)], out["host"][keep]
+    backward = float(np.abs(Ak @ x - b[keep]).max()
+                     / (np.abs(Ak).sum(axis=1).max() * np.abs(x).max() + np.abs(b[keep]).max()))
+    assert rel["blocked_cho"] <= 1e-6, f"blocked_cho vs exact {rel}"
+    assert rel["host"] <= rel["lu"], f"host farther from exact than lu: {rel}"
+    assert backward <= 1e-12, f"host LU backward error {backward:.3e}"
+    log(f"phase 11 solvers on the {I.shape[0]}^2 pair's f64 fft/fft tables (NEQ {cfg.NEQ}): "
+        f"host {ms['host']:.1f} ms, blocked_cho {ms['blocked_cho']:.1f} ms, exact "
+        f"{ms['exact']:.1f} ms, lu {ms['lu']:.1f} ms (host clock, synchronised); from exact "
+        f"(of its max): {rel} (blocked_cho bound 1e-6; host and lu are unrefined LUs: host "
+        f"bound lu's distance); host backward error {backward:.3e} (bound 1e-12)")
+    return dict(ms=ms, rel=rel, host_backward=backward), counts
+
+
+def survey_mesh_batch(d, mesp, dev, pairs):
+    """--survey: MESP(MESH_BATCH=True) on the same queue, each task bit for
+    bit its per-task MESP result."""
+    from sfft_tpu_torch import MultiEasySparsePacket
+
+    products = mesp["products"]
+    diffs = [os.path.join(d, f"mesh_{t}.fits") for t in range(4)]
+    m = MultiEasySparsePacket([p[0] for p in pairs], [p[1] for p in pairs],
+                              FITS_DIFF_Queue=diffs, PostAnomalyCheck=True,
+                              **({} if dev.type == "cuda" else {"device": dev}))
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    status, prods = m.MESP(NUM_THREADS_4PREPROC=2, MESH_BATCH=True, VERBOSE_LEVEL=0)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    assert status == {0: 2, 1: 2, 2: 2, 3: -1}, f"MESP(MESH_BATCH) statuses {status}"
+    for t in range(3):
+        a, b = prods[t]["result"], products[t]["result"]
+        assert np.array_equal(a[2], b[2]) and np.array_equal(a[0], b[0], equal_nan=True), \
+            f"MESH_BATCH task {t} differs from the per-task path"
+    log(f"phase 11 MESP(MESH_BATCH=True): statuses {status} in {wall:.2f} s, every task bit for "
+        f"bit its per-task result; launches {counts}")
+    return dict(wall_s=wall), counts
+
+
+def survey_mecp(d, dev):
+    """--survey: MECP on two TESS pairs (MaskSatContam), statuses, decisions
+    and results equal to single ECP calls."""
+    from sfft_tpu_torch import EasyCrowdedPacket, MultiEasyCrowdedPacket
+    from sfft_tpu_torch.io import fits
+
+    pairs = []
+    for seed in TESS_SEEDS:
+        ref, sci, noise = crowded_fields(seed)
+        pairs.append(write_easy_pair(d, f"tess{seed}", ref, sci,
+                                     {"GAIN": 1.0, "SATURATE": 28000.0}))
+    del ref, sci
+    kw = dict(MaskSatContam=True, **({} if dev.type == "cuda" else {"device": dev}))
+    diffs = [os.path.join(d, f"mecp_{t}.fits") for t in range(2)]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    status, prods = MultiEasyCrowdedPacket([p[0] for p in pairs], [p[1] for p in pairs],
+                                           FITS_DIFF_Queue=diffs, **kw).MECP(
+        NUM_THREADS_4PREPROC=2, VERBOSE_LEVEL=0)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    assert status == {0: 2, 1: 2}, f"MECP statuses {status}"
+    decisions = []
+    for t, p in enumerate(pairs):
+        single = os.path.join(d, f"ecp_{t}.fits")
+        res = EasyCrowdedPacket.ECP(*p, FITS_DIFF=single, VERBOSE_LEVEL=0, **kw)
+        got = prods[t]["result"]
+        dec = [(h["CONVD"], h["KERHW"], int(np.isnan(x).sum()))
+               for x, h in ((got[0], fits.read(diffs[t])[1]), (res[0], fits.read(single)[1]))]
+        assert dec[0] == dec[1], f"MECP task {t} decisions {dec}"
+        assert np.array_equal(got[2], res[2]) and np.array_equal(got[0], res[0], equal_nan=True), \
+            f"MECP task {t} differs from the single ECP call"
+        decisions.append(dec[0])
+    log(f"phase 11 MECP: 2 TESS tasks ({EASY_CROWDED[0]}^2, MaskSatContam): statuses {status} in "
+        f"{wall:.2f} s; decisions (ConvdSide, KerHW, NaN pixels) {decisions} and results equal "
+        f"to single ECP calls; launches {counts}")
+    return dict(wall_s=wall, decisions=decisions), counts
+
+
+def phase_survey(d, dev, single=None, fast_ref=None, heavy=False):
+    """Phase 11: the survey entry points on `dev` (survey_mesp,
+    pinned_upload_ms, survey_batched, survey_server, survey_solvers; with
+    heavy=True also survey_mesh_batch and survey_mecp). `single` is phase
+    10's sparse single calls and `fast_ref` phase 4's fast step (solution,
+    difference) as numpy; when None (phase 11 alone) they are run here.
+    Returns (report, launches summed over the phase's runs)."""
+    from sfft_tpu_torch import PureTorchCustomizedPacket, make_config
+
+    t_start = time.perf_counter()
+    if single is None:
+        ref, sci, _, noise = sparse_fields()
+        paths = write_easy_pair(d, "sparse", ref, sci, {"GAIN": 1.0, "ESATUR": 1e9})
+        del ref, sci
+        single = dict(esp_single(d, paths, dev), noise=noise)
+    bench = make_pair(N)
+    if fast_ref is None:
+        import torch
+
+        I, J = (torch.as_tensor(a, device=dev) for a in bench)
+        sol, diff = PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW,
+                                                  cfg=make_config(N, N, KERHW, **FAST_CFG))
+        fast_ref = (sol.cpu().numpy(), diff.cpu().numpy())
+        del I, J, sol, diff
+    t0 = time.perf_counter()
+    pairs = survey_pairs(d, single)
+    log(f"phase 11 two more DECam pairs (seeds {SURVEY_SEEDS}) and a broken one made and "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    mesp = survey_mesp(d, single, dev, single["noise"], pairs)
+    launches = dict(mesp["counts"])
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    report = dict(mesp=mesp["report"])
+    if dev.type == "cuda":
+        ms, nbytes = pinned_upload_ms(mesp["products"][0]["prep"], dev)
+        report["upload"] = dict(ms=ms, bytes=nbytes)
+        log(f"phase 11 upload of one DECam pair's four planes ({nbytes / 1e6:.1f} MB, "
+            f"{mesp['products'][0]['prep']['PixA_I'].dtype}) from pinned memory: {ms:.3f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), device time")
+    zero_kernel_counts()
+    report["prefetch"] = survey_prefetch(mesp, pairs, dev)
+    add(kernel_counts())
+    batched = survey_batched(mesp, dev)
+    add(batched.pop("counts"))
+    report["batched"] = batched
+    report["server"], counts = survey_server(d, dev, single, mesp, fast_ref, bench)
+    add(counts)
+    report["solvers"], counts = survey_solvers(bench, dev)
+    add(counts)
+    if heavy:
+        # the same queue with one prep thread: what the second thread buys
+        one = survey_mesp(d, single, dev, single["noise"], pairs, threads=1)
+        add(one["counts"])
+        report["mesp_one_thread"] = one["report"]
+        del one
+        report["mesh_batch"], counts = survey_mesh_batch(d, mesp, dev, pairs)
+        add(counts)
+        report["mecp"], counts = survey_mecp(d, dev)
+        add(counts)
+    report["s"] = time.perf_counter() - t_start
+    log(f"phase 11 done in {report['s']:.1f} s; launches {launches}")
+    return report, launches
+
+
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
-         "--fidelity | --easy | "
+         "--fidelity | --easy | --survey | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -3734,8 +4392,13 @@ def main():
         log(smi)
         print(ok_line, flush=True)
         return 0
-    if sys.argv[1:] == ["--easy"]:
-        phase_easy()
+    if sys.argv[1:] in (["--easy"], ["--survey"]):
+        with tempfile.TemporaryDirectory() as d:
+            if sys.argv[1] == "--easy":
+                phase_easy(d)
+            else:
+                _, counts = phase_survey(d, torch.device("cuda"), heavy=True)
+                log(json.dumps({"survey_launches": counts}))
         log(smi)
         print(ok_line, flush=True)
         return 0
@@ -3762,7 +4425,9 @@ def main():
     I = torch.as_tensor(I, device=dev)
     J = torch.as_tensor(J, device=dev)
     log(f"phase 4 pair {N}^2 made and uploaded in {time.perf_counter() - t0:.1f} s")
-    diff_fast, diff_k2twin, launches, step_s, plain_s, on_path = phase_slice(I, J)
+    sol_fast, diff_fast, diff_k2twin, launches, step_s, plain_s, on_path = phase_slice(I, J)
+    fast_ref = (sol_fast.cpu().numpy(), diff_fast.cpu().numpy())  # phase 11's server check
+    del sol_fast
     sol64, diff64, rms64, rms64_twin = phase_f64(I, J, diff_fast, diff_k2twin)
     del diff_fast, diff_k2twin
     c_launches, c_step_s, c_plain_s, c_peak, c_drms, c_srel, c_on_path, c_prof = \
@@ -3806,8 +4471,15 @@ def main():
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     post = phase_post(pw["sol"], pw["diff"], pw["cfg"])
     torch.cuda.empty_cache()
-    easy = phase_easy()
-    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        easy = phase_easy(d)
+        log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+        single = easy["sparse"].pop("single")
+        easy["crowded"].pop("single")
+        survey, survey_launches = phase_survey(d, torch.device("cuda"), single=single,
+                                               fast_ref=fast_ref)
+        del single, fast_ref
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
@@ -3829,10 +4501,11 @@ def main():
         ("pair_poly_add64", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:488"),
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
-        # the two v2 fast modes, and the automatic packets' runs with the
-        # kernels); times: K3, K1 and K2 alone at the fast slice's
-        # shapes, K4 summed over a steady contract step's launches, K5 over
-        # a steady v2 step's, K7 and K6 over both
+        # the two v2 fast modes, the automatic packets' runs with the
+        # kernels, and phase 11's survey entry points); times: K3, K1 and
+        # K2 alone at the fast slice's shapes, K4 summed over a steady
+        # contract step's launches, K5 over a steady v2 step's, K7 and K6
+        # over both
         r = report[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=(launches.get(name, 0) + c_launches.get(name, 0)
@@ -3842,7 +4515,8 @@ def main():
                                       + sum(easy[p]["launches"][t].get(name, 0)
                                             for p in ("sparse", "crowded")
                                             for t in ("default", "contract",
-                                                      "fft/fft/exact"))),
+                                                      "fft/fft/exact"))
+                                      + survey_launches.get(name, 0)),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -3884,7 +4558,7 @@ def main():
                                     for k in ("eager_ms", "library_eager_ms")},
                     "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}
                                  if p != "golden_contract" else e) for p, e in easy.items()},
-                    "card": smi}))
+                    "survey": survey, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(ok_line, flush=True)

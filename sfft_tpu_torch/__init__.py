@@ -20,10 +20,13 @@ polynomial and B-spline bases in the ENTANGLED / SEPARATE scaling modes, the
 customized packets and the B-spline packet with its solution FITS, the
 automatic packets EasySparsePacket.ESP and EasyCrowdedPacket.ECP with their
 host preprocessing (prep/, utils/, and native/, a C++ host extension built
-with g++ at first use) and RICE_1 tile-compressed FITS, and the
+with g++ at first use) and RICE_1 tile-compressed FITS, the
 post-processing (matching-kernel realization, decorrelation kernels, grid
-convolution). Numpy input runs on the CUDA card unless the caller
-passes device="cpu".
+convolution), and the survey layer: the two-stage scheduler behind
+MultiEasySparsePacket.MESP / MultiEasyCrowdedPacket.MECP with batched
+dispatch over the cards (parallel/), and the resident engine server
+(serve.py). Numpy input runs on the CUDA card unless the caller passes
+device="cpu".
 """
 
 from sfft_tpu_torch.config import SFFTConfig, make_config
@@ -48,6 +51,24 @@ from sfft_tpu_torch.post.grid_convolve import BSplineGridConvolve
 
 __version__ = "0.1.0"
 
+
+def __getattr__(name):
+    # lazy: importing the package starts no thread and opens no socket
+    if name == "MultiEasySparsePacket":
+        from sfft_tpu_torch.parallel.scheduler import MultiEasySparsePacket
+
+        return MultiEasySparsePacket
+    if name == "MultiEasyCrowdedPacket":
+        from sfft_tpu_torch.parallel.scheduler import MultiEasyCrowdedPacket
+
+        return MultiEasyCrowdedPacket
+    if name in ("EngineClient", "EngineServer", "ensure_server"):
+        import sfft_tpu_torch.serve as _serve
+
+        return getattr(_serve, name)
+    raise AttributeError(name)
+
+
 __all__ = [
     "SFFTConfig",
     "make_config",
@@ -67,4 +88,9 @@ __all__ = [
     "DeCorrelationCalculator",
     "BSplineDeCorrelation",
     "BSplineGridConvolve",
+    "MultiEasySparsePacket",
+    "MultiEasyCrowdedPacket",
+    "EngineClient",
+    "EngineServer",
+    "ensure_server",
 ]

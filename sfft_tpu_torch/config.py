@@ -51,8 +51,8 @@ class SFFTConfig:
     Backend fields name the same algorithms as in sfft_tpu; the port
     implements greek 'fft', 'fft32', 'exact', 'peeled' (polynomial and
     B-spline bases) and 'pexact', fdiff 'fft', 'fft32', 'exact' and
-    'pexact', and solvers 'lu', 'cho', 'refined', 'exact' and 'transformed'.
-    The others (greek 'corr', fdiff 'conv', solvers 'host' / 'blocked_cho')
+    'pexact', and every solver ('lu', 'cho', 'host', 'blocked_cho',
+    'refined', 'exact', 'transformed'). Greek 'corr' and fdiff 'conv'
     raise NotImplementedError where they are dispatched.
     """
 

@@ -21,7 +21,13 @@ Ported solvers:
                  _refined_solve_f64 instead: an f32 Cholesky factor refined
                  with exact-grade residuals from the int8-sliced system
                  (the K5 slicer, core/slicing.py)
-'blocked_cho' and 'host' raise NotImplementedError.
+  'host'         an f64 LAPACK LU on the host (numpy's, as sfft_tpu's
+                 _host_solve calls it): the system goes to the CPU and the
+                 solution comes back to the system's device
+  'blocked_cho'  sfft_tpu's blocked Cholesky builds an f64 factor from
+                 matmuls, the one f64 primitive that is fast on a TPU;
+                 here it is the f64 Cholesky factor-and-solve of 'cho'
+                 (cuSOLVER on the card, LAPACK on the CPU)
 """
 
 from __future__ import annotations
@@ -39,6 +45,15 @@ from sfft_tpu_torch.core.statics import Static, index, table
 # solver 'exact' sends regularized f64 systems of at least this size to
 # _refined_solve_f64 (sfft_tpu's gate)
 LARGE_NEQ = 8192
+
+
+def _host_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """solver='host' (sfft_tpu/core/solve.py:30): numpy's LAPACK LU on
+    the host, in the system's dtype; the solution goes back to A's
+    device."""
+    a = A.cpu().numpy()
+    x = np.linalg.solve(a, b.cpu().numpy()).astype(a.dtype)
+    return torch.as_tensor(x, device=A.device)
 
 
 def _refined_solve(A: torch.Tensor, b: torch.Tensor, iters: int = 3) -> torch.Tensor:
@@ -396,10 +411,8 @@ def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor,
                 and cfg.kernel_basis.kind == "polynomial"):
             return _transformed_solve(cfg, lhs, rhs)
         raise ValueError("solver='transformed' requires an f64 polynomial ENTANGLED config")
-    if cfg.solver not in ("lu", "cho", "refined", "exact"):
-        raise NotImplementedError(
-            f"solver {cfg.solver!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1); use 'lu', 'cho', 'refined', 'exact' or 'transformed'")
+    if cfg.solver not in ("lu", "cho", "blocked_cho", "host", "refined", "exact"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
     dev = lhs.device
     pres, aggregate, ij00 = _tweak_plan(cfg)
     reduced = pres is not None
@@ -419,9 +432,11 @@ def solve_system(cfg: SFFTConfig, lhs: torch.Tensor, rhs: torch.Tensor,
 
     if cfg.solver == "lu":
         x = torch.linalg.solve(A, b)
-    elif cfg.solver == "cho":
+    elif cfg.solver in ("cho", "blocked_cho"):
         L = torch.linalg.cholesky(A)
         x = torch.cholesky_solve(b[:, None], L)[:, 0]
+    elif cfg.solver == "host":
+        x = _host_solve(A, b)
     elif cfg.solver == "refined" or A.dtype == torch.float32:
         # an f32-assembled system cannot beat f32 residuals anyway
         x = _refined_solve(A, b)

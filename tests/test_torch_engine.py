@@ -313,18 +313,19 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
 
 
 def test_unported_backends_raise():
-    """greek 'corr', fdiff 'conv' and solvers 'blocked_cho' / 'host' wait for
-    later slices. greek 'fft32', greek and fdiff 'exact' and lambda > 0 run
-    (held to sfft_tpu in test_torch_v2_fast.py, test_torch_v2_exact.py and
-    test_torch_v2_engine.py)."""
+    """greek 'corr' and fdiff 'conv' wait for later slices. greek 'fft32',
+    greek and fdiff 'exact', lambda > 0 and the solvers 'blocked_cho' and
+    'host' run (held to sfft_tpu in test_torch_v2_fast.py,
+    test_torch_v2_exact.py, test_torch_v2_engine.py and
+    test_torch_solve_f64.py)."""
     I, J = make_pair(10)
-    for kw in [dict(greek_backend="corr"), dict(fdiff_backend="conv"),
-               dict(solver="blocked_cho"), dict(solver="host")]:
+    for kw in [dict(greek_backend="corr"), dict(fdiff_backend="conv")]:
         _, tc = cfgs(**kw)
         with pytest.raises(NotImplementedError):
             tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     for kw in [dict(greek_backend="exact", fdiff_backend="exact", regularize_lambda=0.1,
-                    reg_xy=((5.0, 5.0),)), dict(greek_backend="fft32")]:
+                    reg_xy=((5.0, 5.0),)), dict(greek_backend="fft32"),
+               dict(solver="blocked_cho"), dict(solver="host")]:
         _, tc = cfgs(**kw)
         sol, diff = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
         assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
@@ -361,7 +362,10 @@ def test_import_leaves_jax_out():
             "sfft_tpu_torch.prep.sex, sfft_tpu_torch.prep.morph_classifier, "
             "sfft_tpu_torch.prep.sparse_prep, sfft_tpu_torch.prep.crowded_prep, "
             "sfft_tpu_torch.prep.sky_subtract, sfft_tpu_torch.api.easy_sparse, "
-            "sfft_tpu_torch.api.easy_crowded; "
+            "sfft_tpu_torch.api.easy_crowded, sfft_tpu_torch.utils.multiproc, "
+            "sfft_tpu_torch.parallel.batch, sfft_tpu_torch.parallel.scheduler, "
+            "sfft_tpu_torch.serve; "
+            "import threading; assert threading.active_count() == 1, threading.enumerate(); "
             "assert sfft_tpu_torch.native.available(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'sfft_tpu' or m.startswith('sfft_tpu.')]; "

@@ -146,3 +146,33 @@ def test_solve_system_exact_takes_sliced_route_for_large_regularized(monkeypatch
     off = dataclasses.replace(tc, regularize_lambda=0.0)
     tsolve.solve_system(off, torch.as_tensor(A), torch.as_tensor(b))
     assert len(calls) == 1
+
+
+def test_host_solve_is_the_reference_lapack_lu():
+    """solver='host' runs numpy's LU on the host, as sfft_tpu's pure_callback
+    does: the same bits on the same system."""
+    A, b = _spd_cond1e7(418, 200)
+    x = tsolve._host_solve(torch.as_tensor(A), torch.as_tensor(b))
+    assert x.dtype == torch.float64 and x.device.type == "cpu"
+    ref = np.asarray(jax.jit(jsolve._host_solve)(jnp.asarray(A), jnp.asarray(b)))
+    assert np.array_equal(x.numpy(), ref)
+
+
+@pytest.mark.parametrize("solver", ["host", "blocked_cho"])
+def test_host_and_blocked_cho_match_reference_and_lu(solver):
+    """The engine with solver 'host' / 'blocked_cho' against sfft_tpu's same
+    solver and the port's f64 'lu', within 1e-6 of the solution's maximum
+    (tests/test_engine.py:115)."""
+    from test_engine import make_pair
+
+    from sfft_tpu.core.engine import ElementalSFFT as JESS
+    from sfft_tpu_torch.core.engine import ElementalSFFT
+
+    I, J = make_pair(np.random.default_rng(50), 24, 20)
+    jc = JC(N0=24, N1=20, w0=1, w1=1, kernel_basis=JB("polynomial", 2),
+            bg_basis=JB("polynomial", 2), solver=solver)
+    tc = config_from_fields(dataclasses.asdict(jc))
+    sol = ElementalSFFT.ESS(I, J, tc, device="cpu")[0].numpy()
+    ref = np.asarray(JESS.ESS(I, J, jc)[0])
+    lu = ElementalSFFT.ESS(I, J, dataclasses.replace(tc, solver="lu"), device="cpu")[0].numpy()
+    assert _maxrel(sol, ref) < 1e-6 and _maxrel(sol, lu) < 1e-6
