@@ -99,6 +99,28 @@ first difference is printed beside the warm server's; and the solvers
 'host' and 'blocked_cho' on the 4096^2 pair's f64 fft / fft tables, within
 1e-6 of the refined 'exact' solve.
 
+Then phase 12, the multi-device layer (sfft_tpu_torch.parallel.sharded_fft
+and multihost), on the card named 4 or 8 times as the device list (every
+row block and every exchange on one card): (12a) sharded_fft2 in c128 at
+4096^2 over 4 and 8 blocks within 1e-12 of max of torch.fft.fft2, the
+rfft2 / irfft2 round trip, the bytes the exchanges move and their copy
+rate; (12b) sharded_exact_fft2_pair at 4096^2, half False and True, over 4
+blocks within 1e-13 of max of exact_fft2_pair (and whether bit for bit),
+with its K4, K7 and K6a launches; (12c) sharded_subtract_step on the four
+engine families of __graft_entry__.py (fft/lu, contract-exact, pexact,
+bspline-v2) at 128^2 over 8 blocks on its seed-77 pair (difference within
+1e-7 of the local step), then fft/lu, contract-exact and pexact at 4096^2
+(KerHW 8, poly2/poly2) and the NIRCam v2 configuration at 900^2 over 4
+blocks: the normal system within 1e-12 of max of the local step's, the
+difference within 1e-8 max|J| and the solution within 1e-6 of max, or for
+the unrefined LU no farther than it lands from the refined solve on the
+same tables (ROADMAP fault 3; both printed), with each step's wall, device
+busy time and peak memory, local and sharded; (12d) two processes on the
+card joined over gloo on localhost run run_survey_multihost on 6 fast
+4096^2 tasks: each returns exactly its slab, every solution and difference
+bit for bit this process's batched_subtract of the same pairs; a worker
+that fails or outlives its timeout fails the phase.
+
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
 step run once more with K7 alone on its twin and once with K6 alone on its
@@ -179,6 +201,10 @@ parts: MESP(MESH_BATCH=True) on the same queue, each task bit for bit its
 per-task result, and MultiEasyCrowdedPacket.MECP on two TESS pairs (two
 seeds of phase 10's crowded generator, MaskSatContam), whose statuses,
 decisions and results must equal single ECP calls.
+
+    python3 chip_smoke.py --sharded
+
+builds the kernels and runs phase 12 (the multi-device layer) alone.
 
     python3 chip_smoke.py --stages OUT_DIR
 
@@ -2436,6 +2462,21 @@ def profile_step(step):
     return prof, wall, busy, sum(e.count for e in kernels), 1 - busy / wall
 
 
+def device_busy(step):
+    """Device busy seconds (kernels and copies) and their count over one call
+    of `step`, from a profiler that traces the device only (tracing the
+    host's operators too costs seconds on a step of 30k launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _on_device(e)]
+    return sum(_dev_us(e) for e in kernels) / 1e6, sum(e.count for e in kernels)
+
+
 def run_pcp(I, J, cfg, plain, reps):
     """One warm-up and `reps` timed solve+subtract runs through PCP;
     returns (solution, difference, median seconds)."""
@@ -4349,8 +4390,405 @@ def phase_survey(d, dev, single=None, fast_ref=None, heavy=False):
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device layer (parallel/sharded_fft.py, multihost.py)
+# ---------------------------------------------------------------------------
+
+def example_pair(n0, n1, seed=0):
+    """__graft_entry__.py's _example_pair (the dryrun's pair): eight
+    gaussian sources on a tilted plane, J = 1.08 I + 3 + unit noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(n1), np.arange(n0))
+    I = 100.0 + 0.02 * xx + 0.01 * yy
+    for _ in range(8):
+        x0, y0 = rng.uniform(4, n0 - 4), rng.uniform(4, n1 - 4)
+        I = I + rng.uniform(50, 400) * np.exp(
+            -((xx - x0) ** 2 + (yy - y0) ** 2) / (2 * rng.uniform(1.0, 2.5) ** 2))
+    J = 1.08 * I + 3.0 + rng.normal(0, 1.0, I.shape)
+    I = I + rng.normal(0, 1.0, I.shape)
+    return I, J
+
+
+# phase 12's device: the card (a CPU rehearsal of the phase sets "cpu")
+SHARD_DEV = "cuda"
+
+
+def card_list(d):
+    """The card named d times: every row block and every exchange of the
+    sharded layer on one card."""
+    import torch
+
+    return [torch.device(SHARD_DEV)] * d
+
+
+def dryrun_families(n):
+    """The four engine families of __graft_entry__.py:238-247 at n^2 (w = 1;
+    the B-spline family's knots at the middle, Tikhonov on 32 seeded points)."""
+    import dataclasses
+
+    from sfft_tpu_torch import make_bspline_config
+    from sfft_tpu_torch.config import BasisSpec, SFFTConfig
+
+    base = SFFTConfig(N0=n, N1=n, w0=1, w1=1, kernel_basis=BasisSpec("polynomial", 2),
+                      bg_basis=BasisSpec("polynomial", 2), dtype="float64",
+                      greek_backend="fft", fdiff_backend="fft", solver="lu")
+    rng = np.random.default_rng(5)
+    xy = np.stack([rng.uniform(4.0, 60.0, 32), rng.uniform(4.0, 60.0, 32)], axis=1)
+    bsp = make_bspline_config(
+        n, n, 2, KerSpType="B-Spline", KerSpDegree=2, KerIntKnotX=[n / 2 + 0.5],
+        KerIntKnotY=[n / 2 + 0.5], SEPARATE_SCALING=True, ScaSpType="Polynomial",
+        ScaSpDegree=1, BkgSpType="Polynomial", BkgSpDegree=0, REGULARIZE_KERNEL=True,
+        XY_REGULARIZE=xy, LAMBDA_REGULARIZE=1e-5, greek_backend="fft", fdiff_backend="fft",
+        solver="lu")
+    return [("fft/lu", base),
+            ("contract-exact", dataclasses.replace(base, greek_backend="exact",
+                                                   fdiff_backend="exact", solver="exact")),
+            ("pexact", dataclasses.replace(base, greek_backend="pexact", fdiff_backend="pexact",
+                                           solver="exact")),
+            ("bspline-v2", bsp)]
+
+
+def phase_sharded_fft():
+    """12a: sharded_fft2 in c128 at N^2 over 4 and 8 blocks against
+    torch.fft.fft2 (1e-12 of max), the rfft2 / irfft2 round trip; local and
+    sharded device times, the bytes exchanged and the copy rate."""
+    import torch
+    from sfft_tpu_torch.parallel import sharded_fft as sh
+
+    gen = torch.Generator(device=SHARD_DEV).manual_seed(12)
+    x = torch.complex(*(torch.randn((N, N), dtype=torch.float64, device=SHARD_DEV, generator=gen)
+                        for _ in range(2)))
+    ref = torch.fft.fft2(x)
+    out = dict(local_ms=cuda_ms(lambda: torch.fft.fft2(x), reps=3, inner=3))
+    for d in (4, 8):
+        devs = card_list(d)
+        sh.exchange.bytes = 0
+        got = sh.gather_rows(sh.sharded_fft2(x, devs))
+        nbytes = sh.exchange.bytes
+        err = rel_err(got, ref)
+        del got
+        assert err <= 1e-12, f"sharded_fft2 x{d}: {err:.3e} of max from torch.fft.fft2"
+        ms = cuda_ms(lambda: sh.sharded_fft2(x, devs), reps=3, inner=3)
+        blocks = list(sh.shard_rows(torch.fft.fft(x, dim=-1), devs).blocks)
+        cols = sh.exchange(blocks, devs, True)
+        ex_ms = cuda_ms(lambda: (sh.exchange(blocks, devs, True),
+                                 sh.exchange(cols, devs, False)), reps=3, inner=3)
+        del blocks, cols
+        xr = x.real.contiguous()
+        back = sh.gather_rows(sh.sharded_irfft2(sh.sharded_rfft2(xr, devs), N))
+        rt = rel_err(back, xr)
+        del back, xr
+        assert rt <= 1e-12, f"sharded rfft2 / irfft2 x{d}: {rt:.3e} of max"
+        out[f"x{d}"] = dict(err=err, round_trip=rt, ms=ms, bytes=nbytes, exchange_ms=ex_ms,
+                            copy_GBps=nbytes / ex_ms / 1e6)
+        log(f"phase 12a sharded_fft2 c128 {N}^2 x{d}: {err:.2e} of max from torch.fft.fft2, "
+            f"rfft2 / irfft2 round trip {rt:.2e}; {ms:.3f} ms (local {out['local_ms']:.3f} ms); "
+            f"two exchanges {nbytes / 1e6:.1f} MB in {ex_ms:.3f} ms "
+            f"({nbytes / ex_ms / 1e6:.1f} GB/s, device-to-device copies on one card)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_exact_fft():
+    """12b: sharded_exact_fft2_pair at N^2, half False and True, over 4
+    blocks against exact_fft2_pair on the card (1e-13 of max); launches."""
+    import torch
+    from sfft_tpu_torch.core.exact_fft import exact_fft2_pair, pair_to_c128
+    from sfft_tpu_torch.parallel import sharded_fft as sh
+
+    F = torch.as_tensor(make_pair(N, seed=3)[0], device=SHARD_DEV)
+    devs = card_list(4)
+    out, launches = {}, {}
+    for half in (False, True):
+        ref = pair_to_c128(exact_fft2_pair(F, half=half))
+        local = exact_fft2_pair(F, half=half)
+        zero_kernel_counts()
+        sharded = sh.gather_rows(sh.sharded_exact_fft2_pair(F, devs, half=half))
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        bits = all(torch.equal(a, b) for a, b in zip(sharded, local))
+        err = rel_err(pair_to_c128(sharded), ref)
+        del sharded, local, ref
+        assert err <= 1e-13, f"sharded_exact_fft2_pair half={half}: {err:.3e} of max"
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        ms = cuda_ms(lambda: sh.sharded_exact_fft2_pair(F, devs, half=half), reps=3, inner=1)
+        local_ms = cuda_ms(lambda: exact_fft2_pair(F, half=half), reps=3, inner=1)
+        out[f"half={half}"] = dict(err=err, bits=bits, ms=ms, local_ms=local_ms,
+                                   launches={k: counts[k] for k in
+                                             ("slice_pair", "sliced_epilogue", "pair_products")})
+        log(f"phase 12b sharded_exact_fft2_pair {N}^2 half={half} x4: {err:.2e} of max from "
+            f"exact_fft2_pair (bit for bit: {bits}); {ms:.2f} ms (local {local_ms:.2f} ms); "
+            f"launches K4 "
+            f"{counts['slice_pair']}, K7 {counts['sliced_epilogue']}, K6a "
+            f"{counts['pair_products']}")
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def sharded_family(name, cfg, I, J, d, full):
+    """One family's local and sharded steps on (I, J) (masked == unmasked):
+    the difference and solution against the local step's; with `full`, the
+    normal system against the local one, wall and device time and peak
+    memory of one steady step each, and the fault-3 yardstick where the
+    solver is an unrefined LU."""
+    import dataclasses
+
+    import torch
+    from sfft_tpu_torch.core.engine import (_subtract_impl, normal_equations_fn,
+                                            solve_and_subtract_fn)
+    from sfft_tpu_torch.core.solve import solve_system
+    from sfft_tpu_torch.parallel.sharded_fft import sharded_subtract_step
+
+    local = solve_and_subtract_fn(cfg)
+    run = sharded_subtract_step(cfg, card_list(d))
+    t0 = time.perf_counter()
+    sol_l, diff_l = local(I, J, I, J)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    zero_kernel_counts()
+    sol_s, diff_s, (lhs_s, rhs_s) = run(I, J, I, J, with_system=True)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    first = dict(local_first_s=t1 - t0, sharded_first_s=time.perf_counter() - t1)
+    ddiff = float((diff_s.double() - diff_l.double()).abs().max())
+    srel = rel_err(sol_s, sol_l)
+    r = dict(diff_abs=ddiff, sol_rel=srel, launches=counts,
+             bits=torch.equal(sol_s, sol_l) and torch.equal(diff_s, diff_l), **first)
+    if not full:
+        return r
+    lhs_l, rhs_l = normal_equations_fn(cfg)(I, J)
+    r["lhs_rel"], r["rhs_rel"] = rel_err(lhs_s, lhs_l), rel_err(rhs_s, rhs_l)
+    del lhs_s, rhs_s
+    r["diff_rel_J"] = ddiff / float(J.abs().max())
+    if cfg.solver == "lu":
+        # how far the unrefined LU lands from the refined solve on the same tables
+        sol_x = solve_system(dataclasses.replace(cfg, solver="exact"), lhs_l, rhs_l).to(sol_l.dtype)
+        diff_x = _subtract_impl(cfg, I, J, sol_x)
+        r["lu_vs_exact_sol_rel"] = rel_err(sol_l, sol_x)
+        r["lu_vs_exact_diff_rel_J"] = float((diff_l - diff_x).abs().max() / J.abs().max())
+        del sol_x, diff_x
+    del lhs_l, rhs_l, sol_l, diff_l, sol_s, diff_s
+    r["check_s"] = time.perf_counter() - t1
+    for label, fn in (("local", lambda: local(I, J, I, J)),
+                      ("sharded", lambda: run(I, J, I, J))):
+        t2 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        r[f"{label}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        r[f"{label}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        busy, nk = device_busy(fn)
+        r[f"{label}_busy_ms"], r[f"{label}_kernels"] = busy * 1e3, nk
+        r[f"{label}_timing_s"] = time.perf_counter() - t2
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_sharded_step():
+    """12c: sharded_subtract_step, the dryrun's four families at 128^2 over
+    8 blocks (max |difference change| < 1e-7 against the local step), then
+    fft/lu, contract-exact and pexact at N^2 (KerHW 8, poly2/poly2) and the
+    NIRCam v2 contract configuration at 900^2 over 4 blocks: the normal
+    system within 1e-12 of max of the local step's, the difference within
+    1e-8 max|J| and the solution within 1e-6 of max, or, for an unrefined
+    LU, no farther than it lands from the refined solve on the same tables."""
+    import dataclasses
+
+    import torch
+    from sfft_tpu_torch import make_config
+
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    I, J = (torch.as_tensor(a, device=SHARD_DEV) for a in example_pair(128, 128, seed=77))
+    for name, cfg in dryrun_families(128):
+        r = sharded_family(name, cfg, I, J, 8, full=False)
+        add(r["launches"])
+        out[f"128 {name}"] = r
+        assert r["diff_abs"] < 1e-7, f"[{name}] 128^2 x8: sharded vs local {r['diff_abs']:.3e}"
+        log(f"phase 12c {name} 128^2 x8: max |difference change| {r['diff_abs']:.2e} "
+            f"(< 1e-7), solution {r['sol_rel']:.2e} of max (bit for bit: {r['bits']})")
+    base = make_config(N, N, KERHW)
+    fulls = [("fft/lu", base, make_pair(N)),
+             ("contract-exact", dataclasses.replace(base, **EXACT_TRIO), None),
+             ("pexact", dataclasses.replace(base, greek_backend="pexact", fdiff_backend="pexact",
+                                            solver="exact"), None),
+             ("v2 NIRCam", nircam_config(**EXACT_TRIO), make_pair(V2_N))]
+    pair = None
+    for name, cfg, new_pair in fulls:
+        if new_pair is not None:
+            pair = tuple(torch.as_tensor(a, device=SHARD_DEV) for a in new_pair)
+        assert cfg.NEQ in (1740, V2_NEQ)
+        r = sharded_family(name, cfg, *pair, 4, full=True)
+        add(r["launches"])
+        out[name] = r
+        assert r["lhs_rel"] <= 1e-12 and r["rhs_rel"] <= 1e-12, (
+            f"[{name}] tables {r['lhs_rel']:.3e} / {r['rhs_rel']:.3e} of max from the local step")
+        held = r["diff_rel_J"] <= 1e-8 and r["sol_rel"] <= 1e-6
+        how = "difference <= 1e-8 max|J|, solution <= 1e-6"
+        if not held and "lu_vs_exact_sol_rel" in r:
+            held = (r["sol_rel"] <= r["lu_vs_exact_sol_rel"]
+                    and r["diff_rel_J"] <= r["lu_vs_exact_diff_rel_J"])
+            how = (f"held to the local LU's distance from the refined solve: solution "
+                   f"{r['lu_vs_exact_sol_rel']:.2e}, difference "
+                   f"{r['lu_vs_exact_diff_rel_J']:.2e} max|J|")
+        assert held, f"[{name}] sharded vs local: {r}"
+        log(f"phase 12c {name} {cfg.N0}^2 NEQ {cfg.NEQ} x4: tables {r['lhs_rel']:.2e} / "
+            f"{r['rhs_rel']:.2e} of max, difference {r['diff_rel_J']:.2e} max|J|, solution "
+            f"{r['sol_rel']:.2e} of max ({how}; bit for bit: {r['bits']}); step wall local "
+            f"{r['local_wall_ms']:.1f} / "
+            f"sharded {r['sharded_wall_ms']:.1f} ms, device busy {r['local_busy_ms']:.1f} / "
+            f"{r['sharded_busy_ms']:.1f} ms in {r['local_kernels']} / {r['sharded_kernels']} "
+            f"kernels and copies, peak {r['local_peak_bytes'] / 2**30:.2f} / "
+            f"{r['sharded_peak_bytes'] / 2**30:.2f} GiB; seconds: first local "
+            f"{r['local_first_s']:.1f}, first sharded {r['sharded_first_s']:.1f}, checks "
+            f"{r['check_s']:.1f}, timing local {r['local_timing_s']:.1f} / sharded "
+            f"{r['sharded_timing_s']:.1f}")
+    del pair
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+# a process of the two-process survey (argv: repo, rank file prefix,
+# coordinator address, process id, device ("cuda" takes the default, this
+# process's cards), image side); prints its own launch counts
+MULTIHOST_WORKER = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import chip_smoke as cs
+from sfft_tpu_torch import make_config
+from sfft_tpu_torch.parallel import multihost as mh
+
+spec = mh.MultiHostSpec(sys.argv[3], 2, int(sys.argv[4]))
+cs.N = int(sys.argv[6])
+cfg = make_config(cs.N, cs.N, cs.KERHW, **cs.FAST_CFG)
+cs.zero_kernel_counts()
+t0 = time.perf_counter()
+res = mh.run_survey_multihost(list(range(cs.MULTIHOST_TASKS)), cs.multihost_load, cfg,
+                              spec=spec, devices=None if sys.argv[5] == "cuda" else [sys.argv[5]],
+                              with_difference=True, timeout_s=cs.MULTIHOST_TIMEOUT_S)
+wall = time.perf_counter() - t0
+keys = sorted(res)
+np.savez(f"{sys.argv[2]}{spec.process_id}.npz", keys=np.array(keys, int),
+         sols=np.stack([res[k][0] for k in keys]), diffs=np.stack([res[k][2] for k in keys]))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "sfft_tpu")]
+assert not bad, bad
+print(json.dumps({"rank": spec.process_id, "keys": keys, "wall_s": wall,
+                  "launches": cs.kernel_counts()}), flush=True)
+'''
+MULTIHOST_TASKS = 6
+MULTIHOST_TIMEOUT_S = 300
+
+
+def multihost_load(t):
+    """Task t of the two-process survey: the bench generator's pair at
+    N^2 from seed 20 + t (masked == unmasked)."""
+    I, J = make_pair(N, seed=20 + t)
+    return I, J, I, J
+
+
+def phase_multihost(d):
+    """12d: two processes on the first card, joined over gloo on localhost
+    (a port from a bound socket), run run_survey_multihost over 6 tasks at
+    N^2 in the fast configuration; each must return exactly its slab, every
+    solution and difference bit for bit this process's batched_subtract of
+    the same pairs on the same card."""
+    import socket
+
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.parallel import multihost as mh
+    from sfft_tpu_torch.parallel.batch import batched_subtract
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    prefix = os.path.join(d, "multihost_rank")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SFFT_COORDINATOR_ADDRESS", "WORLD_SIZE", "RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER, HERE, prefix,
+                               f"localhost:{port}", str(pid), SHARD_DEV, str(N)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    try:
+        # the reference while the workers run: every task's pair through
+        # batched_subtract on this card
+        cfg = make_config(N, N, KERHW, **FAST_CFG)
+        zero_kernel_counts()
+        ref = {}
+        for t in range(MULTIHOST_TASKS):
+            I, J, _, _ = multihost_load(t)
+            sols, diffs, _ = batched_subtract(I[None], J[None], I[None], J[None], cfg,
+                                              devices=card_list(1))
+            ref[t] = (sols[0].cpu().numpy(), diffs[0].cpu().numpy())
+        counts = kernel_counts()
+        outs = [p.communicate(timeout=MULTIHOST_TIMEOUT_S + 120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    children = []
+    for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"multihost worker {pid} exited {p.returncode}:\n{so}\n{se[-4000:]}"
+        children.append(json.loads(so.strip().splitlines()[-1]))
+    for pid, child in enumerate(children):
+        slab = mh.assign_tasks(MULTIHOST_TASKS, pid, 2).tolist()
+        assert child["keys"] == slab, f"worker {pid} returned {child['keys']}, its slab {slab}"
+        r = np.load(f"{prefix}{pid}.npz")
+        for k, sol, diff in zip(r["keys"], r["sols"], r["diffs"]):
+            assert np.array_equal(sol, ref[int(k)][0]) and np.array_equal(diff, ref[int(k)][1]), (
+                f"task {k}: worker {pid}'s result differs from batched_subtract's")
+        log(f"phase 12d worker {pid}: tasks {child['keys']} bit for bit batched_subtract; "
+            f"{child['wall_s']:.1f} s in run_survey_multihost; launches {child['launches']}")
+    torch.cuda.empty_cache()
+    log(f"phase 12d two processes over gloo on {SHARD_DEV}: {MULTIHOST_TASKS} tasks at {N}^2 "
+        f"(fast) in {wall:.1f} s wall (the workers' start, loads and steps beside this "
+        f"process's reference); reference launches {counts}")
+    return dict(wall_s=wall, workers=children), counts
+
+
+def phase_sharded(d):
+    """Phase 12: 12a-12d; returns (report, the launches of this process)."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    zero_kernel_counts()
+    report = dict(fft=phase_sharded_fft())
+    add(kernel_counts())
+    report["exact_fft"], counts = phase_sharded_exact_fft()
+    add(counts)
+    t12 = [time.perf_counter()]
+    report["step"], counts = phase_sharded_step()
+    add(counts)
+    t12.append(time.perf_counter())
+    report["multihost"], counts = phase_multihost(d)
+    add(counts)
+    t12.append(time.perf_counter())
+    report["s"] = t12[-1] - t0
+    report["parts_s"] = dict(transforms=t12[0] - t0, step=t12[1] - t12[0],
+                             multihost=t12[2] - t12[1])
+    log(f"phase 12 parts: 12a-b {t12[0] - t0:.1f} s, 12c {t12[1] - t12[0]:.1f} s, "
+        f"12d {t12[2] - t12[1]:.1f} s")
+    log(f"phase 12 done in {report['s']:.1f} s; launches {launches}")
+    return report, launches
+
+
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
-         "--fidelity | --easy | --survey | "
+         "--fidelity | --easy | --survey | --sharded | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -4392,10 +4830,13 @@ def main():
         log(smi)
         print(ok_line, flush=True)
         return 0
-    if sys.argv[1:] in (["--easy"], ["--survey"]):
+    if sys.argv[1:] in (["--easy"], ["--survey"], ["--sharded"]):
         with tempfile.TemporaryDirectory() as d:
             if sys.argv[1] == "--easy":
                 phase_easy(d)
+            elif sys.argv[1] == "--sharded":
+                sharded, counts = phase_sharded(d)
+                log(json.dumps({"sharded": sharded, "sharded_launches": counts}))
             else:
                 _, counts = phase_survey(d, torch.device("cuda"), heavy=True)
                 log(json.dumps({"survey_launches": counts}))
@@ -4479,7 +4920,10 @@ def main():
         survey, survey_launches = phase_survey(d, torch.device("cuda"), single=single,
                                                fast_ref=fast_ref)
         del single, fast_ref
-    log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+        log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        sharded, sharded_launches = phase_sharded(d)
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
@@ -4502,7 +4946,8 @@ def main():
     ]:
         # launches: the sum over the main paths' runs (fast, contract, v2,
         # the two v2 fast modes, the automatic packets' runs with the
-        # kernels, and phase 11's survey entry points); times: K3, K1 and
+        # kernels, phase 11's survey entry points and phase 12's sharded
+        # runs and reference batch); times: K3, K1 and
         # K2 alone at the fast slice's shapes, K4 summed over a steady
         # contract step's launches, K5 over a steady v2 step's, K7 and K6
         # over both
@@ -4516,7 +4961,8 @@ def main():
                                             for p in ("sparse", "crowded")
                                             for t in ("default", "contract",
                                                       "fft/fft/exact"))
-                                      + survey_launches.get(name, 0)),
+                                      + survey_launches.get(name, 0)
+                                      + sharded_launches.get(name, 0)),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -4558,7 +5004,7 @@ def main():
                                     for k in ("eager_ms", "library_eager_ms")},
                     "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}
                                  if p != "golden_contract" else e) for p, e in easy.items()},
-                    "survey": survey, "card": smi}))
+                    "survey": survey, "sharded": sharded, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(ok_line, flush=True)

@@ -22,11 +22,13 @@ automatic packets EasySparsePacket.ESP and EasyCrowdedPacket.ECP with their
 host preprocessing (prep/, utils/, and native/, a C++ host extension built
 with g++ at first use) and RICE_1 tile-compressed FITS, the
 post-processing (matching-kernel realization, decorrelation kernels, grid
-convolution), and the survey layer: the two-stage scheduler behind
+convolution), the survey layer: the two-stage scheduler behind
 MultiEasySparsePacket.MESP / MultiEasyCrowdedPacket.MECP with batched
 dispatch over the cards (parallel/), and the resident engine server
-(serve.py). Numpy input runs on the CUDA card unless the caller passes
-device="cpu".
+(serve.py), and the multi-device layer: one pair's step row-sharded over a
+list of devices (parallel/sharded_fft.py) and the multi-host survey over
+gloo (parallel/multihost.py). Numpy input runs on the CUDA card unless the
+caller passes device="cpu".
 """
 
 from sfft_tpu_torch.config import SFFTConfig, make_config

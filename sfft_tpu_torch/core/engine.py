@@ -26,21 +26,22 @@ from sfft_tpu_torch.core.regularize import regularization_terms_on
 from sfft_tpu_torch.core.solve import solve_system
 
 
-def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None):
+def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None, rows=None):
     """SI = I * kernel-basis planes (reference SPixA_Iij); ST = background basis
     planes (reference SPixA_Tpq); SSc = I * scaling-basis planes, zero-padded to
-    Fij, for SEPARATE-VARYING (reference ScaSPixA_Iij)."""
+    Fij, for SEPARATE-VARYING (reference ScaSPixA_Iij). rows = (r0, r1): I
+    is the row block [r0, r1) of the image, and so are the planes."""
     dt = torch_dtype(cfg.dtype if dtype is None else dtype)
     dev = I.device
-    Bk = basis_planes(cfg.kernel_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
-    ST = basis_planes(cfg.bg_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
+    Bk = basis_planes(cfg.kernel_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
+    ST = basis_planes(cfg.bg_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
     SI = I[None, :, :].to(dt) * Bk
     SSc = None
     if cfg.scaling_mode == "SEPARATE-VARYING":
-        Bs = basis_planes(cfg.scaling_basis, cfg.N0, cfg.N1, dtype=dt, device=dev)
+        Bs = basis_planes(cfg.scaling_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
         SSc = I[None, :, :].to(dt) * Bs
         if SSc.shape[0] < cfg.Fij:
-            pad = torch.zeros((cfg.Fij - SSc.shape[0], cfg.N0, cfg.N1), dtype=dt, device=dev)
+            pad = torch.zeros((cfg.Fij - SSc.shape[0],) + tuple(I.shape), dtype=dt, device=dev)
             SSc = torch.cat([SSc, pad], dim=0)
     return SI, ST, SSc
 
@@ -54,7 +55,6 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
-    s = cfg.SCALE
     separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
 
     if cfg.greek_backend == "peeled":
@@ -87,7 +87,16 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
         raise NotImplementedError(
             f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
             "yet (ROADMAP queue 1); use 'fft', 'fft32', 'exact', 'peeled' or 'pexact'")
-    Comg, Cgam, Cthe, Cphi, Cdel = out[:5]
+    return system_from_tables(cfg, out[:5], extra, mI.device)
+
+
+def system_from_tables(cfg: SFFTConfig, out, extra, device):
+    """The normal system (lhs, rhs) from the unscaled correlation tables
+    (Comg, Cgam, Cthe, Cphi, Cdel) and, for SEPARATE-VARYING, the extra
+    tables (Pbs, Pss, Pgs, Pts) (else None): the SCALE powers, the
+    entangled tables, the Tikhonov terms and the assembly on `device`."""
+    s = cfg.SCALE
+    Comg, Cgam, Cthe, Cphi, Cdel = out
     tables = entangled_tables(
         cfg, (s**3) * Comg, (s**2) * Cgam, (s**2) * Cthe, s * Cphi, s * Cdel
     )
@@ -105,7 +114,7 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     # tables at NEQ >= 8192 with a solver other than 'exact' is a TPU rule;
     # the card holds the 1.4 GB f64 system of 13k dofs easily)
     return assemble_system(cfg, tables,
-                           reg_terms=regularization_terms_on(cfg, mI.device, tables.Pbb.dtype))
+                           reg_terms=regularization_terms_on(cfg, device, tables.Pbb.dtype))
 
 
 def normal_equations_fn(cfg: SFFTConfig):

@@ -132,15 +132,24 @@ def _cols(W: np.ndarray, n: int) -> np.ndarray:
     return W[:, :n]
 
 
+def _row_block(W: np.ndarray, r0: int, r1: int) -> np.ndarray:
+    """Rows [r0, r1) of a static table (a row block's share of a
+    contraction over image or frequency rows)."""
+    return W[r0:r1]
+
+
 # ---------------------------------------------------------------------------
 # integer slicing
 # ---------------------------------------------------------------------------
 
 
-def _slice_pairs(parts, nsl: int, Kp: int, rowwise: bool, plain: bool):
+def _slice_pairs(parts, nsl: int, Kp: int, rowwise: bool, plain: bool, scales=None):
     """The K4 stage (core/slicing.py slice_pairs) on the operand's parts,
-    or its plain twin with plain=True (CPU tensors always take the twin)."""
-    return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise)
+    or its plain twin with plain=True (CPU tensors always take the twin);
+    scales: given scales, one per part."""
+    if scales is None:
+        return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise)
+    return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise, scales)
 
 
 def _slice_pair_real(hi: torch.Tensor, lo: torch.Tensor, nsl: int,
@@ -242,27 +251,37 @@ class _Static(NamedTuple):
     scale: object
 
 
+def _static_big(ref: Static, nsl: int) -> bool:
+    """Whether the static table `ref` counts as big (>= 2^17 slice entries,
+    its columns padded to 64): big tables are sliced on the device."""
+    K, M = ref.host().shape
+    return K * (M + (-M) % 64) * nsl >= 2 ** 17
+
+
 @lru_cache(maxsize=256)
-def _static_slices_for(ref: Static, nsl: int, device, plain: bool = False) -> Optional[_Static]:
+def _static_slices_for(ref: Static, nsl: int, device, plain: bool = False,
+                       big: Optional[bool] = None) -> Optional[_Static]:
     """Integer slices of the static real matrix `ref`, built once per table,
     depth, device and slicer (plain=True slices big tables with K4's plain
     twin); None for an all-zero table. As in sfft_tpu, big tables (>= 2^17
     slice entries) are sliced from their f32 (hi, lo) pair by the data
-    slicer (K4 on CUDA), small ones in f64 numpy."""
+    slicer (K4 on CUDA), small ones in f64 numpy; `big` overrides the size
+    rule (a row block of a table sliced as the whole table is)."""
     padded = Static(_pad_cols, (ref, 64))
     Mp_ = np.asarray(padded.host(), np.float64)
     if not np.any(Mp_):
         return None
     K = Mp_.shape[0]
     Kp = K + (-K) % 8
-    if Mp_.size * nsl >= 2 ** 17:
+    if (Mp_.size * nsl >= 2 ** 17) if big is None else big:
         # the stage slices the transposed view straight into (nsl, Mp, Kp)
         hi, lo = _split_on(padded, device)
         slT, s = _slice_pairs([(hi.t(), lo.t())], nsl, Kp, False, plain)[0]
     else:
         sl_np, s = _slice_static(Mp_, nsl)
         slT = _padk(torch.tensor(sl_np, device=device).transpose(1, 2), Kp).contiguous()
-    return _Static((ref, nsl, device, plain), slT, s)
+    # the key rebuilds these slices (``_stacked``): it carries an override
+    return _Static((ref, nsl, device, plain) + (() if big is None else (big,)), slT, s)
 
 
 @lru_cache(maxsize=256)
@@ -524,24 +543,38 @@ _K7 = sliced_epilogue
 
 
 def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: bool = False,
-                    prof: Optional[SliceProfile] = None, plain: bool = False) -> CPair:
+                    prof: Optional[SliceProfile] = None, plain: bool = False, scales=None,
+                    k_total: Optional[int] = None, static_big: Optional[bool] = None,
+                    epilogue: bool = True):
     """Exact complex matmul: data (..., K) pair @ the static (complex or
     real) table W (K, M). Returns the pair (..., M). real_out=True (complex
     data and W): only the real part (re = dr.wr - di.wi). The int8 products
     go into one int32 buffer; their epilogue is K7 (``sliced_epilogue``,
-    one launch on CUDA tensors) or, with plain=True, its twin."""
+    one launch on CUDA tensors) or, with plain=True, its twin.
+
+    For a row block of a contraction split over devices (core of the
+    row-sharded step): scales, the data parts' scales to slice with (the
+    whole operand's); k_total, the whole contraction's depth (it picks the
+    products' route and plan); static_big, the whole static table's slicing
+    rule; epilogue=False returns (int32 products, epilogue plan, data
+    scales) instead of the pair, so that the blocks' products sum exactly
+    before one epilogue."""
     p = prof or SliceProfile(NSL_DATA, NSL_STATIC, KMAX)
     dev = data.rh.device
     K, M = W.host().shape
     Kp = K + (-K) % 8
-    wr = _static_slices_for(Static(np.real, (W,)), p.nsl_static, dev, plain)
-    wi = _static_slices_for(Static(np.imag, (W,)), p.nsl_static, dev, plain)
+    if static_big is None:
+        wr = _static_slices_for(Static(np.real, (W,)), p.nsl_static, dev, plain)
+        wi = _static_slices_for(Static(np.imag, (W,)), p.nsl_static, dev, plain)
+    else:
+        wr = _static_slices_for(Static(np.real, (W,)), p.nsl_static, dev, plain, static_big)
+        wi = _static_slices_for(Static(np.imag, (W,)), p.nsl_static, dev, plain, static_big)
     have_wi = wi is not None
     parts = [wr, wi] if have_wi else [wr]
     # the producers' views as they are (transposed ones too): one K4 stage
     # for the real and the imaginary part, padded to Kp by the slicer
     pairs = [(data.rh, data.rl)] + ([] if data.is_real else [(data.ih, data.il)])
-    sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain)
+    sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain, scales)
     sd = [s for _, s in sliced]
     if real_out and not data.is_real and have_wi:
         # re = dr.wr - di.wi: the two products alone
@@ -553,8 +586,44 @@ def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: boo
         ii = (1, 1, wi.scale) if have_wi else None
         terms, mode = (((0, 0, wr.scale), ri, None, None), 0) if data.is_real else \
             (((0, 0, wr.scale), ri, (1, 0, wr.scale), ii), 1)
-    P, plan = _sliced_products(dsets, K, M, p.kmax, terms, mode)
+    P, plan = _sliced_products(dsets, K if k_total is None else k_total, M, p.kmax, terms, mode)
+    if not epilogue:
+        return P, plan, sd
     return (sliced_epilogue_plain if plain else sliced_epilogue)(P, plan, sd)
+
+
+def _common_scales(datas, rowwise: bool = False):
+    """The data scales of one operand held as blocks on several devices:
+    per part (real, imaginary) the power of two of the max of |hi| over all
+    blocks (per row with rowwise: the rows are split over the blocks), which
+    the K4 stage would have taken from the whole operand; one copy per
+    block's device."""
+    dev0 = datas[0].rh.device
+    scales = []
+    for lane in ((0, 2) if not datas[0].is_real else (0,)):
+        m = None
+        for d in datas:
+            hi = d[lane]
+            mk = (hi.abs().amax(dim=-1, keepdim=True) if rowwise else hi.abs().amax()).to(dev0)
+            m = mk if m is None else torch.maximum(m, mk)
+        s = _pow2ceil_scalar(m)
+        scales.append([s.to(d.rh.device).contiguous() for d in datas])
+    return [list(ss) for ss in zip(*scales)]
+
+
+def _cmatmul_blocks(datas, W, rowwise: bool = False, real_out: bool = False,
+                    prof: Optional[SliceProfile] = None, plain: bool = False) -> list:
+    """``_cmatmul_sliced`` of each block of an operand held as blocks (W one
+    static table, or one per block), each block sliced as the whole operand
+    would be (``_common_scales``; a rowwise product over full rows needs no
+    common scale). One block is ``_cmatmul_sliced`` itself."""
+    Ws = [W] * len(datas) if isinstance(W, Static) else list(W)
+    if len(datas) == 1:
+        return [_cmatmul_sliced(datas[0], Ws[0], rowwise, real_out, prof, plain)]
+    if rowwise:
+        return [_cmatmul_sliced(d, w, rowwise, real_out, prof, plain) for d, w in zip(datas, Ws)]
+    return [_cmatmul_sliced(d, w, rowwise, real_out, prof, plain, scales=s)
+            for d, w, s in zip(datas, Ws, _common_scales(datas))]
 
 
 # ---------------------------------------------------------------------------
@@ -640,31 +709,41 @@ def exact_dft_axis(x: CPair, N: int, inverse: bool = False, real_out: bool = Fal
     real_out=True: only the real part of the transform (a real pair).
     half_out=True: only bins k <= N//2 (the Hermitian half for real input);
     the second stage then runs at half width."""
+    return exact_dft_axis_blocks([x], N, inverse, real_out, half_out, prof, plain)[0]
+
+
+def exact_dft_axis_blocks(xs, N: int, inverse: bool = False, real_out: bool = False,
+                          half_out: bool = False, prof: Optional[SliceProfile] = None,
+                          plain: bool = False) -> list:
+    """``exact_dft_axis`` of one operand held as blocks (split along a
+    leading axis, each on its own device): each stage's products slice
+    every block as the whole operand would be (``_cmatmul_blocks``), so
+    block k's result is the rows of the whole operand's result."""
     R, S = _factor(N)
     DS, DR, tw = (Static(_dft_stage_mat, (N, inverse, m)) for m in ("DS", "DR", "tw"))
-    sh = tuple(x.rh.shape[:-1])
+    shs = [tuple(x.rh.shape[:-1]) for x in xs]
     # layout (..., b, a): x[a + R b] == x.reshape(S, R)[b, a]
-    data = _pmap(x, lambda v: v.reshape(sh + (S, R)))
+    datas = [_pmap(x, lambda v, sh=sh: v.reshape(sh + (S, R))) for x, sh in zip(xs, shs)]
     if R == 1:
         # prime N: one full DFT product over b (depth N)
         DSc = Static(_cols, (DS, N // 2 + 1)) if half_out else DS
-        return _cmatmul_sliced(_pmap(data, lambda v: v[..., 0]), DSc, real_out=real_out,
-                               prof=prof, plain=plain)
+        return _cmatmul_blocks([_pmap(d, lambda v: v[..., 0]) for d in datas], DSc,
+                               real_out=real_out, prof=prof, plain=plain)
     # stage 1: G[a, d] = sum_b x[b, a] DS[b, d] — contraction axis last
-    G = _cmatmul_sliced(_pmap(data, _swap), DS, prof=prof, plain=plain)
-    U = _pair_mul_static(G, tw, plain)
+    Gs = _cmatmul_blocks([_pmap(d, _swap) for d in datas], DS, prof=prof, plain=plain)
+    Us = [_pair_mul_static(G, tw, plain) for G in Gs]
     # stage 2: X[S c + d] = sum_a U[a, d] DR[a, c]
     Rc = R // 2 + 1 if half_out else R
     DRc = Static(_cols, (DR, Rc)) if half_out else DR
-    V = _cmatmul_sliced(_pmap(U, _swap), DRc, real_out=real_out, prof=prof,
-                        plain=plain)                                 # (..., d, c)
+    Vs = _cmatmul_blocks([_pmap(U, _swap) for U in Us], DRc, real_out=real_out, prof=prof,
+                         plain=plain)                                # (..., d, c)
     Nc = N // 2 + 1 if half_out else N
 
-    def fin(v):
+    def fin(v, sh):
         v = _swap(v).reshape(sh + (Rc * S,))                        # k = S c + d
         return v[..., :Nc] if half_out else v
 
-    return _pmap(V, fin)
+    return [_pmap(V, lambda v, sh=sh: fin(v, sh)) for V, sh in zip(Vs, shs)]
 
 
 @lru_cache(maxsize=64)
@@ -791,24 +870,35 @@ def exact_idft_halfin_real(x: CPair, N: int, prof: Optional[SliceProfile] = None
     columns, 1 for DC and Nyquist). Returns the real pair
     y[n] = Re(sum_{k<=N/2} x[k] e^{+2 pi i k n/N}) without the 1/N scale.
     N must be even."""
+    return exact_idft_halfin_real_blocks([x], N, prof, plain)[0]
+
+
+def exact_idft_halfin_real_blocks(xs, N: int, prof: Optional[SliceProfile] = None,
+                                  plain: bool = False) -> list:
+    """``exact_idft_halfin_real`` of one operand held as blocks (split along
+    a leading axis), each block sliced as the whole operand would be."""
     assert N % 2 == 0, "half-input inverse needs even N"
     R, S, _ = _idft_halfin_dims(N)
     ES, tw, ER = (Static(_idft_halfin_mat, (N, m)) for m in ("ES", "tw", "ER"))
-    sh = tuple(x.rh.shape[:-1])
+    shs = [tuple(x.rh.shape[:-1]) for x in xs]
     M = N // 2
     # x[a + R b] == x[..., :M].reshape(S, R)[b, a]; contract b
-    d1 = _pmap(x, lambda v: _swap(v[..., :M].reshape(sh + (S, R))))    # (..., a, b)
-    H = _cmatmul_sliced(d1, ES, prof=prof, plain=plain)                 # (..., a, m)
-    U = _pair_mul_static(H, tw, plain)
-    Y = _cmatmul_sliced(_pmap(U, _swap), ER, real_out=True, prof=prof,
-                        plain=plain)                                   # (..., m, t)
-    yh = _swap(Y.rh).reshape(sh + (N,))                                # n = m_ t + m
-    yl = _swap(Y.rl).reshape(sh + (N,))
-    # Nyquist column: + Re(x[N/2]) * (-1)^n  (sign and product exact)
-    sj = table(Static(_alt_sign, (N,)), x.rh.device)
-    nh, ne = _two_sum(yh, x.rh[..., M, None] * sj)
-    nl = yl + x.rl[..., M, None] * sj + ne
-    return CPair(nh, nl, None, None)
+    d1s = [_pmap(x, lambda v, sh=sh: _swap(v[..., :M].reshape(sh + (S, R))))
+           for x, sh in zip(xs, shs)]                                  # (..., a, b)
+    Hs = _cmatmul_blocks(d1s, ES, prof=prof, plain=plain)              # (..., a, m)
+    Us = [_pair_mul_static(H, tw, plain) for H in Hs]
+    Ys = _cmatmul_blocks([_pmap(U, _swap) for U in Us], ER, real_out=True, prof=prof,
+                         plain=plain)                                  # (..., m, t)
+    out = []
+    for x, Y, sh in zip(xs, Ys, shs):
+        yh = _swap(Y.rh).reshape(sh + (N,))                            # n = m_ t + m
+        yl = _swap(Y.rl).reshape(sh + (N,))
+        # Nyquist column: + Re(x[N/2]) * (-1)^n  (sign and product exact)
+        sj = table(Static(_alt_sign, (N,)), x.rh.device)
+        nh, ne = _two_sum(yh, x.rh[..., M, None] * sj)
+        nl = yl + x.rl[..., M, None] * sj + ne
+        out.append(CPair(nh, nl, None, None))
+    return out
 
 
 # ---------------------------------------------------------------------------

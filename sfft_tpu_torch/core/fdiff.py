@@ -240,12 +240,10 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
         axis 0 first at half width, then the real-only axis-1 inverse;
       * the background term exactly in image space (separable U B V^T).
     plain=True runs the plain twins of K4, K6 and K7."""
-    from sfft_tpu_torch.core.exact_fft import (_cmatmul_sliced, _pmap, _swap, exact_dft_axis,
-                                               exact_idft_halfin_real, pair_from_f64)
+    from sfft_tpu_torch.core.exact_fft import _pmap, _swap, exact_dft_axis
     from sfft_tpu_torch.core.greek import exact_plane_spectra
 
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
-    N1h = N1 // 2 + 1
     if shared is None:
         shared = exact_plane_spectra(I, J, cfg, plain=plain)
     _Jp, _SIp, SScp, sp = shared
@@ -256,34 +254,86 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
     # --- kernel spectra K_ij = W0 @ A'_ij @ W1 (center-zeroed) -------------
     a00 = a_ijab[:, w0, w1]
     s_nc = a_ijab.sum(dim=(1, 2)) - a00
-    W0T = Static(np.transpose, (Static(phase_matrix, (cfg, True, 0)),))
-    W1 = Static(phase_matrix, (cfg, True, 1))
-    Ap = a_ijab.clone()
-    Ap[:, w0, w1] = 0.0
-    # T1[i, b, u] = sum_a Ap[i, a, b] W0[u, a];  K[i, u, v] = sum_b T1[i, b, u] W1[b, v]
-    T1 = _cmatmul_sliced(pair_from_f64(Ap.transpose(1, 2)), W0T, plain=plain)
-    K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
+    K = kernel_spectra(cfg, a_ijab, plain=plain)                          # (i, u, v)
 
     # --- model spectrum: compensated pair sum over ij, folded --------------
     FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, nss, plain=plain)
 
     # --- inverse transform of the Hermitian half ---------------------------
     zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, plain=plain)    # (N1h, N0)
-    z = _pmap(zt, _swap)
-    if N1 % 2 == 0:
-        y = exact_idft_halfin_real(z, N1, plain=plain)
-    else:
-        zp = _pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - N1h)))
-        y = exact_dft_axis(zp, N1, inverse=True, real_out=True, plain=plain)
+    y = exact_inverse_axis1(_pmap(zt, _swap), N1, plain=plain)
     D = (y.rh.to(torch.float64) + y.rl) / (N0 * N1)
 
     # --- background term, exactly, in image space --------------------------
+    return (D - background_model(cfg, b_pq, dev)).to(J.dtype)
+
+
+def kernel_spectra(cfg: SFFTConfig, a_ijab: torch.Tensor, plain: bool = False):
+    """The center-zeroed kernel spectra K_ij = W0 @ A'_ij @ W1 of the exact
+    differences as a pair (Fij, N0, N1h): two sliced products against the
+    static phase matrices."""
+    return kernel_spectra_blocks(cfg, [a_ijab], [None], plain)[0]
+
+
+def kernel_spectra_blocks(cfg: SFFTConfig, a_list, rows_list, plain: bool = False) -> list:
+    """``kernel_spectra`` for frequency-row blocks: a_list, the solution's
+    a_ijab on each block's device; rows_list, each block's (r0, r1), or
+    None for all rows. The second product slices every block as the whole
+    operand would be (core/exact_fft.py ``_cmatmul_blocks``)."""
+    from sfft_tpu_torch.core.exact_fft import (NSL_STATIC, _cmatmul_blocks, _cmatmul_sliced,
+                                               _pmap, _row_block, _static_big, _swap,
+                                               pair_from_f64)
+
+    w0, w1 = cfg.w0, cfg.w1
+    W0 = Static(phase_matrix, (cfg, True, 0))
+    W1 = Static(phase_matrix, (cfg, True, 1))
+    T1s = []
+    for a_ijab, rows in zip(a_list, rows_list):
+        Ap = a_ijab.clone()
+        Ap[:, w0, w1] = 0.0
+        # T1[i, b, u] = sum_a Ap[i, a, b] W0[u, a];  K[i, u, v] = sum_b T1[i, b, u] W1[b, v]
+        data = pair_from_f64(Ap.transpose(1, 2))
+        if rows is None:
+            T1s.append(_cmatmul_sliced(data, Static(np.transpose, (W0,)), plain=plain))
+        else:
+            # the block's columns of W0^T, sliced as the whole table is
+            T1s.append(_cmatmul_sliced(
+                data, Static(np.transpose, (Static(_row_block, (W0,) + tuple(rows)),)),
+                plain=plain, static_big=_static_big(Static(np.transpose, (W0,)), NSL_STATIC)))
+    return _cmatmul_blocks([_pmap(T1, _swap) for T1 in T1s], W1, plain=plain)
+
+
+def exact_inverse_axis1(z, N1: int, prof=None, plain: bool = False):
+    """The real inverse over the last axis of the Hermitian half z (..., N1h),
+    fold weights applied: the half-input inverse for even N1, else the full
+    real-only inverse of the zero-padded half. Unscaled real pair."""
+    return exact_inverse_axis1_blocks([z], N1, prof, plain)[0]
+
+
+def exact_inverse_axis1_blocks(zs, N1: int, prof=None, plain: bool = False) -> list:
+    """``exact_inverse_axis1`` of one operand held as row blocks, each
+    sliced as the whole operand would be."""
+    from sfft_tpu_torch.core.exact_fft import (_pmap, exact_dft_axis_blocks,
+                                               exact_idft_halfin_real_blocks)
+
+    if N1 % 2 == 0:
+        return exact_idft_halfin_real_blocks(zs, N1, prof=prof, plain=plain)
+    zps = [_pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - v.shape[-1]))) for z in zs]
+    return exact_dft_axis_blocks(zps, N1, inverse=True, real_out=True, prof=prof, plain=plain)
+
+
+def background_model(cfg: SFFTConfig, b_pq: torch.Tensor, device, rows=None) -> torch.Tensor:
+    """The background sum_pq b_pq T_pq exactly in image space (separable
+    U B V^T), f64; rows = (r0, r1) gives the image rows [r0, r1) only."""
     exps = ref_basis_exponents(cfg.bg_basis)
-    U = table(Static(_bg_axis_table, (cfg, 0)), dev, torch.float64)
-    V = table(Static(_bg_axis_table, (cfg, 1)), dev, torch.float64)
-    B = torch.zeros((U.shape[1], V.shape[1]), dtype=torch.float64, device=dev)
-    B.index_put_((index(exps[:, 0], dev), index(exps[:, 1], dev)), b_pq, accumulate=True)
-    return (D - U @ B @ V.T).to(J.dtype)
+    U = table(Static(_bg_axis_table, (cfg, 0)), device, torch.float64)
+    V = table(Static(_bg_axis_table, (cfg, 1)), device, torch.float64)
+    if rows is not None:
+        U = U[rows[0]:rows[1]]
+    B = torch.zeros((U.shape[1], V.shape[1]), dtype=torch.float64, device=device)
+    B.index_put_((index(exps[:, 0], device), index(exps[:, 1], device)), b_pq.to(device),
+                 accumulate=True)
+    return U @ B @ V.T
 
 
 def _bg_axis_table(cfg: SFFTConfig, axis: int) -> np.ndarray:

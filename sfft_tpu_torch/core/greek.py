@@ -71,11 +71,14 @@ def _partial_idft_mats(N0: int, N1: int, wx: int, wy: int, cdtype):
 
 @lru_cache(maxsize=32)
 def _idft_mats_on(N0: int, N1: int, wx: int, wy: int, dtype: torch.dtype,
-                  device: torch.device):
+                  device: torch.device, e0_rows=None):
     """_partial_idft_mats as contiguous tensors on `device` (cached: they are
-    static per geometry, like the constants sfft_tpu bakes into its graph)."""
+    static per geometry, like the constants sfft_tpu bakes into its graph).
+    e0_rows = (r0, r1) keeps E0's columns for the frequency rows [r0, r1)."""
     npdt = np.complex128 if dtype == torch.complex128 else np.complex64
     E0, E1 = _partial_idft_mats(N0, N1, wx, wy, npdt)
+    if e0_rows is not None:
+        E0 = E0[:, e0_rows[0]:e0_rows[1]]
     return (torch.as_tensor(E0, device=device).contiguous(),
             torch.as_tensor(E1, device=device).contiguous())
 
@@ -289,6 +292,7 @@ def corr_window_fft(
     method: str = "auto",
     symmetric: bool = False,
     plain: bool = False,
+    row0=None,
 ) -> torch.Tensor:
     """CC(A_a, B_b)[rho, eps] for all pairs, lags |rho|<=wx, |eps|<=wy.
 
@@ -297,14 +301,22 @@ def corr_window_fft(
     'kernel' | 'auto' (see the module docstring). symmetric (with specA is
     specB, for 'matmul' and 'kernel') computes the upper triangle of pairs
     and mirrors it: CC(A_b, A_a)[rho] = CC(A_a, A_b)[-rho]. chunk bounds the
-    pairs per contraction (memory throttling).
+    pairs per contraction (memory throttling). row0: the stacks hold the
+    frequency rows [row0, row0 + rows) of the spectra only, and the result
+    is their share of the windows (the partial inverse DFT over those rows;
+    'auto' then takes 'matmul' where it would take 'irfft').
     """
     Fa, Fb = specA.shape[0], specB.shape[0]
     if method == "auto":
         method = "irfft" if (plain or specA.device.type == "cpu") else "kernel"
+        if method == "irfft" and row0 is not None:
+            method = "matmul"
+    if row0 is not None and method == "irfft":
+        raise ValueError("a row block of the spectra takes the 'matmul' or 'kernel' method")
 
     if method in ("matmul", "kernel"):
-        E0, E1 = _idft_mats_on(N0, N1, wx, wy, specA.dtype, specA.device)
+        e0_rows = None if row0 is None else (row0, row0 + specA.shape[1])
+        E0, E1 = _idft_mats_on(N0, N1, wx, wy, specA.dtype, specA.device, e0_rows)
         # the window's weights come in conjugate pairs of lags (+d, -d)
         pair_fn = partial(_corr_window, sym=True) if method == "kernel" else corr_pairs_plain
         same = symmetric and specA is specB
@@ -489,14 +501,32 @@ def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
     from sfft_tpu_torch.core.exact_fft import CPair, exact_corr_window, pair_stack
 
     N0, N1 = cfg.N0, cfg.N1
-    w0, w1 = cfg.w0, cfg.w1
-    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
     if shared is None:
         shared = exact_plane_spectra(I, J, cfg, plain=plain)
     Jp, SIp, SScp, sp = shared
-    dev = sp.rh.device
-    Fij = len(SIp)
-    Fs = len(SScp) if SScp is not None else 0
+    planes = {"SI": lambda: pair_stack(SIp), "SS": lambda: pair_stack(SScp),
+              "J": lambda: CPair(Jp.rh[None], Jp.rl[None], None, None)}
+
+    def window(ia, jb, wx, wy):
+        return exact_corr_window(sp, sp, N0, N1, wx, wy, pairs=(ia, jb), plain=plain)
+
+    def bg_corr(name, wx, wy):
+        return exact_bg_corr_pair(planes[name](), cfg.bg_basis, N0, N1, wx, wy, plain=plain)
+
+    return exact_tables(cfg, len(SIp), len(SScp) if SScp is not None else 0,
+                        sp.rh.device, window, bg_corr)
+
+
+def exact_tables(cfg, Fij: int, Fs: int, dev, window, bg_corr):
+    """greek_tables_exact's tables from its two correlations:
+    window(ia, jb, wx, wy), the windows (npairs, 2wx+1, 2wy+1) f64 of the
+    spectrum pairs (ia[c], jb[c]) in plane order [J] + SI (+ SSc), and
+    bg_corr(name, wx, wy), the correlations (F, Fpq, 2wx+1, 2wy+1) f64 of
+    the planes `name` ("SI", "SS" or "J") with the background planes. The
+    row-sharded step passes sums over row blocks."""
+    N0, N1 = cfg.N0, cfg.N1
+    w0, w1 = cfg.w0, cfg.w1
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
 
     # ALL spectrum-pair windows share ONE pass at the widest (+-2w) window
     # (the partial inverse DFT pads every lag grid to the same 64 product
@@ -510,8 +540,7 @@ def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
         su, sv = np.triu_indices(Fs)
         ia_l += [gI.ravel(), su + 1 + Fij, np.arange(Fs) + 1 + Fij]
         jb_l += [gS.ravel(), sv + 1 + Fij, np.zeros(Fs, np.int64)]
-    cc = exact_corr_window(sp, sp, N0, N1, 2 * w0, 2 * w1,
-                           pairs=(np.concatenate(ia_l), np.concatenate(jb_l)), plain=plain)
+    cc = window(np.concatenate(ia_l), np.concatenate(jb_l), 2 * w0, 2 * w1)
     n_omg = len(iu)
     iu_t, ju_t = index(iu, dev), index(ju, dev)
     Comg = torch.zeros((Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
@@ -519,10 +548,9 @@ def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
     Comg[ju_t, iu_t] = torch.flip(cc[:n_omg], dims=(1, 2))
     win = (slice(w0, 3 * w0 + 1), slice(w1, 3 * w1 + 1))
     Cthe = cc[n_omg: n_omg + Fij][(slice(None),) + win]
-    Cgam = exact_bg_corr_pair(pair_stack(SIp), cfg.bg_basis, N0, N1, w0, w1, plain=plain)
+    Cgam = bg_corr("SI", w0, w1)
     Cphi = table(Static(bg_static_gram, (cfg.bg_basis, N0, N1)), dev, cc.dtype)
-    Cdel = exact_bg_corr_pair(CPair(Jp.rh[None], Jp.rl[None], None, None),
-                              cfg.bg_basis, N0, N1, 0, 0, plain=plain)[0, :, 0, 0]
+    Cdel = bg_corr("J", 0, 0)[0, :, 0, 0]
     if not separate_varying:
         return Comg, Cgam, Cthe, Cphi, Cdel
 
@@ -536,8 +564,7 @@ def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
     Pss[sv_t, su_t] = pss_u
     o += len(su)
     Pts = cc[o: o + Fs, 2 * w0, 2 * w1]
-    Pgs = exact_bg_corr_pair(pair_stack(SScp), cfg.bg_basis, N0, N1, 0, 0,
-                             plain=plain)[:, :, 0, 0]
+    Pgs = bg_corr("SS", 0, 0)[:, :, 0, 0]
     return Comg, Cgam, Cthe, Cphi, Cdel, _pad_scaling(Pbs, Pss, Pgs, Pts, cfg.Fij - Fs)
 
 

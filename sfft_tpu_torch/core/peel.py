@@ -155,23 +155,40 @@ def _t(build, args: tuple, like: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def moment_set(
     G: torch.Tensor, N0: int, N1: int, w0: int, w1: int, SG: int,
-    ax0: AxisStatic, ax1: AxisStatic, plain: bool = False,
+    ax0: AxisStatic, ax1: AxisStatic, plain: bool = False, row0: int = 0,
 ) -> MomentSet:
-    """Compute the moment set of image G on its device (exact f64)."""
+    """Compute the moment set of image G on its device (exact f64).
+
+    G may be a row block of the (N0, N1) image: its rows are the image's
+    rows [row0, row0 + G.shape[0]), and the result is that block's share,
+    so that the shares of all blocks sum to the image's moment set (the
+    row-sharded step, parallel/sharded_fft.py)."""
     dt, dev = G.dtype, G.device
-    P0 = _t(coord_powers, (N0, SG, 0, N0), G)  # (SG, N0)
+    n = G.shape[0]
+    P0 = _t(coord_powers, (N0, SG, row0, row0 + n), G)  # (SG, n)
     P1 = _t(coord_powers, (N1, SG, 0, N1), G)  # (SG, N1)
     R0, R1 = 2 * w0 + 1, 2 * w1 + 1
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    def rows_of(lo, hi):
+        # the image rows [lo, hi) as far as G holds them (zero rows elsewhere)
+        a, b = max(lo, row0), min(hi, row0 + n)
+        if (a, b) == (lo, hi):
+            return G[lo - row0: hi - row0]
+        out = zeros(hi - lo, G.shape[1])
+        if a < b:
+            out[a - lo: b - lo] = G[a - row0: b - row0]
+        return out
+
     # full moments: (SG, N0) @ (N0, N1) @ (N1, SG)
     M = _exact_skinny_matmul(P0, G, plain) @ P1.T
 
     # row strips: rows [0, w0) and [N0-w0, N0)
-    rowmom_top = G[:w0] @ P1.T if w0 else zeros(0, SG)      # (w0, SG)
-    rowmom_bot = G[N0 - w0 :] @ P1.T if w0 else zeros(0, SG)
+    G_top, G_bot = rows_of(0, w0), rows_of(N0 - w0, N0)
+    rowmom_top = G_top @ P1.T if w0 else zeros(0, SG)      # (w0, SG)
+    rowmom_bot = G_bot @ P1.T if w0 else zeros(0, SG)
     cx_top = _t(coord_powers, (N0, SG, 0, w0), G)        # (SG, w0)
     cx_bot = _t(coord_powers, (N0, SG, N0 - w0, N0), G)
     top_terms = cx_top[:, :, None] * rowmom_top[None, :, :]   # (SG, w0, SG)
@@ -202,10 +219,10 @@ def moment_set(
     CNR = zeros(R0, R1, SG, SG)
     if w0 and w1:
         blocks = {
-            (False, False): G[:w0, :w1],
-            (False, True): G[:w0, N1 - w1 :],
-            (True, False): G[N0 - w0 :, :w1],
-            (True, True): G[N0 - w0 :, N1 - w1 :],
+            (False, False): G_top[:, :w1],
+            (False, True): G_top[:, N1 - w1 :],
+            (True, False): G_bot[:, :w1],
+            (True, True): G_bot[:, N1 - w1 :],
         }
         for (f0, f1), blk in blocks.items():
             cxp = cx_bot if f0 else cx_top

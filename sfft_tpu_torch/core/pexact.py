@@ -26,12 +26,11 @@ import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
 from sfft_tpu_torch.core import pairs
-from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _cmatmul_sliced,
-                                           _pair_mul_static_rr, _pmap, _split_on, _swap,
-                                           exact_corr_window, exact_dft_axis,
-                                           exact_idft_halfin_real,
-                                           exact_sep_weighted_spectra, pair_from_f64)
-from sfft_tpu_torch.core.fdiff import (pair_model_spectrum, phase_matrix, split_solution,
+from sfft_tpu_torch.core.exact_fft import (CPair, SliceProfile, _pair_mul_static_rr, _pmap,
+                                           _split_on, _swap, exact_corr_window,
+                                           exact_dft_axis, exact_sep_weighted_spectra)
+from sfft_tpu_torch.core.fdiff import (exact_inverse_axis1, kernel_spectra,
+                                        pair_model_spectrum, split_solution,
                                         standard_kernel_coeffs)
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.peel import (AxisStatic, MomentSet, _axis_field, _exps_key,
@@ -46,17 +45,18 @@ from sfft_tpu_torch.core.statics import Static, index, table
 # ---------------------------------------------------------------------------
 
 
-def _poly_tables(C: torch.Tensor, N0: int, N1: int):
+def _poly_tables(C: torch.Tensor, N0: int, N1: int, r0: int = 0, r1: Optional[int] = None):
     """K6p's tables for a ScaledFortranCoor polynomial C (SP, SP) f64 over
     c0^s c1^t with c = (idx+1)/N: U = c0^s (SP, N0) and M = C @ c1^t (SP,
-    N1, a tiny f64 product), each split into f32 (hi, lo)."""
+    N1, a tiny f64 product), each split into f32 (hi, lo). (r0, r1) keeps
+    the image rows [r0, r1) of U (a row block of the sharded step)."""
     SP = C.shape[0]
     dev = C.device
     V = table(Static(coord_powers, (N1, SP, 0, N1)), dev)       # (SP, N1) f64
     M = C.to(torch.float64) @ V                                  # (SP, N1) f64
     Mh = M.to(torch.float32)
     Ml = (M - Mh.to(torch.float64)).to(torch.float32)
-    Uh, Ul = _split_on(Static(coord_powers, (N0, SP, 0, N0)), dev)
+    Uh, Ul = _split_on(Static(coord_powers, (N0, SP, r0, N0 if r1 is None else r1)), dev)
     return Uh, Ul, Mh, Ml
 
 
@@ -164,10 +164,14 @@ def pexact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
 
 
 def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
-                        shared: Optional[PexactShared] = None, plain: bool = False):
+                        shared: Optional[PexactShared] = None, plain: bool = False,
+                        window=None):
     """(Comg, Cgam, Cthe, Cphi, Cdel[, (Pbs, Pss, Pgs, Pts)]) unscaled CC
     tables: smooth-involving terms exact f64 (moment algebra), fluct x fluct
-    via the sliced pair-FFT windows at cfg.pexact_prof."""
+    via the sliced pair-FFT windows at cfg.pexact_prof. window(ia, jb), when
+    given, returns those windows (npairs, 4w0+1, 4w1+1) for the pair list
+    of the fluctuation spectra instead of ``exact_corr_window`` on
+    shared.sp (the row-sharded step sums them over row blocks)."""
     g = _geom(cfg)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
@@ -227,9 +231,12 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     iu, ju = np.triu_indices(Fij)
     ia = np.concatenate([iu + 1, np.arange(Fij) + 1])
     jb = np.concatenate([ju + 1, np.zeros(Fij, np.int64)])
-    spec_all = _pmap(sp, lambda v: v[: 1 + Fij])
-    cc = exact_corr_window(spec_all, spec_all, N0, N1, 2 * w0, 2 * w1,
-                           pairs=(ia, jb), prof=prof, plain=plain)
+    if window is None:
+        spec_all = _pmap(sp, lambda v: v[: 1 + Fij])
+        cc = exact_corr_window(spec_all, spec_all, N0, N1, 2 * w0, 2 * w1,
+                               pairs=(ia, jb), prof=prof, plain=plain)
+    else:
+        cc = window(ia, jb)
     n_omg = len(iu)
     iu_t = index(iu, dev)
     ju_t = index(ju, dev)
@@ -296,30 +303,20 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     (sfft/BSplineSFFT.py:2430-2528)."""
     g = _geom(cfg)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
-    N1h = N1 // 2 + 1
     dt = torch_dtype(cfg.dtype)
-    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
     prof = SliceProfile(*cfg.pexact_prof)
     if shared is None:
         shared = pexact_plane_spectra(I, J, cfg, plain=plain)
     mI, mJ, _momI_o, _momJ_g, sp = shared
-    dev = mI.device
     solution = solution.to(dt)
-    Fk = g.Fk_only
-    Fs = len(g.exps_k) - Fk          # union scaling planes (0 if ENTANGLED)
+    Fs = len(g.exps_k) - g.Fk_only   # union scaling planes (0 if ENTANGLED)
 
-    a_ijab, b_pq = split_solution(cfg, solution)
+    a_ijab, _ = split_solution(cfg, solution)
     a00 = a_ijab[:, w0, w1]
     s_nc = a_ijab.sum(dim=(1, 2)) - a00
 
     # --- spectral fluct model (on the fluct spectra) -----------------------
-    W0T = Static(np.transpose, (Static(phase_matrix, (cfg, True, 0)),))
-    W1 = Static(phase_matrix, (cfg, True, 1))
-    Ap = a_ijab.clone()
-    Ap[:, w0, w1] = 0.0
-    Adat = pair_from_f64(Ap.transpose(1, 2))
-    T1 = _cmatmul_sliced(Adat, W0T, plain=plain)
-    K = _cmatmul_sliced(_pmap(T1, _swap), W1, plain=plain)              # (i, u, v)
+    K = kernel_spectra(cfg, a_ijab, plain=plain)                        # (i, u, v)
 
     # the model spectrum, FD = sp[0] - SCALE * sum (compensated), folded
     FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, Fs, plain=plain)
@@ -327,13 +324,30 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     # inverse of the Hermitian half: axis 0 first at half width, then the
     # real-only axis-1 inverse
     zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, prof=prof, plain=plain)
-    z = _pmap(zt, _swap)
-    if N1 % 2 == 0:
-        y = exact_idft_halfin_real(z, N1, prof=prof, plain=plain)
-    else:
-        zp = _pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - N1h)))
-        y = exact_dft_axis(zp, N1, inverse=True, real_out=True, prof=prof, plain=plain)
+    y = exact_inverse_axis1(_pmap(zt, _swap), N1, prof=prof, plain=plain)
     Dfl = _pair_mul_static_rr(y, Static(np.float64, (1.0 / (N0 * N1),)), plain)
+    return pexact_smooth_model(cfg, solution, mI, mJ, Dfl, plain=plain).to(J.dtype)
+
+
+def pexact_smooth_model(cfg: SFFTConfig, solution: torch.Tensor, mI: torch.Tensor,
+                        mJ: torch.Tensor, Dfl: CPair, row0: int = 0,
+                        plain: bool = False) -> torch.Tensor:
+    """fdiff_pexact's smooth part: the fluctuation difference Dfl (a real
+    pair) plus the main polynomial's plane in one f64 materialisation (K6p
+    add64), then the f64 wrap-correction strips. Dfl may be a row block of
+    the image, its rows [row0, row0 + rows); returns f64 of Dfl's shape."""
+    g = _geom(cfg)
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    dev = mI.device
+    solution = solution.to(dt)
+    Fk = g.Fk_only
+    n = Dfl.rh.shape[0]
+    r1 = row0 + n
+    a_ijab, b_pq = split_solution(cfg, solution)
+    a00 = a_ijab[:, w0, w1]
+    s_nc = a_ijab.sum(dim=(1, 2)) - a00
 
     # --- smooth model: closed-form shift algebra ----------------------------
     dmu, dk = g.dmu, cfg.kernel_basis.degree
@@ -381,7 +395,7 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     # fluct + the main polynomial's plane in pair arithmetic, ONE f64
     # materialisation: one K6p launch
     add64 = pairs.pair_poly_add64_plain if plain else pairs.pair_poly_add64
-    D = add64(Dfl, *_poly_tables(Ctot, N0, N1))
+    D = add64(Dfl, *_poly_tables(Ctot, N0, N1, row0, r1))
 
     # --- wrap-correction strips (f64, tiny) ---------------------------------
     def pows(N, lo, hi):
@@ -390,18 +404,24 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
 
     U_top, U_bot = pows(N0, 0, w0), pows(N0, N0 - w0, N0)
     V_left, V_right = pows(N1, 0, w1), pows(N1, N1 - w1, N1)
-    P0, P1 = pows(N0, 0, N0), pows(N1, 0, N1)
+    P0, P1 = pows(N0, row0, r1), pows(N1, 0, N1)
 
     def rcumsum(x, dim):
         return torch.flip(torch.cumsum(torch.flip(x, dims=(dim,)), dim=dim), dims=(dim,))
+
+    def add_rows(lo, corr, cols=slice(None)):
+        # D[image rows lo.., cols] += -s * corr, for the rows this block holds
+        a, b = max(lo, row0), min(lo + corr.shape[0], r1)
+        if a < b:
+            D[a - row0:b - row0, cols] += -s * corr[a - lo:b - lo]
 
     if w0:
         # top rows x in [0, w0): lags a > x  -> suffix-cum over Gx[w0+1:]
         corr_top = torch.einsum("xu,xuv,yv->xy", U_top, rcumsum(Gx[w0 + 1:], 0), P1)
         # bottom rows x = N0-w0+xi: lags a <= -(w0-xi) -> prefix-cum Gx[:w0]
         corr_bot = torch.einsum("xu,xuv,yv->xy", U_bot, torch.cumsum(Gx[:w0], dim=0), P1)
-        D[:w0] += -s * corr_top
-        D[N0 - w0:] += -s * corr_bot
+        add_rows(0, corr_top)
+        add_rows(N0 - w0, corr_bot)
     if w1:
         corr_l = torch.einsum("xu,yuv,yv->xy", P0, rcumsum(Gy[w1 + 1:], 0), V_left)
         corr_r = torch.einsum("xu,yuv,yv->xy", P0, torch.cumsum(Gy[:w1], dim=0), V_right)
@@ -424,6 +444,6 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
         ]
         for sx, sy, blk, rev0, rev1, Ux, Vy in corners:
             corr = torch.einsum("xu,xyuv,yv->xy", Ux, cum2(blk, rev0, rev1), Vy)
-            D[sx, sy] += -s * corr
+            add_rows(0 if sx.start is None else sx.start, corr, sy)
 
-    return D.to(J.dtype)
+    return D

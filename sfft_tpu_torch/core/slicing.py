@@ -103,17 +103,20 @@ def slice_pair_plain(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
     return torch.stack(_seq_slices(hi2 / s, lo2 / s, nsl, INJECT))
 
 
-def slice_pairs_plain(parts, nsl: int, Kp: int = None, rowwise: bool = False):
+def slice_pairs_plain(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None):
     """The plain twin of the K4 stage: for each (hi, lo) pair, the chain
     that sfft_tpu's ``_slice_pair_real`` is (after the caller's zero pad of
     the last axis to Kp): the scale from max|hi| (per row with rowwise, else
     over the operand) rounded up to a power of two, then ``slice_pair_plain``
-    on contiguous copies. Returns [(slices (nsl, ..., Kp) int8, scale)]."""
+    on contiguous copies. scales: one given scale per part instead (shape
+    () or the rows' + (1,)). Returns [(slices (nsl, ..., Kp) int8, scale)]."""
     out = []
-    for hi, lo in parts:
+    for p, (hi, lo) in enumerate(parts):
         Kq = hi.shape[-1] if Kp is None else Kp
         hi, lo = _padk(hi, Kq), _padk(lo, Kq)
-        if rowwise:
+        if scales is not None:
+            s = scales[p]
+        elif rowwise:
             s = _pow2ceil_scalar(hi.abs().amax(dim=-1, keepdim=True))
         else:
             s = _pow2ceil_scalar(hi.abs().amax())
@@ -344,25 +347,35 @@ def _check_parts(parts, nsl: int, Kp: int, what: str):
         raise ValueError(f"{what} needs Kp >= {hi0.shape[-1]}, got {Kp}")
 
 
-def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False):
+def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None):
     """K4 stage: each (hi, lo) f32 pair of `parts` (one, or a complex
     operand's real and imaginary parts; all of one shape, any strides) ->
     (slices (nsl, *hi.shape[:-1], Kp) int8, power-of-two scale of shape
     hi.shape[:-1] + (1,) with rowwise, else ()). The last axis is
     zero-padded to Kp (default: its length). CUDA tensors: one launch of
     csrc/slice_pair.cu for all parts (after one max launch for a global
-    scale); CPU tensors: ``slice_pairs_plain``."""
+    scale); CPU tensors: ``slice_pairs_plain``. scales: one given
+    power-of-two scale per part (contiguous f32 of that shape on the
+    operands' device), which the slices then take instead of their own (a
+    row block of an operand sliced as the whole operand would be)."""
     parts = list(parts)
     Kp = parts[0][0].shape[-1] if Kp is None else Kp
     _check_parts(parts, nsl, Kp, "slice_pairs")
     hi0 = parts[0][0]
+    if scales is not None:
+        want = hi0.shape[:-1] + (1,) if rowwise else ()
+        if len(scales) != len(parts) or any(
+                t.dtype != torch.float32 or tuple(t.shape) != tuple(want)
+                or t.device != hi0.device or not t.is_contiguous() for t in scales):
+            raise ValueError(f"slice_pairs needs one contiguous float32 scale of shape "
+                             f"{tuple(want)} per part on {hi0.device}")
     if hi0.device.type == "cpu":
-        return slice_pairs_plain(parts, nsl, Kp, rowwise)
+        return slice_pairs_plain(parts, nsl, Kp, rowwise, scales)
     if hi0.numel() == 0:
         raise ValueError("slice_pairs needs a non-empty operand (its scale is a max)")
     if NB != 6:
         raise ValueError("csrc/slice_pair.cu is built for 6-bit slices (NB == 6)")
-    return _launch_pairs(parts, nsl, Kp, rowwise)
+    return _launch_pairs(parts, nsl, Kp, rowwise, scales)
 
 
 def slice_pair(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor, nsl: int) -> torch.Tensor:

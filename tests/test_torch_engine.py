@@ -364,6 +364,7 @@ def test_import_leaves_jax_out():
             "sfft_tpu_torch.prep.sky_subtract, sfft_tpu_torch.api.easy_sparse, "
             "sfft_tpu_torch.api.easy_crowded, sfft_tpu_torch.utils.multiproc, "
             "sfft_tpu_torch.parallel.batch, sfft_tpu_torch.parallel.scheduler, "
+            "sfft_tpu_torch.parallel.sharded_fft, sfft_tpu_torch.parallel.multihost, "
             "sfft_tpu_torch.serve; "
             "import threading; assert threading.active_count() == 1, threading.enumerate(); "
             "assert sfft_tpu_torch.native.available(); "
