@@ -121,6 +121,26 @@ card joined over gloo on localhost run run_survey_multihost on 6 fast
 bit for bit this process's batched_subtract of the same pairs; a worker
 that fails or outlives its timeout fails the phase.
 
+Then phase 13, the FFT-free f64 route (greek 'corr' on K8, fdiff 'conv'
+on K9), the host utility on K9 and the int16 upload: (13a) K8 on the
+4096^2 step's Comg, Cgam and Cthe tables and the NIRCam v2 Comg and Pbs
+tables, each within 1e-12 of its twin's max and bit for bit across two
+launches, and the 4096^2 tables within 1e-12 of the f64 fft route's (K1
+c128); (13b) K9 on the 4096^2 difference and the v2 one with its scaling
+planes, and convolve2d on a 2046 x 4094 image with a 31 x 31 kernel in
+each boundary mode and with NaN interpolation, each within 1e-12 of the
+same call on K9's twin (time, bound, twin and grouped F.conv2d); (13c) the
+main paths: PCP at 4096^2 with corr / conv / exact, held to fft / fft /
+exact on the same pair (difference RMS < 1e-6, solution within 1e-6 of
+max; corr / conv / lu printed beside it), fdiff_conv held to fdiff_fft on
+one solution (1e-10 max|J|), and BSP on the NIRCam configuration with
+corr / conv / exact held to its fft / fft / lu path as phase 7 holds the
+exact one; each launching K8 and K9 (and K5 on v2), with wall, busy
+time, idle share and the difference's noise level; (13d)
+batched_subtract_packed on two fast 4096^2 pairs bit for bit
+batched_subtract on the dequantized planes, with the upload of one pair
+packed and in f64.
+
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
 step run once more with K7 alone on its twin and once with K6 alone on its
@@ -206,6 +226,11 @@ decisions and results must equal single ECP calls.
 
 builds the kernels and runs phase 12 (the multi-device layer) alone.
 
+    python3 chip_smoke.py --direct
+
+builds the kernels and runs phase 13 (the FFT-free f64 route, convolve2d
+and the int16 upload) alone, and prints K8's and K9's kernels line.
+
     python3 chip_smoke.py --stages OUT_DIR
 
 times the slicing stages of one steady contract step and one steady v2 step
@@ -240,10 +265,11 @@ V2_LAMBDA = 3e-5
 V2_NEQ = 13226
 V2_SOLVE_N = 13207
 # H100 SXM datasheet peaks (NVIDIA's data sheet, dense rates at the 700 W
-# limit): HBM3, and FP32 / FP64 outside the tensor cores
+# limit): HBM3, FP32 outside the tensor cores, and FP64 at its peak, which
+# is the tensor cores' (DMMA; 34 TFLOP/s outside them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
+FP64_FLOP_PER_S = 67e12
 # f32 operations that are not fused multiply-adds (K6's _rn arithmetic): one
 # per lane per clock, 132 SMs x 128 lanes x 1.98 GHz (half the FMA-counted
 # FP32 rate)
@@ -3407,6 +3433,7 @@ def zero_kernel_counts():
     moments.moments.launches = 0
     greek.corr_window.launches = 0
     fdiff.fdiff_model.launches = 0
+    greek._K8.launches = fdiff._K9.launches = 0
     slicing.slice_pair.launches = slicing.slice_pair.scale_launches = 0
     slicing.slice_triple.launches = 0
     exact_fft.sliced_epilogue.launches = 0
@@ -3424,6 +3451,7 @@ def kernel_counts():
     counts = {"moments": moments.moments.launches,
               "corr_window": greek.corr_window.launches,
               "fdiff_model": fdiff.fdiff_model.launches,
+              "corr_direct": greek._K8.launches, "conv_direct": fdiff._K9.launches,
               "slice_pair": slicing.slice_pair.launches + slicing.slice_pair.scale_launches,
               "slice_triple": slicing.slice_triple.launches,
               "sliced_epilogue": exact_fft.sliced_epilogue.launches}
@@ -4787,8 +4815,543 @@ def phase_sharded(d):
     return report, launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: the FFT-free f64 route (K8, K9), the host utilities on K9 and
+# the int16 upload
+
+DIRECT_TRIO = dict(greek_backend="corr", fdiff_backend="conv", solver="exact")
+DIRECT_KERNELS = [("corr_direct", "sfft_tpu_torch/csrc/corr_direct.cu", "sfft_tpu/core/greek.py:152"),
+                  ("conv_direct", "sfft_tpu_torch/csrc/conv_direct.cu", "sfft_tpu/core/fdiff.py:107")]
+CONV2D_SHAPE = (2046, 4094)   # a DECam CCD
+CONV2D_KERNEL = 31
+CONV2D_WIDE = 95              # past K9's 63-tap chunk: 2 x 2 chunks
+# the device of phase 13 (a CPU rehearsal sets "cpu", a small N and V2_N,
+# and replaces the timers)
+DIRECT_DEV = "cuda"
+
+
+def once_ms(fn):
+    """(fn(), its device time in ms): one call between two CUDA events (for
+    the plain twins, which take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def k8_bound(Fa, Fb, R0, R1, n0, n1, same):
+    """K8's least time for one (Fa, Fb, R0, R1) table: one FP64 multiply-add
+    per pixel and distinct pair-lag (B is A: the pairs a < b at every lag
+    and the pairs a = a at (R0 R1 + 1) / 2 lags, CC(A_a, A_a)[d] being
+    CC(A_a, A_a)[-d]; else all Fa Fb pairs), against the planes read once
+    and the table written once."""
+    lags = R0 * R1
+    pair_lags = Fa * (Fa - 1) // 2 * lags + Fa * (lags + 1) // 2 if same else Fa * Fb * lags
+    return bound(8.0 * ((Fa if same else Fa + Fb) * n0 * n1 + Fa * Fb * lags),
+                 2.0 * pair_lags * n0 * n1, FP64_FLOP_PER_S)
+
+
+def k9_bound(F, L0, L1, n0, n1, H, W, nextra):
+    """K9's least time: one FP64 multiply-add per plane, tap and pixel (and
+    per background / scaling plane), against the planes, taps and extra
+    planes read once and the output written once."""
+    return bound(8.0 * (F * H * W + F * L0 * L1 + (nextra + 1) * n0 * n1),
+                 2.0 * (F * L0 * L1 + nextra) * n0 * n1, FP64_FLOP_PER_S)
+
+
+def direct_k8_calls(name, A, B, w, reps=3):
+    """One K8 table on the card (B is A: Comg's 21 pairs, mirrored):
+    launched twice (bit for bit), timed, held to its twin within 1e-12 of
+    the table's max; returns (table, row). library_ms comes later, from
+    ``phase_direct_library``."""
+    import torch
+    from sfft_tpu_torch.core import greek
+
+    R = 2 * w + 1
+    out = greek.corr_window_conv(A, B, w, w)
+    again = greek.corr_window_conv(A, B, w, w)
+    ref, plain_ms = once_ms(lambda: greek.corr_window_conv_plain(A, B, w, w))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"K8 {name}: two launches differ"
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    assert rel <= 1e-12, f"K8 {name}: {rel:.3e} of max from its twin (bound 1e-12)"
+    ms = cuda_ms(lambda: greek.corr_window_conv(A, B, w, w), reps=reps, inner=1)
+    Fa, Fb = A.shape[0], B.shape[0]
+    npairs = Fa * (Fa + 1) // 2 if A is B else Fa * Fb
+    bms, by = k8_bound(Fa, Fb, R, R, A.shape[1], A.shape[2], A is B)
+    row = dict(shape=[Fa, Fb, A.shape[1], A.shape[2], R, R], pairs=npairs, max_abs_err=err,
+               rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               share=bms / ms, library_ms=None)
+    log(f"phase 13a K8 {name} {tuple(out.shape)} ({npairs} pairs): {ms:.3f} ms, bound "
+        f"{bms:.3f} ms ({by}; {100 * bms / ms:.1f}%), twin {plain_ms:.1f} ms; {rel:.2e} of max "
+        f"from the twin, two launches bit for bit")
+    return out, row
+
+
+# K8's library yardstick, table by table in a child process, least
+# multiply-adds first
+K8_LIBRARY_TABLES = ("cthe", "v2_pbs", "cgam", "comg", "v2_comg")
+K8_LIBRARY_TIMEOUT_S = 150
+K8_LIBRARY_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+
+cs.N, cs.V2_N, cs.KERHW, cs.V2_KERHW = (int(a) for a in sys.argv[2:6])
+cs.DIRECT_DEV = sys.argv[6]
+for key in sys.argv[8:]:
+    print(json.dumps(cs.k8_library_call(key, float(sys.argv[7]))), flush=True)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "sfft_tpu")]
+assert not bad, bad
+'''
+_K8_OPERANDS = {}
+
+
+def k8_table_operands(key, lam):
+    """(A, B, w) of one of phase 13a's K8 tables, made as 13a makes them."""
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.core import engine
+
+    v2 = key.startswith("v2_")
+    if v2 not in _K8_OPERANDS:
+        n = V2_N if v2 else N
+        I, J = (torch.as_tensor(a, device=DIRECT_DEV) for a in make_pair(n))
+        cfg = nircam_config(lam, **DIRECT_TRIO) if v2 else make_config(N, N, KERHW, **DIRECT_TRIO)
+        SI, ST, SSc = engine._plane_stacks(cfg, I)
+        _K8_OPERANDS.clear()
+        _K8_OPERANDS[v2] = (SI, ST, J, None if SSc is None else
+                            SSc[:cfg.scaling_basis.num_funcs()].contiguous())
+    SI, ST, J, SScA = _K8_OPERANDS[v2]
+    w = V2_KERHW if v2 else KERHW
+    return dict(comg=(SI, SI, 2 * w), cgam=(SI, ST, w), cthe=(SI, J[None], w),
+                v2_comg=(SI, SI, 2 * w), v2_pbs=(SI, SScA, w))[key]
+
+
+def k8_library_call(key, lam):
+    """The library yardstick of one K8 table (run by phase_direct_library's
+    child): sfft_tpu's own formulation as one PyTorch call, F.conv2d of the
+    wrap-padded B stack (Fb images of one channel) with the A planes as its
+    weight (cuDNN in float64), timed by CUDA events (a second call unless
+    the first took over 10 s), and its distance from K8's table; a call
+    the card refuses gives its error."""
+    import torch.nn.functional as F_
+    from sfft_tpu_torch.core import greek
+
+    A, B, w = k8_table_operands(key, lam)
+    Bp = F_.pad(B[:, None], (w, w, w, w), mode="circular")
+    call = lambda: F_.conv2d(Bp, A[:, None])  # noqa: E731
+    try:
+        out, ms = once_ms(call)
+        if ms < 10000:
+            out, ms = once_ms(call)
+    except RuntimeError as e:   # torch.OutOfMemoryError among them
+        return dict(table=key, ms=None, failure=f"{type(e).__name__}: "
+                    + (str(e).strip().splitlines() or [""])[0][:200])
+    ref = greek.corr_window_conv(A, B, w, w)
+    rel = float((out.transpose(0, 1) - ref).abs().max() / ref.abs().max())
+    return dict(table=key, ms=ms, rel_err=rel, failure=None)
+
+
+def phase_direct_library(lam):
+    """13a's library yardsticks: k8_library_call on every table, in a child
+    process (a CUDA context of its own, under a time limit: cuDNN's f64
+    route may take minutes on a table); {table: result}. A table the child
+    did not report gets its failure: the error that ended the child, or the
+    time limit that stopped it (the table it was on), and the tables after
+    that one are not run."""
+    proc = subprocess.Popen([sys.executable, "-c", K8_LIBRARY_CHILD, HERE,
+                             *(str(v) for v in (N, V2_N, KERHW, V2_KERHW)), DIRECT_DEV,
+                             repr(lam), *K8_LIBRARY_TABLES],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=K8_LIBRARY_TIMEOUT_S)
+        why = f"the child exited {proc.returncode}: " + " ".join(err.strip().splitlines()[-1:])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        why = f"not done within {K8_LIBRARY_TIMEOUT_S} s (the child was stopped)"
+    res = {}
+    for line in out.splitlines():
+        if line.startswith("{"):
+            d = json.loads(line)
+            res[d["table"]] = d
+    first = next((k for k in K8_LIBRARY_TABLES if k not in res), None)
+    for key in K8_LIBRARY_TABLES:
+        if key not in res:
+            res[key] = dict(table=key, ms=None, failure=why if key == first else
+                            f"not run: the child ended on {first}")
+    return res
+
+
+def direct_k9_call(name, planes, taps, wrap, extra=None, reps=5):
+    """One K9 call on the card: twice (bit for bit), timed against its twin
+    and the library's grouped F.conv2d of the same planes, held to the twin
+    within 1e-12 of max; returns (output, row)."""
+    import torch
+    import torch.nn.functional as F_
+    from sfft_tpu_torch.core import fdiff
+
+    extra = extra or {}
+    out = fdiff.conv_direct(planes, taps, wrap, **extra)
+    again = fdiff.conv_direct(planes, taps, wrap, **extra)
+    ref, plain_ms = once_ms(lambda: fdiff.conv_direct_plain(planes, taps, wrap, **extra))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"K9 {name}: two launches differ"
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    assert rel <= 1e-12, f"K9 {name}: {rel:.3e} of max from its twin (bound 1e-12)"
+    ms = cuda_ms(lambda: fdiff.conv_direct(planes, taps, wrap, **extra), reps=reps, inner=2)
+    F, L0, L1 = taps.shape
+    x = planes[None]
+    if wrap:
+        x = F_.pad(x, (L1 // 2, L1 // 2, L0 // 2, L0 // 2), mode="circular")
+    kf = torch.flip(taps, dims=(1, 2))[:, None]
+    lib_ms = cuda_ms(lambda: F_.conv2d(x, kf, groups=F), reps=3, inner=1)
+    n0, n1 = out.shape
+    nextra = sum(extra[k].shape[0] for k in ("ST", "SSc") if extra.get(k) is not None)
+    bms, by = k9_bound(F, L0, L1, n0, n1, planes.shape[1], planes.shape[2],
+                       nextra + (1 if extra.get("J") is not None else 0))
+    row = dict(shape=[F, n0, n1, L0, L1], wrap=bool(wrap), max_abs_err=err, rel_err=rel, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, share=bms / ms, library_ms=lib_ms)
+    log(f"phase 13b K9 {name} ({F} planes {n0} x {n1}, taps {L0} x {L1}, "
+        f"{'wrap' if wrap else 'padded'}): {ms:.3f} ms, bound {bms:.3f} ms ({by}; "
+        f"{100 * bms / ms:.1f}%), twin {plain_ms:.2f} ms, F.conv2d(groups={F}) {lib_ms:.3f} ms; "
+        f"{rel:.2e} of max from the twin, two launches bit for bit")
+    return out, row
+
+
+def direct_profile(step, nk8, nk9, k_ms):
+    """(busy s, kernels and copies, unwarmed) of one step, from a
+    device-only profile that opens with a warm-up step (torch.profiler's
+    schedule: one step traced and dropped, the next kept). After phases
+    1-12 a profile without it loses the start of the step (13c's first K8
+    tables); `unwarmed` is such a profile's (busy s, K8 launches seen),
+    kept to show it. The kept step must hold its nk8 K8 and nk9 K9 launches,
+    and its busy time must be at least k_ms, their CUDA-event times from
+    13a-b."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def read(prof):
+        ev = [e for e in prof.key_averages() if _on_device(e)]
+        return (sum(_dev_us(e) for e in ev) / 1e6, sum(e.count for e in ev),
+                sum(e.count for e in ev if "corr_band" in e.key),
+                sum(e.count for e in ev if "conv_tile" in e.key))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ubusy, _, un8, _ = read(prof)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    busy, nk, n8, n9 = read(prof)
+    assert (n8, n9) == (nk8, nk9) and busy * 1e3 >= k_ms, (
+        f"the profiled step holds {n8} K8 and {n9} K9 launches (the step launches {nk8}, {nk9}) "
+        f"and {busy * 1e3:.1f} ms busy (its K8 and K9 take {k_ms:.1f} ms by CUDA events)")
+    return busy, nk, (ubusy, un8)
+
+
+def phase_direct_path(I, J, lam):
+    """13c: PCP at 4096^2 and BSP on the NIRCam v2 configuration with corr /
+    conv / exact (the main paths of the FFT-free route), each against the
+    f64 fft route of the same pair; and, on their operands, 13a's K8 and
+    13b's K9 checks (the references run first, so that K9 sees a real
+    solution)."""
+    import tempfile
+
+    import torch
+    from sfft_tpu_torch import BSplinePacket, PureTorchCustomizedPacket, make_config
+    from sfft_tpu_torch.core import engine, fdiff, greek
+
+    report, rows = {}, {}
+    c = slice(N // 4, 3 * N // 4)
+    # the yardstick: fft / fft / exact (K1, K2 in c128) on the same pair
+    xcfg = make_config(N, N, KERHW, solver="exact")
+    solx, diffx = PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=xcfg)
+    lcfg = make_config(N, N, KERHW, greek_backend="corr", fdiff_backend="conv")
+    cfg = make_config(N, N, KERHW, **DIRECT_TRIO)
+    assert cfg.NEQ == (1740 if KERHW == 8 else cfg.NEQ)
+
+    # 13a: K8 on the 4096^2 step's three tables, and the f64 fft tables
+    SI, ST, _ = engine._plane_stacks(cfg, I)
+    w = KERHW
+    Comg, rows["comg"] = direct_k8_calls(f"{N}^2 Comg", SI, SI, 2 * w)
+    Cgam, rows["cgam"] = direct_k8_calls(f"{N}^2 Cgam", SI, ST, w)
+    Cthe, rows["cthe"] = direct_k8_calls(f"{N}^2 Cthe", SI, J[None], w)
+    fft_tables = greek.greek_tables(SI, ST, J, w, w, backend="fft")
+    k1 = {}
+    for name, t, f in (("Comg", Comg, fft_tables[0]), ("Cgam", Cgam, fft_tables[1]),
+                       ("Cthe", Cthe[:, 0], fft_tables[2])):
+        k1[name] = float((t - f).abs().max() / f.abs().max())
+        assert k1[name] <= 1e-12, f"K8 {name} vs the fft route's (K1 c128): {k1[name]:.3e}"
+    log(f"phase 13a K8's {N}^2 tables vs the f64 fft route's (K1 c128): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in k1.items()) + " of max (bound 1e-12)")
+    report["k8_vs_fft_tables"] = k1
+    del Comg, Cgam, Cthe, fft_tables
+
+    # 13b: K9 on the step's difference (the yardstick's solution)
+    a_ijab, b_pq = fdiff.split_solution(cfg, solx)
+    Astd = fdiff.standard_kernel_coeffs(cfg, a_ijab)
+    _, rows["fdiff_4096"] = direct_k9_call(
+        f"fdiff {N}^2", SI, Astd, True, dict(J=J, ST=ST, b=b_pq, scale=cfg.SCALE))
+    conv_fd = fdiff.fdiff_conv(cfg, solx, SI, ST, J)
+    fft_fd = fdiff.fdiff_fft(cfg, solx, SI, ST, J)
+    fd_err = float((conv_fd - fft_fd).abs().max() / J.abs().max())
+    assert fd_err <= 1e-10, f"fdiff_conv vs fdiff_fft on one solution: {fd_err:.3e} max|J|"
+    log(f"phase 13c fdiff_conv (K9) vs fdiff_fft (K2, cuFFT) on the fft / fft / exact "
+        f"solution: {fd_err:.3e} max|J| (bound 1e-10)")
+    report["fdiff_conv_vs_fft"] = fd_err
+    del SI, ST, conv_fd, fft_fd
+
+    # 13c: the main path at 4096^2, counts set to 0 just before
+    zero_kernel_counts()
+    sol, diff, step_s = run_pcp(I, J, cfg, plain=False, reps=1)
+    launches = kernel_counts()
+    assert launches["corr_direct"] == 6 and launches["conv_direct"] == 2, \
+        f"the 4096^2 corr / conv path: {launches}"
+    assert sol.shape == (cfg.NEQ,) and bool(torch.isfinite(diff).all())
+    rms = float(torch.sqrt(torch.mean(diff[c, c] ** 2)))
+    assert 1.3 <= rms <= 1.7, f"corr/conv/exact: central difference RMS {rms:.4f}"
+    drms = float(torch.sqrt(torch.mean((diff - diffx) ** 2)))
+    srel = float((sol - solx).abs().max() / solx.abs().max())
+    assert drms < 1e-6, f"corr/conv/exact: RMS(diff - fft/fft/exact) {drms:.3e} >= 1e-6"
+    assert srel <= 1e-6, f"corr/conv/exact: solution {srel:.3e} of max from fft/fft/exact"
+    step = lambda: PureTorchCustomizedPacket.PCP(I, J, I, J, "REF", KERHW, cfg=cfg)  # noqa: E731
+    busy, nk, unwarmed = direct_profile(
+        step, 3, 1, sum(rows[k]["ms"] for k in ("comg", "cgam", "cthe", "fdiff_4096")))
+    idle = 1 - busy / step_s
+    lsol, ldiff, lstep_s = run_pcp(I, J, lcfg, plain=False, reps=1)
+    ldrms = float(torch.sqrt(torch.mean((ldiff - diffx) ** 2)))
+    lsrel = float((lsol - solx).abs().max() / solx.abs().max())
+    report["pcp_4096"] = dict(step_ms=step_s * 1e3, busy_ms=busy * 1e3, kernels=nk, idle=idle,
+                              unwarmed_profile=dict(busy_ms=unwarmed[0] * 1e3,
+                                                    k8_launches_seen=unwarmed[1]),
+                              launches=launches, central_rms=rms,
+                              vs_fft_exact_rms=drms, vs_fft_exact_sol_rel=srel,
+                              lu=dict(step_ms=lstep_s * 1e3, vs_fft_exact_rms=ldrms,
+                                      vs_fft_exact_sol_rel=lsrel))
+    log(f"phase 13c PCP {N}^2 KerHW={KERHW} corr/conv/exact: step {step_s * 1e3:.1f} ms; one "
+        f"profiled step: busy {busy * 1e3:.1f} ms in {nk} kernels and copies, idle share of "
+        f"the step {idle:.3f} (a profile without the warm-up step: busy "
+        f"{unwarmed[0] * 1e3:.1f} ms, {unwarmed[1]} of the 3 K8 launches); launches {launches} "
+        f"in 2 runs; central diff RMS {rms:.4f}; vs fft/fft/exact: RMS(diff) {drms:.3e} (bound 1e-6), solution {srel:.3e} of max "
+        f"(bound 1e-6); corr/conv/lu beside it (unrefined LU, ROADMAP fault 3): step "
+        f"{lstep_s * 1e3:.1f} ms, RMS(diff) {ldrms:.3e}, solution {lsrel:.3e} of max")
+    del sol, diff, lsol, ldiff, solx, diffx
+    torch.cuda.empty_cache()
+
+    # the v2 NIRCam configuration through BSP
+    n = V2_N
+    cv = slice(n // 4, 3 * n // 4)
+    with tempfile.TemporaryDirectory() as d:
+        ref, sci = write_pair_fits(d)
+        vcfg = nircam_config(lam, **DIRECT_TRIO)
+        ycfg = nircam_config(lam)
+        assert vcfg.NEQ == V2_NEQ and vcfg.scaling_mode == "SEPARATE-VARYING"
+        ysol, ydiff = BSplinePacket.BSP(ref, sci, ref, sci, cfg=ycfg)
+        Iv = torch.as_tensor(make_pair(n)[0], device=DIRECT_DEV)
+        SIv, STv, SScv = engine._plane_stacks(vcfg, Iv)
+        nact = vcfg.scaling_basis.num_funcs()
+        wv = V2_KERHW
+        _, rows["v2_comg"] = direct_k8_calls(f"v2 {n}^2 Comg", SIv, SIv, 2 * wv, reps=2)
+        _, rows["v2_pbs"] = direct_k8_calls(f"v2 {n}^2 Pbs", SIv, SScv[:nact].contiguous(), wv)
+        ya, yb = fdiff.split_solution(vcfg, torch.as_tensor(ysol, device=DIRECT_DEV))
+        Av = ya.clone()
+        Av[:, wv, wv] = -(ya.sum(dim=(1, 2)) - ya[:, wv, wv])
+        Jv = torch.as_tensor(make_pair(n)[1], device=DIRECT_DEV)
+        _, rows["fdiff_v2"] = direct_k9_call(
+            f"fdiff v2 {n}^2 with SSc", SIv, Av, True,
+            dict(J=Jv, ST=STv, b=yb, SSc=SScv[:nact].contiguous(),
+                 a00=ya[:nact, wv, wv].contiguous(), scale=vcfg.SCALE))
+        del SIv, STv, SScv, Iv, Jv
+        zero_kernel_counts()
+        vsol, vdiff, vstep_s = run_bsp(ref, sci, vcfg, plain=False, reps=1)
+        vl = kernel_counts()
+        assert vl["corr_direct"] == 8 and vl["conv_direct"] == 2 and vl["slice_triple"] > 0, \
+            f"the v2 corr / conv / exact path: {vl}"
+        assert np.isfinite(vsol).all() and np.isfinite(vdiff).all()
+        vrms = float(np.sqrt(np.mean(vdiff[cv, cv] ** 2)))
+        assert 1.3 <= vrms <= 1.7, f"v2 corr/conv/exact: central difference RMS {vrms:.4f}"
+        vdrms = float(np.sqrt(np.mean((vdiff - ydiff) ** 2)))
+        vsrel = float(np.abs(vsol - ysol).max() / np.abs(ysol).max())
+        assert vdrms < 1e-6, f"v2 corr/conv/exact: RMS(diff - fft/fft/lu) {vdrms:.3e} >= 1e-6"
+        assert vsrel <= 1e-6, f"v2 corr/conv/exact: solution {vsrel:.3e} of max from fft/fft/lu"
+        vstep = lambda: BSplinePacket.BSP(ref, sci, ref, sci, cfg=vcfg)  # noqa: E731
+        vbusy, vnk, vunwarmed = direct_profile(
+            vstep, 4, 1, sum(rows[k]["ms"] for k in ("v2_comg", "v2_pbs", "fdiff_v2")))
+        vidle = 1 - vbusy / vstep_s
+    report["bsp_v2"] = dict(lam=lam, step_ms=vstep_s * 1e3, busy_ms=vbusy * 1e3, kernels=vnk,
+                            idle=vidle, unwarmed_profile=dict(busy_ms=vunwarmed[0] * 1e3,
+                                                              k8_launches_seen=vunwarmed[1]),
+                            launches=vl,
+                            central_rms=vrms, vs_fft_lu_rms=vdrms, vs_fft_lu_sol_rel=vsrel)
+    log(f"phase 13c BSP v2 {n}^2 GKerHW={V2_KERHW} NIRCam configuration, lambda={lam:g}, "
+        f"corr/conv/exact NEQ={vcfg.NEQ}: step {vstep_s * 1e3:.1f} ms; one profiled step: "
+        f"busy {vbusy * 1e3:.1f} ms in {vnk} kernels and copies, idle share of the step "
+        f"{vidle:.3f} (a profile without the warm-up step: busy {vunwarmed[0] * 1e3:.1f} ms, "
+        f"{vunwarmed[1]} of the 4 K8 launches); launches {vl} in 2 runs; central diff RMS "
+        f"{vrms:.4f}; vs fft/fft/lu: "
+        f"RMS(diff) {vdrms:.3e} (bound 1e-6), solution {vsrel:.3e} of max (bound 1e-6)")
+    return report, rows, {k: launches[k] + vl[k] for k in launches}
+
+
+def phase_direct_convolve2d():
+    """13b: convolve2d (the host utility on K9) on a DECam-sized image with a
+    31 x 31 kernel in each boundary mode and with NaN interpolation, and
+    with a 95 x 95 kernel (K9's taps in chunks), held to the same call on
+    K9's twin within 1e-12 of max."""
+    import torch
+    from sfft_tpu_torch.core import fdiff
+    from sfft_tpu_torch.utils.convolve import convolve2d
+
+    rng = np.random.default_rng(13)
+    img = torch.as_tensor(rng.normal(300.0, 20.0, CONV2D_SHAPE), device=DIRECT_DEV)
+    holed = img.clone()
+    holed[5:9, 20:80] = float("nan")
+    holed[3 * CONV2D_SHAPE[0] // 4, 3 * CONV2D_SHAPE[1] // 4] = float("nan")
+    ker = gaussian_psf(CONV2D_KERNEL, 4.0)
+    rows = {}
+    for name, x, k, kw in [("extend", img, ker, dict(boundary="extend")),
+                           ("fill", img, ker, dict(boundary="fill", fill_value=5.0)),
+                           ("wrap", img, ker, dict(boundary="wrap")),
+                           ("interpolate", holed, ker, dict(boundary="extend",
+                                                            nan_treatment="interpolate")),
+                           ("wide extend", img,
+                            gaussian_psf(CONV2D_WIDE, 12.0), dict(boundary="extend"))]:
+        out = convolve2d(x, k, **kw)
+        ref = one_twin(fdiff, "conv_direct", fdiff.conv_direct_plain,
+                       lambda: convolve2d(x, k, **kw))
+        torch.cuda.synchronize()
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(out), fin), f"convolve2d {name}: NaN pattern differs"
+        rel = float((out[fin] - ref[fin]).abs().max() / ref[fin].abs().max())
+        assert rel <= 1e-12, f"convolve2d {name}: {rel:.3e} of max from K9's twin"
+        ms = cuda_ms(lambda: convolve2d(x, k, **kw), reps=3, inner=2)
+        rows[name] = dict(rel_err=rel, ms=ms)
+        log(f"phase 13b convolve2d {CONV2D_SHAPE} {k.shape[0]}x{k.shape[1]} {name}: "
+            f"{ms:.3f} ms a call; {rel:.2e} of max from the call on K9's twin")
+    taps = torch.as_tensor(ker, device=DIRECT_DEV)[None]
+    h = CONV2D_KERNEL // 2
+    padded = torch.nn.functional.pad(img[None, None], (h, h, h, h), mode="replicate")[0]
+    _, rows["k9"] = direct_k9_call(f"convolve2d's plane {CONV2D_SHAPE}", padded, taps, False)
+    return rows
+
+
+def phase_direct_packed():
+    """13d: batched_subtract_packed on two fast 4096^2 pairs, bit for bit
+    batched_subtract on the dequantized planes; the upload of one pair's
+    four planes packed (int16 + scales) against f64."""
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.parallel import batch
+    from sfft_tpu_torch.utils import pack
+
+    cfg = make_config(N, N, KERHW, greek_backend="peeled", fdiff_backend="fft32",
+                      solver="refined")
+    pairs = [make_pair(N, seed) for seed in (30, 31)]
+    Is, Js = [p[0] for p in pairs], [p[1] for p in pairs]
+    mIs, mJs = [a.copy() for a in Is], [a.copy() for a in Js]
+    out = batch.batched_subtract_packed(Is, Js, mIs, mJs, cfg, devices=[DIRECT_DEV])
+
+    def deq(a):
+        pk = pack.pack_i16(np.ascontiguousarray(a, np.float32))
+        return pack.unpack_i16(torch.as_tensor(pk.q), torch.as_tensor(pk.scales), pk.n0, pk.block)
+
+    ref = batch.batched_subtract(*([deq(a) for a in s] for s in (Is, Js, mIs, mJs)), cfg,
+                                 devices=[DIRECT_DEV])
+    torch.cuda.synchronize()
+    for name, o, r in zip(("solutions", "differences", "rms"), out, ref):
+        assert torch.equal(o, r), f"batched_subtract_packed: {name} differ"
+    rms = [float(v) for v in out[2]]
+    planes = [Is[0], Js[0], mIs[0], mJs[0]]
+    t0 = time.perf_counter()
+    packs = [pack.pack_i16(np.ascontiguousarray(a, np.float32)) for a in planes]
+    pack_s = time.perf_counter() - t0
+    del packs
+    up = {}
+    for name, fn in (("f64", batch.upload_planes), ("packed", batch.upload_packed)):
+        ts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tensors, event = fn(planes, torch.device(DIRECT_DEV))
+            if event is not None:
+                event.synchronize()
+            ts.append(time.perf_counter() - t0)
+            del tensors
+        up[name] = statistics.median(ts[1:]) * 1e3
+    log(f"phase 13d batched_subtract_packed on two fast {N}^2 pairs: solutions, differences "
+        f"and RMS bit for bit batched_subtract on the dequantized planes (RMS {rms}); one "
+        f"pair's four planes: f64 upload {up['f64']:.2f} ms ({4 * N * N * 8 / 1e6:.1f} MB), "
+        f"packed upload and dequantization {up['packed']:.2f} ms (host packing of the four "
+        f"planes {pack_s * 1e3:.0f} ms, counted in it: median of 3 after a first call)")
+    return dict(rms=rms, upload_f64_ms=up["f64"], upload_packed_ms=up["packed"],
+                pack_host_ms=pack_s * 1e3)
+
+
+def phase_direct(lam=V2_LAMBDA):
+    """Phase 13: 13a-13d; returns (report, the kernels line's rows of K8 and
+    K9, the main paths' launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    I, J = (torch.as_tensor(a, device=DIRECT_DEV) for a in make_pair(N))
+    report, rows, launches = phase_direct_path(I, J, lam)
+    del I, J
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    report["convolve2d"] = phase_direct_convolve2d()
+    t2 = time.perf_counter()
+    report["packed"] = phase_direct_packed()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    lib = phase_direct_library(lam)
+    for key, r in lib.items():
+        rows[key]["library_ms"] = r["ms"]
+        if r["ms"] is None:
+            rows[key]["library_failure"] = r["failure"]
+            log(f"phase 13a K8 {key}: the library call (F.conv2d with the planes as its weight, "
+                f"cuDNN f64) gave no time: {r['failure']}")
+        else:
+            rows[key]["library_rel_err"] = r["rel_err"]
+            log(f"phase 13a K8 {key}: the library call (F.conv2d with the planes as its weight, "
+                f"cuDNN f64) {r['ms']:.3f} ms against K8's {rows[key]['ms']:.3f} ms; "
+                f"{r['rel_err']:.2e} of max from K8's table")
+    report["k8"], report["k9"] = ({k: rows[k] for k in keys} for keys in (
+        ("comg", "cgam", "cthe", "v2_comg", "v2_pbs"), ("fdiff_4096", "fdiff_v2")))
+    report["k9"]["convolve2d"] = report["convolve2d"].pop("k9")
+    report["s"] = time.perf_counter() - t0
+    log(f"phase 13 parts: 13a-c {t1 - t0:.1f} s, 13b convolve2d {t2 - t1:.1f} s, "
+        f"13d {t3 - t2:.1f} s, 13a's library calls {time.perf_counter() - t3:.1f} s; done in "
+        f"{report['s']:.1f} s; launches {launches}")
+    # the kernels line: K8 over the 4096^2 step's three tables, K9 its
+    # difference
+    k8 = [rows[k] for k in ("comg", "cgam", "cthe")]
+    lib8 = [r["library_ms"] for r in k8]
+    line = {"corr_direct": dict(
+        {k: sum(r[k] for r in k8) for k in ("ms", "plain_ms", "bound_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in k8), bound_by="operations",
+        library_ms=None if None in lib8 else sum(lib8)),
+        "conv_direct": {k: rows["fdiff_4096"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                            "bound_ms", "bound_by",
+                                                            "library_ms")}}
+    return report, line, launches
+
+
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
-         "--fidelity | --easy | --survey | --sharded | "
+         "--fidelity | --easy | --survey | --sharded | --direct | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -4827,6 +5390,15 @@ def main():
         return 0
     if sys.argv[1:] == ["--fidelity"]:
         phase_fidelity(*(torch.as_tensor(a, device="cuda") for a in make_pair(N)))
+        log(smi)
+        print(ok_line, flush=True)
+        return 0
+    if sys.argv[1:] == ["--direct"]:
+        direct, line, counts = phase_direct()
+        log(json.dumps({"direct": direct, "direct_launches": counts}))
+        log(json.dumps({"kernels": [dict(name=name, route="cuda", source=source, replaces=replaces,
+                                         launches=counts[name], **line[name])
+                                    for name, source, replaces in DIRECT_KERNELS]}))
         log(smi)
         print(ok_line, flush=True)
         return 0
@@ -4924,6 +5496,10 @@ def main():
         torch.cuda.empty_cache()
         sharded, sharded_launches = phase_sharded(d)
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    direct, direct_line, direct_launches = phase_direct(v2["lam"])
+    report.update(direct_line)
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
@@ -4943,7 +5519,7 @@ def main():
         ("pair_poly", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:71"),
         ("pair_poly_sub", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:185"),
         ("pair_poly_add64", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:488"),
-    ]:
+    ] + DIRECT_KERNELS:
         # launches: the sum over the main paths' runs (fast, contract, v2,
         # the two v2 fast modes, the automatic packets' runs with the
         # kernels, phase 11's survey entry points and phase 12's sharded
@@ -4962,7 +5538,8 @@ def main():
                                             for t in ("default", "contract",
                                                       "fft/fft/exact"))
                                       + survey_launches.get(name, 0)
-                                      + sharded_launches.get(name, 0)),
+                                      + sharded_launches.get(name, 0)
+                                      + direct_launches.get(name, 0)),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -5004,7 +5581,7 @@ def main():
                                     for k in ("eager_ms", "library_eager_ms")},
                     "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}
                                  if p != "golden_contract" else e) for p, e in easy.items()},
-                    "survey": survey, "sharded": sharded, "card": smi}))
+                    "survey": survey, "sharded": sharded, "direct": direct, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(ok_line, flush=True)

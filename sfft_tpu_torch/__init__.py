@@ -12,10 +12,12 @@ kernels are hand-written CUDA kernels for Hopper (sm_90a) under csrc/,
 built with nvcc at their first use on a CUDA tensor (see _kernels.py). On
 CPU tensors every kernel wrapper runs its plain PyTorch twin.
 
-Ported so far: the 'fft', 'fft32', 'exact', 'peeled' (polynomial and B-spline
-bases) and 'pexact' greek backends, the 'fft', 'fft32', 'exact' and 'pexact'
-difference backends, the 'lu', 'cho', 'refined', 'exact' (with its
-large-system route) and 'transformed' solvers, Tikhonov regularization,
+Ported so far: every greek backend ('fft', 'fft32', 'exact', 'peeled' for
+polynomial and B-spline bases, 'pexact', and 'corr', the FFT-free f64 route
+on the K8 kernel), every difference backend ('fft', 'fft32', 'exact',
+'pexact', and 'conv' on the K9 kernel), the 'lu', 'cho', 'host',
+'blocked_cho', 'refined', 'exact' (with its large-system route) and
+'transformed' solvers, Tikhonov regularization,
 polynomial and B-spline bases in the ENTANGLED / SEPARATE scaling modes, the
 customized packets and the B-spline packet with its solution FITS, the
 automatic packets EasySparsePacket.ESP and EasyCrowdedPacket.ECP with their
@@ -27,8 +29,14 @@ MultiEasySparsePacket.MESP / MultiEasyCrowdedPacket.MECP with batched
 dispatch over the cards (parallel/), and the resident engine server
 (serve.py), and the multi-device layer: one pair's step row-sharded over a
 list of devices (parallel/sharded_fft.py) and the multi-host survey over
-gloo (parallel/multihost.py). Numpy input runs on the CUDA card unless the
-caller passes device="cpu".
+gloo (parallel/multihost.py), the int16 upload of the fast survey path
+(utils/pack.py, parallel/batch.batched_subtract_packed), and the host
+utilities: convolve2d on K9 (utils/convolve.py), the sky estimator, WCS,
+stamps and resampling (utils/sky.py, wcs.py, stamp.py, prep/resample.py)
+and the phase timer (utils/profiling.py). sfft_tpu exports none of these
+from its package, so neither does the port: import them from their
+modules. Numpy input runs on the CUDA card unless the caller passes
+device="cpu".
 """
 
 from sfft_tpu_torch.config import SFFTConfig, make_config

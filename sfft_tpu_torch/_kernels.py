@@ -54,6 +54,8 @@ _SIGNATURES = {
     "sfft_pair_products": [_P, _P],
     "sfft_pair_model": [_P, _P],
     "sfft_pair_poly": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
+    "sfft_corr_direct": [_P] * 5 + [_I] * 8 + [_P],
+    "sfft_conv_direct": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
     "sfft_cuda_error_string": [_I],
 }
 

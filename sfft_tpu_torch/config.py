@@ -49,11 +49,11 @@ class SFFTConfig:
     """All static parameters of one SFFT problem instance.
 
     Backend fields name the same algorithms as in sfft_tpu; the port
-    implements greek 'fft', 'fft32', 'exact', 'peeled' (polynomial and
-    B-spline bases) and 'pexact', fdiff 'fft', 'fft32', 'exact' and
-    'pexact', and every solver ('lu', 'cho', 'host', 'blocked_cho',
-    'refined', 'exact', 'transformed'). Greek 'corr' and fdiff 'conv'
-    raise NotImplementedError where they are dispatched.
+    implements every one of them: greek 'fft', 'fft32', 'exact', 'peeled'
+    (polynomial and B-spline bases), 'pexact' and 'corr' (the FFT-free f64
+    route, K8), fdiff 'fft', 'fft32', 'exact', 'pexact' and 'conv' (the
+    real-space f64 difference, K9), and every solver ('lu', 'cho', 'host',
+    'blocked_cho', 'refined', 'exact', 'transformed').
     """
 
     N0: int

@@ -72,9 +72,10 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
 
         out = greek_tables_exact(mI, mJ, cfg, shared=shared, plain=plain)
         extra = out[5] if separate_varying else None
-    elif cfg.greek_backend in ("fft", "fft32"):
+    elif cfg.greek_backend in ("fft", "fft32", "corr"):
         # fft32: the tables come out f32, so the assembly below runs in f32
-        # and the solve receives the f32 system, as sfft_tpu's does
+        # and the solve receives the f32 system, as sfft_tpu's does; corr:
+        # the FFT-free f64 windows (K8)
         SI, ST, SSc = _plane_stacks(cfg, mI)
         out = greek_tables(SI, ST, mJ, cfg.w0, cfg.w1, backend=cfg.greek_backend,
                            chunk=cfg.greek_chunk, plain=plain)
@@ -84,9 +85,7 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
                 SI, SSc, ST, mJ, cfg.w0, cfg.w1, backend=cfg.greek_backend,
                 chunk=cfg.greek_chunk, n_active=cfg.scaling_basis.num_funcs(), plain=plain)
     else:
-        raise NotImplementedError(
-            f"greek backend {cfg.greek_backend!r} is not ported to sfft_tpu_torch "
-            "yet (ROADMAP queue 1); use 'fft', 'fft32', 'exact', 'peeled' or 'pexact'")
+        raise ValueError(f"unknown greek backend {cfg.greek_backend!r}")
     return system_from_tables(cfg, out[:5], extra, mI.device)
 
 

@@ -14,7 +14,11 @@ pair arithmetic with the sliced-integer transforms of core/exact_fft.py;
 The fused model-spectrum pass between the forward and the inverse rfft2
 (``fdiff_model``) is the hand-written K2 kernel (csrc/fdiff_model.cu) on CUDA
 tensors and its plain twin ``fdiff_model_plain`` on CPU tensors; the FFTs
-stay cuFFT.
+stay cuFFT. 'conv' (``fdiff_conv``, the complex-free f64 route) builds the
+difference in real space, a circular convolution of the SI planes with the
+standard-basis kernel in the hand-written K9 kernel (csrc/conv_direct.cu,
+``conv_direct``, twin ``conv_direct_plain``), which utils/convolve.py's
+convolve2d shares.
 """
 
 from __future__ import annotations
@@ -190,6 +194,118 @@ def fdiff_fft(
     FDIFF = model(specs, FS, solution.to(_REAL[W0.dtype]).contiguous(), W0, W1, cfg.Fij,
                   cfg.w0, cfg.w1, cfg.SCALE)
     return torch.fft.irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
+
+
+def conv_direct_plain(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True, J=None,
+                      ST=None, b=None, SSc=None, a00=None, scale: float = 1.0) -> torch.Tensor:
+    """K9's plain twin, in sfft_tpu's formulation (fdiff_conv, convolve2d):
+    the planes (F, H, W) circularly padded by (L0 // 2, L1 // 2) when
+    `wrap` (else already padded by the caller), one grouped VALID conv2d
+    with the flipped taps (F, L0, L1), then
+
+        model = scale * sum_i conv_i + sum_q b_q ST_q + scale * sum_s a00_s SSc_s
+
+    and J - model, or model itself without J."""
+    F_, L0, L1 = taps.shape
+    x = planes[None]
+    if wrap:
+        x = torch.nn.functional.pad(x, (L1 // 2, L1 // 2, L0 // 2, L0 // 2), mode="circular")
+    conv = torch.nn.functional.conv2d(x, torch.flip(taps, dims=(1, 2))[:, None], groups=F_)[0]
+    model = scale * conv.sum(dim=0)
+    if ST is not None:
+        model = model + torch.tensordot(b, ST, dims=([0], [0]))
+    if SSc is not None:
+        model = model + scale * torch.tensordot(a00, SSc, dims=([0], [0]))
+    return model if J is None else J - model
+
+
+def conv_direct(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True, J=None, ST=None,
+                b=None, SSc=None, a00=None, scale: float = 1.0) -> torch.Tensor:
+    """K9: the direct convolution of the planes (F, H, W) with their taps
+    (F, L0, L1; odd sides), summed, plus the background planes ST weighted
+    by b and the scaling planes SSc weighted by a00, subtracted from J
+    (``conv_direct_plain``'s arguments and result). `wrap`: the indices
+    read mod the plane's size and the output is (H, W); else the planes are
+    padded by (L0 // 2, L1 // 2) on each side and the output is (H - L0 + 1,
+    W - L1 + 1). CUDA tensors: one launch of csrc/conv_direct.cu (float64,
+    any side: taps past 63 a side in chunks; bit-reproducible); CPU tensors:
+    ``conv_direct_plain``.
+    ``conv_direct.launches`` counts the launches."""
+    if planes.dim() != 3 or taps.dim() != 3 or taps.shape[0] != planes.shape[0]:
+        raise ValueError(f"conv_direct needs planes (F, H, W) and taps (F, L0, L1), got "
+                         f"{tuple(planes.shape)} and {tuple(taps.shape)}")
+    F_, L0, L1 = taps.shape
+    if L0 % 2 != 1 or L1 % 2 != 1:
+        raise ValueError(f"conv_direct needs odd kernel sides, got ({L0}, {L1})")
+    H, W = planes.shape[1], planes.shape[2]
+    N0, N1 = (H, W) if wrap else (H - L0 + 1, W - L1 + 1)
+    if N0 < 1 or N1 < 1:
+        raise ValueError("conv_direct: the padded planes are smaller than the kernel")
+    extras = [t for t in (J, ST, b, SSc, a00) if t is not None]
+    if (ST is None) != (b is None) or (SSc is None) != (a00 is None):
+        raise ValueError("conv_direct needs ST with b and SSc with a00")
+    if ((J is not None and tuple(J.shape) != (N0, N1))
+            or (ST is not None and (tuple(ST.shape[1:]) != (N0, N1) or b.shape != ST.shape[:1]))
+            or (SSc is not None and (tuple(SSc.shape[1:]) != (N0, N1)
+                                     or a00.shape != SSc.shape[:1]))):
+        raise ValueError("conv_direct: J, ST (with b) and SSc (with a00) must match the output")
+    if any(t.device != planes.device for t in [taps] + extras):
+        raise ValueError("conv_direct operands on different devices")
+    if planes.device.type == "cpu":
+        return conv_direct_plain(planes, taps, wrap, J, ST, b, SSc, a00, scale)
+    if planes.device.type != "cuda":
+        raise ValueError(f"conv_direct runs on cpu or cuda tensors, not {planes.device}")
+    if any(t.dtype != torch.float64 for t in [planes, taps] + extras):
+        raise TypeError("the K9 kernel is the float64 route's; got "
+                        f"{[t.dtype for t in [planes, taps] + extras]}")
+    from sfft_tpu_torch import _kernels
+
+    planes, taps = planes.contiguous(), taps.contiguous()
+    J, ST, b, SSc, a00 = (None if t is None else t.contiguous() for t in (J, ST, b, SSc, a00))
+    out = torch.empty((N0, N1), dtype=torch.float64, device=planes.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(planes.device):
+        err = _kernels.lib().sfft_conv_direct(
+            planes.data_ptr(), taps.data_ptr(), ptr(J), ptr(ST), ptr(b), ptr(SSc), ptr(a00),
+            out.data_ptr(), F_, H, W, L0, L1, int(wrap), N0, N1,
+            0 if ST is None else ST.shape[0], 0 if SSc is None else SSc.shape[0], float(scale),
+            _kernels.stream_ptr(planes))
+    _K9.launches += 1
+    _kernels.check(err, "conv_direct kernel launch")
+    return out
+
+
+conv_direct.launches = 0
+# the counter's owner: the module attribute may be replaced by a caller
+# that intercepts the calls (chip_smoke.py, the tests)
+_K9 = conv_direct
+
+
+def fdiff_conv(cfg: SFFTConfig, solution: torch.Tensor, SI: torch.Tensor, ST: torch.Tensor,
+               J: torch.Tensor, SSc: torch.Tensor = None, plain: bool = False) -> torch.Tensor:
+    """Real-space circular-convolution difference (sfft_tpu's fdiff_conv, the
+    complex-free f64 route): in the delta basis multiplying by (W^a W^b - 1)
+    is shift-minus-identity, so the model is a circular convolution of the SI
+    planes with the standard-basis kernel (center 2 a00 - sum_ab a_ijab):
+
+        D = J - SCALE * sum_ij circconv(SI_ij, Astd_ij) - sum_pq b_pq ST_pq.
+
+    SEPARATE-VARYING (SSc given, possibly only its active planes): the
+    center becomes -(sum_ab a_ijab - a00) and the a00 dofs act flat on the
+    SSc planes. ``conv_direct`` (K9 on the card); plain=True takes its twin."""
+    a_ijab, b_pq = split_solution(cfg, solution)
+    a00 = None
+    if SSc is not None:
+        a00 = a_ijab[: SSc.shape[0], cfg.w0, cfg.w1]
+        Astd = a_ijab.clone()
+        Astd[:, cfg.w0, cfg.w1] = -(a_ijab.sum(dim=(1, 2)) - a_ijab[:, cfg.w0, cfg.w1])
+    else:
+        Astd = standard_kernel_coeffs(cfg, a_ijab)
+    conv = conv_direct_plain if plain else conv_direct
+    return conv(SI, Astd, True, J, ST, b_pq, SSc, a00, cfg.SCALE)
 
 
 def _fold_weights(N1: int) -> np.ndarray:
@@ -372,6 +488,6 @@ def fdiff(cfg: SFFTConfig, solution, SI, ST, J, SSc=None, I=None, shared=None,
             plain=plain,
         )
         return out.to(J.dtype)
-    raise NotImplementedError(
-        f"fdiff backend {cfg.fdiff_backend!r} is not ported to sfft_tpu_torch yet "
-        "(ROADMAP queue 1); use 'fft', 'fft32', 'exact' or 'pexact'")
+    if cfg.fdiff_backend == "conv":
+        return fdiff_conv(cfg, solution, SI, ST, J, SSc, plain=plain)
+    raise ValueError(f"unknown fdiff backend {cfg.fdiff_backend!r}")

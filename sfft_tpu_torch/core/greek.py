@@ -25,6 +25,11 @@ images ride as f32 pairs, one sliced-integer pair-FFT covers every data
 plane (core/exact_fft.py, the K4 slicer), every spectrum-pair window comes
 from one ``exact_corr_window`` pass, and the blocks against the analytic
 background planes are rolled-basis moments.
+
+The 'corr' backend (``corr_window_conv``) is the FFT-free f64 route: the
+windows straight from the planes in real space, in the hand-written K8
+kernel (csrc/corr_direct.cu) on CUDA tensors and its plain twin (a loop
+over the lags, one product each) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -362,6 +367,127 @@ def corr_window_fft(
     return out.reshape(Fa, Fb, 2 * wx + 1, 2 * wy + 1)
 
 
+def corr_direct_plain(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> torch.Tensor:
+    """K8's plain twin: C[p, rho + wx, eps + wy] = sum_xy A[ia[p], x, y] *
+    B[ib[p], (x + rho) % N0, (y + eps) % N1] as (npairs, 2wx+1, 2wy+1), in
+    the input dtype. One loop over the lags: per lag, B rolled and one
+    (Fa, N) x (N, Fb) product (never F.conv2d with the image as its weight:
+    its im2col matrix holds one row per lag and one column per pixel)."""
+    Fa, Fb = A.shape[0], B.shape[0]
+    ia = torch.as_tensor(np.asarray(ia, np.int64), device=A.device)
+    ib = torch.as_tensor(np.asarray(ib, np.int64), device=A.device)
+    Af = A.reshape(Fa, -1)
+    out = A.new_empty((len(ia), 2 * wx + 1, 2 * wy + 1))
+    for r in range(-wx, wx + 1):
+        Br = torch.roll(B, shifts=-r, dims=1)                  # Br[:, x] = B[:, x + r]
+        for e in range(-wy, wy + 1):
+            C = Af @ torch.roll(Br, shifts=-e, dims=2).reshape(Fb, -1).T   # (Fa, Fb)
+            out[:, r + wx, e + wy] = C[ia, ib]
+    return out
+
+
+def corr_window_conv_plain(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int) -> torch.Tensor:
+    """The plain twin of ``corr_window_conv``: every pair (Fa, Fb, 2wx+1,
+    2wy+1) through ``corr_direct_plain``."""
+    Fa, Fb = A.shape[0], B.shape[0]
+    ia, ib = np.meshgrid(np.arange(Fa), np.arange(Fb), indexing="ij")
+    return corr_direct_plain(A, B, ia.ravel(), ib.ravel(), wx, wy).reshape(
+        Fa, Fb, 2 * wx + 1, 2 * wy + 1)
+
+
+_K8_ROWS = 32     # image rows of a band (csrc/corr_direct.cu kRows)
+_K8_STRIP = 12    # most lags along axis 1 a thread keeps
+
+
+def _k8_plan(R0: int, R1: int):
+    """(S, nstrips, R0c): R1 lags in nstrips strips of S <= 12, lag rows in
+    blocks of R0c <= 64 with R0c * nstrips <= 256 threads of a row group."""
+    nstrips = -(-R1 // _K8_STRIP)
+    S = -(-R1 // nstrips)
+    return S, nstrips, min(R0, 64, 256 // nstrips)
+
+
+def corr_direct(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> torch.Tensor:
+    """K8: the windowed circular cross-correlations (npairs, 2wx+1, 2wy+1)
+    of the plane pairs (A[ia[p]], B[ib[p]]) (``corr_direct_plain``'s
+    arguments). CUDA tensors: csrc/corr_direct.cu (float64, two launches:
+    the bands, then their fixed-order sum; bit-reproducible); CPU tensors:
+    ``corr_direct_plain``. ``corr_direct.launches`` counts the launches of
+    the kernel."""
+    if A.dim() != 3 or B.dim() != 3 or A.shape[1:] != B.shape[1:]:
+        raise ValueError(f"corr_direct needs (F, N0, N1) stacks, got {tuple(A.shape)} and "
+                         f"{tuple(B.shape)}")
+    if A.dtype != B.dtype or A.device != B.device:
+        raise ValueError("corr_direct needs A and B of one dtype on one device")
+    ia, ib = np.asarray(ia, np.int64).ravel(), np.asarray(ib, np.int64).ravel()
+    if ia.shape != ib.shape or wx < 0 or wy < 0:
+        raise ValueError("corr_direct needs equal-length pair lists and lags >= 0")
+    if len(ia) and (ia.min() < 0 or ia.max() >= A.shape[0] or ib.min() < 0
+                    or ib.max() >= B.shape[0]):
+        raise IndexError("corr_direct pair index out of range")
+    if A.device.type == "cpu":
+        return corr_direct_plain(A, B, ia, ib, wx, wy)
+    if A.device.type != "cuda":
+        raise ValueError(f"corr_direct runs on cpu or cuda tensors, not {A.device}")
+    if A.dtype != torch.float64:
+        raise TypeError(f"the K8 kernel is the float64 route's; got {A.dtype}")
+    if not (A.is_contiguous() and B.is_contiguous()):
+        raise ValueError("corr_direct needs contiguous stacks")
+    R0, R1 = 2 * wx + 1, 2 * wy + 1
+    N0, N1 = A.shape[1], A.shape[2]
+    if not 1 <= len(ia) <= 65535 or R1 > 255:
+        raise ValueError("corr_direct kernel takes 1..65535 pairs and at most 255 lags along "
+                         "axis 1")
+    from sfft_tpu_torch import _kernels
+
+    S, nstrips, R0c = _k8_plan(R0, R1)
+    dev = A.device
+    pairs = torch.as_tensor(np.stack([ia, ib], axis=1).astype(np.int32)).to(dev, non_blocking=True)
+    part = torch.empty((-(-N0 // _K8_ROWS), len(ia), R0, R1), dtype=torch.float64, device=dev)
+    out = torch.empty((len(ia), R0, R1), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels.lib().sfft_corr_direct(
+            A.data_ptr(), B.data_ptr(), pairs.data_ptr(), part.data_ptr(), out.data_ptr(),
+            len(ia), N0, N1, wx, wy, S, nstrips, R0c, _kernels.stream_ptr(A))
+    _K8.launches += 1
+    _kernels.check(err, "corr_direct kernel launch")
+    return out
+
+
+corr_direct.launches = 0
+# the counter's owner: the module attribute may be replaced by a caller
+# that intercepts the calls (chip_smoke.py, the tests)
+_K8 = corr_direct
+
+
+def corr_window_conv(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int,
+                     plain: bool = False) -> torch.Tensor:
+    """FFT-free CC(A_a, B_b)[rho, eps] windows, (Fa, Fb, 2wx+1, 2wy+1) in
+    the input dtype (sfft_tpu's corr_window_conv, the greek 'corr'
+    backend): C[a, b, rho + wx, eps + wy] = sum_xy A[a, x, y] *
+    B[b, (x + rho) % N0, (y + eps) % N1]. CUDA tensors run K8
+    (``corr_direct``); when B is A, only the pairs a <= b, the others
+    mirrored (CC(A_b, A_a)[d] = CC(A_a, A_b)[-d]). CPU tensors and
+    plain=True run ``corr_window_conv_plain``."""
+    Fa, Fb = A.shape[0], B.shape[0]
+    if plain or A.device.type == "cpu":
+        return corr_window_conv_plain(A, B, wx, wy)
+    same = A is B
+    A = A.contiguous()
+    B = A if same else B.contiguous()
+    if same:
+        iu, ju = np.triu_indices(Fa)
+        tri = corr_direct(A, B, iu, ju, wx, wy)
+        full = tri.new_empty((Fa, Fa, 2 * wx + 1, 2 * wy + 1))
+        iu_t, ju_t = index(iu, A.device), index(ju, A.device)
+        full[ju_t, iu_t] = torch.flip(tri, dims=(1, 2))
+        full[iu_t, ju_t] = tri
+        return full
+    ia, ib = np.meshgrid(np.arange(Fa), np.arange(Fb), indexing="ij")
+    return corr_direct(A, B, ia.ravel(), ib.ravel(), wx, wy).reshape(
+        Fa, Fb, 2 * wx + 1, 2 * wy + 1)
+
+
 def dot_planes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Lag-zero correlations only: (Fa, Fb) matrix of plane inner products."""
     Fa = A.shape[0]
@@ -617,7 +743,7 @@ def greek_tables_separate(
     Returns (Pbs_raw, Pss_raw, Pgs_raw, Pts_raw) unscaled CC tables:
       Pbs: CC(SI_a, SSc_b) window +-w; Pss: CC(SSc_a, SSc_b)[0];
       Pgs: CC(SSc_a, T_q)[0]; Pts: CC(SSc_a, J)[0].
-    Backends 'fft', 'fft32' (f32 tables) and 'exact' are ported.
+    Backends 'fft', 'fft32' (f32 tables), 'exact' and 'corr' (K8).
     """
     N0, N1 = J.shape
     if backend == "exact":
@@ -640,10 +766,15 @@ def greek_tables_separate(
             specT = _half_spectra(ST, plain)
             Pgs = exact_corr_window(specS, specT, N0, N1, 0, 0, plain=plain)[:, :, 0, 0]
         return _pad_scaling(Pbs, Pss, Pgs, Pts, SSc.shape[0] - Fs)
+    if backend == "corr":
+        # K8 on the active scaling planes only (the trailing planes are
+        # static zero padding), the lag-zero blocks as inner products
+        SScA = SSc[:n_active] if n_active else SSc
+        Pbs = corr_window_conv(SI, SScA, w0, w1, plain=plain)
+        return _pad_scaling(Pbs, dot_planes(SScA, SScA), dot_planes(SScA, ST),
+                            dot_planes(SScA, J[None])[:, 0], SSc.shape[0] - SScA.shape[0])
     if backend not in ("fft", "fft32"):
-        raise NotImplementedError(
-            f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1); use 'fft', 'fft32' or 'exact'")
+        raise ValueError(f"unknown greek backend {backend!r}")
     Pss = dot_planes(SSc, SSc)
     Pgs = dot_planes(SSc, ST)
     Pts = dot_planes(SSc, J[None])[:, 0]
@@ -680,7 +811,8 @@ def greek_tables(
 
     Unscaled CC values; the engine applies the SCALE powers that map CC to the
     reference's Pre tables. Backends 'fft', 'fft32' (f32 compute and f32
-    tables) and 'exact' are ported ('exact':
+    tables), 'corr' (the FFT-free f64 route: ``corr_window_conv``, K8, for
+    Comg, Cgam and Cthe) and 'exact' ('exact':
     the sliced-integer pair-FFT and windowed correlation for the data x data
     blocks; with `bg_spec`, the background basis, rolled-basis exact moments
     for everything against the background planes, else the generic spectral
@@ -709,13 +841,16 @@ def greek_tables(
                                      plain=plain)[:, :, 0, 0]
             Cdel = exact_corr_window(specT, specJ, N0, N1, 0, 0, plain=plain)[:, 0, 0, 0]
         return Comg, Cgam, Cthe, Cphi, Cdel
-    if backend not in ("fft", "fft32"):
-        raise NotImplementedError(
-            f"greek backend {backend!r} is not ported to sfft_tpu_torch yet "
-            "(ROADMAP queue 1); use 'fft', 'fft32' or 'exact'")
+    if backend not in ("fft", "fft32", "corr"):
+        raise ValueError(f"unknown greek backend {backend!r}")
     # lag-zero blocks are plain inner products, in the input dtype
     Cphi = dot_planes(ST, ST)
     Cdel = dot_planes(ST, J[None])[:, 0]
+    if backend == "corr":
+        Comg = corr_window_conv(SI, SI, 2 * w0, 2 * w1, plain=plain)
+        Cgam = corr_window_conv(SI, ST, w0, w1, plain=plain)
+        Cthe = corr_window_conv(SI, J[None], w0, w1, plain=plain)[:, 0]
+        return Comg, Cgam, Cthe, Cphi, Cdel
     if backend == "fft32":
         # f32 compute: the inputs cast to f32 go through the fft route (K1 in
         # c64 on the card), so the correlation tables come out f32 and the

@@ -15,14 +15,16 @@ of the automatic packets arrives transposed and the masked pair row-major,
 and the K4 slicer and K6p take different routes on the two layouts, so a
 copy that made a plane contiguous could change the bits of the result.
 
-sfft_tpu's int16 upload (batched_subtract_packed) is not ported: on the
-H100 the four f64 planes of a DECam pair (268 MB) go up from pinned memory
-in a small fraction of the subtraction's device time (PERF.md §5), so the
-upload does not bound the step and the quantization would buy nothing.
+batched_subtract_packed is sfft_tpu's int16 upload of the fast survey
+path (utils/pack.py): the planes are quantized on the host, go up as int16
+with f32 block scales (half the bytes of f32) and are dequantized on the
+card, so that a fast-mode survey gives the same difference as sfft_tpu's;
+the planes then arrive row-major.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -96,6 +98,65 @@ def await_upload(tensors: Sequence[torch.Tensor], event: Optional[torch.cuda.Eve
             stream = torch.cuda.current_stream(t.device)
             stream.wait_event(event)
             t.record_stream(stream)
+
+
+def upload_packed(planes: Sequence, device, block: int = 64
+                  ) -> Tuple[list, Optional[torch.cuda.Event]]:
+    """The planes quantized on the host (utils/pack.pack_i16 of their f32
+    values, as sfft_tpu's survey paths quantize), uploaded as int16 with
+    their f32 block scales and dequantized to f64 on `device`: returns
+    (tensors, event) as ``upload_planes`` does. On a card the copies (from
+    pinned memory) and the dequantization run on one side stream, after
+    which `event` is recorded; on the CPU the planes dequantize in place
+    and the event is None. The same object twice gives the same tensor
+    twice."""
+    from sfft_tpu_torch.utils.pack import pack_i16, unpack_i16
+
+    device = torch.device(device)
+    packs, seen, order = [], {}, []
+    for p in planes:
+        if id(p) not in seen:
+            a = p.detach().cpu().numpy() if isinstance(p, torch.Tensor) else p
+            seen[id(p)] = len(packs)
+            packs.append(pack_i16(np.ascontiguousarray(a, np.float32), block))
+        order.append(seen[id(p)])
+    host = [t for pk in packs for t in (pk.q, pk.scales)]
+    up, event = upload_planes(host, device)
+    side = None if event is None else torch.cuda.Stream(device)
+    with contextlib.ExitStack() as stack:
+        if side is not None:
+            side.wait_event(event)
+            stack.enter_context(torch.cuda.stream(side))
+        out = [unpack_i16(up[2 * k], up[2 * k + 1], pk.n0, pk.block)
+               for k, pk in enumerate(packs)]
+    if side is None:
+        return [out[k] for k in order], None
+    for t in up:
+        t.record_stream(side)
+    done = torch.cuda.Event()
+    done.record(side)
+    return [out[k] for k in order], done
+
+
+def batched_subtract_packed(I_stack, J_stack, mI_stack, mJ_stack, cfg: SFFTConfig,
+                            devices=None, block: int = 64, plain: bool = False):
+    """FAST-mode variant of ``batched_subtract`` (sfft_tpu's
+    batched_subtract_packed): each pair's four planes are quantized to int16
+    with one f32 scale per `block` rows on the host, uploaded
+    (``upload_packed``: pinned, on a side stream), dequantized on the card
+    and then solved and subtracted as ``batched_subtract`` does, pair k on
+    devices[k % len(devices)]. The quantization error (<= 0.5 blockmax /
+    32767 a pixel) sits far below fast mode's accuracy floor; never use it
+    with contract configs. Returns what ``batched_subtract`` returns."""
+    devices = data_devices(devices=devices)
+    stacks = (I_stack, J_stack, mI_stack, mJ_stack)
+    staged = [[] for _ in stacks]
+    for k in range(len(I_stack)):
+        planes, event = upload_packed([s[k] for s in stacks], devices[k % len(devices)], block)
+        await_upload(planes, event)
+        for out, t in zip(staged, planes):
+            out.append(t)
+    return batched_subtract(*staged, cfg, devices, plain=plain)
 
 
 def batched_subtract(I_stack, J_stack, mI_stack, mJ_stack, cfg: SFFTConfig,

@@ -31,6 +31,7 @@ import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from sfft_tpu_torch.api.easy_crowded import EasyCrowdedPacket
@@ -264,8 +265,10 @@ def run_mesh_batched(
     """Survey dispatch with STREAMING homogeneous-group batching over the
     devices (every visible card when None; without a card this raises).
 
-    PACK_H2D: 'auto' or 'off', accepted for sfft_tpu's callers; the port
-    ships f64 in both (it does not quantize the upload: parallel/batch.py).
+    PACK_H2D: 'auto' ships the groups of FAST-mode configs (``_pack_eligible``)
+    as int16 planes with f32 block scales, dequantized on the card
+    (parallel/batch.upload_packed), as sfft_tpu does; 'off', and every
+    contract or exact-solver config, ship the f64 planes.
 
     The prep thread pool and the dispatcher run CONCURRENTLY: as prep
     products arrive they are grouped by their static SFFTConfig (which pins
@@ -355,7 +358,10 @@ def run_mesh_batched(
             pad = (-len(tids)) % nd
             if pad:
                 stacks = [s + [s[-1]] * pad for s in stacks]
-            staged = _stage_group_arrays(stacks, devices)   # async H2D
+            if PACK_H2D == "auto" and _pack_eligible(cfg):
+                staged = _stage_group_arrays(stacks, devices, packed=True)   # async H2D
+            else:
+                staged = _stage_group_arrays(stacks, devices)   # async H2D
             with TimeoutAfter(TIMEOUT_4SUBTRACT_EACHTASK * len(tids)):
                 out = batch.batched_subtract(*staged, cfg, devices, plain=plain)
             inflight.append((cfg, tids, pad, out))
@@ -423,16 +429,27 @@ def run_mesh_batched(
     return status, products
 
 
-def _stage_group_arrays(stacks, devices):
+def _pack_eligible(cfg) -> bool:
+    """int16 H2D packing is invisible only inside FAST-mode accuracy floors
+    (quantization ~1.5e-5 of block max vs fast's ~7e-3; utils/pack.py).
+    Contract/pexact/exact-solver configs must never be packed."""
+    return (getattr(cfg, "fdiff_backend", None) == "fft32"
+            and getattr(cfg, "greek_backend", None) in ("peeled", "fft32")
+            and getattr(cfg, "solver", None) != "exact")
+
+
+def _stage_group_arrays(stacks, devices, packed: bool = False):
     """Upload one group's four input stacks, pair k to devices[k %
     len(devices)]: non_blocking copies from pinned host memory on a side
-    stream (parallel/batch.upload_planes, each plane in its own layout),
+    stream (parallel/batch.upload_planes, each plane in its own layout; with
+    `packed`, batch.upload_packed: int16 planes dequantized on the card),
     which the caller's current stream waits for. Returns the four stacks as
     lists of device tensors. The copies overlap whatever the host does next
     (collecting the previous group's results)."""
+    upload = batch.upload_packed if packed else batch.upload_planes
     staged = [[] for _ in stacks]
     for k in range(len(stacks[0])):
-        planes, event = batch.upload_planes([s[k] for s in stacks], devices[k % len(devices)])
+        planes, event = upload([s[k] for s in stacks], devices[k % len(devices)])
         batch.await_upload(planes, event)
         for out, t in zip(staged, planes):
             out.append(t)
@@ -441,17 +458,28 @@ def _stage_group_arrays(stacks, devices):
 
 def _prefetch_pair_planes(prep: dict) -> dict:
     """Upload the four solve-input planes of an ESP/ECP prep product to the
-    calling worker's device (a card; nothing to do on the CPU): non_blocking
-    copies from pinned memory on a side stream, each plane with its strides
-    (the same layout a single call gives it). Returns a copy of the product
+    calling worker's device: non_blocking copies from pinned memory on a
+    side stream, each plane with its strides (the same layout a single call
+    gives it). FAST-mode configs (``_pack_eligible``) ship int16 planes with
+    f32 block scales and dequantize on the device (batch.upload_packed), as
+    sfft_tpu does, on the CPU too (the planes then arrive row-major);
+    otherwise nothing is done on the CPU. Returns a copy of the product
     whose planes are device tensors (the engine takes them unchanged) and
     whose "h2d_event" the consumer waits for (``await_prefetch``). Used only
     on the per-task path."""
-    device = worker_device()
-    if device is None or device.type != "cuda" or not isinstance(prep, dict):
+    if not isinstance(prep, dict):
         return prep
+    device = worker_device()
+    pack = _pack_eligible(prep.get("cfg"))
+    if not pack and (device is None or device.type != "cuda"):
+        return prep
+    if device is None:
+        device = torch.device("cpu")
     keys = [k for k in _PLANES if prep.get(k) is not None]
-    planes, event = batch.upload_planes([prep[k] for k in keys], device)
+    if pack:   # sfft_tpu quantizes the host arrays only
+        keys = [k for k in keys if isinstance(prep[k], np.ndarray)]
+    upload = batch.upload_packed if pack else batch.upload_planes
+    planes, event = upload([prep[k] for k in keys], device)
     out = dict(prep, h2d_event=event)
     out.update(zip(keys, planes))
     return out
@@ -572,8 +600,11 @@ class MultiEasySparsePacket(_MultiEasy):
         MESH_BATCH=True: STREAMING batching — same-config groups go through
         batched_subtract over the devices (every card when None) the moment
         they fill, while later preps are still running (run_mesh_batched).
-        PACK_H2D ('auto' or 'off') is accepted; the port uploads f64 in
-        both. Returns (status, products)."""
+        PACK_H2D ('auto' or 'off'): under 'auto' the MESH_BATCH groups of
+        FAST-mode configs go up as int16 planes (parallel/batch.
+        upload_packed); the per-task path's prefetch packs FAST-mode planes
+        whatever PACK_H2D says, as sfft_tpu's does. Returns (status,
+        products)."""
         return self._run(NUM_THREADS_4PREPROC, NUM_THREADS_4SUBTRACT, TIMEOUT_4PREPROC_EACHTASK,
                          TIMEOUT_4SUBTRACT_EACHTASK, MESH_BATCH, devices, PACK_H2D,
                          VERBOSE_LEVEL)

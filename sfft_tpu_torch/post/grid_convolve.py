@@ -8,7 +8,8 @@ For the (typical) uniform tile grid all tiles have one shape, so the whole
 operation is one batched call over a stack of halo-extended tiles: a grouped
 direct convolution (``torch.nn.functional.conv2d``, one kernel per tile) for
 small kernels, or one batched rfft2 convolution for large ones. An arbitrary
-label map takes a loop over segments with the same per-segment semantics.
+label map takes a loop over segments with the same per-segment semantics,
+each through utils/convolve.convolve2d (the K9 kernel on the card).
 Everything runs in float64 on `device` (the CUDA card unless the caller
 names another); the functions return tensors, the GSVC facade a numpy array.
 """
@@ -126,11 +127,13 @@ def grid_convolve_labels(
 ) -> torch.Tensor:
     """Arbitrary label map (reference GSVC semantics: per-segment extended
     cutout with zero-fill boundary, stitch the interior back). use_fft is
-    accepted for the reference's signature; the segments convolve directly."""
+    accepted for the reference's signature; each segment convolves directly
+    through utils/convolve.convolve2d (K9 on the card), as sfft_tpu's does."""
+    from sfft_tpu_torch.utils.convolve import convolve2d
+
     img = _finite(as_f64(image, device), nan_fill_value)
-    kers = as_f64(ker_stack, img.device)
-    if normalize_kernel:
-        kers = kers / kers.sum(dim=(1, 2), keepdim=True)
+    kers = np.asarray(ker_stack.detach().cpu() if isinstance(ker_stack, torch.Tensor)
+                      else ker_stack, dtype=np.float64)
     N0, N1 = img.shape
     Nseg, L0, L1 = kers.shape
     w0, w1 = (L0 - 1) // 2, (L1 - 1) // 2
@@ -143,8 +146,8 @@ def grid_convolve_labels(
         xEs, xEe = max(0, xs - IBx), min(N0 - 1, xe + IBx)
         yEs, yEe = max(0, ys - IBy), min(N1 - 1, ye + IBy)
         cut = img[xEs : xEe + 1, yEs : yEe + 1]
-        conv = F.conv2d(F.pad(cut, (w1, w1, w0, w0))[None, None],
-                        torch.flip(kers[idx], dims=(0, 1))[None, None])[0, 0]
+        conv = convolve2d(cut, kers[idx], boundary="fill", fill_value=0.0,
+                          normalize_kernel=normalize_kernel, nan_treatment="fill")
         out[xs : xe + 1, ys : ye + 1] = conv[xs - xEs : xs - xEs + (xe + 1 - xs),
                                              ys - yEs : ys - yEs + (ye + 1 - ys)]
     return out

@@ -313,19 +313,20 @@ def test_cp_golden_sparse_matches_reference(tmp_path):
 
 
 def test_unported_backends_raise():
-    """greek 'corr' and fdiff 'conv' wait for later slices. greek 'fft32',
-    greek and fdiff 'exact', lambda > 0 and the solvers 'blocked_cho' and
-    'host' run (held to sfft_tpu in test_torch_v2_fast.py,
-    test_torch_v2_exact.py, test_torch_v2_engine.py and
-    test_torch_solve_f64.py)."""
+    """Every backend of sfft_tpu is ported: only unknown names raise. greek
+    'fft32' and 'corr', greek and fdiff 'exact', fdiff 'conv', lambda > 0
+    and the solvers 'blocked_cho' and 'host' run (held to sfft_tpu in
+    test_torch_v2_fast.py, test_torch_v2_exact.py, test_torch_v2_engine.py,
+    test_torch_solve_f64.py and test_torch_corr_conv.py)."""
     I, J = make_pair(10)
-    for kw in [dict(greek_backend="corr"), dict(fdiff_backend="conv")]:
+    for kw in [dict(greek_backend="nope"), dict(fdiff_backend="nope")]:
         _, tc = cfgs(**kw)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
     for kw in [dict(greek_backend="exact", fdiff_backend="exact", regularize_lambda=0.1,
                     reg_xy=((5.0, 5.0),)), dict(greek_backend="fft32"),
-               dict(solver="blocked_cho"), dict(solver="host")]:
+               dict(solver="blocked_cho"), dict(solver="host"),
+               dict(greek_backend="corr"), dict(fdiff_backend="conv")]:
         _, tc = cfgs(**kw)
         sol, diff = tengine.ElementalSFFT.ESS(I, J, tc, Subtract=True, device="cpu")
         assert bool(torch.isfinite(sol).all()) and bool(torch.isfinite(diff).all())
@@ -365,7 +366,9 @@ def test_import_leaves_jax_out():
             "sfft_tpu_torch.api.easy_crowded, sfft_tpu_torch.utils.multiproc, "
             "sfft_tpu_torch.parallel.batch, sfft_tpu_torch.parallel.scheduler, "
             "sfft_tpu_torch.parallel.sharded_fft, sfft_tpu_torch.parallel.multihost, "
-            "sfft_tpu_torch.serve; "
+            "sfft_tpu_torch.serve, sfft_tpu_torch.utils.convolve, sfft_tpu_torch.utils.sky, "
+            "sfft_tpu_torch.utils.wcs, sfft_tpu_torch.utils.stamp, sfft_tpu_torch.utils.pack, "
+            "sfft_tpu_torch.utils.profiling, sfft_tpu_torch.prep.resample; "
             "import threading; assert threading.active_count() == 1, threading.enumerate(); "
             "assert sfft_tpu_torch.native.available(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -129,8 +129,12 @@ def test_greek_tables_fft_match_reference(w):
 
 def test_greek_tables_unported_backends_raise():
     SI = torch.zeros((6, 32, 32), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="corr")
+    # every backend of sfft_tpu is ported: only an unknown name raises
+    with pytest.raises(ValueError):
+        tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="nope")
+    # 'corr' is ported (K8's twin; held to sfft_tpu in test_torch_corr_conv.py)
+    out = tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="corr")
+    assert tuple(out[0].shape) == (6, 6, 5, 5) and not any(bool(o.any()) for o in out)
     # 'fft32' is ported (f32 tables; held to sfft_tpu in test_torch_v2_fast.py)
     out = tgreek.greek_tables(SI, SI[:3], SI[0], 1, 1, backend="fft32")
     assert all(o.dtype == torch.float32 for o in out)

@@ -109,10 +109,18 @@ def test_greek_tables_separate_exact_direct_call_matches_reference():
 
 def test_unported_backends_raise():
     _, tc, SI, ST, SSc, J = _stacks("separate_varying_poly")
-    with pytest.raises(NotImplementedError):
-        tgreek.greek_tables(SI, ST, J, 1, 1, backend="corr")
-    with pytest.raises(NotImplementedError):
-        tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="corr")
+    # every backend of sfft_tpu is ported: only an unknown name raises
+    with pytest.raises(ValueError):
+        tgreek.greek_tables(SI, ST, J, 1, 1, backend="nope")
+    with pytest.raises(ValueError):
+        tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="nope")
+    # 'corr' is ported: the FFT-free tables equal the fft route's
+    n_active = tc.scaling_basis.num_funcs()
+    for fn, args in ((tgreek.greek_tables, (SI, ST, J, 1, 1)),
+                     (tgreek.greek_tables_separate, (SI, SSc, ST, J, 1, 1))):
+        kw = {} if fn is tgreek.greek_tables else {"n_active": n_active}
+        for o, f in zip(fn(*args, backend="corr", **kw), fn(*args, backend="fft", **kw)):
+            _close(o, f.numpy(), 1e-12)
     # 'fft32' is ported (f32 tables; held to sfft_tpu in test_torch_v2_fast.py)
     out = tgreek.greek_tables_separate(SI, SSc, ST, J, 1, 1, backend="fft32")
     assert all(o.dtype == torch.float32 for o in out)
