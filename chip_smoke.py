@@ -122,7 +122,11 @@ bit for bit this process's batched_subtract of the same pairs; a worker
 that fails or outlives its timeout fails the phase.
 
 Then phase 13, the FFT-free f64 route (greek 'corr' on K8, fdiff 'conv'
-on K9), the host utility on K9 and the int16 upload: (13a) K8 on the
+on K9), the host utility on K9 and the int16 upload: the evidence that
+both kernels run on the FP64 tensor cores (DMMA and DFMA counts in the
+built library's SASS, registers and spills from the build's ptxas report;
+"not available" without cuobjdump; printed after 13c, the SASS dump running
+under it); (13a) K8 on the
 4096^2 step's Comg, Cgam and Cthe tables and the NIRCam v2 Comg and Pbs
 tables, each within 1e-12 of its twin's max and bit for bit across two
 launches, and the 4096^2 tables within 1e-12 of the f64 fft route's (K1
@@ -1011,6 +1015,7 @@ def phase_post(sol, diff, cfg, devices=("cuda", "cpu")):
     within 1e-9 of max (f64)."""
     import torch
     from sfft_tpu_torch import BSplineDeCorrelation, BSplineGridConvolve, BSplineMatchingKernel
+    from sfft_tpu_torch.core import fdiff
     from sfft_tpu_torch.post.grid_convolve import make_tile_grid
 
     n = V2_N
@@ -1019,9 +1024,10 @@ def phase_post(sol, diff, cfg, devices=("cuda", "cpu")):
     MKerStack = BSplineMatchingKernel(XY_TiC).from_solution(sol, cfg)
     assert MKerStack.shape == (len(XY_TiC), cfg.L0, cfg.L1) and np.isfinite(MKerStack).all()
     psf_ref, psf_sci = gaussian_psf(31, 1.6), gaussian_psf(31, 2.0)
-    out, secs = {}, {}
+    out, secs, k9 = {}, {}, {}
     for dev in devices:
         t0 = time.perf_counter()
+        k9[dev] = fdiff._K9.launches
         dk = np.array([BSplineDeCorrelation.BDC(
             MK_JLst=[psf_ref], SkySig_JLst=[1.0], MK_ILst=[psf_sci], SkySig_ILst=[1.0],
             MK_Fin=mk, KERatio=2.0, VERBOSE_LEVEL=0, device=dev) for mk in MKerStack])
@@ -1030,6 +1036,7 @@ def phase_post(sol, diff, cfg, devices=("cuda", "cpu")):
         if dev == "cuda":
             torch.cuda.synchronize()
         secs[dev] = time.perf_counter() - t0
+        k9[dev] = fdiff._K9.launches - k9[dev]
         out[dev] = (dk, dc)
     (dk, dc), (dk_c, dc_c) = out[devices[0]], out[devices[1]]
     assert np.isfinite(dk).all() and np.isfinite(dc).all() and dc.shape == (n, n)
@@ -1039,10 +1046,12 @@ def phase_post(sol, diff, cfg, devices=("cuda", "cpu")):
     log(f"phase 9 post-processing on the v2-fast-peeled solution: {len(XY_TiC)} tiles "
         f"(TiHW {TiHW}), matching kernels {MKerStack.shape[1:]}, decorrelation kernels "
         f"{dk.shape[1:]} (BDC), GSVC of the {n}^2 difference; card {secs[devices[0]]:.2f} s, "
-        f"CPU {secs[devices[1]]:.2f} s; card vs CPU max|d|/max: kernels {ek:.3e}, decorrelated "
+        f"CPU {secs[devices[1]]:.2f} s; K9 launches on the card {k9[devices[0]]} (GSVC with "
+        f"TiHW takes the batched uniform-grid route; its label route reaches K9 through "
+        f"convolve2d); card vs CPU max|d|/max: kernels {ek:.3e}, decorrelated "
         f"difference {ec:.3e} (bound 1e-9)")
     return dict(tiles=len(XY_TiC), card_s=secs[devices[0]], cpu_s=secs[devices[1]], kernel_rel=ek,
-                diff_rel=ec)
+                diff_rel=ec, k9_launches=k9[devices[0]])
 
 
 def one_twin(mod, name, twin, run):
@@ -4864,8 +4873,141 @@ def k9_bound(F, L0, L1, n0, n1, H, W, nextra):
                  2.0 * (F * L0 * L1 + nextra) * n0 * n1, FP64_FLOP_PER_S)
 
 
+# the device functions of K8's and K9's C entries
+DIRECT_DEVICE_FNS = {"sfft_corr_direct": ("corr_direct.cu", ("corr_mma", "sum_bands")),
+                     "sfft_conv_direct": ("conv_direct.cu", ("conv_mma",))}
+
+
+def _cuda_tool(name):
+    """Path of a CUDA toolkit tool (nvcc's directory, then triton's copy), or
+    None."""
+    import shutil
+
+    from sfft_tpu_torch import _kernels
+
+    cands = [os.path.join(os.path.dirname(_kernels._nvcc()), name)]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  name))
+    except ImportError:
+        pass
+    found = shutil.which(name)
+    return found or next((c for c in cands if os.path.exists(c)), None)
+
+
+def direct_sass_start():
+    """(process, file): cuobjdump -sass of the built library, started in the
+    background (the whole library's SASS takes seconds of host time, which
+    run under 13a-c), or None without cuobjdump."""
+    from sfft_tpu_torch import _kernels
+
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    f = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([tool, "-sass", _kernels.library_path()], stdout=f,
+                            stderr=subprocess.DEVNULL, text=True), f
+
+
+def direct_isa_report(sass_job):
+    """13a-b: evidence that K8 and K9 run on the FP64 tensor cores: the DMMA
+    and DFMA instructions of each device function in the built library's
+    SASS (``direct_sass_start``'s job), and its registers and spills from the
+    build's ptxas report (-v, kept beside the library); where a tool or the
+    report is missing, "not available" (and without cuobjdump the PTX line
+    of the mma, from one more compile)."""
+    import re
+
+    from sfft_tpu_torch import _kernels
+
+    t0 = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = _kernels.build_report_path()
+        ptxas = open(path).read() if os.path.exists(path) else ""
+        cuobjdump = sass_job is not None
+        sass = ""
+        if cuobjdump:
+            proc, f = sass_job
+            proc.wait()
+            f.seek(0)
+            sass = f.read()
+            f.close()
+
+        def key(mangled, fns):
+            # a device function by name, an instantiation by its template
+            # argument (corr_mma<5>, corr_mma<4>)
+            f = next((f for f in fns if f in mangled), None)
+            arg = re.search(r"ILi(\d+)E", mangled)
+            return f and (f"{f}<{arg.group(1)}>" if arg else f)
+
+        for entry, (src, fns) in DIRECT_DEVICE_FNS.items():
+            # ptxas: "Compiling entry function '<mangled>'", then "N bytes
+            # spill stores, N bytes spill loads" and "Used N registers"
+            res, cur = {}, None
+            for line in ptxas.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    cur = key(m.group(1), fns)
+                    if cur:
+                        res[cur] = {"registers": "not available", "spill_bytes": "not available"}
+                elif cur and "spill stores" in line:
+                    st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                    if st:
+                        res[cur]["spill_bytes"] = [int(st.group(1)), int(st.group(2))]
+                elif cur and "Used" in line:
+                    m = re.search(r"Used (\d+) registers", line)
+                    if m:
+                        res[cur]["registers"] = int(m.group(1))
+            counts, cur = {}, None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    cur = key(m.group(1), fns)
+                elif cur:
+                    op = re.search(r"\b(DMMA|DFMA)\b", line)
+                    if op:
+                        counts.setdefault(cur, {"DMMA": 0, "DFMA": 0})[op.group(1)] += 1
+            for f in counts:
+                res.setdefault(f, {"registers": "not available",
+                                   "spill_bytes": "not available"})
+            for f in res:
+                res[f]["sass"] = counts.get(f, {"DMMA": 0, "DFMA": 0}) if cuobjdump else \
+                    "not available"
+            if not cuobjdump:
+                ptx = os.path.join(d, src + ".ptx")
+                subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-ptx",
+                                os.path.join(_kernels.CSRC, src), "-o", ptx], capture_output=True)
+                lines = open(ptx).read().splitlines() if os.path.exists(ptx) else []
+                res["ptx_mma"] = next((ln.strip() for ln in lines
+                                       if "mma.sync" in ln and "f64" in ln), None)
+            report[entry] = res
+            log(f"phase 13a-b {entry} ({src}): " + ("; ".join(
+                f"{f}: SASS DMMA / DFMA "
+                + (f"{r['sass']['DMMA']} / {r['sass']['DFMA']}" if isinstance(r["sass"], dict)
+                   else "not available (no cuobjdump)")
+                + f", {r['registers']} registers, spill stores / loads {r['spill_bytes']} bytes"
+                for f, r in res.items() if f != "ptx_mma") or "no build report, no cuobjdump")
+                + (f"; PTX: {res.get('ptx_mma')}" if not cuobjdump else ""))
+    for entry, (_, fns) in DIRECT_DEVICE_FNS.items():
+        # a DMMA in every instantiation's SASS, or (no cuobjdump) the f64 mma
+        # in the PTX
+        if "ptx_mma" in report[entry]:
+            assert report[entry]["ptx_mma"], f"{entry}: no f64 mma.sync in its PTX"
+            continue
+        mains = [f for f in report[entry] if f.startswith(fns[0])]
+        assert mains, f"{entry}: neither the build's report nor the SASS lists {fns[0]}"
+        for f in mains:
+            assert report[entry][f]["sass"]["DMMA"] > 0, f"{f}: no DMMA in its SASS"
+    report["s"] = time.perf_counter() - t0
+    return report
+
+
 def direct_k8_calls(name, A, B, w, reps=3):
-    """One K8 table on the card (B is A: Comg's 21 pairs, mirrored):
+    """One K8 table on the card (B is A: every pair at the lag rows rho >=
+    0, mirrored):
     launched twice (bit for bit), timed, held to its twin within 1e-12 of
     the table's max; returns (table, row). library_ms comes later, from
     ``phase_direct_library``."""
@@ -4885,12 +5027,18 @@ def direct_k8_calls(name, A, B, w, reps=3):
     Fa, Fb = A.shape[0], B.shape[0]
     npairs = Fa * (Fa + 1) // 2 if A is B else Fa * Fb
     bms, by = k8_bound(Fa, Fb, R, R, A.shape[1], A.shape[2], A is B)
+    # the launch's plan (B is A: the lag rows rho >= 0; the roles as the
+    # wrapper assigns them)
+    nrho = w + 1 if A is B else R
+    swap = greek._k8_padded(Fb, Fa, R) < greek._k8_padded(Fa, Fb, R)
+    plan = greek._k8_plan(*((Fb, Fa) if swap else (Fa, Fb)), A.shape[1], A.shape[2], nrho, w)
+    plan = {k: plan[k] for k in ("NT", "RT", "W", "CS", "nunits", "nbands", "smem")}
     row = dict(shape=[Fa, Fb, A.shape[1], A.shape[2], R, R], pairs=npairs, max_abs_err=err,
                rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               share=bms / ms, library_ms=None)
+               share=bms / ms, library_ms=None, plan=plan, swap=swap)
     log(f"phase 13a K8 {name} {tuple(out.shape)} ({npairs} pairs): {ms:.3f} ms, bound "
         f"{bms:.3f} ms ({by}; {100 * bms / ms:.1f}%), twin {plain_ms:.1f} ms; {rel:.2e} of max "
-        f"from the twin, two launches bit for bit")
+        f"from the twin, two launches bit for bit; plan {plan}{', roles swapped' if swap else ''}")
     return out, row
 
 
@@ -5042,8 +5190,8 @@ def direct_profile(step, nk8, nk9, k_ms):
     def read(prof):
         ev = [e for e in prof.key_averages() if _on_device(e)]
         return (sum(_dev_us(e) for e in ev) / 1e6, sum(e.count for e in ev),
-                sum(e.count for e in ev if "corr_band" in e.key),
-                sum(e.count for e in ev if "conv_tile" in e.key))
+                sum(e.count for e in ev if "corr_mma" in e.key),
+                sum(e.count for e in ev if "conv_mma" in e.key))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5209,7 +5357,8 @@ def phase_direct_path(I, J, lam):
 
 def phase_direct_convolve2d():
     """13b: convolve2d (the host utility on K9) on a DECam-sized image with a
-    31 x 31 kernel in each boundary mode and with NaN interpolation, and
+    31 x 31 kernel in each boundary mode, with a NaN fill (NaN exactly in
+    the edge strips where the twin has it) and with NaN interpolation, and
     with a 95 x 95 kernel (K9's taps in chunks), held to the same call on
     K9's twin within 1e-12 of max."""
     import torch
@@ -5225,6 +5374,7 @@ def phase_direct_convolve2d():
     rows = {}
     for name, x, k, kw in [("extend", img, ker, dict(boundary="extend")),
                            ("fill", img, ker, dict(boundary="fill", fill_value=5.0)),
+                           ("NaN fill", img, ker, dict(boundary="fill", fill_value=np.nan)),
                            ("wrap", img, ker, dict(boundary="wrap")),
                            ("interpolate", holed, ker, dict(boundary="extend",
                                                             nan_treatment="interpolate")),
@@ -5307,8 +5457,10 @@ def phase_direct(lam=V2_LAMBDA):
     import torch
 
     t0 = time.perf_counter()
+    sass_job = direct_sass_start()
     I, J = (torch.as_tensor(a, device=DIRECT_DEV) for a in make_pair(N))
     report, rows, launches = phase_direct_path(I, J, lam)
+    report["isa"] = direct_isa_report(sass_job)
     del I, J
     torch.cuda.empty_cache()
     t1 = time.perf_counter()

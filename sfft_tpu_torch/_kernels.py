@@ -54,7 +54,7 @@ _SIGNATURES = {
     "sfft_pair_products": [_P, _P],
     "sfft_pair_model": [_P, _P],
     "sfft_pair_poly": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
-    "sfft_corr_direct": [_P] * 5 + [_I] * 8 + [_P],
+    "sfft_corr_direct": [_P] * 4 + [_I] * 14 + [_P],
     "sfft_conv_direct": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
     "sfft_cuda_error_string": [_I],
 }
@@ -87,10 +87,16 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsfft_kernels_{h.hexdigest()[:16]}.so")
 
 
+def build_report_path() -> str:
+    """The compiler's report of the library's build (ptxas -v: registers,
+    shared memory and spills per kernel), written beside it."""
+    return library_path() + ".ptxas.txt"
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu unless the library for these sources exists; return
-    its path. verbose=True adds ``-Xptxas=-v`` and prints the compiler's
-    report (registers, shared memory, spills per kernel)."""
+    its path. The compiler's report (``-Xptxas=-v``) goes to
+    ``build_report_path()``; verbose=True rebuilds and prints it."""
     out = library_path()
     if os.path.exists(out) and not verbose:
         return out
@@ -113,8 +119,7 @@ def build(verbose: bool = False) -> str:
         jobs = []
         for src in sources():
             obj = os.path.join(objdir, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-                   "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", src, "-o", obj]
             jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.PIPE, text=True)))
         try:
@@ -130,6 +135,10 @@ def build(verbose: bool = False) -> str:
                                       text=True))
         if verbose:
             print("".join(report), flush=True)
+        rep = tmp + ".ptxas.txt"
+        with open(rep, "w") as f:
+            f.write("".join(report))
+        os.replace(rep, out + ".ptxas.txt")
         os.replace(tmp, out)  # atomic: a concurrent process never sees a partial file
     finally:
         if os.path.exists(tmp):

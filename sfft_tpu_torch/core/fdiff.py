@@ -227,9 +227,15 @@ def conv_direct(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True, J=N
     (``conv_direct_plain``'s arguments and result). `wrap`: the indices
     read mod the plane's size and the output is (H, W); else the planes are
     padded by (L0 // 2, L1 // 2) on each side and the output is (H - L0 + 1,
-    W - L1 + 1). CUDA tensors: one launch of csrc/conv_direct.cu (float64,
-    any side: taps past 63 a side in chunks; bit-reproducible); CPU tensors:
-    ``conv_direct_plain``.
+    W - L1 + 1). CUDA tensors: one launch of csrc/conv_direct.cu on the
+    FP64 tensor cores (float64; mma.sync m16n8k4, M = 16 output columns, N
+    = 8 output rows, K = 4 tap columns of one plane; any side: taps past 63
+    a side in chunks; bit-reproducible); CPU tensors: ``conv_direct_plain``.
+    The planes must be finite on the card: the kernel multiplies the zeros
+    of its tap band by every staged value, so a NaN or inf reaches every
+    row of its 8-row output tile, past its window (not checked: that costs
+    a device sync a call; fdiff's planes are masked, and convolve2d pads a
+    non-finite fill with zeros and adds its terms after).
     ``conv_direct.launches`` counts the launches."""
     if planes.dim() != 3 or taps.dim() != 3 or taps.shape[0] != planes.shape[0]:
         raise ValueError(f"conv_direct needs planes (F, H, W) and taps (F, L0, L1), got "

@@ -395,25 +395,157 @@ def corr_window_conv_plain(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int) -
         Fa, Fb, 2 * wx + 1, 2 * wy + 1)
 
 
-_K8_ROWS = 32     # image rows of a band (csrc/corr_direct.cu kRows)
-_K8_STRIP = 12    # most lags along axis 1 a thread keeps
+# csrc/corr_direct.cu: kP lag rows a warp, kTY staged columns, kMT A planes
+# an m-tile
+_K8_P, _K8_TY, _K8_MT = 6, 16, 8
+# shared memory of a block: two blocks an SM fit under the first, one under
+# the second (the card's 227 KB)
+_K8_SMEM_TWO, _K8_SMEM_MAX = 114688, 232448
+# staged B rows in order of preference
+_K8_ROWS = (16, 32, 8)
+# blocks the grid should hold: eight waves of two an SM on the card's 132
+# SMs (small tables split their columns over more blocks)
+_K8_BLOCKS = 2112
 
 
-def _k8_plan(R0: int, R1: int):
-    """(S, nstrips, R0c): R1 lags in nstrips strips of S <= 12, lag rows in
-    blocks of R0c <= 64 with R0c * nstrips <= 256 threads of a row group."""
-    nstrips = -(-R1 // _K8_STRIP)
-    S = -(-R1 // nstrips)
-    return S, nstrips, min(R0, 64, 256 // nstrips)
+def _k8_group_tile(ng: int, ntiles: int, nng: int) -> int:
+    """csrc/corr_direct.cu ``group_tile``: the first n-tile of n-group ng
+    (the groups split the tiles evenly)."""
+    return ng * ntiles // nng
+
+
+def _k8_unit(u: int, nrg: int):
+    """csrc/corr_direct.cu ``unit_of``: unit u's (lag group, n-group)."""
+    return u % nrg, u // nrg
+
+
+def _k8_block_span(plan: dict, blk: int):
+    """csrc/corr_direct.cu ``block_span`` and ``block_columns``: the lag
+    groups (first, last), n-groups (first, last) and (plane, lag) columns
+    (first, last) of block blk's units."""
+    W, nrg, nng, ntiles = plan["W"], plan["nrg"], plan["nng"], plan["ntiles"]
+    units = [_k8_unit(u, nrg) for u in range(blk * W, min(blk * W + W, plan["nunits"]))]
+    rgs, ngs = [u[0] for u in units], [u[1] for u in units]
+    n_lo = _k8_group_tile(min(ngs), ntiles, nng) * 8
+    n_hi = min(_k8_group_tile(max(ngs) + 1, ntiles, nng) * 8, plan["NN"]) - 1
+    return (min(rgs), max(rgs)), (min(ngs), max(ngs)), (n_lo, n_hi)
+
+
+def _k8_layout(Fa: int, Fb: int, N0: int, N1: int, nrho: int, wy: int, NT: int, RT: int,
+               W: int, CS: int = 1) -> dict:
+    """K8's launch plan, owned here: the units of work (lag group x n
+    group, lag group fastest), the blocks (W units each, grid (nmt * bpb,
+    nbands, CS)), the staged rows (the most lag rows a block spans) and
+    planes of one of the two buffers and the shared memory in bytes. The
+    launch passes span, nbp and nbands; csrc/corr_direct.cu ``make_plan``
+    derives the same buffer layout from them, and a block the plan does
+    not cover writes NaN."""
+    P, TY, MT = _K8_P, _K8_TY, _K8_MT
+    R1 = 2 * wy + 1
+    nmt, nA, nrg, NN = -(-Fa // MT), min(Fa, MT), -(-nrho // P), Fb * R1
+    ntiles = -(-NN // 8)
+    nng = -(-ntiles // NT)
+    nunits = nrg * nng
+    plan = dict(Fa=Fa, Fb=Fb, nrho=nrho, wy=wy, R1=R1, NT=NT, RT=RT, W=W, CS=CS, nmt=nmt,
+                nA=nA, nrg=nrg, NN=NN, ntiles=ntiles, nng=nng, nunits=nunits,
+                bpb=-(-nunits // W), nchunks=-(-N1 // TY), BW=TY + R1 - 1,
+                nbands=-(-(N0 + nrho - 1) // RT))
+    span = nbp = 0
+    for blk in range(plan["bpb"]):
+        (rg_lo, rg_hi), _, (n_lo, n_hi) = _k8_block_span(plan, blk)
+        span = max(span, (rg_hi - rg_lo + 1) * P)
+        nbp = max(nbp, n_hi // R1 - n_lo // R1 + 1)
+    RA = RT + span - 1
+    SA = RA * TY + 4
+    buf = nA * SA + nbp * RT * plan["BW"]
+    plan.update(span=span, RA=RA, SA=SA, SB=RT * plan["BW"], nbp=nbp, buf=buf, smem=16 * buf)
+    return plan
+
+
+def _k8_plan(Fa: int, Fb: int, N0: int, N1: int, nrho: int, wy: int) -> dict:
+    """K8's launch plan for a (Fa, Fb, nrho, 2wy+1) table (csrc/corr_direct.cu:
+    mma.sync m16n8k4 in f64, M = two lag rows x 8 A planes, N = 8 flattened
+    (B plane, lag) columns, K = 4 image columns; a warp keeps 6 lag rows x
+    NT n-tiles of accumulators, and a producer warp stages the tiles). NT
+    is 5, or 4 where that splits the tiles into as many n-groups (fewer
+    registers). W, the compute warps of a block, is the lag groups (2 to
+    4), so that a block's warps share one n-group's staged planes and every
+    lag row it stages (3 lag groups and the producer: a warp on each SM
+    sub-partition); 1 where no block of W fits. RT, the staged B rows, is
+    the first of _K8_ROWS whose two buffers fit two blocks an SM (else
+    one). CS splits the columns until the grid holds _K8_BLOCKS blocks."""
+    ntiles, nrg = -(-Fb * (2 * wy + 1) // 8), -(-nrho // _K8_P)
+    NT = 4 if -(-ntiles // 4) == -(-ntiles // 5) else 5
+    for budget in (_K8_SMEM_TWO, _K8_SMEM_MAX):
+        for W in (min(max(nrg, 2), 4), 1):
+            for RT in _K8_ROWS:
+                plan = _k8_layout(Fa, Fb, N0, N1, nrho, wy, NT, RT, W)
+                if plan["smem"] <= budget:
+                    blocks = plan["nmt"] * plan["bpb"] * plan["nbands"]
+                    CS = min(plan["nchunks"], max(1, -(-_K8_BLOCKS // blocks)))
+                    return _k8_layout(Fa, Fb, N0, N1, nrho, wy, NT, RT, W, CS)
+    raise ValueError(f"corr_direct: no K8 block fits shared memory for {Fb} planes of "
+                     f"{2 * wy + 1} lags")
+
+
+def _k8_padded(Fx: int, Fy: int, R1: int) -> int:
+    """Products a K8 launch computes per pixel and lag row with Fx planes
+    as its plane operand and Fy as its shifted one: planes to 8, (plane,
+    lag) columns to 8."""
+    return -(-Fx // _K8_MT) * _K8_MT * (-(-Fy * R1 // 8) * 8)
+
+
+def _k8_launch(A: torch.Tensor, B: torch.Tensor, rho_lo: int, nrho: int, wy: int) -> torch.Tensor:
+    """One launch of K8 (csrc/corr_direct.cu): C[a, b, i, e] =
+    sum_xy A[a, x, y] * B[b, (x + rho_lo + i) % N0, (y + e - wy) % N1] as
+    (Fa, Fb, nrho, 2wy+1) f64, A the plane operand, B the shifted one; the
+    partials of the bands and column splits, then their fixed-order sum.
+    ``_K8.launches`` (on this function) counts the launches."""
+    from sfft_tpu_torch import _kernels
+
+    Fa, Fb, N0, N1 = A.shape[0], B.shape[0], A.shape[1], A.shape[2]
+    plan = _k8_plan(Fa, Fb, N0, N1, nrho, wy)
+    dev = A.device
+    part = torch.empty((plan["nbands"] * plan["CS"], Fa, Fb, nrho, 2 * wy + 1),
+                       dtype=torch.float64, device=dev)
+    out = torch.empty((Fa, Fb, nrho, 2 * wy + 1), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernels.lib().sfft_corr_direct(
+            A.data_ptr(), B.data_ptr(), part.data_ptr(), out.data_ptr(), Fa, Fb, N0, N1,
+            rho_lo, nrho, wy, plan["NT"], plan["RT"], plan["W"], plan["CS"], plan["span"],
+            plan["nbp"], plan["nbands"], _kernels.stream_ptr(A))
+    _K8.launches += 1
+    _kernels.check(err, "corr_direct kernel launch")
+    return out
+
+
+_k8_launch.launches = 0
+# the counter's owner: the module attribute may be replaced by a caller
+# that intercepts the launches (the tests' emulation)
+_K8 = _k8_launch
+
+
+def _k8_table(A: torch.Tensor, B: torch.Tensor, rho_lo: int, nrho: int, wy: int) -> torch.Tensor:
+    """C[a, b, i, e] = CC(A_a, B_b)[rho_lo + i, e - wy], (Fa, Fb, nrho,
+    2wy+1), in one K8 launch. The operand whose padding wastes less is the
+    kernel's plane operand: when that is B, the launch computes CC(B_b,
+    A_a) at the negated lags (CC(A_a, B_b)[d] = CC(B_b, A_a)[-d]) and the
+    table is flipped back."""
+    R1 = 2 * wy + 1
+    if _k8_padded(B.shape[0], A.shape[0], R1) < _k8_padded(A.shape[0], B.shape[0], R1):
+        T = _k8_launch(B, A, -(rho_lo + nrho - 1), nrho, wy)
+        return torch.flip(T, dims=(2, 3)).transpose(0, 1).contiguous()
+    return _k8_launch(A, B, rho_lo, nrho, wy)
 
 
 def corr_direct(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> torch.Tensor:
     """K8: the windowed circular cross-correlations (npairs, 2wx+1, 2wy+1)
     of the plane pairs (A[ia[p]], B[ib[p]]) (``corr_direct_plain``'s
-    arguments). CUDA tensors: csrc/corr_direct.cu (float64, two launches:
-    the bands, then their fixed-order sum; bit-reproducible); CPU tensors:
-    ``corr_direct_plain``. ``corr_direct.launches`` counts the launches of
-    the kernel."""
+    arguments). CUDA tensors: csrc/corr_direct.cu on the FP64 tensor cores
+    (float64, two launches: the bands, then their fixed-order sum;
+    bit-reproducible), which computes every pair of A and B planes in one
+    launch (``_k8_table``) and returns the listed ones; CPU tensors:
+    ``corr_direct_plain``. ``_K8.launches`` counts the launches."""
     if A.dim() != 3 or B.dim() != 3 or A.shape[1:] != B.shape[1:]:
         raise ValueError(f"corr_direct needs (F, N0, N1) stacks, got {tuple(A.shape)} and "
                          f"{tuple(B.shape)}")
@@ -427,37 +559,36 @@ def corr_direct(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> t
         raise IndexError("corr_direct pair index out of range")
     if A.device.type == "cpu":
         return corr_direct_plain(A, B, ia, ib, wx, wy)
+    _k8_check(A, B, wy)
+    if not len(ia):
+        return A.new_empty((0, 2 * wx + 1, 2 * wy + 1))
+    T = _k8_table(A, B, -wx, 2 * wx + 1, wy)
+    return T[index(ia, A.device, torch.long), index(ib, A.device, torch.long)]
+
+
+def _k8_check(A: torch.Tensor, B: torch.Tensor, wy: int):
     if A.device.type != "cuda":
         raise ValueError(f"corr_direct runs on cpu or cuda tensors, not {A.device}")
-    if A.dtype != torch.float64:
+    if A.dtype != torch.float64 or B.dtype != torch.float64:
         raise TypeError(f"the K8 kernel is the float64 route's; got {A.dtype}")
     if not (A.is_contiguous() and B.is_contiguous()):
         raise ValueError("corr_direct needs contiguous stacks")
-    R0, R1 = 2 * wx + 1, 2 * wy + 1
-    N0, N1 = A.shape[1], A.shape[2]
-    if not 1 <= len(ia) <= 65535 or R1 > 255:
-        raise ValueError("corr_direct kernel takes 1..65535 pairs and at most 255 lags along "
-                         "axis 1")
-    from sfft_tpu_torch import _kernels
-
-    S, nstrips, R0c = _k8_plan(R0, R1)
-    dev = A.device
-    pairs = torch.as_tensor(np.stack([ia, ib], axis=1).astype(np.int32)).to(dev, non_blocking=True)
-    part = torch.empty((-(-N0 // _K8_ROWS), len(ia), R0, R1), dtype=torch.float64, device=dev)
-    out = torch.empty((len(ia), R0, R1), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernels.lib().sfft_corr_direct(
-            A.data_ptr(), B.data_ptr(), pairs.data_ptr(), part.data_ptr(), out.data_ptr(),
-            len(ia), N0, N1, wx, wy, S, nstrips, R0c, _kernels.stream_ptr(A))
-    _K8.launches += 1
-    _kernels.check(err, "corr_direct kernel launch")
-    return out
+    if 2 * wy + 1 > 255:
+        raise ValueError("corr_direct kernel takes at most 255 lags along axis 1")
 
 
-corr_direct.launches = 0
-# the counter's owner: the module attribute may be replaced by a caller
-# that intercepts the calls (chip_smoke.py, the tests)
-_K8 = corr_direct
+
+def _corr_window_k8(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int) -> torch.Tensor:
+    """corr_window_conv's K8 route (one launch): when B is A, the lag rows
+    rho >= 0 of every pair, the rows rho < 0 mirrored from them
+    (CC(A_a, A_b)[-d] = CC(A_b, A_a)[d]); else all lag rows."""
+    if A is B:
+        half = _k8_table(A, A, 0, wx + 1, wy)                   # rho = 0 .. wx
+        full = half.new_empty((A.shape[0], A.shape[0], 2 * wx + 1, 2 * wy + 1))
+        full[:, :, wx:] = half
+        full[:, :, :wx] = torch.flip(half[:, :, 1:], dims=(2, 3)).transpose(0, 1)
+        return full
+    return _k8_table(A, B, -wx, 2 * wx + 1, wy)
 
 
 def corr_window_conv(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int,
@@ -465,27 +596,17 @@ def corr_window_conv(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int,
     """FFT-free CC(A_a, B_b)[rho, eps] windows, (Fa, Fb, 2wx+1, 2wy+1) in
     the input dtype (sfft_tpu's corr_window_conv, the greek 'corr'
     backend): C[a, b, rho + wx, eps + wy] = sum_xy A[a, x, y] *
-    B[b, (x + rho) % N0, (y + eps) % N1]. CUDA tensors run K8
-    (``corr_direct``); when B is A, only the pairs a <= b, the others
-    mirrored (CC(A_b, A_a)[d] = CC(A_a, A_b)[-d]). CPU tensors and
-    plain=True run ``corr_window_conv_plain``."""
-    Fa, Fb = A.shape[0], B.shape[0]
+    B[b, (x + rho) % N0, (y + eps) % N1]. CUDA tensors run K8 once
+    (``_corr_window_k8``; when B is A, only the lag rows rho >= 0, the
+    others mirrored). CPU tensors and plain=True run
+    ``corr_window_conv_plain``."""
     if plain or A.device.type == "cpu":
         return corr_window_conv_plain(A, B, wx, wy)
     same = A is B
     A = A.contiguous()
     B = A if same else B.contiguous()
-    if same:
-        iu, ju = np.triu_indices(Fa)
-        tri = corr_direct(A, B, iu, ju, wx, wy)
-        full = tri.new_empty((Fa, Fa, 2 * wx + 1, 2 * wy + 1))
-        iu_t, ju_t = index(iu, A.device), index(ju, A.device)
-        full[ju_t, iu_t] = torch.flip(tri, dims=(1, 2))
-        full[iu_t, ju_t] = tri
-        return full
-    ia, ib = np.meshgrid(np.arange(Fa), np.arange(Fb), indexing="ij")
-    return corr_direct(A, B, ia.ravel(), ib.ravel(), wx, wy).reshape(
-        Fa, Fb, 2 * wx + 1, 2 * wy + 1)
+    _k8_check(A, B, wy)
+    return _corr_window_k8(A, B, wx, wy)
 
 
 def dot_planes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -42,17 +42,49 @@ def _conv_numpy(x: np.ndarray, k: np.ndarray, boundary: str, fill_value: float) 
     return out
 
 
+def _taps(k: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(k, dtype=np.float64), device=device)[None]
+
+
+def _fill_terms(k: np.ndarray, shape, fill: float, device) -> torch.Tensor:
+    """sum k[a, b] * fill over the taps whose window position lies in the
+    padding, for a non-finite fill, as a direct convolution of the padded
+    plane gives it: NaN where a NaN fill, a zero tap under an infinite one
+    or taps of both signs reach the padding, +-inf where the taps there
+    have one sign, 0 where the window stays inside. Which taps reach it:
+    K9 on the padding's indicator, once per tap sign (integer counts,
+    exact)."""
+    H, W = shape
+    L0, L1 = k.shape
+    edge = torch.ones((1, H + L0 - 1, W + L1 - 1), dtype=torch.float64, device=device)
+    edge[:, L0 // 2:L0 // 2 + H, L1 // 2:L1 // 2 + W] = 0.0
+
+    def reach(sel):
+        return fdiff.conv_direct(edge, _taps(sel, device), wrap=False) > 0
+
+    pos, neg, zero = reach(k > 0), reach(k < 0), reach(~((k > 0) | (k < 0)))
+    terms = torch.where(pos, fill, 0.0) + torch.where(neg, -fill, 0.0)
+    return terms + torch.where(zero, torch.nan, 0.0)
+
+
 def _conv_device(x: torch.Tensor, k: np.ndarray, boundary: str, fill_value: float):
-    """One plane through K9 (its twin on the CPU)."""
+    """One plane through K9 (its twin on the CPU). K9 takes finite planes
+    only, so a non-finite fill pads with zeros and its terms are added
+    after (``_fill_terms``)."""
     L0, L1 = k.shape
     w0, w1 = L0 // 2, L1 // 2
-    taps = torch.as_tensor(np.ascontiguousarray(k), device=x.device)[None]
+    taps = _taps(k, x.device)
     if boundary == "wrap":
         return fdiff.conv_direct(x[None], taps, wrap=True)
     if boundary == "extend":
         xp = F.pad(x[None, None], (w1, w1, w0, w0), mode="replicate")[0]
     elif boundary == "fill":
-        xp = F.pad(x[None], (w1, w1, w0, w0), mode="constant", value=float(fill_value))
+        fill = float(fill_value)
+        if not np.isfinite(fill):
+            xp = F.pad(x[None], (w1, w1, w0, w0), mode="constant", value=0.0)
+            return (fdiff.conv_direct(xp, taps, wrap=False)
+                    + _fill_terms(k, x.shape, fill, x.device))
+        xp = F.pad(x[None], (w1, w1, w0, w0), mode="constant", value=fill)
     else:
         raise ValueError(boundary)
     return fdiff.conv_direct(xp, taps, wrap=False)

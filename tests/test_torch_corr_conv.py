@@ -13,12 +13,20 @@ their plain twins on the card.
   solution within 1e-6 of its max, difference within 1e-8 max|J| (the
   parity bounds of tests/test_engine.py:56-58).
 - The launch plans of both kernels transliterated to numpy (every index of
-  csrc/corr_direct.cu and csrc/conv_direct.cu, every shared-memory slot
-  written before it is read) against the twins, within 1e-13 of max.
-- ``gpu``: the kernels against their twins on the card (skipped here).
+  csrc/corr_direct.cu and csrc/conv_direct.cu: the lanes' fragment
+  elements of mma.sync m16n8k4, the register blocking, the padding of
+  planes, lags and K, Comg's mirrored half, the band partials and their
+  fixed-order sum, K9's runs of one reach and tap chunks; every
+  shared-memory slot written before it is read) through the wrappers' own
+  plans, against the twins, within 1e-13 of max; convolve2d with a
+  non-finite fill through K9's emulation against sfft_tpu's convolve2d.
+- ``gpu``: the kernels against their twins on the card, ``corr_direct``'s
+  pair lists, and convolve2d with a non-finite fill against sfft_tpu's
+  numpy loop (skipped here).
 """
 
 import dataclasses
+import itertools
 from functools import lru_cache
 
 import numpy as np
@@ -170,134 +178,256 @@ def test_bsp_separate_varying_corr_conv_matches_reference(tmp_path):
 # ---------------------------------------------------------------------------
 # the launch plans, transliterated to numpy
 
-_K8_ROWS, _K8_CHUNKS, _THREADS = 32, 6, 256
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3   # lane (g, t) of an mma.sync fragment
 
 
-def _wrap(v, n):
-    return np.mod(v, n)
+def _frags(a0, a1, b):
+    """The matrices of one mma.sync.m16n8k4 (f64) from its lanes' fragments
+    (..., 32): lane (g, t) holds A[g, t] (a0), A[g + 8, t] (a1) and B[t, g]
+    (b); returns A (..., 16, 4) and B (..., 4, 8)."""
+    Am = np.zeros(a0.shape[:-1] + (16, 4))
+    Am[..., _G, _T] = a0
+    Am[..., _G + 8, _T] = a1
+    Bm = np.zeros(b.shape[:-1] + (4, 8))
+    Bm[..., _T, _G] = b
+    return Am, Bm
 
 
-def k8_emulated(A, B, ia, ib, wx, wy):
-    """csrc/corr_direct.cu, block by block (threads vectorised): the A
-    and wrapped B tiles, each thread's lag strip over its rows, the row
-    groups' fixed-order sum, the partials (NaN until written: each is
-    written once), then the sum over the bands."""
-    N0, N1 = A.shape[1:]
-    R0, R1 = 2 * wx + 1, 2 * wy + 1
-    S, nstrips, R0c = tgreek._k8_plan(R0, R1)
-    K = min(_THREADS // (R0c * nstrips), _K8_ROWS)
-    TY = S * _K8_CHUNKS
-    BW, BH = TY + nstrips * S, _K8_ROWS + R0c - 1
-    nb = -(-N0 // _K8_ROWS)
-    part = np.full((nb, len(ia), R0, R1), np.nan)
-    for band in range(nb):
-        x0 = band * _K8_ROWS
-        for p in range(len(ia)):
-            for z in range(-(-R0 // R0c)):
-                rho0 = z * R0c
-                nr = min(R0c, R0 - rho0)
-                NI = nr * nstrips
-                items = np.arange(NI * K)
-                item, sub = items % NI, items // NI
-                ri, e0 = item // nstrips, (item % nstrips) * S
-                acc = np.zeros((NI * K, S))
-                for y0 in range(0, N1, TY):
-                    xs, ys = x0 + np.arange(_K8_ROWS)[:, None], y0 + np.arange(TY)[None]
-                    As = np.where((xs < N0) & (ys < N1),
-                                  A[ia[p]][np.minimum(xs, N0 - 1), np.minimum(ys, N1 - 1)], 0.0)
-                    Bs = B[ib[p]][_wrap(x0 - wx + rho0 + np.arange(BH), N0)[:, None],
-                                  _wrap(y0 - wy + np.arange(BW), N1)[None]]
-                    js = np.arange(S)[:, None] + np.arange(S)[None]   # j + s
-                    for xr in range(_K8_ROWS):
-                        on = (xr - sub) % K == 0
-                        rows = (xr + ri[on])[:, None, None]
-                        for c in range(_K8_CHUNKS):
-                            y = c * S
-                            win = Bs[rows, y + e0[on][:, None, None] + js[None]]   # (n, j, s)
-                            acc[on] += np.einsum("j,njs->ns", As[xr, y:y + S], win)
-                red = acc.reshape(K, NI, S)
-                tot = red[0].copy()
-                for k in range(1, K):
-                    tot += red[k]
-                for it in range(NI):
-                    for s in range(S):
-                        if e0[it] + s < R1:
-                            part[band, p, rho0 + ri[it], e0[it] + s] = tot[it, s]
+def _lane_acc(D, q):
+    """Accumulator register q (0..3) of every lane from D (..., 16, 8): lane
+    (g, t) holds D[g, 2t], D[g, 2t + 1], D[g + 8, 2t], D[g + 8, 2t + 1]."""
+    return D[..., _G + 8 * (q >> 1), 2 * _T + (q & 1)]
+
+
+def k8_launch_emulated(A, B, rho_lo, nrho, wy):
+    """csrc/corr_direct.cu (corr_mma, then sum_bands) in numpy, block by
+    block and warp by warp, lanes vectorised: the plan of greek._k8_plan,
+    the column tiles of each column split, the two staging buffers in turn
+    (NaN until staged: a read of a slot that no copy of this tile wrote
+    reaches the table), the m-tile's real planes (the padded lanes read
+    zeros), each lane's fragment elements (lag j's A row at each B row) and
+    accumulators, the skipped lag pairs and n-tiles, the partials (each
+    written once), then the partials in order."""
+    Fa, N0, N1 = A.shape
+    Fb = B.shape[0]
+    p = tgreek._k8_plan(Fa, Fb, N0, N1, nrho, wy)
+    P, TY, MT = tgreek._K8_P, tgreek._K8_TY, tgreek._K8_MT
+    NT, R1, RT, W, CS, nrg, NN = p["NT"], p["R1"], p["RT"], p["W"], p["CS"], p["nrg"], p["NN"]
+    tile0 = [tgreek._k8_group_tile(ng, p["ntiles"], p["nng"]) for ng in range(p["nng"] + 1)]
+    assert all(0 < b - a <= NT for a, b in zip(tile0, tile0[1:]))
+    SA, SB, BW, RA, nA = p["SA"], p["SB"], p["BW"], p["RA"], p["nA"]
+    assert SA % 16 == 4 and 2 * wy + 1 == R1 and CS <= p["nchunks"]
+    lag = np.arange(P)
+    part = np.full((p["nbands"] * CS, Fa, Fb, nrho, R1), np.nan)
+    for band, z, bx in itertools.product(range(p["nbands"]), range(CS),
+                                         range(p["nmt"] * p["bpb"])):
+        mt, blk = divmod(bx, p["bpb"])
+        (rg_lo, rg_hi), _, (n_lo, n_hi) = tgreek._k8_block_span(p, blk)
+        i_lo, span = rg_lo * P, (rg_hi - rg_lo + 1) * P
+        ra = RT + span - 1
+        b_lo, nbp = n_lo // R1, n_hi // R1 - n_lo // R1 + 1
+        na = min(MT, Fa - mt * MT)
+        assert nbp <= p["nbp"] and b_lo + nbp <= Fb and na <= nA and ra <= RA
+        xa0, rb0 = band * RT - i_lo - span + 1, rho_lo + band * RT
+        units = {u: tgreek._k8_unit(u, nrg) for u in range(blk * W, min(blk * W + W, p["nunits"]))}
+        c_lo, c_hi = z * p["nchunks"] // CS, (z + 1) * p["nchunks"] // CS
+        bufs = [np.full(p["buf"], np.nan) for _ in range(2)]
+        acc = {u: np.zeros((P // 2, NT, 16, 8)) for u in units}
+        for ci in range(c_lo, c_hi):
+            buf = bufs[(ci - c_lo) & 1]
+            y0 = ci * TY
+            q, ia, c = np.meshgrid(np.arange(na), np.arange(ra), np.arange(TY), indexing="ij")
+            x, y = xa0 + ia, y0 + c
+            ok = (x >= 0) & (x < N0) & (y < N1)
+            buf[q * SA + ia * TY + c] = np.where(ok, A[mt * MT + q, np.clip(x, 0, N0 - 1),
+                                                       np.minimum(y, N1 - 1)], 0.0)
+            q, lr, c = np.meshgrid(np.arange(nbp), np.arange(RT), np.arange(BW), indexing="ij")
+            buf[nA * SA + q * SB + lr * BW + c] = B[b_lo + q, (rb0 + lr) % N0,
+                                                   (y0 - wy + c) % N1]
+            As, Bs = buf[:nA * SA], buf[nA * SA:]
+            for u in acc:
+                rg, ng = units[u]
+                base = i_lo + span - P - rg * P
+                assert base >= 0 and base + RT + P - 2 < ra
+                jv = min(P // 2, (nrho - rg * P + 1) // 2)
+                tv = tile0[ng + 1] - tile0[ng]
+                n = (tile0[ng] + np.arange(NT)[:, None]) * 8 + _G
+                n = np.where((np.arange(NT)[:, None] >= tv) | (n >= NN), n_lo, n)
+                boff = (n // R1 - b_lo) * SB + n % R1 + _T                   # (NT, 32)
+                on = (np.arange(P // 2) < jv)[:, None] & (np.arange(NT) < tv)[None]
+                gv = _G < na
+                for yk in range(0, TY, 4):
+                    # lag j of B row lr: As row lr + base + P - 1 - j
+                    aw = np.where(gv, _G, 0) * SA + (base + P - 1) * TY + yk + _T
+                    rows = np.arange(RT)[:, None] - lag[None]                    # (RT, P)
+                    a0 = np.where(gv, As[aw + rows[:, 0::2, None] * TY], 0.0)   # (RT, P/2, 32)
+                    a1 = np.where(gv, As[aw + rows[:, 1::2, None] * TY], 0.0)
+                    bf = Bs[boff + (np.arange(RT) * BW)[:, None, None] + yk]  # (RT, NT, 32)
+                    Am, _ = _frags(a0, a1, a0)
+                    _, Bm = _frags(bf, bf, bf)
+                    D = np.einsum("rjmk,rnkc->jnmc", Am, Bm)
+                    acc[u] += np.where(on[:, :, None, None], D, 0.0)
+        for u, D in acc.items():
+            rg, ng = units[u]
+            for jp, nt, qq in itertools.product(range(P // 2), range(NT), range(4)):
+                a = mt * MT + _G
+                i = rg * P + 2 * jp + (qq >> 1)
+                n = (tile0[ng] + nt) * 8 + 2 * _T + (qq & 1)
+                w = (a < Fa) & (n < NN)
+                if i >= nrho or nt >= tile0[ng + 1] - tile0[ng]:
+                    continue
+                dst = (band * CS + z, a[w], n[w] // R1, i, n[w] % R1)
+                assert np.isnan(part[dst]).all()
+                part[dst] = _lane_acc(D[jp, nt], qq)[w]
     assert not np.isnan(part).any()
     out = part[0].copy()
-    for b in range(1, nb):
+    for b in range(1, len(part)):
         out += part[b]
     return out
 
 
+@pytest.mark.parametrize("Fa,Fb,N0,N1,wx,wy", [
+    (2, 3, 40, 50, 2, 3), (2, 0, 36, 20, 8, 7),   # ragged bands and column tiles; B is A
+    (1, 2, 24, 15, 40, 13),                        # 81 lag rows: 14 lag groups
+    (6, 0, 40, 44, 4, 4),                          # Comg's shape: half of 9 lag rows (odd)
+    (25, 6, 20, 24, 3, 3),                         # Pbs's: 6 planes pad to 8, 175 columns to 176
+    (25, 0, 20, 22, 4, 5),                         # v2 Comg's: 25 planes pad to 32 (4 m-tiles)
+    (6, 1, 30, 34, 3, 8),                          # Cthe's: one B plane, 17 lags
+    (1, 6, 26, 22, 2, 3),                          # one A plane: B is the kernel's plane operand
+    (3, 40, 18, 20, 1, 0),                         # one lag a row: 40 B planes in a block
+    (2, 170, 12, 20, 1, 0)])                       # 4-warp blocks do not fit: a warp a block
+def test_k8_launch_plan_emulated(monkeypatch, Fa, Fb, N0, N1, wx, wy):
+    """corr_window_conv's K8 route with the launch emulated: the operand
+    swap, Comg's half of the lag rows (rho = 0 among them) and its mirror,
+    the padding of planes, lags and lag rows; within 1e-13 of the twin's
+    max."""
+    rng = np.random.default_rng(Fa * 100 + wx)
+    A = torch.as_tensor(rng.normal(size=(Fa, N0, N1)))
+    B = A if Fb == 0 else torch.as_tensor(rng.normal(size=(Fb, N0, N1)))
+    launches = []
+
+    def launch(X, Y, rho_lo, nrho, w):
+        launches.append((X.shape[0], rho_lo, nrho))
+        return torch.as_tensor(k8_launch_emulated(X.numpy(), Y.numpy(), rho_lo, nrho, w))
+
+    monkeypatch.setattr(tgreek, "_k8_launch", launch)
+    out = tgreek._corr_window_k8(A, B, wx, wy).numpy()
+    ref = tgreek.corr_window_conv_plain(A, B, wx, wy).numpy()
+    Fy = B.shape[0]
+    swap = tgreek._k8_padded(Fy, Fa, 2 * wy + 1) < tgreek._k8_padded(Fa, Fy, 2 * wy + 1)
+    assert swap == ((Fa, Fb) in ((2, 3), (25, 6), (1, 6), (1, 2)))   # both roles exercised
+    assert launches == [(Fy if swap else Fa,) + ((0, wx + 1) if B is A else (-wx, 2 * wx + 1))]
+    assert out.shape == ref.shape
+    assert np.abs(out - ref).max() <= 1e-13 * np.abs(ref).max()
+
+
+def _k9_runs_cover(reach, xw, c0, rt_n):
+    """conv_mma's runs of staged rows with one reach mask, as its loop
+    forms them: they tile the warp's rows in order, each row's mask is the
+    row tiles it reaches, and no run is empty."""
+    s, s_end, seen = xw, xw + rt_n * 8 + c0 - 1, []
+    while s < s_end:
+        mask, nxt = 0, s_end
+        for rt in range(rt_n):
+            lo, hi = xw + 8 * rt, xw + 8 * rt + c0 + 7
+            if lo <= s < hi:
+                mask |= 1 << rt
+            if s < lo < nxt:
+                nxt = lo
+            if s < hi < nxt:
+                nxt = hi
+        assert 0 < mask < 8 and nxt > s
+        seen += [mask] * (nxt - s)
+        s = nxt
+    assert seen == [int(sum(1 << r for r in range(rt_n) if row[r])) for row in reach]
+
+
+# csrc/conv_direct.cu: row tiles (8 rows) and column tiles (16 columns) of
+# a warp, warps of a block along rows and columns
+_K9_RT, _K9_CT, _K9_WR, _K9_WC = 3, 2, 2, 2
+
+
+def _k9_band_width(c0):
+    """csrc/conv_direct.cu ``band_width``: c0 + 14 rounded up to 8 mod 16."""
+    w = c0 + 14
+    return w + (8 - w % 16) % 16
+
+
 def k9_emulated(planes, taps, wrap, J=None, ST=None, b=None, SSc=None, a00=None, scale=1.0,
                 side=63):
-    """csrc/conv_direct.cu, tile by tile (threads vectorised): the flipped
-    taps in chunks of at most side x side (the kernel's kSide), each chunk's
-    halo tile, and the mod-8 register window."""
+    """csrc/conv_direct.cu in numpy, block by block and warp by warp, lanes
+    vectorised: the tap chunks of at most side x side (the kernel's kSide),
+    each plane's halo tile (NaN until staged: a slot no copy of this plane
+    wrote reaches the output), the tap band with the padded tap columns,
+    the runs of rows with one reach, each lane's fragment elements and
+    accumulators, and the epilogue."""
     F, H, W = planes.shape
     L0, L1 = taps.shape[1:]
     N0, N1 = (H, W) if wrap else (H - L0 + 1, W - L1 + 1)
-    rows, cols, px = 32, 64, 8
+    RT, CT, WR, WC = _K9_RT, _K9_CT, _K9_WR, _K9_WC
+    BR, BC = WR * RT * 8, WC * CT * 16
+    w0, w1 = L0 // 2, L1 // 2
     out = np.full((N0, N1), np.nan)
-    j, grp = np.arange(256) % cols, np.arange(256) // cols
-    for x0 in range(0, N0, rows):
-        for y0 in range(0, N1, cols):
-            acc = np.zeros((256, px))
-            for f in range(F):
-                kf = taps[f][::-1, ::-1]
-                for A0 in range(0, L0, side):
-                    c0 = min(side, L0 - A0)
-                    for B0 in range(0, L1, side):
-                        c1 = min(side, L1 - B0)
-                        r = np.arange(rows + c0 - 1)[:, None]
-                        c = np.arange(cols + c1 - 1)[None]
+    for x0 in range(0, N0, BR):
+        for y0 in range(0, N1, BC):
+            acc = np.zeros((WR * WC, RT, CT, 16, 8))  # warp, row tile, column tile, D (y, x)
+            for A0 in range(0, L0, side):
+                c0 = min(side, L0 - A0)
+                th, bw = BR + c0 - 1, _k9_band_width(c0)
+                for B0 in range(0, L1, side):
+                    c1 = min(side, L1 - B0)
+                    tw, kp = BC + c1 - 1, -(-c1 // 4) * 4
+                    for f in range(F):
+                        tile = np.full(th * tw, np.nan)
+                        r, c = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
                         if wrap:
-                            tile = planes[f][_wrap(x0 - L0 // 2 + A0 + r, H),
-                                             _wrap(y0 - L1 // 2 + B0 + c, W)]
+                            v = planes[f][(x0 + A0 + r - w0) % H, (y0 + B0 + c - w1) % W]
                         else:
                             ok = (x0 + A0 + r < H) & (y0 + B0 + c < W)
-                            tile = np.where(ok, planes[f][np.minimum(x0 + A0 + r, H - 1),
-                                                          np.minimum(y0 + B0 + c, W - 1)], 0.0)
-                        kc = kf[A0:A0 + c0, B0:B0 + c1]
-                        for bb in range(c1):
-                            win = [None] * px
-                            for q in range(px - 1):
-                                win[q] = tile[grp * px + q, j + bb]
-                            for a0 in range(0, c0, px):
-                                for u in range(px):
-                                    a = a0 + u
-                                    if a < c0:
-                                        win[(u + px - 1) % px] = tile[grp * px + a + px - 1, j + bb]
-                                        for p in range(px):
-                                            acc[:, p] += kc[a, bb] * win[(u + p) % px]
-            for p in range(px):
-                x, y = x0 + grp * px + p, y0 + j
-                on = (x < N0) & (y < N1)
-                xo, yo = x[on], y[on]
-                model = scale * acc[on, p]
-                if ST is not None:
-                    model = model + np.tensordot(b, ST[:, xo, yo], axes=(0, 0))
-                if SSc is not None:
-                    model = model + scale * np.tensordot(a00, SSc[:, xo, yo], axes=(0, 0))
-                out[xo, yo] = model if J is None else J[xo, yo] - model
+                            v = np.where(ok, planes[f][np.minimum(x0 + A0 + r, H - 1),
+                                                       np.minimum(y0 + B0 + c, W - 1)], 0.0)
+                        tile[r * tw + c] = v
+                        k, d = np.arange(kp)[:, None], np.arange(bw)[None] - 7
+                        on = (k < c1) & (d >= 0) & (d < c0)
+                        band = np.where(on, taps[f][np.clip(L0 - 1 - A0 - d, 0, L0 - 1),
+                                                    L1 - 1 - B0 - np.minimum(k, c1 - 1)],
+                                        0.0).ravel()
+                        k0 = np.arange(0, kp, 4)
+                        ko = np.minimum(k0[:, None] + _T, c1 - 1)               # (nk, 32)
+                        for wp in range(WR * WC):
+                            xw, yw = (wp // WC) * RT * 8, (wp % WC) * CT * 16
+                            s = np.arange(xw, xw + RT * 8 + c0 - 1)
+                            dd = s[:, None] - xw - 8 * np.arange(RT)              # (ns, RT)
+                            reach = (dd >= 0) & (dd <= c0 + 6)
+                            _k9_runs_cover(reach, xw, c0, RT)
+                            tr = ((yw + _G + 16 * np.arange(CT)[:, None])[None, None]
+                                  + ko[None, :, None] + (s * tw)[:, None, None, None])
+                            Am, _ = _frags(tile[tr], tile[tr + 8], tile[tr])     # (ns, nk, CT, ...)
+                            bi = ((k0[:, None] + _T) * bw + 7 - _G)[None, :, None] \
+                                + np.where(reach, dd, 0)[:, None, :, None]      # (ns, nk, RT, 32)
+                            _, Bm = _frags(band[bi], band[bi], band[bi])
+                            D = np.einsum("sktmq,skrqn->srtmn", Am, Bm)
+                            acc[wp] += np.where(reach[:, :, None, None, None], D, 0.0).sum(0)
+            for wp in range(WR * WC):
+                xw, yw = (wp // WC) * RT * 8, (wp % WC) * CT * 16
+                for rt in range(RT):
+                    for ct in range(CT):
+                        for qq in range(4):
+                            x = x0 + xw + rt * 8 + 2 * _T + (qq & 1)
+                            y = y0 + yw + ct * 16 + _G + 8 * (qq >> 1)
+                            w = (x < N0) & (y < N1)
+                            xo, yo = x[w], y[w]
+                            model = scale * _lane_acc(acc[wp, rt, ct], qq)[w]
+                            if ST is not None:
+                                model = model + np.tensordot(b, ST[:, xo, yo], axes=(0, 0))
+                            if SSc is not None:
+                                model = model + scale * np.tensordot(a00, SSc[:, xo, yo],
+                                                                     axes=(0, 0))
+                            assert np.isnan(out[xo, yo]).all()
+                            out[xo, yo] = model if J is None else J[xo, yo] - model
     assert not np.isnan(out).any()
     return out
-
-
-@pytest.mark.parametrize("Fa,N0,N1,wx,wy,sym", [(2, 40, 50, 2, 3, False), (2, 36, 20, 8, 7, True),
-                                                (1, 24, 15, 40, 13, False)])
-def test_k8_launch_plan_emulated(Fa, N0, N1, wx, wy, sym):
-    """Ragged bands and column tiles, the symmetric pair list, and lag rows
-    split over the grid's z (81 rows: R0c = 64)."""
-    rng = np.random.default_rng(wx)
-    A = rng.normal(size=(Fa, N0, N1))
-    B = A if sym else rng.normal(size=(Fa + 1, N0, N1))
-    ia, ib = (np.triu_indices(Fa) if sym else
-              [x.ravel() for x in np.meshgrid(np.arange(Fa), np.arange(Fa + 1), indexing="ij")])
-    ref = tgreek.corr_direct(torch.as_tensor(A), torch.as_tensor(B), ia, ib, wx, wy).numpy()
-    out = k8_emulated(A, B, ia, ib, wx, wy)
-    assert np.abs(out - ref).max() <= 1e-13 * np.abs(ref).max()
 
 
 def _k9_case(F, N0, N1, L0, L1, wrap, extras):
@@ -315,9 +445,12 @@ def _k9_case(F, N0, N1, L0, L1, wrap, extras):
     return planes, taps, kw, ref
 
 
-@pytest.mark.parametrize("F,N0,N1,L0,L1,wrap,extras", [(3, 40, 70, 5, 7, True, True),
-                                                        (1, 35, 20, 3, 9, False, False),
-                                                        (2, 33, 65, 17, 11, True, False)])
+@pytest.mark.parametrize("F,N0,N1,L0,L1,wrap,extras", [
+    (3, 40, 70, 5, 7, True, True), (1, 35, 20, 3, 9, False, False),
+    (2, 33, 65, 17, 11, True, False),
+    (6, 52, 40, 5, 5, True, True),      # fdiff's six planes, K 5 padded to 8
+    (25, 30, 36, 3, 3, True, True),     # v2's 25 planes, K 3 padded to 4
+    (1, 50, 20, 9, 9, False, False)])   # convolve2d's one plane, padded
 def test_k9_launch_plan_emulated(F, N0, N1, L0, L1, wrap, extras):
     planes, taps, kw, ref = _k9_case(F, N0, N1, L0, L1, wrap, extras)
     out = k9_emulated(planes, taps, wrap, **kw)
@@ -335,6 +468,51 @@ def test_k9_tap_chunks_emulated(F, N0, N1, L0, L1, wrap, extras, side):
     assert np.abs(out - ref).max() <= 1e-13 * np.abs(ref).max()
 
 
+def _nonfinite_case(fill):
+    """(image, kernel) for a convolve2d with a non-finite fill: a NaN and
+    an inf pixel; for an infinite fill a kernel with a zero tap and one
+    negative corner, so that the padding meets every kind of tap (NaN and
+    +-inf strips), for a NaN fill a 5 x 3 kernel (the strips two rows
+    deep, where an 8-row tile reaches farther)."""
+    rng = np.random.default_rng(7)
+    img = rng.normal(100.0, 5.0, (61, 70))
+    img[30, 33], img[9, 50] = np.nan, np.inf
+    if np.isnan(fill):
+        return img, rng.uniform(0.1, 1.0, (5, 3))
+    ker = rng.uniform(0.1, 1.0, (7, 5))
+    ker[3, 0], ker[6, 4] = 0.0, -0.5
+    return img, ker
+
+
+def _same_nonfinite(out, ref):
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(out), test(ref))
+    fin = np.isfinite(ref)
+    assert fin.any() and np.abs(out[fin] - ref[fin]).max() <= 1e-12 * np.abs(ref[fin]).max()
+
+
+@pytest.mark.parametrize("fill,nan_treatment", [(np.nan, "fill"), (np.nan, "interpolate"),
+                                                (np.inf, "fill"), (-np.inf, "interpolate")])
+def test_convolve2d_nonfinite_fill_emulated(monkeypatch, fill, nan_treatment):
+    """convolve2d's 'fill' boundary with a NaN or infinite fill, K9's launch
+    emulated: K9 takes finite planes only (its band's zeros times a NaN
+    reach every row of an 8-row tile), so the padding is zero and the
+    fill's terms are added after; NaN and +-inf where sfft_tpu's
+    convolve2d has them, the rest within 1e-12 of max."""
+    from sfft_tpu.utils import convolve as jconv
+    from sfft_tpu_torch.utils import convolve as tconv
+
+    def emulated(planes, taps, wrap=True, **kw):
+        assert not kw
+        return torch.as_tensor(k9_emulated(planes.numpy(), taps.numpy(), wrap))
+
+    monkeypatch.setattr(tfdiff, "conv_direct", emulated)
+    img, ker = _nonfinite_case(fill)
+    kw = dict(boundary="fill", fill_value=fill, nan_treatment=nan_treatment)
+    ref = jconv.convolve2d(img, ker, use_jax=True, **kw)
+    _same_nonfinite(tconv.convolve2d(img, ker, device="cpu", **kw), ref)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 
@@ -347,17 +525,19 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Fa,Fb,N,wx,wy", [(3, 2, 200, 1, 2), (6, 6, 257, 16, 16), (5, 1, 130, 22, 22)])
+@pytest.mark.parametrize("Fa,Fb,N,wx,wy", [(3, 2, 200, 1, 2), (6, 6, 257, 16, 16), (5, 1, 130, 22, 22),
+                                            (25, 25, 120, 22, 22), (25, 6, 150, 11, 11),
+                                            (1, 6, 140, 3, 5)])
 def test_k8_matches_twin_on_card(cuda, Fa, Fb, N, wx, wy):
     rng = np.random.default_rng(N)
     A = torch.as_tensor(rng.normal(100, 10, (Fa, N, N + 3)), device=cuda)
     B = A if Fa == Fb else torch.as_tensor(rng.normal(100, 10, (Fb, N, N + 3)), device=cuda)
-    before = tgreek.corr_direct.launches
+    before = tgreek._K8.launches
     out = tgreek.corr_window_conv(A, B, wx, wy)
     again = tgreek.corr_window_conv(A, B, wx, wy)
     ref = tgreek.corr_window_conv_plain(A, B, wx, wy)
     torch.cuda.synchronize()
-    assert tgreek.corr_direct.launches == before + 2
+    assert tgreek._K8.launches == before + 2
     assert torch.equal(out, again)
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
@@ -365,7 +545,8 @@ def test_k8_matches_twin_on_card(cuda, Fa, Fb, N, wx, wy):
 @pytest.mark.gpu
 @pytest.mark.parametrize("F,N0,N1,L,wrap", [(6, 300, 260, 17, True), (25, 90, 100, 23, True),
                                             (1, 200, 131, 31, False), (1, 150, 170, 129, False),
-                                            (2, 120, 90, 71, True)])
+                                            (2, 120, 90, 71, True), (25, 97, 131, 23, False),
+                                            (5, 49, 65, 3, True)])
 def test_k9_matches_twin_on_card(cuda, F, N0, N1, L, wrap):
     rng = np.random.default_rng(L)
     t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
@@ -382,3 +563,36 @@ def test_k9_matches_twin_on_card(cuda, F, N0, N1, L, wrap):
     assert tfdiff.conv_direct.launches == before + 2
     assert torch.equal(out, again)
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Fa,Fb,N,wx,wy", [(6, 6, 257, 16, 16), (25, 6, 150, 11, 11)])
+def test_k8_corr_direct_pairs_on_card(cuda, Fa, Fb, N, wx, wy):
+    """``corr_direct`` (a pair list; the table in one launch, the listed
+    pairs taken from it) against its twin."""
+    rng = np.random.default_rng(N + 1)
+    A = torch.as_tensor(rng.normal(100, 10, (Fa, N, N + 3)), device=cuda)
+    B = torch.as_tensor(rng.normal(100, 10, (Fb, N, N + 3)), device=cuda)
+    ia, ib = rng.integers(0, Fa, 9), rng.integers(0, Fb, 9)
+    before = tgreek._K8.launches
+    out = tgreek.corr_direct(A, B, ia, ib, wx, wy)
+    ref = tgreek.corr_direct_plain(A, B, ia, ib, wx, wy)
+    torch.cuda.synchronize()
+    assert tgreek._K8.launches == before + 1
+    assert out.shape == ref.shape == (9, 2 * wx + 1, 2 * wy + 1)
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill,nan_treatment", [(np.nan, "fill"), (np.nan, "interpolate"),
+                                                (np.inf, "fill")])
+def test_convolve2d_nonfinite_fill_on_card(cuda, fill, nan_treatment):
+    """convolve2d with a NaN or infinite fill on the card against sfft_tpu's
+    numpy loop (``use_jax=False``, held bit for bit to sfft_tpu's in
+    tests/test_torch_utils.py)."""
+    from sfft_tpu_torch.utils import convolve as tconv
+
+    img, ker = _nonfinite_case(fill)
+    kw = dict(boundary="fill", fill_value=fill, nan_treatment=nan_treatment)
+    out = tconv.convolve2d(torch.as_tensor(img, device=cuda), ker, **kw).cpu().numpy()
+    _same_nonfinite(out, tconv.convolve2d(img, ker, use_jax=False, **kw))
