@@ -199,7 +199,9 @@ kernels on one clock when the script is run in a checkout of each.
 
 build the kernels with the compiler's resource report (registers, shared
 memory, spills; written to OUT_DIR/build_report.txt) and run phase 3's
-checks and timings of K3, K1 (also at the v2 fast widths), K2, K7 and K6 (with a
+checks and timings of K3, K1 (also at the v2 fast widths; each c64 call
+also against the c128 twin on its spectra widened, whose time is K1's
+library call, and stage 1's DMMA and DFMA counted in the SASS), K2, K7 and K6 (with a
 profile of K3, K1 and K2 at the fast slice's shapes and K2 at the v2 ones:
 device time of each stage by kernel name), or of the K4 and K5 slicing
 stages, alone.
@@ -475,20 +477,47 @@ def k1_bound(npairs, nspec, n0, n1h, r0, r1, itemsize, peak, sym):
     column, or with `sym` (the conjugate-pair route, which corr_window_fft
     takes) four multiply-adds (8 flops) per pair of columns +d and -d:
     r1 // 2 + 1 of them. Stage 2 contracts the (pairs, N0, R1) result with
-    E0; each spectrum is read once, the real windows written once."""
+    E0; each spectrum is read once, the real windows written once. The
+    callers pass the peak of the sums' type: FP32 for c64, FP64 for c128, at
+    the tensor cores' DMMA rate (67 TFLOP/s, the same number)."""
     cols = r1 // 2 + 1 if sym else r1
     return bound(itemsize * nspec * n0 * n1h + itemsize // 2 * npairs * r0 * r1,
                  npairs * n0 * n1h * (6 + 8 * cols) + 8 * npairs * r0 * n0 * r1, peak)
 
 
+K1_DEVICE_FNS = {"sfft_corr_window_c64 / _c128": (
+    "corr_window.cu", ("corr_stage1", "corr_stage2", "corr_stage2_sum"))}
+
+
+def k1_isa_check(report):
+    """Stage 1 on the FP64 tensor cores: DMMA in every corr_stage1
+    instantiation (isa_report asserts it), and no DFMA in the c64 ones
+    (their products are f32, their sums DMMAs; the c128 ones' DFMAs are the
+    Hadamard products a * conj(b))."""
+    for f, r in report[next(iter(K1_DEVICE_FNS))].items():
+        if f.startswith("corr_stage1<float") and isinstance(r.get("sass"), dict):
+            assert r["sass"]["DFMA"] == 0, f"{f}: {r['sass']['DFMA']} DFMA in its SASS"
+
+
+def k1_library(call):
+    """The library route of a K1 call on the same spectra widened to c128:
+    torch.mul and two torch.einsum contractions (cuBLAS ZGEMM, f64 sums),
+    the 'matmul' twin in c128; (its output, its time in ms)."""
+    out = call("matmul")
+    return out, cuda_ms(lambda: call("matmul"), reps=3, inner=3)
+
+
 def phase_k1():
     """K1 against its matmul twin: c64 at the fast slice's two shapes (timed,
-    launched twice: bit-equal) and at ragged shapes, c128 at 512^2 and, timed,
-    at the f64 'fft' greek backend's OMG call at 4096^2."""
+    launched twice: bit-equal; each also against the c128 twin on the same
+    spectra widened, which is timed as the library route) and at ragged
+    shapes, c128 at 512^2 and, timed, at the f64 'fft' greek backend's OMG
+    call at 4096^2; then the SASS of stage 1 (DMMA, no DFMA in c64)."""
     import torch
     from sfft_tpu_torch.core import greek
 
     dev = torch.device("cuda")
+    sass_job = sass_start()
     # the slice's two shapes in c64: 6 fluctuation spectra (N, N/2+1);
     # OMG window +-2w symmetric (21 pairs, 33 x 33), THE window +-w vs J
     # (6 pairs, 17 x 17)
@@ -496,17 +525,23 @@ def phase_k1():
     planes = torch.as_tensor(rng.normal(0, 30, (7, N, N)), dtype=torch.float32, device=dev)
     specs = torch.fft.rfft2(planes)
     del planes
-    specJ, specF = specs[0:1], specs[1:]
-    calls = {
-        "omg": lambda m: greek.corr_window_fft(specF, specF, N, N, 2 * KERHW, 2 * KERHW,
-                                               method=m, symmetric=True),
-        "the": lambda m: greek.corr_window_fft(specF, specJ, N, N, KERHW, KERHW, method=m),
-    }
+    specs128 = specs.to(torch.complex128)
+
+    def omg(m, sp):
+        F = sp[1:]   # one tensor as both stacks: the symmetric triangle
+        return greek.corr_window_fft(F, F, N, N, 2 * KERHW, 2 * KERHW, method=m,
+                                     symmetric=True)
+
+    def the(m, sp):
+        return greek.corr_window_fft(sp[1:], sp[0:1], N, N, KERHW, KERHW, method=m)
+
+    calls = {"omg": omg, "the": the}
     N1h = N // 2 + 1
     shapes = {"omg": (21, 4 * KERHW + 1, 6), "the": (6, 2 * KERHW + 1, 7)}
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
               bound_by="operations")
-    for name, call in calls.items():
+    for name, fn in calls.items():
+        call = lambda m: fn(m, specs)
         out = call("kernel")
         again = call("kernel")
         torch.cuda.synchronize()
@@ -518,22 +553,31 @@ def phase_k1():
         ms = graph_ms(lambda: call("kernel"), calls=5)
         ems = cuda_ms(lambda: call("kernel"))
         pms = cuda_ms(lambda: call("matmul"))
+        k1["max_abs_err"] = max(k1["max_abs_err"], float((out - ref).abs().max()))
+        del ref
+        ref128, lms = k1_library(lambda m: fn(m, specs128))
+        err128 = rel_err(out.double(), ref128)
+        del ref128
         npairs, R, nspec = shapes[name]
         bms, by = k1_bound(npairs, nspec, N, N1h, R, R, 8, FP32_FLOP_PER_S, sym=True)
-        k1["max_abs_err"] = max(k1["max_abs_err"], float((out - ref).abs().max()))
         k1["ms"] += ms
         k1["plain_ms"] += pms
+        k1["library_ms"] += lms
         k1["bound_ms"] += bms
-        k1[name] = dict(ms=ms, eager_ms=ems, plain_ms=pms, bound_ms=bms, bound_by=by,
-                        plan=greek._corr_plan(R, True))
-        log(f"phase 3 K1 corr_window c64 {name} {tuple(out.shape)} plan (TY, NE) = "
-            f"{k1[name]['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), two launches "
-            f"bit-equal; kernel {ms:.4f} ms (5 calls in a CUDA graph, replayed; {ems:.4f} ms "
-            f"back to back from Python), plain matmul twin {pms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}, the conjugate-pair route's count); no single PyTorch "
-            f"call computes it")
+        k1[name] = dict(ms=ms, eager_ms=ems, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                        bound_by=by, rel_err=err, rel_err_c128=err128,
+                        plan=greek._k1_plan(R, True))
+        log(f"phase 3 K1 corr_window c64 {name} {tuple(out.shape)} plan (S, NT, nng) = "
+            f"{k1[name]['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), from the c128 "
+            f"twin on the spectra widened {err128:.3e}, two launches bit-equal; kernel "
+            f"{ms:.4f} ms (5 calls in a CUDA graph, replayed; {ems:.4f} ms back to back from "
+            f"Python; {100 * bms / ms:.1f}% of the bound), plain matmul twin {pms:.4f} ms, "
+            f"library route (c128 torch.mul + 2 einsum, cuBLAS ZGEMM) {lms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}, the conjugate-pair route's count)")
     # the general route (any weights; no caller on the port's paths) on the
     # OMG pair list, against its own bound
+    del specs128
+    specF = specs[1:]
     iu, ju = np.triu_indices(6)
     R = 4 * KERHW + 1
     E0, E1 = greek._idft_mats_on(N, N, 2 * KERHW, 2 * KERHW, specF.dtype, dev)
@@ -541,14 +585,14 @@ def phase_k1():
     err = rel_err(out, greek.corr_pairs_plain(specF, specF, iu, ju, E0, E1))
     assert err <= 1e-5, f"K1 c64 omg pair list, general weights: rel err {err:.3e} > 1e-5"
     gen = dict(ms=graph_ms(lambda: greek.corr_window(specF, specF, iu, ju, E0, E1), calls=5),
-               plan=greek._corr_plan(R, False))
+               plan=greek._k1_plan(R, False))
     gen["bound_ms"], gen["bound_by"] = k1_bound(21, 6, N, N1h, R, R, 8, FP32_FLOP_PER_S,
                                                 sym=False)
     k1["omg_general"] = gen
     log(f"phase 3 K1 corr_window c64 omg pair list on the general route (any weights), plan "
-        f"(TY, NE) = {gen['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5); kernel "
+        f"(S, NT, nng) = {gen['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5); kernel "
         f"{gen['ms']:.4f} ms, bound {gen['bound_ms']:.4f} ms ({gen['bound_by']})")
-    del specs, specJ, specF, out, ref, E0, E1
+    del specs, specF, out, E0, E1
 
     # c64 at ragged shapes: N0 off the 64-row tile, odd and even N1h, 1 to 64
     # lags along axis 1, an unordered pair list with repeated planes
@@ -636,13 +680,19 @@ def phase_k1():
     R = 4 * KERHW + 1
     c128 = dict(ms=graph_ms(lambda: call("kernel"), calls=3, reps=3),
                 plain_ms=cuda_ms(lambda: call("matmul"), reps=3, inner=1),
-                plan=greek._corr_plan(R, True))
+                plan=greek._k1_plan(R, True))
+    c128["library_ms"] = c128["plain_ms"]   # the twin is the c128 library route
     c128["bound_ms"], c128["bound_by"] = k1_bound(21, 6, N, N1h, R, R, 16, FP64_FLOP_PER_S, sym=True)
     k1["c128_omg"] = c128
-    log(f"phase 3 K1 corr_window c128 omg {tuple(out.shape)} at {N}^2 plan (TY, NE) = "
+    log(f"phase 3 K1 corr_window c128 omg {tuple(out.shape)} at {N}^2 plan (S, NT, nng) = "
         f"{c128['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-11), two launches bit-equal; "
-        f"kernel {c128['ms']:.4f} ms, plain matmul twin {c128['plain_ms']:.4f} ms, bound "
-        f"{c128['bound_ms']:.4f} ms ({c128['bound_by']})")
+        f"kernel {c128['ms']:.4f} ms ({100 * c128['bound_ms'] / c128['ms']:.1f}% of the bound), "
+        f"plain matmul twin (the library route) {c128['plain_ms']:.4f} ms, bound "
+        f"{c128['bound_ms']:.4f} ms ({c128['bound_by']}, FP64 at the DMMA peak)")
+    del spec, out
+    torch.cuda.empty_cache()
+    k1["isa"] = isa_report(sass_job, K1_DEVICE_FNS, "3 K1")
+    k1_isa_check(k1["isa"])
     return k1
 
 
@@ -755,7 +805,8 @@ def phase_k1_v2():
     Cgam and Cthe (25 x 1 pairs, R 23), Pbs (25 x 25, R 23); and at the
     piecewise peel's (31 planes: kernel and scaling; FF symmetric R 45, FFJ
     31 x 1 R 23); each against its matmul twin within 1e-5 of max, launched
-    twice (bit-equal), timed."""
+    twice (bit-equal), timed, and against the c128 twin on the spectra
+    widened (the library route, timed too)."""
     import torch
     from sfft_tpu_torch.core import greek
 
@@ -766,34 +817,47 @@ def phase_k1_v2():
     g.manual_seed(10)
     specs = torch.fft.rfft2(30.0 * torch.randn((33, n, n), dtype=torch.float32, device=dev,
                                                generator=g))
-    specJ, specT, specI, specF = specs[0:1], specs[1:2], specs[2:27], specs[2:33]
+    specs128 = specs.to(torch.complex128)
+    # (A planes, B planes, lag half-width, symmetric) as slices of the stack
+    J, T, I, F = slice(0, 1), slice(1, 2), slice(2, 27), slice(2, 33)
     calls = {
-        "omg": (specI, specI, 2 * w, True), "gam": (specI, specT, w, False),
-        "the": (specI, specJ, w, False), "pbs": (specI, specI, w, False),
-        "peel ff": (specF, specF, 2 * w, True), "peel ffj": (specF, specJ, w, False),
+        "omg": (I, I, 2 * w, True), "gam": (I, T, w, False), "the": (I, J, w, False),
+        "pbs": (I, I, w, False), "peel ff": (F, F, 2 * w, True), "peel ffj": (F, J, w, False),
     }
     rows = {}
-    for name, (a, b, wx, sym) in calls.items():
-        call = lambda m: greek.corr_window_fft(a, b, n, n, wx, wx, method=m, symmetric=sym)
+    for name, (ia, ib, wx, sym) in calls.items():
+        def on(sp, m):
+            a = sp[ia]
+            b = a if ib == ia else sp[ib]   # one tensor as both stacks, as on the paths
+            return greek.corr_window_fft(a, b, n, n, wx, wx, method=m, symmetric=sym)
+
+        call = lambda m: on(specs, m)
+        a, b = specs[ia], specs[ib]
         out = call("kernel")
         again = call("kernel")
         torch.cuda.synchronize()
         assert torch.equal(out, again), f"K1 v2 {name}: two launches differ"
         err = rel_err(out, call("matmul"))
         assert err <= 1e-5, f"K1 v2 {name}: rel err {err:.3e} > 1e-5"
+        ref128, lms = k1_library(lambda m: on(specs128, m))
+        err128 = rel_err(out.double(), ref128)
+        del ref128
         R = 2 * wx + 1
         npairs = a.shape[0] * (a.shape[0] + 1) // 2 if sym else a.shape[0] * b.shape[0]
         nspec = a.shape[0] + (0 if sym else b.shape[0])
         bms, by = k1_bound(npairs, nspec, n, n1h, R, R, 8, FP32_FLOP_PER_S, sym=True)
-        rows[name] = dict(shape=list(out.shape), rel_err=err, ms=graph_ms(lambda: call("kernel")),
+        rows[name] = dict(shape=list(out.shape), rel_err=err, rel_err_c128=err128,
+                          ms=graph_ms(lambda: call("kernel")),
                           plain_ms=cuda_ms(lambda: call("matmul"), reps=3, inner=3),
-                          bound_ms=bms, bound_by=by, plan=greek._corr_plan(R, True))
+                          library_ms=lms, bound_ms=bms, bound_by=by,
+                          plan=greek._k1_plan(R, True))
         r = rows[name]
-        log(f"phase 3 K1 corr_window c64 v2 {name} {tuple(out.shape)} plan (TY, NE) = "
-            f"{r['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), two launches bit-equal; "
-            f"kernel {r['ms']:.4f} ms (graph replay), plain matmul twin {r['plain_ms']:.4f} "
-            f"ms, bound {bms:.4f} ms ({by}; {100 * bms / r['ms']:.1f}% of it)")
-    del specs
+        log(f"phase 3 K1 corr_window c64 v2 {name} {tuple(out.shape)} plan (S, NT, nng) = "
+            f"{r['plan']}: max|d|/max|ref| = {err:.3e} (bound 1e-5), from the c128 twin "
+            f"{err128:.3e}, two launches bit-equal; kernel {r['ms']:.4f} ms (graph replay), "
+            f"plain matmul twin {r['plain_ms']:.4f} ms, library route {lms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; {100 * bms / r['ms']:.1f}% of it)")
+    del specs, specs128
     torch.cuda.empty_cache()
     return rows
 
@@ -4897,10 +4961,10 @@ def _cuda_tool(name):
     return found or next((c for c in cands if os.path.exists(c)), None)
 
 
-def direct_sass_start():
+def sass_start():
     """(process, file): cuobjdump -sass of the built library, started in the
     background (the whole library's SASS takes seconds of host time, which
-    run under 13a-c), or None without cuobjdump."""
+    run under the phase that reads it), or None without cuobjdump."""
     from sfft_tpu_torch import _kernels
 
     tool = _cuda_tool("cuobjdump")
@@ -4911,13 +4975,32 @@ def direct_sass_start():
                             stderr=subprocess.DEVNULL, text=True), f
 
 
-def direct_isa_report(sass_job):
-    """13a-b: evidence that K8 and K9 run on the FP64 tensor cores: the DMMA
-    and DFMA instructions of each device function in the built library's
-    SASS (``direct_sass_start``'s job), and its registers and spills from the
-    build's ptxas report (-v, kept beside the library); where a tool or the
-    report is missing, "not available" (and without cuobjdump the PTX line
-    of the mma, from one more compile)."""
+def _device_fn_key(mangled, fns):
+    """A device function of `fns` by its mangled name (matched with its
+    length prefix, so corr_stage2 is not corr_stage2_sum), an instantiation
+    by its template arguments (corr_mma<5>, corr_stage1<float,5,32,2>)."""
+    import re
+
+    f = next((f for f in fns if f"{len(f)}{f}" in mangled), None)
+    if f is None:
+        return None
+    m = re.search(f"{len(f)}{f}" + r"I((?:[a-z]|Li\d+E)+)E", mangled)
+    if not m:
+        return f
+    args = re.findall(r"Li(\d+)E|([a-z])", m.group(1))
+    names = {"f": "float", "d": "double"}
+    return f"{f}<{','.join(n or names.get(c, c) for n, c in args)}>"
+
+
+def isa_report(sass_job, device_fns, phase):
+    """The DMMA and DFMA instructions of each device function of the C
+    entries in `device_fns` ({entry: (source, function names)}) in the built
+    library's SASS (``sass_start``'s job), and its registers and spills from
+    the build's ptxas report (-v, kept beside the library); where a tool or
+    the report is missing, "not available" (and without cuobjdump the PTX
+    line of each source's f64 mma, from one more compile). Asserts a DMMA in
+    every instantiation of each entry's first function (or, without
+    cuobjdump, the f64 mma in its PTX)."""
     import re
 
     from sfft_tpu_torch import _kernels
@@ -4935,22 +5018,15 @@ def direct_isa_report(sass_job):
             f.seek(0)
             sass = f.read()
             f.close()
-
-        def key(mangled, fns):
-            # a device function by name, an instantiation by its template
-            # argument (corr_mma<5>, corr_mma<4>)
-            f = next((f for f in fns if f in mangled), None)
-            arg = re.search(r"ILi(\d+)E", mangled)
-            return f and (f"{f}<{arg.group(1)}>" if arg else f)
-
-        for entry, (src, fns) in DIRECT_DEVICE_FNS.items():
-            # ptxas: "Compiling entry function '<mangled>'", then "N bytes
-            # spill stores, N bytes spill loads" and "Used N registers"
+        for entry, (src, fns) in device_fns.items():
+            # ptxas: "Compiling entry function '<mangled>'" (for the source
+            # after its "ptxas info : ..." lines), then "N bytes spill
+            # stores, N bytes spill loads" and "Used N registers"
             res, cur = {}, None
             for line in ptxas.splitlines():
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
-                    cur = key(m.group(1), fns)
+                    cur = _device_fn_key(m.group(1), fns)
                     if cur:
                         res[cur] = {"registers": "not available", "spill_bytes": "not available"}
                 elif cur and "spill stores" in line:
@@ -4965,7 +5041,7 @@ def direct_isa_report(sass_job):
             for line in sass.splitlines():
                 m = re.search(r"Function : (\S+)", line)
                 if m:
-                    cur = key(m.group(1), fns)
+                    cur = _device_fn_key(m.group(1), fns)
                 elif cur:
                     op = re.search(r"\b(DMMA|DFMA)\b", line)
                     if op:
@@ -4984,20 +5060,21 @@ def direct_isa_report(sass_job):
                 res["ptx_mma"] = next((ln.strip() for ln in lines
                                        if "mma.sync" in ln and "f64" in ln), None)
             report[entry] = res
-            log(f"phase 13a-b {entry} ({src}): " + ("; ".join(
+            log(f"phase {phase} {entry} ({src}): " + ("; ".join(
                 f"{f}: SASS DMMA / DFMA "
                 + (f"{r['sass']['DMMA']} / {r['sass']['DFMA']}" if isinstance(r["sass"], dict)
                    else "not available (no cuobjdump)")
                 + f", {r['registers']} registers, spill stores / loads {r['spill_bytes']} bytes"
-                for f, r in res.items() if f != "ptx_mma") or "no build report, no cuobjdump")
+                for f, r in sorted(res.items()) if f != "ptx_mma")
+                or "no build report, no cuobjdump")
                 + (f"; PTX: {res.get('ptx_mma')}" if not cuobjdump else ""))
-    for entry, (_, fns) in DIRECT_DEVICE_FNS.items():
+    for entry, (_, fns) in device_fns.items():
         # a DMMA in every instantiation's SASS, or (no cuobjdump) the f64 mma
         # in the PTX
         if "ptx_mma" in report[entry]:
             assert report[entry]["ptx_mma"], f"{entry}: no f64 mma.sync in its PTX"
             continue
-        mains = [f for f in report[entry] if f.startswith(fns[0])]
+        mains = [f for f in report[entry] if f.split("<")[0] == fns[0]]
         assert mains, f"{entry}: neither the build's report nor the SASS lists {fns[0]}"
         for f in mains:
             assert report[entry][f]["sass"]["DMMA"] > 0, f"{f}: no DMMA in its SASS"
@@ -5457,10 +5534,10 @@ def phase_direct(lam=V2_LAMBDA):
     import torch
 
     t0 = time.perf_counter()
-    sass_job = direct_sass_start()
+    sass_job = sass_start()
     I, J = (torch.as_tensor(a, device=DIRECT_DEV) for a in make_pair(N))
     report, rows, launches = phase_direct_path(I, J, lam)
-    report["isa"] = direct_isa_report(sass_job)
+    report["isa"] = isa_report(sass_job, DIRECT_DEVICE_FNS, "13a-b")
     del I, J
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -5728,7 +5805,7 @@ def main():
                                                              "signatures")},
                     "k5_alone": report["slice_triple_alone"],
                     "k1_calls": {k: report["corr_window"][k]
-                                 for k in ("omg", "the", "omg_general", "c128_omg")},
+                                 for k in ("omg", "the", "omg_general", "c128_omg", "isa")},
                     "k3_eager_ms": {k: report["moments"][k]
                                     for k in ("eager_ms", "library_eager_ms")},
                     "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}

@@ -97,37 +97,68 @@ def corr_pairs_plain(specA, specB, ia, ib, E0, E1) -> torch.Tensor:
     return torch.real(torch.einsum("ru,cue->cre", E0, T1))
 
 
-_MAX_GROUPS = 8        # lag groups per pair (corr_window.cuh kMaxTY): two per warp
-_LAGS_PER_THREAD = (5, 9)   # the lag slots per thread the kernel is built for
-_BLOCK_WARPS = 4       # warps per stage-1 block (kMaxWarps)
+# csrc/corr_window.cuh: the stage-1 block and its fragments
+_K1_NT_MAX = 6         # n-tiles (4 lag slots each) of a warp (kMaxNT)
+_K1_ROWS = 16          # spectrum rows of a block: two m-tiles of 8 (kUT)
+_BLOCK_WARPS = 4       # warps of a stage-1 block (kWarps)
 _GROUP_SLOTS = 4       # planes a block holds in shared memory (kSlots)
 _GROUP_INTS = 18       # ints per row of the group table (kGroupInts)
 _U_RANGES = 32         # ranges of u that stage 2 sums apart (kUSplit)
 _E1_ROW_PAD = 64       # the packed E1 has a multiple of this many rows (kMaxVT)
 
 
-def _corr_plan(R1: int, sym: bool = False):
-    """(TY, NE) of a K1 launch: TY lag groups per pair, each thread NE
-    consecutive lag slots; group g holds slots [g * NE, min(L, (g + 1) * NE))
-    of the L = R1 slots, or with `sym` (conjugate-symmetric weights: slot d
-    serves the lags w + d and w - d, w = R1 // 2) of the L = w + 1 slots.
-    The fewest padded slots, counting that a warp holds two groups; among
-    equals the most lags per thread."""
-    L = R1 // 2 + 1 if sym else R1
-    best = None
-    for ne in _LAGS_PER_THREAD:
-        ty = -(-L // ne)
-        if ty > _MAX_GROUPS:
-            continue
-        key = ((ty + ty % 2) * ne, -ne)
-        if best is None or key < best[0]:
-            best = (key, (ty, ne))
-    return best[1]
+def _k1_plan(R1: int, sym: bool = False):
+    """(S, NT, nng) of a K1 launch: the S lag slots (the R1 columns of E1,
+    or with `sym` the w + 1 slots d = 0..w, w = R1 // 2, each standing for
+    the columns w + d and w - d) in n-tiles of 4 slots, cut into nng
+    n-groups of NT n-tiles, a warp each (padded slots are computed and not
+    written): the fewest n-groups, then the fewest n-tiles."""
+    S = R1 // 2 + 1 if sym else R1
+    tiles = -(-S // 4)
+    nng = -(-tiles // _K1_NT_MAX)
+    return S, -(-tiles // nng), nng
 
 
-def _pairs_per_block(ty: int) -> int:
-    """Pairs a stage-1 block works on: its warps over the warps of a pair."""
-    return _BLOCK_WARPS // -(-ty // 2)
+def _k1_pairs_per_block(nng: int) -> int:
+    """Pairs a stage-1 block works on: its warps over the warps (n-groups)
+    of a pair."""
+    return _BLOCK_WARPS // nng
+
+
+def _k1_e1_index(N1h: int, R1: int, sym: bool, ntiles: int) -> np.ndarray:
+    """Where each f64 of the packed E1 comes from: (rows / 4, ntiles, 32)
+    indices into E1 (N1h, R1) viewed as reals, rows = N1h rounded up to a
+    multiple of 64. Element (k, n, lane) is B[t][g] of the DMMA fragment of
+    k-step k and n-tile n, lane = 4 g + t: column v = 4 k + t of E1 and lag
+    slot s = 4 n + g // 2 (column s, or w + s with `sym`), its real part for
+    even g and its imaginary part for odd g. Rows past N1h and slots past
+    the lags index one past the end: the appended zero."""
+    rows = -(-N1h // _E1_ROW_PAD) * _E1_ROW_PAD
+    k = np.arange(rows // 4)[:, None, None]
+    n = np.arange(ntiles)[None, :, None]
+    lane = np.arange(32)[None, None, :]
+    g, t = lane >> 2, lane & 3
+    v, s = 4 * k + t, 4 * n + g // 2
+    S = R1 // 2 + 1 if sym else R1
+    col = s + (R1 // 2 if sym else 0)
+    ok = (v < N1h) & (s < S)
+    return np.where(ok, (v * R1 + col) * 2 + (g & 1), 2 * N1h * R1).astype(np.int64)
+
+
+@lru_cache(maxsize=64)
+def _k1_e1_index_on(N1h: int, R1: int, sym: bool, ntiles: int, device: torch.device):
+    return torch.as_tensor(_k1_e1_index(N1h, R1, sym, ntiles), device=device)
+
+
+def _k1_pack_e1(E1: torch.Tensor, sym: bool, ntiles: int) -> torch.Tensor:
+    """E1 (N1h, R1) complex as the f64 B fragments of K1's DMMAs, in the
+    order the kernel reads them (``_k1_e1_index``): one gather of its real
+    and imaginary parts, widened exactly, with zeros past the lags and past
+    N1h."""
+    N1h, R1 = E1.shape
+    flat = torch.view_as_real(E1).reshape(-1).to(torch.float64)
+    flat = torch.nn.functional.pad(flat, (0, 1))
+    return flat[_k1_e1_index_on(N1h, R1, bool(sym), ntiles, E1.device)]
 
 
 def _pair_groups(ia, ib, same: bool, ppb: int):
@@ -193,37 +224,40 @@ def _schedule(ia: tuple, ib: tuple, same: bool, ppb: int, device: torch.device):
 
 
 def _corr_launch(specA, specB, ia, ib, E0, E1, sym=False):
-    """One kernel launch; with `sym` (and an odd R1) on the conjugate-pair
-    route."""
-    from sfft_tpu_torch import _kernels
-
-    npairs = len(ia)
-    N0, N1h = specA.shape[1], specA.shape[2]
-    R0, R1 = E0.shape[0], E1.shape[1]
-    double = specA.dtype == torch.complex128
-    real = torch.float64 if double else torch.float32
-    dev = specA.device
+    """One K1 launch; with `sym` (and an odd R1) on the conjugate-pair
+    route: the plan, the pair schedule and the packed E1, then
+    ``_k1_call``."""
+    R1 = E1.shape[1]
     sym = bool(sym) and R1 % 2 == 1
-    ty, ne = _corr_plan(R1, sym)
+    _, NT, nng = _k1_plan(R1, sym)
     same = specA.data_ptr() == specB.data_ptr() and specA.shape == specB.shape
     table_dev, ngroups = _schedule(tuple(int(v) for v in ia), tuple(int(v) for v in ib), same,
-                                   _pairs_per_block(ty), dev)
-    # scratch: E1 repacked into padded lag groups (rows up to a whole tile),
-    # the stage-1 result, and stage 2's partial sums over ranges of u (f64
-    # for both types)
-    slots = ne if double else ne + ne % 2
-    E1p = torch.empty((-(-N1h // _E1_ROW_PAD) * _E1_ROW_PAD, (ty + ty % 2) * slots),
-                      dtype=specA.dtype, device=dev)
+                                   _k1_pairs_per_block(nng), specA.device)
+    E1p = _k1_pack_e1(E1, sym, NT * nng)
+    return _k1_call(specA, specB, table_dev, ngroups, len(ia), E0, E1p, R1, NT, nng, sym)
+
+
+def _k1_call(specA, specB, groups, ngroups, npairs, E0, E1p, R1, NT, nng, sym):
+    """The C entry of csrc/corr_window.cuh on the launch's operands (the
+    scratch allocated here: the stage-1 result and stage 2's partial sums
+    over ranges of u, f64 for both types). ``corr_window.launches`` counts
+    its launches."""
+    from sfft_tpu_torch import _kernels
+
+    N0, N1h = specA.shape[1], specA.shape[2]
+    R0 = E0.shape[0]
+    double = specA.dtype == torch.complex128
+    dev = specA.device
     T1 = torch.empty((npairs, N0, R1), dtype=specA.dtype, device=dev)
     part = torch.empty((npairs, _U_RANGES, R0, R1), dtype=torch.float64, device=dev)
-    out = torch.empty((npairs, R0, R1), dtype=real, device=dev)
+    out = torch.empty((npairs, R0, R1), dtype=torch.float64 if double else torch.float32,
+                      device=dev)
     entry = "sfft_corr_window_c128" if double else "sfft_corr_window_c64"
     with torch.cuda.device(dev):
         err = getattr(_kernels.lib(), entry)(
-            specA.data_ptr(), specB.data_ptr(), table_dev.data_ptr(),
-            E0.data_ptr(), E1.data_ptr(), E1p.data_ptr(), T1.data_ptr(), part.data_ptr(),
-            out.data_ptr(),
-            npairs, ngroups, N0, N1h, R0, R1, ty, ne, int(sym),
+            specA.data_ptr(), specB.data_ptr(), groups.data_ptr(), E0.data_ptr(),
+            E1p.data_ptr(), T1.data_ptr(), part.data_ptr(), out.data_ptr(),
+            npairs, ngroups, specA.shape[0], specB.shape[0], N0, N1h, R0, R1, NT, nng, int(sym),
             _kernels.stream_ptr(specA))
     corr_window.launches += 1
     _kernels.check(err, "corr_window kernel launch")

@@ -14,74 +14,91 @@
 // double (complex128, the f64 'fft' greek backend).
 //
 // Sums are f64 in both instantiations: the c64 spectra's products are formed
-// in f32 and widened, stage 1's register sums and stage 2's are f64, and
-// T1 and the output are rounded to the spectra's type once. The window
-// values are small differences of the sums' terms (the images' power sits
-// at low frequencies), and f32 sums there made the v2 fft32 mode five times
-// worse than the irfft twin on the NIRCam configuration (0.63 against 0.12
-// RMS from f64); with f64 sums it is 0.073, and the 4096^2 fast slice
-// 2.3e-4 against the twins' 4.6e-4 (PERF.md).
+// in f32 and widened, stage 1's sums and stage 2's are f64, and T1 and the
+// output are rounded to the spectra's type once. The window values are
+// small differences of the sums' terms (the images' power sits at low
+// frequencies), and f32 sums there made the v2 fft32 mode five times worse
+// than the irfft twin on the NIRCam configuration (0.63 against 0.12 RMS
+// from f64); with f64 sums it is 0.073, and the 4096^2 fast slice 2.3e-4
+// against the twins' 4.6e-4 (PERF.md).
 //
-// What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W; measured with
-// chip_smoke.py --kernels on the 4096^2 windows of the peeled path). Stage
-// 1, T1[c, u, e] = sum_v H[c, u, v] E1[v, e], is R1 complex multiply-adds per
-// element of the Hadamard product for general weights. With the window's
-// conjugate-pair weights (below) it is 17 rather than 33 sets of four
-// multiply-adds for the 21 pairs of the 33 x 33 OMG window: 25 GFLOP, 0.37
-// ms of FP32 at the card's 67 TFLOP/s (0.74 ms at FP64's 34), the yardstick
-// of the launches the port makes. The 6 pairs of the 17 x 17 THE window are
-// bound by their 470 MB of spectra (0.14 ms). The kernel takes 2.49 ms
-// (OMG) and 0.62 ms (THE): the DFMAs of the f64 sums run at half the FFMA
-// rate, 36 f64 accumulators hold a thread at 168 registers (three blocks
-// per SM), and the warps wait on the shared-memory loads that feed them
-// (per column a warp runs 36 multiply-adds against 12 shared-memory
-// wavefronts, two for each 16-byte weight load).
+// What bounds it on this card (NVIDIA H100 80GB HBM3, 700 W). Stage 1,
+// T1[c, u, e] = sum_v H[c, u, v] E1[v, e], is a product with K = N1h. With
+// the window's conjugate-pair weights (below) the 21 pairs of the 4096^2
+// OMG window (33 x 33) need 17 rather than 33 sets of four multiply-adds an
+// element of H: 25 GFLOP, 0.37 ms at 67 TFLOP/s, which for f64 sums only
+// the FP64 tensor cores reach (DMMA; 34 TFLOP/s of DFMA outside them). The
+// 6 pairs of the 17 x 17 THE window are bound by their 470 MB of spectra
+// (0.14 ms). The previous design, on DFMA accumulators, took 2.49 ms on OMG: half
+// the FFMA rate, 36 f64 accumulators a thread, the warps waiting on the
+// shared-memory loads that fed them.
 //
-// Design of stage 1:
-//  * Half the multiply-adds. The window's weights come in conjugate pairs,
+// Design of stage 1: the product on mma.sync.m16n8k4 in f64 (DMMA; on this
+// card m8n8k4 runs at half the rate of the m16 shapes).
+//  * Conjugate-pair lags. The window's weights come in conjugate pairs,
 //    E1[v, w + d] = conj(E1[v, w - d]) (w the middle column), so the four
 //    real products of h = a * conj(b) with e = E1[v, w + d] give both lags:
 //    with P1 = sum hx ex, P2 = sum hy ey, P3 = sum hx ey, P4 = sum hy ex,
-//    T1[w + d] = (P1 - P2, P3 + P4) and T1[w - d] = (P1 + P2, P4 - P3).
-//    Four multiply-adds into four accumulators serve two lags. A caller with other
-//    weights (sym = 0) gets the plain complex multiply-add.
-//  * A quarter to a half of the bytes. A block works on a group of up to 4
-//    pairs that share up to 4 planes (2 x 2, 3 x 1; the wrapper's schedule),
-//    one warp set per pair: each plane tile is copied once for all pairs of
-//    the group that use it, and one E1 tile serves them all. Blocks are
-//    numbered group-fastest, so the groups of a row tile run together and
-//    find each other's planes in L2.
-//  * The raw tiles (UT rows x VT columns per plane) and the VT matching rows
-//    of E1 arrive through an ST-stage ring in dynamic shared memory, filled
-//    by the TMA's bulk copies (cp.async.bulk, one per row piece, counted on
-//    an mbarrier per stage), which cost the threads one instruction per row
-//    and no registers; one block barrier per tile. A bulk copy needs 16-byte
-//    alignment on both sides, and c64 rows are only 8-byte aligned (2049
-//    elements): a row piece is copied from the 16-byte boundary at or before
-//    its first column, and the thread that reads it skips the row's phase
-//    (0 or 1 element). E1 is repacked once per launch into rows of padded lag
-//    groups (the layout the threads read, zero rows up to a whole tile) and
-//    arrives as one copy per tile. Rows past N0 stay zero from the start.
-//    Two stages of 32 columns (16 in c128) were the fastest ring: deeper and
-//    narrower ones cost more in blocks per SM than they hid.
-//  * A thread owns RU rows u and NE lag slots (a slot is a lag, or a pair
-//    of lags with sym); a warp is 16 row lanes x 2 lag groups, so a raw load
-//    is one wavefront and a weight load two 16-byte broadcasts; TY lag
-//    groups (TY / 2 warps per pair) cover the slots. With sym RU = 1 (36
-//    f64 accumulators at NE = 9): more warps per SM hid more latency than a
-//    second row's reuse of the weights saved (with f32 sums). Without, RU =
-//    2.
-//  * Sums: one running f64 sum per accumulator, written to T1 once. No
-//    atomics and a fixed order: two launches give the same bits.
+//    T1[w + d] = (P1 - P2, P3 + P4) and T1[w - d] = (P1 + P2, P4 - P3). A
+//    lag slot is d = 0..w (sym) or a column of E1 (the general route of
+//    the public corr_window, any weights: T1[d] = (P1 - P2, P3 + P4)). The
+//    two routes share the product and differ only in the store.
+//  * Fragments. A (16 x 4): rows g and g + 8 are Re h and Im h at spectrum
+//    row u_g, the 4 columns are 4 consecutive v. Lane (g, t) forms its own
+//    h at (u_g, v_t) from the staged tiles (c64: the f32 product widened
+//    exactly; c128: DFMAs), a0 = Re h, a1 = Im h. B (4 x 8): row t is v_t,
+//    columns 2s and 2s + 1 are Re e and Im e of lag slot s of an n-tile (4
+//    slots); E1 is packed once per launch, by the wrapper
+//    (greek._k1_pack_e1), as f64 in fragment order, so a B fragment is one
+//    8-byte load of 32 consecutive doubles. C: lane (g, t) holds D[g][2t],
+//    D[g][2t+1], D[g+8][2t], D[g+8][2t+1] = P1, P3, P4, P2 of row u_g and
+//    slot t: the two lags form in the thread, with no shuffles.
+//  * A warp owns kMT = 2 m-tiles (16 spectrum rows) of one pair and NT
+//    n-tiles (a template argument: no DMMA under a branch). Per k-step it
+//    loads NT B fragments and 2 x 2 raw elements for 2 x NT DMMAs. The
+//    m-tile's fragment row g is tile row 2 (g % 4) + g / 4, so that each
+//    half-warp of an 8-byte load reads rows of one parity, whose c64 row
+//    phase (below) is one; with a row stride of VT + 2 elements the raw
+//    loads are free of bank conflicts in both types. Lag slots past 4 x 6
+//    (the general route's wide windows) split into up to 3 n-groups, a warp
+//    each, of equal NT (padded slots are computed and not written).
+//  * Bytes. A block works on a group of up to 4 pairs that share up to 4
+//    planes (2 x 2, 3 x 1; the wrapper's schedule), one warp (per n-group)
+//    per pair: each plane tile is copied once for all pairs of the group
+//    that use it, and one E1 tile serves them all. Blocks are numbered
+//    group-fastest, so the groups of a row tile run together and find each
+//    other's planes in L2.
+//  * Staging. The raw tiles (16 rows x VT columns per plane) and the packed
+//    E1 of their VT columns arrive through an ST-stage ring in dynamic
+//    shared memory, filled by the TMA and counted on an mbarrier per stage;
+//    one block barrier per tile. A c128 plane's tile is one tensor copy (a
+//    3-D map of the stack, its box kUT rows x VT + 2 elements: the staged
+//    layout itself, rows past N0 and columns past N1h read as zeros). A
+//    tensor map needs 16-byte row strides, which c64 rows lack (2049
+//    elements): c64 rows are bulk copies (cp.async.bulk), one per row piece,
+//    from the 16-byte boundary at or before its first column, and the lanes
+//    that read a row skip its phase (0 or 1 element); rows past N0 stay
+//    zero from the start. Columns past N1h meet zero rows of the packed E1.
+//    The TMA's rate of small operations, not bytes, set the staging's cost:
+//    with a bulk copy per row c128 took 1.33 ms on OMG, with a tensor copy
+//    per plane 0.96 ms (chip_smoke.py phase 3 and a sweep of variants); 16-byte
+//    cp.async per row piece was slower than the bulk copies, deeper rings
+//    and wider tiles slower than more blocks (4 an SM at NT <= 5).
+//  * Sums: the DMMAs' f64 accumulators, one per element of D, written to T1
+//    once. No atomics and a fixed order: two launches give the same bits.
 // Stage 1 leaves T1 (pairs, N0, R1), about R1 / N1h (1.6%) of the product's
 // bytes; stage 2 contracts T1 over u with E0 and keeps the real part, with
 // 8 independent loads in flight per thread, R0 * R1 * N0 f64 multiply-adds
 // per pair, a few percent of stage 1's.
 
 #pragma once
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
+// a namespace of its own, so that a tool can include this header beside
+// corr_direct.cu (tools/dmma_rates.cu)
+namespace k1 {
 
 template <typename R> struct CplxOf;
 template <> struct CplxOf<float> { using T = float2; };
@@ -137,116 +154,131 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned i
       : "memory");
 }
 
-// NE lag weights of one column: 16-byte shared loads (two c64 or one c128)
-template <int NE>
-__device__ __forceinline__ void load_lags(const float2* p, float2 (&e)[NE]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
+// TMA: the box of a 3-D tensor map at (x, y, z) to shared memory (128-byte
+// aligned); completion is counted on the mbarrier
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], "
+      "[%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// D (16 x 8) += A (16 x 4) B (4 x 8) in f64: lane (g, t) = (lane / 4, lane % 4)
+// holds a0 = A[g][t], a1 = A[g + 8][t], b = B[t][g], c = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+constexpr int kMT = 2;          // m-tiles (8 spectrum rows each) of a warp
+constexpr int kUT = 8 * kMT;    // spectrum rows of a block
+constexpr int kMaxNT = 6;       // n-tiles (4 lag slots each) of a warp
+constexpr int kMaxNG = 3;       // n-groups: warps of a pair
+constexpr int kWarps = 4;       // warps of a block
+constexpr int kSlots = 4;       // planes of a group
+constexpr int kMaxVT = 64;      // E1 is packed to a multiple of this many rows
+constexpr int kGroupInts = 18;  // ints per row of the group table
+
+// row stride of a raw tile in elements: c64 rows are whole 16-byte units
+// with room for the row's phase; the tile rows of two neighbouring fragment
+// rows (two apart) start 4 elements apart mod 16 (c64) or mod 8 (c128), so
+// a half-warp's (c64) or a quarter-warp's (c128) raw loads hit distinct
+// banks; c128's box (tensor_copy) is this layout
+template <int VT>
+__host__ __device__ constexpr int row_stride() { return VT + 2; }
+
+// the tile row of fragment row g of m-tile mt: rows of one parity in each
+// half-warp
+__host__ __device__ constexpr int tile_row(int mt, int g) { return 8 * mt + 2 * (g & 3) + (g >> 2); }
+
+template <typename R, int VT, int ST>
+size_t stage1_smem(int NTP) {
+  using C = typename CplxOf<R>::T;
+  return sizeof(C) * (size_t)ST * kSlots * kUT * row_stride<VT>() +
+         sizeof(double) * (size_t)ST * (VT / 4) * NTP * 32 + 8 * ST;
+}
+
+// One tile of a warp's product: KS k-steps of 4 columns. raw: the staged
+// tiles; offa / offb: this lane's element of its two planes' rows (phase and
+// column t included) per m-tile; es: the packed E1 of the tile at this
+// warp's first n-tile and this lane, EW doubles a k-step.
+template <typename C, int NT, int KS>
+__device__ __forceinline__ void warp_tile(double (&acc)[kMT][NT][4], const C* raw,
+                                          const int (&offa)[kMT], const int (&offb)[kMT],
+                                          const double* es, int EW) {
+  // k-steps unrolled: all, or 2 where NT >= 5 (at the 128 registers of
+  // min_blocks' 4 blocks a full unroll spills 68-96 bytes; 2 spills 8 or 0)
+  constexpr int kU = NT >= 5 ? 2 : KS;
+#pragma unroll kU
+  for (int ks = 0; ks < KS; ++ks) {
+    double bf[NT];
 #pragma unroll
-  for (int j = 0; j < NE / 2; ++j) {
-    const float4 w = q[j];
-    e[2 * j] = make_float2(w.x, w.y);
-    e[2 * j + 1] = make_float2(w.z, w.w);
+    for (int nt = 0; nt < NT; ++nt) bf[nt] = es[ks * EW + nt * 32];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const C h = cmul_conj(raw[offa[mt] + 4 * ks], raw[offb[mt] + 4 * ks]);
+      const double hx = h.x, hy = h.y;   // the product in R, widened
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) dmma(acc[mt][nt], hx, hy, bf[nt]);
+    }
   }
-  if (NE % 2) e[NE - 1] = p[NE - 1];
-}
-template <int NE>
-__device__ __forceinline__ void load_lags(const double2* p, double2 (&e)[NE]) {
-#pragma unroll
-  for (int j = 0; j < NE; ++j) e[j] = p[j];
 }
 
-constexpr int kRL = 16;          // row lanes of a warp (the other factor 2: lag groups)
-constexpr int kMaxTY = 8;        // lag groups per pair: at most 4 warps
-constexpr int kMaxWarps = 4;     // warps per block
-constexpr int kSlots = 4;        // planes per group
-constexpr int kMaxVT = 64;       // E1 is packed to a multiple of this many rows
-constexpr int kGroupInts = 18;   // ints per row of the group table
-
-// rows per thread: one with sym, two without
-template <typename R, bool SYM>
-__host__ __device__ constexpr int rows_per_thread() { return SYM ? 1 : 2; }
-
-// lag slots per group in shared memory: c64 groups start 16-byte aligned
-template <typename R, int NE>
-__host__ __device__ constexpr int lag_slots() { return sizeof(R) == 4 ? (NE + 1) / 2 * 2 : NE; }
-
-// slots of one packed E1 row: an even number of groups (two per warp)
-template <typename R, int NE>
-__host__ __device__ constexpr int row_slots(int TY) { return (TY + TY % 2) * lag_slots<R, NE>(); }
-
-// row stride of a raw tile in elements: c64 rows are whole 16-byte units with
-// room for the row's phase; c128 rows an odd number of units (conflict-free)
-template <typename R, int VT>
-__host__ __device__ constexpr int row_stride() { return sizeof(R) == 4 ? VT + 2 : VT + 1; }
-
-template <typename R, int NE, int VT, int ST, bool SYM>
-size_t stage1_smem(int TY) {
-  using C = typename CplxOf<R>::T;
-  return sizeof(C) * (size_t)ST * (kSlots * kRL * rows_per_thread<R, SYM>() * row_stride<R, VT>()
-                                   + VT * row_slots<R, NE>(TY)) + 8 * ST;
-}
-
-// E1 (N1h, R1) -> E1p (rows, row_slots), rows >= N1h a whole number of tiles:
-// slot j of group g holds column g * NE + j of E1, or with sym column w + g *
-// NE + j (w = R1 / 2, the middle one); masked slots and the rows past N1h are
-// zero.
-template <typename R, int NE>
-__global__ void corr_pack_e1(const typename CplxOf<R>::T* __restrict__ E1,
-                             typename CplxOf<R>::T* __restrict__ E1p, int N1h, int R1,
-                             int EW, int rows, int sym) {
-  using C = typename CplxOf<R>::T;
-  constexpr int NEP = lag_slots<R, NE>();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * EW) return;
-  const int v = i / EW, slot = i % EW;
-  const int j = slot % NEP, e = (slot / NEP) * NE + j + (sym ? R1 / 2 : 0);
-  E1p[i] = (v < N1h && j < NE && e < R1) ? E1[(size_t)v * R1 + e] : czero<C>();
-}
+// blocks of kWarps warps an SM that the launch bound asks for: 4 (128
+// registers a thread), 3 at NT 6 (168; 128 spilled over 100 bytes)
+__host__ __device__ constexpr int min_blocks(int NT) { return NT <= 5 ? 4 : 3; }
 
 // One block: a row tile of one group of pairs. groups: (ngroups, kGroupInts)
 // ints per group: npairs, nslots, the slots' planes [4] and stacks [4] (0: A,
-// 1: B), the pairs' slots sa + 4 * sb [4] and output indices c [4].
-template <typename R, int NE, int VT, int ST, bool SYM>
-__global__ void __launch_bounds__(32 * kMaxWarps, 3)
+// 1: B), the pairs' slots sa + 4 * sb [4] and output indices c [4]. E1p:
+// (rows / 4, NT * nng, 32) f64, E1 in fragment order (greek._k1_pack_e1).
+// Warp y works on pair y / nng of the group and n-group y % nng. mapA /
+// mapB: the c128 stacks' tensor maps (stack_map; unused in c64).
+template <typename R, int NT, int VT, int ST>
+__global__ void __launch_bounds__(32 * kWarps, min_blocks(NT))
 corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
             const typename CplxOf<R>::T* __restrict__ B,
-            const int* __restrict__ groups,
-            const typename CplxOf<R>::T* __restrict__ E1p,
+            const int* __restrict__ groups, const double* __restrict__ E1p,
             typename CplxOf<R>::T* __restrict__ T1, int N0, int N1h, int R1,
-            int ngroups, int TY) {
+            int ngroups, int nng, int sym, const __grid_constant__ CUtensorMap mapA,
+            const __grid_constant__ CUtensorMap mapB) {
   using C = typename CplxOf<R>::T;
-  constexpr int RU = rows_per_thread<R, SYM>();
-  constexpr int UT = kRL * RU;             // spectrum rows per block
-  constexpr int NEP = lag_slots<R, NE>();
-  constexpr int LD = row_stride<R, VT>();
-  constexpr int NACC = SYM ? 4 : 2;        // f64 accumulators per row and lag slot
+  constexpr int LD = row_stride<VT>();
+  // c128 rows are 16-byte aligned: a plane's tile is one tensor copy (the
+  // maps' box, kUT rows x LD elements, is the staged layout); c64 rows are
+  // copied one by one
+  constexpr bool kTensor = sizeof(R) == 8;
+  constexpr int KS = VT / 4;               // k-steps of a tile
   static_assert(kMaxVT % VT == 0, "tiles divide the pack period");
-  static_assert(VT % 2 == 0, "tiles keep a row's phase");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int EW = row_slots<R, NE>(TY);     // lag slots per E1 row
-  C* Raw = reinterpret_cast<C*>(smem);     // [ST][kSlots][UT][LD]
-  C* Es = Raw + ST * kSlots * UT * LD;     // [ST][VT][EW]
-  unsigned long long* full = reinterpret_cast<unsigned long long*>(Es + ST * VT * EW);  // [ST]
+  static_assert(VT % 4 == 0, "tiles keep a row's phase and whole k-steps");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int EW = NT * nng * 32;            // packed E1 doubles of a k-step
+  C* Raw = reinterpret_cast<C*>(smem);     // [ST][kSlots][kUT][LD]
+  double* Es = reinterpret_cast<double*>(Raw + ST * kSlots * kUT * LD);  // [ST][KS][EW]
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(Es + ST * KS * EW);  // [ST]
 
   const int* grp = groups + (size_t)(blockIdx.x % ngroups) * kGroupInts;  // group-fastest
-  const int u0 = (blockIdx.x / ngroups) * UT;
-  const int t = threadIdx.y * 32 + threadIdx.x;
+  const int u0 = (blockIdx.x / ngroups) * kUT;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
   const int nthreads = 32 * blockDim.y;
-  const int wpp = (TY + 1) / 2;                       // warps per pair
-  const int pair = threadIdx.y / wpp;                 // this warp's pair of the group
-  const int rl = threadIdx.x % kRL;                   // row lane
-  const int g = 2 * (threadIdx.y % wpp) + threadIdx.x / kRL;  // lag group
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const int pair = threadIdx.y / nng, ng = threadIdx.y % nng;
   const int nslots = grp[1];
-  const bool active = pair < grp[0] && g < TY;
+  const bool active = pair < grp[0];
   const int ntiles = (N1h + VT - 1) / VT;
 
-  if (t == 0) {
-    for (int i = 0; i < ST; ++i) mbar_init(full + i, nthreads);
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) mbar_init(full + i, kTensor ? 1 : nthreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // rows past N0, unused slots and the phase elements are never copied to:
   // zero the tiles once
-  for (int i = t; i < ST * kSlots * UT * LD; i += nthreads) Raw[i] = czero<C>();
+  for (int i = tid; i < ST * kSlots * kUT * LD; i += nthreads) Raw[i] = czero<C>();
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
@@ -261,12 +293,12 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
     const int u = min(u0 + r, N0 - 1);
     return (int)((reinterpret_cast<size_t>(p + (size_t)u * N1h) >> 3) & 1);
   };
-  // The copy of row idx (slot idx / UT, row idx % UT) of tile `it`: from the
-  // 16-byte boundary at or before its first column to the one at or after
-  // its last, where the element beyond is this plane's own; start = false
-  // only counts the bytes.
+  // The copy of row idx (slot idx / kUT, row idx % kUT) of tile `it`: from
+  // the 16-byte boundary at or before its first column to the one at or
+  // after its last, where the element beyond is this plane's own; start =
+  // false only counts the bytes.
   auto row_copy = [&](int idx, int it, bool start) -> unsigned int {
-    const int s = idx / UT, r = idx % UT, u = u0 + r;
+    const int s = idx / kUT, r = idx % kUT, u = u0 + r;
     if (s >= nslots || u >= N0) return 0;
     const int buf = it % ST, v0 = it * VT;
     const int ncols = min(VT, N1h - v0);
@@ -277,7 +309,7 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
     if ((hi & 15) && !tail) hi += 8;
     const unsigned int n = (unsigned int)((hi & ~(size_t)15) - lo);
     if (start) {
-      C* dst = Raw + ((buf * kSlots + s) * UT + r) * LD;
+      C* dst = Raw + ((buf * kSlots + s) * kUT + r) * LD;
       if (n) bulk_copy(dst, reinterpret_cast<const void*>(lo), n, full + buf);
       // the last element of a plane, where the 16-byte copy would pass its
       // end: by hand (seen by all after the next barrier, before it is read)
@@ -285,67 +317,45 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
     }
     return n;
   };
-  // Tile `it` into its buffer: every thread announces and starts the copies
-  // of its rows (thread 0 the weights' too: the packed rows reach a whole
-  // tile past N1h, so that is one copy)
+  // Tile `it` into its buffer: c64, every thread announces and starts the
+  // copies of its rows (thread 0 the packed E1's too: its rows reach a whole
+  // tile past N1h, so that is one copy); c128, thread 0 the planes' boxes
+  // (rows past N0 and columns past N1h read as zeros) and E1
   auto load_tile = [&](int it) {
     if (it >= ntiles) return;
     const int buf = it % ST;
-    unsigned int bytes = t == 0 ? (unsigned int)(VT * EW * sizeof(C)) : 0u;
-    for (int idx = t; idx < kSlots * UT; idx += nthreads) bytes += row_copy(idx, it, false);
-    mbar_arrive_expect(full + buf, bytes);
-    for (int idx = t; idx < kSlots * UT; idx += nthreads) row_copy(idx, it, true);
-    if (t == 0)
-      bulk_copy(Es + buf * VT * EW, E1p + (size_t)it * VT * EW,
-                (unsigned int)(VT * EW * sizeof(C)), full + buf);
-  };
-
-  double acc[RU][NE][NACC];
-#pragma unroll
-  for (int i = 0; i < RU; ++i)
-#pragma unroll
-    for (int j = 0; j < NE; ++j)
-#pragma unroll
-      for (int q = 0; q < NACC; ++q) acc[i][j][q] = 0;
-  // this warp's pair: its two slots, and its rows of T1
-  const int code = grp[10 + (active ? pair : 0)];
-  int offa[RU], offb[RU];   // this thread's rows of the pair's two planes in a tile buffer
-#pragma unroll
-  for (int i = 0; i < RU; ++i) {
-    const int r = rl + kRL * i;
-    offa[i] = ((code % 4) * UT + r) * LD + row_phase(plane(code % 4), r);
-    offb[i] = ((code / 4) * UT + r) * LD + row_phase(plane(code / 4), r);
-  }
-  C* t1 = T1 + ((size_t)grp[14 + (active ? pair : 0)] * N0 + u0 + rl) * R1;  // row i: + kRL * i * R1
-  const int w = R1 / 2;
-
-  // the register sums into T1, rounded to R once. Lag slot j of group g is
-  // column d = g * NE + j, or with sym the columns w + d and (d > 0) w - d.
-  auto store = [&]() {
-    if (!active) return;
-#pragma unroll
-    for (int i = 0; i < RU; ++i) {
-      if (u0 + rl + kRL * i >= N0) continue;
-      C* p = t1 + (size_t)kRL * i * R1;
-#pragma unroll
-      for (int j = 0; j < NE; ++j) {
-        const int d = g * NE + j;
-        C v;
-        if constexpr (SYM) {
-          v.x = static_cast<R>(acc[i][j][0] - acc[i][j][1]);
-          v.y = static_cast<R>(acc[i][j][2] + acc[i][j][3]);
-          if (d <= w) p[w + d] = v;
-          v.x = static_cast<R>(acc[i][j][0] + acc[i][j][1]);
-          v.y = static_cast<R>(acc[i][j][3] - acc[i][j][2]);
-          if (d <= w && d > 0) p[w - d] = v;
-        } else {
-          v.x = static_cast<R>(acc[i][j][0]);
-          v.y = static_cast<R>(acc[i][j][1]);
-          if (d < R1) p[d] = v;
-        }
-      }
+    const unsigned int ebytes = (unsigned int)(KS * EW * sizeof(double));
+    if constexpr (kTensor) {
+      if (tid != 0) return;
+      mbar_arrive_expect(full + buf, ebytes + nslots * (unsigned int)(kUT * LD * sizeof(C)));
+      for (int s = 0; s < nslots; ++s)
+        tensor_copy(Raw + (buf * kSlots + s) * kUT * LD, grp[6 + s] ? &mapB : &mapA,
+                    2 * it * VT, u0, grp[2 + s], full + buf);
+    } else {
+      unsigned int bytes = tid == 0 ? ebytes : 0u;
+      for (int idx = tid; idx < kSlots * kUT; idx += nthreads) bytes += row_copy(idx, it, false);
+      mbar_arrive_expect(full + buf, bytes);
+      for (int idx = tid; idx < kSlots * kUT; idx += nthreads) row_copy(idx, it, true);
     }
+    if (tid == 0) bulk_copy(Es + buf * KS * EW, E1p + (size_t)it * KS * EW, ebytes, full + buf);
   };
+
+  double acc[kMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
+  // this warp's pair: its two slots; this lane's element of their rows
+  const int code = grp[10 + (active ? pair : 0)];
+  int offa[kMT], offb[kMT];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int r = tile_row(mt, g);
+    offa[mt] = ((code % 4) * kUT + r) * LD + row_phase(plane(code % 4), r) + t;
+    offb[mt] = ((code / 4) * kUT + r) * LD + row_phase(plane(code / 4), r) + t;
+  }
 
   for (int it = 0; it < ST - 1; ++it) load_tile(it);
   for (int it = 0; it < ntiles; ++it) {
@@ -353,39 +363,38 @@ corr_stage1(const typename CplxOf<R>::T* __restrict__ A,
     mbar_wait(full + buf, (it / ST) & 1);  // tile `it` has landed
     __syncthreads();                       // and tile it - 1 is no longer read
     load_tile(it + ST - 1);                // into the buffer of tile it - 1
-    const C* raw = Raw + buf * kSlots * UT * LD;
-    const C* es = Es + buf * VT * EW + (active ? g : 0) * NEP;
-    if (!active) continue;   // a warp without a pair only helps with the copies
-#pragma unroll 8
-    for (int k = 0; k < VT; ++k) {
-      double hx[RU], hy[RU];   // the product in R, widened
+    if (!active) continue;                 // a warp without a pair only joins copies and barriers
+    warp_tile<C, NT, KS>(acc, Raw + buf * kSlots * kUT * LD, offa, offb,
+                         Es + buf * KS * EW + ng * NT * 32 + lane, EW);
+  }
+  if (!active) return;
+
+  // the sums into T1, rounded to R once: lane (g, t) holds P1, P3, P4, P2 of
+  // row u_g and slot s of each n-tile; slot s is column s, or with sym the
+  // columns w + s and (s > 0) w - s
+  const int nslot = sym ? R1 / 2 + 1 : R1, w = sym ? R1 / 2 : 0;
+  C* t1 = T1 + (size_t)grp[14 + pair] * N0 * R1;
 #pragma unroll
-      for (int i = 0; i < RU; ++i) {
-        const C h = cmul_conj(raw[offa[i] + k], raw[offb[i] + k]);
-        hx[i] = h.x;
-        hy[i] = h.y;
-      }
-      C e[NE];
-      load_lags<NE>(es + k * EW, e);
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int u = u0 + tile_row(mt, g);
+    if (u >= N0) continue;
+    C* p = t1 + (size_t)u * R1;
 #pragma unroll
-      for (int j = 0; j < NE; ++j) {
-        const double ex = e[j].x, ey = e[j].y;
-#pragma unroll
-        for (int i = 0; i < RU; ++i) {
-          if constexpr (SYM) {
-            acc[i][j][0] = fma(hx[i], ex, acc[i][j][0]);
-            acc[i][j][1] = fma(hy[i], ey, acc[i][j][1]);
-            acc[i][j][2] = fma(hx[i], ey, acc[i][j][2]);
-            acc[i][j][3] = fma(hy[i], ex, acc[i][j][3]);
-          } else {
-            acc[i][j][0] = fma(hx[i], ex, fma(-hy[i], ey, acc[i][j][0]));
-            acc[i][j][1] = fma(hx[i], ey, fma(hy[i], ex, acc[i][j][1]));
-          }
-        }
+    for (int nt = 0; nt < NT; ++nt) {
+      const int s = (ng * NT + nt) * 4 + t;
+      if (s >= nslot) continue;
+      const double* c = acc[mt][nt];
+      C v;
+      v.x = static_cast<R>(c[0] - c[3]);
+      v.y = static_cast<R>(c[1] + c[2]);
+      p[w + s] = v;
+      if (sym && s > 0) {
+        v.x = static_cast<R>(c[0] + c[3]);
+        v.y = static_cast<R>(c[2] - c[1]);
+        p[w - s] = v;
       }
     }
   }
-  store();
 }
 
 // Stage 2 is small (R0 * R1 outputs per pair, N0 terms each) and all latency:
@@ -459,68 +468,98 @@ __global__ void corr_stage2_sum(const double* __restrict__ part, R* __restrict__
   out[i] = static_cast<R>(acc);
 }
 
-template <typename R, int NE, int VT, int ST, bool SYM>
-cudaError_t run_stage1(const typename CplxOf<R>::T* a, const typename CplxOf<R>::T* b,
-                       const int* groups, const typename CplxOf<R>::T* e1,
-                       typename CplxOf<R>::T* e1p, typename CplxOf<R>::T* t1, int N0, int N1h,
-                       int R1, int ngroups, int TY, cudaStream_t st) {
-  const int EW = row_slots<R, NE>(TY);
-  const int rows = (N1h + kMaxVT - 1) / kMaxVT * kMaxVT;
-  corr_pack_e1<R, NE><<<(rows * EW + 255) / 256, 256, 0, st>>>(e1, e1p, N1h, R1, EW, rows,
-                                                               SYM ? 1 : 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = stage1_smem<R, NE, VT, ST, SYM>(TY);
-  auto kernel = corr_stage1<R, NE, VT, ST, SYM>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  constexpr int UT = kRL * rows_per_thread<R, SYM>();
-  const long long blocks = (long long)((N0 + UT - 1) / UT) * ngroups;
-  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  const int wpp = (TY + 1) / 2;
-  kernel<<<static_cast<unsigned int>(blocks), dim3(32, wpp * (kMaxWarps / wpp)), smem, st>>>(
-      a, b, groups, e1p, t1, N0, N1h, R1, ngroups, TY);
-  return cudaGetLastError();
-}
-
 // The ring per type: VT columns per tile, ST stages.
 template <typename R> struct Ring;
 template <> struct Ring<float> { static constexpr int VT = 32, ST = 2; };
 template <> struct Ring<double> { static constexpr int VT = 16, ST = 2; };
 
-// (TY, NE): lag groups per pair and lag slots per thread, TY * NE >= the
-// slots (R1, or R1 / 2 + 1 with sym; the wrapper's plan).
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against the driver library)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the 3-D map of a (F, N0, N1h) complex128 stack as f64 (2 N1h, N0, F), its
+// box kUT rows x LD elements of one plane
+inline EncodeTiled encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+          cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+template <int VT>
+cudaError_t stack_map(CUtensorMap* map, const void* base, int F, int N0, int N1h) {
+  static const EncodeTiled encode = encode_tiled();   // once, thread-safe
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {2 * (cuuint64_t)N1h, (cuuint64_t)N0, (cuuint64_t)F};
+  const cuuint64_t strides[2] = {16 * (cuuint64_t)N1h, 16 * (cuuint64_t)N1h * N0};
+  const cuuint32_t box[3] = {2 * (cuuint32_t)row_stride<VT>(), (cuuint32_t)kUT, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename R, int NT>
+cudaError_t run_stage1(const typename CplxOf<R>::T* a, const typename CplxOf<R>::T* b,
+                       const int* groups, const double* e1p, typename CplxOf<R>::T* t1,
+                       int Fa, int Fb, int N0, int N1h, int R1, int ngroups, int nng, int sym,
+                       cudaStream_t st) {
+  constexpr int VT = Ring<R>::VT, ST = Ring<R>::ST;
+  const size_t smem = stage1_smem<R, VT, ST>(NT * nng);
+  auto kernel = corr_stage1<R, NT, VT, ST>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((N0 + kUT - 1) / kUT) * ngroups;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  CUtensorMap mapA{}, mapB{};
+  if (sizeof(R) == 8) {
+    err = stack_map<VT>(&mapA, a, Fa, N0, N1h);
+    if (err == cudaSuccess) err = stack_map<VT>(&mapB, b, Fb, N0, N1h);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned int>(blocks), dim3(32, kWarps), smem, st>>>(
+      a, b, groups, e1p, t1, N0, N1h, R1, ngroups, nng, sym, mapA, mapB);
+  return cudaGetLastError();
+}
+
+// (NT, nng): n-tiles of a warp and n-groups of a pair (the wrapper's plan,
+// greek._k1_plan); 4 * NT * nng covers the lag slots (R1, or R1 / 2 + 1
+// with sym) and 4 * NT * (nng - 1) does not.
 template <typename R>
-int launch(const void* A, const void* B, const void* groups, const void* E0, const void* E1,
-           void* E1p, void* T1, void* part, void* out, int npairs, int ngroups, int N0, int N1h,
-           int R0, int R1, int TY, int NE, int sym, void* stream) {
+int launch(const void* A, const void* B, const void* groups, const void* E0, const void* E1p,
+           void* T1, void* part, void* out, int npairs, int ngroups, int Fa, int Fb, int N0,
+           int N1h, int R0, int R1, int NT, int nng, int sym, void* stream) {
   using C = typename CplxOf<R>::T;
   const int slots = sym ? R1 / 2 + 1 : R1;
-  if (R1 < 1 || R0 < 1 || npairs < 1 || npairs > 65535 || ngroups < 1 || ngroups > npairs ||
-      TY < 1 || TY > kMaxTY || NE < 1 || TY * NE < slots || (TY - 1) * NE >= slots ||
-      R1 > kLanes || (sym && R1 % 2 == 0))
+  if (R1 < 1 || R0 < 1 || Fa < 1 || Fb < 1 || N0 < 1 || N1h < 1 || npairs < 1 || npairs > 65535 || ngroups < 1 ||
+      ngroups > npairs || NT < 1 || NT > kMaxNT || nng < 1 || nng > kMaxNG ||
+      4 * NT * nng < slots || 4 * NT * (nng - 1) >= slots || R1 > kLanes ||
+      (sym && R1 % 2 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const C* a = static_cast<const C*>(A);
   const C* b = static_cast<const C*>(B);
   const int* gr = static_cast<const int*>(groups);
-  const C* e1 = static_cast<const C*>(E1);
-  C* e1p = static_cast<C*>(E1p);
+  const double* e1p = static_cast<const double*>(E1p);
   C* t1 = static_cast<C*>(T1);
   cudaError_t err = cudaErrorInvalidValue;
-  switch (NE * 2 + (sym ? 1 : 0)) {
-#define SFFT_CORR_CASE(ne_)                                                              \
-  case ne_ * 2:                                                                          \
-    err = run_stage1<R, ne_, Ring<R>::VT, Ring<R>::ST, false>(a, b, gr, e1, e1p, t1, N0, \
-                                                              N1h, R1, ngroups, TY, st); \
-    break;                                                                               \
-  case ne_ * 2 + 1:                                                                      \
-    err = run_stage1<R, ne_, Ring<R>::VT, Ring<R>::ST, true>(a, b, gr, e1, e1p, t1, N0,  \
-                                                             N1h, R1, ngroups, TY, st);  \
+  switch (NT) {
+#define SFFT_K1_CASE(nt_)                                                                    \
+  case nt_:                                                                                  \
+    err = run_stage1<R, nt_>(a, b, gr, e1p, t1, Fa, Fb, N0, N1h, R1, ngroups, nng, sym, st); \
     break;
-    SFFT_CORR_CASE(5) SFFT_CORR_CASE(9)
-#undef SFFT_CORR_CASE
+    SFFT_K1_CASE(1) SFFT_K1_CASE(2) SFFT_K1_CASE(3) SFFT_K1_CASE(4) SFFT_K1_CASE(5)
+    SFFT_K1_CASE(6)
+#undef SFFT_K1_CASE
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid2(kUSplit, npairs, ((R0 + kRG - 1) / kRG * R1 + 255) / 256);
@@ -534,4 +573,5 @@ int launch(const void* A, const void* B, const void* groups, const void* E0, con
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace k1
 }  // namespace

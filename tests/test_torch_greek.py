@@ -166,33 +166,198 @@ def test_corr_window_wrapper_refusals():
 
 @pytest.mark.parametrize("sym", [False, True])
 @pytest.mark.parametrize("R1", [1, 2, 3, 4, 9, 10, 17, 23, 33, 47, 63, 64])
-def test_corr_plan_covers_every_lag_once(R1, sym):
-    """The lag groups of a K1 launch tile the lag slots: every slot in
-    exactly one group, no group empty, within the kernel's limits; with the
+def test_k1_plan_covers_every_lag_once(R1, sym):
+    """The n-groups of a K1 launch tile the lag slots: every slot in exactly
+    one n-group, none empty, within the kernel's limits; with the
     conjugate-pair lags the slots d = 0..w stand for the columns w + d and
-    w - d, which together are every column once."""
-    ty, ne = tgreek._corr_plan(R1, sym)
-    assert 1 <= ty <= tgreek._MAX_GROUPS and ne in tgreek._LAGS_PER_THREAD
-    L = R1 // 2 + 1 if sym else R1
-    groups = [range(g * ne, min(L, (g + 1) * ne)) for g in range(ty)]
-    assert all(len(g) > 0 for g in groups)
-    slots = sorted(d for g in groups for d in g)
-    assert slots == list(range(L))
+    w - d, which together are every column once. The packed E1 holds each
+    part of each column the slots read exactly once, at row v of the lane
+    (g, t) with v % 4 == t, and zeros elsewhere."""
+    S, NT, nng = tgreek._k1_plan(R1, sym)
+    assert S == (R1 // 2 + 1 if sym else R1)
+    assert 1 <= NT <= tgreek._K1_NT_MAX and 1 <= nng <= 3
+    slot_groups = [range(4 * NT * ng, min(S, 4 * NT * (ng + 1))) for ng in range(nng)]
+    assert all(len(r) > 0 for r in slot_groups)
+    slots = sorted(d for r in slot_groups for d in r)
+    assert slots == list(range(S))
     if sym and R1 % 2:
         w = R1 // 2
         cols = sorted([w + d for d in slots] + [w - d for d in slots if d > 0])
         assert cols == list(range(R1))
-    assert 1 <= tgreek._pairs_per_block(ty) <= 4
+    ppb = tgreek._k1_pairs_per_block(nng)
+    assert 1 <= ppb and ppb * nng <= tgreek._BLOCK_WARPS
+    if sym and R1 % 2 == 0:
+        return                    # the launch takes the general route for an even R1
+    N1h = 37
+    idx = tgreek._k1_e1_index(N1h, R1, sym, NT * nng)
+    assert idx.shape == (-(-N1h // 64) * 16, NT * nng, 32)
+    zero = 2 * N1h * R1
+    got = np.sort(idx[idx != zero])
+    first = R1 // 2 if sym else 0
+    want = [(v * R1 + c) * 2 + p for v in range(N1h) for c in range(first, R1) for p in (0, 1)]
+    assert got.tolist() == want
+    k, n, lane = np.nonzero(idx != zero)
+    v, rem = np.divmod(idx[k, n, lane] // 2, R1)
+    assert (v == 4 * k + (lane & 3)).all() and (rem - first == 4 * n + (lane >> 3)).all()
+    assert (idx[k, n, lane] % 2 == (lane >> 2) % 2).all()
 
 
-def test_corr_plan_fast_slice_shapes():
-    # the peeled path's two windows: 17 slots of lag pairs in 2 groups of 9,
-    # 9 slots in 2 groups of 5; one warp per pair, so four pairs per block
-    assert tgreek._corr_plan(33, True) == (2, 9)
-    assert tgreek._corr_plan(17, True) == (2, 5)
-    assert tgreek._corr_plan(33, False) == (4, 9)
-    assert tgreek._pairs_per_block(2) == 4 and tgreek._pairs_per_block(4) == 2
-    assert tgreek._pairs_per_block(8) == 1
+def test_k1_plan_fast_slice_and_v2_shapes():
+    # (S, NT, nng): the 4096^2 OMG window's 17 conjugate-pair slots in 5
+    # n-tiles (40 columns of 34), THE's 9 in 3 (24 of 18), v2 Comg's 23 in 6
+    # (48 of 46), v2 Cgam / Cthe / Pbs' 12 in 3 (24, none padded); one warp
+    # a pair, four pairs a block. The general route: 33 columns in 2 n-groups
+    # of 5 n-tiles (two pairs a block), 64 in 3 of 6 (one pair).
+    assert tgreek._k1_plan(33, True) == (17, 5, 1)
+    assert tgreek._k1_plan(17, True) == (9, 3, 1)
+    assert tgreek._k1_plan(45, True) == (23, 6, 1)
+    assert tgreek._k1_plan(23, True) == (12, 3, 1)
+    assert tgreek._k1_plan(33, False) == (33, 5, 2)
+    assert tgreek._k1_plan(64, False) == (64, 6, 3)
+    assert [tgreek._k1_pairs_per_block(n) for n in (1, 2, 3)] == [4, 2, 1]
+
+
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3   # lane (g, t) of an mma.sync fragment
+
+
+def _frags(a0, a1, b):
+    """The matrices of one mma.sync.m16n8k4 (f64) from its lanes' fragments
+    (..., 32): lane (g, t) holds A[g, t] (a0), A[g + 8, t] (a1) and B[t, g]
+    (b); returns A (..., 16, 4) and B (..., 4, 8)."""
+    Am = np.zeros(a0.shape[:-1] + (16, 4))
+    Am[..., _G, _T] = a0
+    Am[..., _G + 8, _T] = a1
+    Bm = np.zeros(b.shape[:-1] + (4, 8))
+    Bm[..., _T, _G] = b
+    return Am, Bm
+
+
+def k1_call_emulated(specA, specB, groups, ngroups, npairs, E0, E1p, R1, NT, nng, sym):
+    """csrc/corr_window.cuh (corr_stage1, corr_stage2, corr_stage2_sum) in
+    numpy, in complex128, block by block and warp by warp, lanes vectorised:
+    the group table as the kernel reads it, the staged tiles of each slot
+    (16 rows, zero past N0; columns past N1h hold finite junk, as a c64 tile
+    buffer's stale columns may: the packed E1's zero rows meet them; a c128
+    tensor box reads zeros there), each lane's fragment row (tile row 2 (g %
+    4) + g / 4 of its m-tile) and column t, its h = a * conj(b), the packed
+    E1's B fragments of its n-group, the accumulators of each (m-tile,
+    n-tile) and the in-thread store of P1, P3, P4, P2 into T1 at w + s and
+    w - s (each element written once); then stage 2's ranges of u in
+    order."""
+    A, B = specA.numpy(), specB.numpy()
+    assert A.dtype == np.complex128
+    tab = groups.numpy().reshape(ngroups, tgreek._GROUP_INTS)
+    E1p, E0 = E1p.numpy(), E0.numpy()
+    N0, N1h = A.shape[1], A.shape[2]
+    UT, VT = tgreek._K1_ROWS, 16
+    ntiles = -(-N1h // VT)
+    nk = ntiles * VT // 4
+    assert E1p.shape[1:] == (NT * nng, 32) and E1p.shape[0] >= nk
+    S = R1 // 2 + 1 if sym else R1
+    w = R1 // 2 if sym else 0
+    junk = np.random.default_rng(0).normal(0, 1e3, (UT, ntiles * VT - N1h, 2)) @ [1, 1j]
+    T1 = np.full((npairs, N0, R1), np.nan, complex)
+    for bx in range(-(-N0 // UT) * ngroups):
+        grp = tab[bx % ngroups]
+        u0 = (bx // ngroups) * UT
+        nr = min(UT, N0 - u0)
+        tiles = []
+        for s in range(grp[1]):
+            tile = np.zeros((UT, ntiles * VT), complex)
+            tile[:nr, :N1h] = (B if grp[6 + s] else A)[grp[2 + s], u0:u0 + nr]
+            tile[:nr, N1h:] = junk[:nr]
+            tiles.append(tile)
+        for warp in range(tgreek._BLOCK_WARPS):
+            pair, ng = divmod(warp, nng)
+            if pair >= grp[0]:
+                continue
+            sa, sb = grp[10 + pair] % 4, grp[10 + pair] // 4
+            assert max(sa, sb) < grp[1]
+            cols = 4 * np.arange(nk)[:, None] + _T                        # (nk, 32)
+            bf = E1p[:nk, ng * NT:(ng + 1) * NT]                           # (nk, NT, 32)
+            _, Bm = _frags(bf, bf, bf)
+            for mt in range(2):
+                r = 8 * mt + 2 * (_G & 3) + (_G >> 2)
+                h = tiles[sa][r, cols] * np.conj(tiles[sb][r, cols])
+                Am, _ = _frags(h.real, h.imag, h.real)
+                D = np.einsum("kij,knjc->nic", Am, Bm)                    # (NT, 16, 8)
+                u = u0 + r
+                for nt in range(NT):
+                    c0, c1, c2, c3 = (D[nt, _G + 8 * (q >> 1), 2 * _T + (q & 1)]
+                                      for q in range(4))
+                    s = (ng * NT + nt) * 4 + _T
+                    ok = (u < N0) & (s < S)
+                    dst = (grp[14 + pair], u[ok], w + s[ok])
+                    assert np.isnan(T1[dst]).all()
+                    T1[dst] = ((c0 - c3) + 1j * (c1 + c2))[ok]
+                    if sym:
+                        ok &= s > 0
+                        dst = (grp[14 + pair], u[ok], w - s[ok])
+                        assert np.isnan(T1[dst]).all()
+                        T1[dst] = ((c0 + c3) + 1j * (c2 - c1))[ok]
+    assert not np.isnan(T1).any()
+    chunk = -(-N0 // tgreek._U_RANGES)
+    out = np.zeros((npairs, E0.shape[0], R1))
+    for ub in range(0, N0, chunk):
+        out += np.real(np.einsum("ru,cue->cre", E0[:, ub:ub + chunk], T1[:, ub:ub + chunk]))
+    return torch.as_tensor(out)
+
+
+def _k1_case(N0, N1h, R1, sym, same, seed):
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return torch.as_tensor(rng.normal(0, 1, shape) + 1j * rng.normal(0, 1, shape))
+
+    sa = cplx(4, N0, N1h)
+    sb = sa if same else cplx(4, N0, N1h)
+    E0, E1 = cplx(7, N0), cplx(N1h, R1)
+    if sym:   # conjugate-symmetric weights about the middle column
+        w = R1 // 2
+        E1 = torch.cat([torch.flip(E1[:, w + 1:], dims=(1,)).conj(), E1[:, w:]],
+                       dim=1).resolve_conj().contiguous()
+    return sa, sb, E0, E1
+
+
+@pytest.mark.parametrize("N0,N1h,R1,sym,same", [
+    (37, 21, 9, True, True),      # ragged rows and columns; slots share planes
+    (37, 21, 9, False, False),
+    (20, 36, 33, True, False),    # the OMG window's 17 slots in 5 n-tiles
+    (20, 36, 33, False, True),    # 33 columns: two n-groups, two pairs a block
+    (16, 9, 64, False, False),    # 64 columns: three n-groups of 6 n-tiles
+    (45, 70, 45, True, True),     # v2 Comg's 23 slots in 6 n-tiles; five column tiles
+    (8, 5, 1, False, False),      # one column, one n-tile
+    (24, 33, 17, True, False)])   # THE's 9 slots in 3 n-tiles
+def test_k1_launch_emulated(monkeypatch, N0, N1h, R1, sym, same):
+    """K1's launch (plan, pair schedule, packed E1) with its kernel
+    emulated (``k1_call_emulated``) on an unordered pair list with repeated
+    planes, and on a single pair: within 1e-12 of the twin's max in
+    complex128."""
+    sa, sb, E0, E1 = _k1_case(N0, N1h, R1, sym, same, seed=N0 + R1)
+    monkeypatch.setattr(tgreek, "_k1_call", k1_call_emulated)
+    ia, ib = np.array([3, 0, 3, 1, 1, 0, 2, 3]), np.array([1, 1, 3, 0, 1, 2, 2, 0])
+    for pa, pb in [(ia, ib), (ia[:1], ib[:1])]:
+        out = tgreek._corr_launch(sa, sb, pa, pb, E0, E1, sym=sym)
+        ref = tgreek.corr_pairs_plain(sa, sb, pa, pb, E0, E1)
+        assert out.shape == ref.shape
+        err = float((out - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-12, (len(pa), err)
+
+
+@pytest.mark.parametrize("symmetric,chunk", [(True, 0), (True, 4), (False, 5)])
+def test_k1_corr_window_fft_emulated(monkeypatch, symmetric, chunk):
+    """corr_window_fft's 'kernel' method (the conjugate-pair route, the
+    upper triangle mirrored when symmetric, chunks splitting a plane's
+    pairs) with the launch emulated: within 1e-12 of the irfft route."""
+    spec = torch.fft.rfft2(torch.as_tensor(_stack(F=5)))
+    monkeypatch.setattr(tgreek, "_k1_call", k1_call_emulated)
+    monkeypatch.setattr(tgreek, "_corr_window", tgreek._corr_launch)
+    out = tgreek.corr_window_fft(spec, spec, 48, 40, 5, 4, method="kernel",
+                                 symmetric=symmetric, chunk=chunk)
+    monkeypatch.undo()
+    ref = tgreek.corr_window_fft(spec, spec, 48, 40, 5, 4, method="irfft")
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-12
 
 
 def _pair_lists():

@@ -1,8 +1,11 @@
-// The FP64 tensor-core (DMMA) rates that K8 and K9 are designed around, on
-// the card itself: mma.sync f64 by shape with its operands in registers, and
+// The FP64 tensor-core (DMMA) rates that K8, K9 and K1 are designed around,
+// on the card itself: mma.sync f64 by shape with its operands in registers;
 // K8's inner loop (warp_tile of csrc/corr_direct.cu, included below: per
 // staged row, 6 A and NT B fragment loads from shared memory for 3 x NT
-// m16n8k4 DMMAs) on a tile staged once, with no staging in the loop.
+// m16n8k4 DMMAs) on a tile staged once, with no staging in the loop; and
+// K1's (k1::warp_tile of csrc/corr_window.cuh: per k-step NT B fragments and
+// 2 x 2 raw spectrum elements, two products a * conj(b), for 2 x NT DMMAs)
+// on two tile buffers filled once, read in turn.
 // Build and run on the card:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o "$TMPDIR/dmma_rates" tools/dmma_rates.cu
@@ -15,6 +18,7 @@
 #include <cuda_runtime.h>
 
 #include "../sfft_tpu_torch/csrc/corr_direct.cu"
+#include "../sfft_tpu_torch/csrc/corr_window.cuh"
 
 // SHAPE 0: m8n8k4, 1: m16n8k4, 2: m16n8k8, 3: m16n8k16; NACC independent
 // accumulator tiles a warp
@@ -81,6 +85,46 @@ __global__ void k8_loop(double* out, int iters, int RT) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+// K1's inner loop: warp_tile over one tile (VT columns) of two buffers of
+// staged tiles (4 planes x 16 rows, the c64 rows' phases as on a 2049-column
+// spectrum) and packed E1, in turn (so that no load leaves the loop); warp
+// w takes the planes w and w + 1; the kernel's launch bound (min_blocks blocks of
+// kWarps warps an SM)
+template <typename R, int NT>
+__global__ void __launch_bounds__(32 * k1::kWarps, k1::min_blocks(NT)) k1_loop(double* out, int iters) {
+  using C = typename k1::CplxOf<R>::T;
+  constexpr int VT = k1::Ring<R>::VT, LD = k1::row_stride<VT>(), KS = VT / 4;
+  constexpr int NRAW = k1::kSlots * k1::kUT * LD, NES = KS * NT * 32;
+  extern __shared__ __align__(16) unsigned char sm1[];
+  C* raw = reinterpret_cast<C*>(sm1);                       // [2][kSlots][kUT][LD]
+  double* es = reinterpret_cast<double*>(raw + 2 * NRAW);   // [2][KS][NT * 32]
+  for (int i = threadIdx.x; i < 2 * NRAW; i += blockDim.x) {
+    raw[i].x = 1e-3 * (i % 97);
+    raw[i].y = 1e-3 * (i % 89);
+  }
+  for (int i = threadIdx.x; i < 2 * NES; i += blockDim.x) es[i] = 1e-3 * (i % 83);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  int offa[k1::kMT], offb[k1::kMT];
+  for (int mt = 0; mt < k1::kMT; ++mt) {
+    const int r = k1::tile_row(mt, g), ph = sizeof(R) == 4 ? (r & 1) : 0;
+    offa[mt] = ((warp % k1::kSlots) * k1::kUT + r) * LD + ph + t;
+    offb[mt] = (((warp + 1) % k1::kSlots) * k1::kUT + r) * LD + ph + t;
+  }
+  double acc[k1::kMT][NT][4];
+  for (int mt = 0; mt < k1::kMT; ++mt)
+    for (int nt = 0; nt < NT; ++nt)
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0;
+  for (int it = 0; it < iters; ++it)
+    k1::warp_tile<C, NT, KS>(acc, raw + (it & 1) * NRAW, offa, offb, es + (it & 1) * NES + lane,
+                             NT * 32);
+  double s = 0;
+  for (int mt = 0; mt < k1::kMT; ++mt)
+    for (int nt = 0; nt < NT; ++nt)
+      for (int q = 0; q < 4; ++q) s += acc[mt][nt][q];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 float timed(void (*launch)(double*, int), double* out) {
   launch(out, 5);
   cudaEvent_t e0, e1;
@@ -121,6 +165,23 @@ void run_loop(double* out) {
          cudaGetErrorString(cudaGetLastError()));
 }
 
+template <typename R, int NT, int BLOCKS>
+void run_k1_loop(const char* name, double* out) {
+  constexpr int VT = k1::Ring<R>::VT, KS = VT / 4;
+  constexpr int smem = 2 * (k1::kSlots * k1::kUT * k1::row_stride<VT>() *
+                            (int)sizeof(typename k1::CplxOf<R>::T) + KS * NT * 32 * 8);
+  constexpr int iters = 4000 / KS;
+  cudaFuncSetAttribute(k1_loop<R, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto launch = [](double* o, int warm) {
+    k1_loop<R, NT><<<132 * BLOCKS, 32 * k1::kWarps, smem>>>(o, warm ? warm : iters);
+  };
+  const float ms = timed(launch, out);
+  printf("K1 inner loop, %s NT %d, %d warps x %d blocks an SM: %5.1f TFLOP/s of DMMA (%s)\n", name,
+         NT, k1::kWarps, BLOCKS,
+         2.0 * 512 * k1::kMT * NT * KS * (double)iters * 132 * BLOCKS * k1::kWarps / ms / 1e9,
+         cudaGetErrorString(cudaGetLastError()));
+}
+
 int main() {
   double* out;
   cudaMalloc(&out, 132 * 2 * 256 * sizeof(double));
@@ -131,6 +192,11 @@ int main() {
   run_loop<5, 4, 2>(out);
   run_loop<5, 4, 1>(out);
   run_loop<4, 4, 2>(out);
+  run_k1_loop<float, 5, 4>("c64", out);
+  run_k1_loop<float, 3, 4>("c64", out);
+  run_k1_loop<float, 6, 3>("c64", out);
+  run_k1_loop<double, 5, 4>("c128", out);
+  run_k1_loop<double, 3, 4>("c128", out);
   cudaFree(out);
   return 0;
 }
