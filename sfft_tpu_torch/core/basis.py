@@ -70,11 +70,15 @@ def _bspline_basis_values(
 def basis_planes(spec: BasisSpec, N0: int, N1: int, dtype=torch.float64,
                  device=None, rows=None) -> torch.Tensor:
     """(F, N0, N1) basis plane stack via 1D outer products, on `device`;
-    rows = (r0, r1) gives the image rows [r0, r1) only."""
+    rows = (r0, r1) gives the image rows [r0, r1) only, and an integer
+    array of row indices those rows in its order (a row block with its halo
+    rows, wrapped mod N0)."""
     U, V = basis_1d_tables(spec, N0, N1)
     exps = ref_basis_exponents(spec)
-    if rows is not None:
+    if isinstance(rows, tuple):
         U = U[rows[0]:rows[1]]
+    elif rows is not None:
+        U = U[np.asarray(rows)]
     Ut = torch.as_tensor(U[:, exps[:, 0]], dtype=dtype, device=device)  # (N0, F)
     Vt = torch.as_tensor(V[:, exps[:, 1]], dtype=dtype, device=device)  # (N1, F)
     return Ut.T[:, :, None] * Vt.T[:, None, :]

@@ -30,7 +30,8 @@ def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None, rows=None):
     """SI = I * kernel-basis planes (reference SPixA_Iij); ST = background basis
     planes (reference SPixA_Tpq); SSc = I * scaling-basis planes, zero-padded to
     Fij, for SEPARATE-VARYING (reference ScaSPixA_Iij). rows = (r0, r1): I
-    is the row block [r0, r1) of the image, and so are the planes."""
+    is the row block [r0, r1) of the image, and so are the planes; an
+    integer array: I holds the image rows it lists (``basis_planes``)."""
     dt = torch_dtype(cfg.dtype if dtype is None else dtype)
     dev = I.device
     Bk = basis_planes(cfg.kernel_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)

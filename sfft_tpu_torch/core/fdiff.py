@@ -234,9 +234,11 @@ def conv_direct(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True, J=N
     The planes must be finite on the card: the kernel multiplies the zeros
     of its tap band by every staged value, so a NaN or inf reaches every
     row of its 8-row output tile, past its window (not checked: that costs
-    a device sync a call; fdiff's planes are masked, and convolve2d pads a
-    non-finite fill with zeros and adds its terms after).
-    ``conv_direct.launches`` counts the launches."""
+    a device sync a call). Its callers keep it so: ``fdiff_conv`` (the
+    unmasked image's planes may hold NaN or inf) goes through
+    ``conv_direct_nonfinite``, which zeroes them and adds their terms
+    after, and convolve2d pads a non-finite fill with zeros and adds its
+    terms after. ``conv_direct.launches`` counts the launches."""
     if planes.dim() != 3 or taps.dim() != 3 or taps.shape[0] != planes.shape[0]:
         raise ValueError(f"conv_direct needs planes (F, H, W) and taps (F, L0, L1), got "
                          f"{tuple(planes.shape)} and {tuple(taps.shape)}")
@@ -290,6 +292,57 @@ conv_direct.launches = 0
 _K9 = conv_direct
 
 
+# the codes of conv_direct_nonfinite's second launch: a pixel's class
+# (+inf, -inf, NaN) times a tap's sign (+, -, 0) lands a term of the
+# difference's sum (+inf, -inf, NaN) in its own slot of the launch's f64
+# output: +inf terms at 1 and 2^34, -inf at 2^17, NaN at 2^51 or more
+_NF_SLOT = 2.0 ** 17
+_NF_NAN = 2.0 ** 51
+
+
+def conv_direct_nonfinite(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True,
+                          J=None, ST=None, b=None, SSc=None, a00=None,
+                          scale: float = 1.0) -> torch.Tensor:
+    """``conv_direct`` for planes (and SSc) that may hold NaN or +-inf, with
+    the result of sfft_tpu's grouped conv: an output pixel is NaN where a
+    NaN, an inf under a zero tap or terms of both infinite signs reach it,
+    +-inf where infinite terms of one sign do, and K9's value elsewhere.
+    K9 takes finite planes only (``conv_direct``), so the non-finite values
+    are zeroed for it, and their terms come from a second launch on the
+    planes' codes (0 where finite, 1 at +inf, 2^17 at -inf, 2^51 at NaN)
+    with the taps' sign codes (1, 2^17, 0 -> 2^51): every product of a code
+    pair is a power of two in the slot of the term's class, and the slots'
+    integer counts stay below 2^17 (F L0 L1 < 2^17 is checked), so the sum
+    is exact. The scaling planes' non-finite values act pointwise (a00
+    times the value). No host sync: the all-finite path runs the same
+    launches and its terms are zeros."""
+    F_, L0, L1 = taps.shape
+    if F_ * L0 * L1 >= _NF_SLOT:
+        raise ValueError(f"conv_direct_nonfinite counts {F_} x {L0} x {L1} taps, past 2^17")
+
+    def split(x):
+        # (x with its non-finite values zeroed, those values alone)
+        z = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+        return z, x - z
+
+    Pz, Pnf = split(planes)
+    Sz, Snf = (None, None) if SSc is None else split(SSc)
+    out = conv_direct(Pz, taps, wrap, J, ST, b, Sz, a00, scale)
+    tcode = torch.where(taps > 0, 1.0, torch.where(taps < 0, _NF_SLOT, _NF_NAN))
+    codes = torch.nan_to_num(Pnf, nan=_NF_NAN, posinf=1.0, neginf=_NF_SLOT)
+    r = conv_direct(codes, tcode.to(planes.dtype), wrap)
+    nan = r >= _NF_NAN
+    hi = torch.floor(r / _NF_SLOT ** 2)
+    mid = torch.floor((r - hi * _NF_SLOT ** 2) / _NF_SLOT)
+    lo = r - hi * _NF_SLOT ** 2 - mid * _NF_SLOT
+    pos, neg = (lo > 0) | (hi > 0), mid > 0
+    T = torch.where(nan | (pos & neg), torch.nan,
+                    torch.where(pos, torch.inf, torch.where(neg, -torch.inf, 0.0))).to(out.dtype)
+    if SSc is not None:
+        T = T + torch.tensordot(a00, Snf, dims=([0], [0]))
+    return torch.where(T == 0, out, out - scale * T)
+
+
 def fdiff_conv(cfg: SFFTConfig, solution: torch.Tensor, SI: torch.Tensor, ST: torch.Tensor,
                J: torch.Tensor, SSc: torch.Tensor = None, plain: bool = False) -> torch.Tensor:
     """Real-space circular-convolution difference (sfft_tpu's fdiff_conv, the
@@ -301,17 +354,23 @@ def fdiff_conv(cfg: SFFTConfig, solution: torch.Tensor, SI: torch.Tensor, ST: to
 
     SEPARATE-VARYING (SSc given, possibly only its active planes): the
     center becomes -(sum_ab a_ijab - a00) and the a00 dofs act flat on the
-    SSc planes. ``conv_direct`` (K9 on the card); plain=True takes its twin."""
-    a_ijab, b_pq = split_solution(cfg, solution)
-    a00 = None
-    if SSc is not None:
-        a00 = a_ijab[: SSc.shape[0], cfg.w0, cfg.w1]
-        Astd = a_ijab.clone()
-        Astd[:, cfg.w0, cfg.w1] = -(a_ijab.sum(dim=(1, 2)) - a_ijab[:, cfg.w0, cfg.w1])
-    else:
-        Astd = standard_kernel_coeffs(cfg, a_ijab)
-    conv = conv_direct_plain if plain else conv_direct
+    SSc planes. ``conv_direct_nonfinite`` (K9 on the card; the unmasked
+    image's planes may hold NaN or inf); plain=True takes K9's twin."""
+    Astd, b_pq, a00 = conv_taps(cfg, solution, None if SSc is None else SSc.shape[0])
+    conv = conv_direct_plain if plain else conv_direct_nonfinite
     return conv(SI, Astd, True, J, ST, b_pq, SSc, a00, cfg.SCALE)
+
+
+def conv_taps(cfg: SFFTConfig, solution: torch.Tensor, nss=None):
+    """fdiff_conv's operands from the solution: the standard-basis taps
+    Astd (Fij, L0, L1), the background weights b_pq and, with nss scaling
+    planes (SEPARATE-VARYING), their a00 weights (else None)."""
+    a_ijab, b_pq = split_solution(cfg, solution)
+    if nss is None:
+        return standard_kernel_coeffs(cfg, a_ijab), b_pq, None
+    Astd = a_ijab.clone()
+    Astd[:, cfg.w0, cfg.w1] = -(a_ijab.sum(dim=(1, 2)) - a_ijab[:, cfg.w0, cfg.w1])
+    return Astd, b_pq, a_ijab[:nss, cfg.w0, cfg.w1]
 
 
 def _fold_weights(N1: int) -> np.ndarray:

@@ -404,20 +404,13 @@ def corr_window_fft(
 def corr_direct_plain(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> torch.Tensor:
     """K8's plain twin: C[p, rho + wx, eps + wy] = sum_xy A[ia[p], x, y] *
     B[ib[p], (x + rho) % N0, (y + eps) % N1] as (npairs, 2wx+1, 2wy+1), in
-    the input dtype. One loop over the lags: per lag, B rolled and one
-    (Fa, N) x (N, Fb) product (never F.conv2d with the image as its weight:
-    its im2col matrix holds one row per lag and one column per pixel)."""
-    Fa, Fb = A.shape[0], B.shape[0]
+    the input dtype: the pairs of ``corr_table_plain``'s table (one loop
+    over the lags, one (Fa, N) x (N, Fb) product each; never F.conv2d with
+    the image as its weight: its im2col matrix holds one row per lag and
+    one column per pixel)."""
     ia = torch.as_tensor(np.asarray(ia, np.int64), device=A.device)
     ib = torch.as_tensor(np.asarray(ib, np.int64), device=A.device)
-    Af = A.reshape(Fa, -1)
-    out = A.new_empty((len(ia), 2 * wx + 1, 2 * wy + 1))
-    for r in range(-wx, wx + 1):
-        Br = torch.roll(B, shifts=-r, dims=1)                  # Br[:, x] = B[:, x + r]
-        for e in range(-wy, wy + 1):
-            C = Af @ torch.roll(Br, shifts=-e, dims=2).reshape(Fb, -1).T   # (Fa, Fb)
-            out[:, r + wx, e + wy] = C[ia, ib]
-    return out
+    return corr_table_plain(A, B, -wx, 2 * wx + 1, wy)[ia, ib]
 
 
 def corr_window_conv_plain(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int) -> torch.Tensor:
@@ -623,6 +616,35 @@ def _corr_window_k8(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int) -> torch
         full[:, :, :wx] = torch.flip(half[:, :, 1:], dims=(2, 3)).transpose(0, 1)
         return full
     return _k8_table(A, B, -wx, 2 * wx + 1, wy)
+
+
+def corr_table_plain(A: torch.Tensor, B: torch.Tensor, rho_lo: int, nrho: int,
+                     wy: int) -> torch.Tensor:
+    """``_k8_table``'s plain twin: C[a, b, i, e] = sum_xy A[a, x, y] *
+    B[b, (x + rho_lo + i) % N0, (y + e - wy) % N1], (Fa, Fb, nrho, 2wy+1)
+    in the input dtype; one (Fa, N) x (N, Fb) product a lag."""
+    Fa, Fb = A.shape[0], B.shape[0]
+    Af = A.reshape(Fa, -1)
+    out = A.new_empty((Fa, Fb, nrho, 2 * wy + 1))
+    for i in range(nrho):
+        Br = torch.roll(B, shifts=-(rho_lo + i), dims=1)
+        for e in range(-wy, wy + 1):
+            out[:, :, i, e + wy] = Af @ torch.roll(Br, shifts=-e, dims=2).reshape(Fb, -1).T
+    return out
+
+
+def corr_table(A: torch.Tensor, B: torch.Tensor, rho_lo: int, nrho: int, wy: int,
+               plain: bool = False) -> torch.Tensor:
+    """CC(A_a, B_b)[rho_lo + i, e - wy] for lag rows rho_lo .. rho_lo +
+    nrho - 1, (Fa, Fb, nrho, 2wy+1): one K8 launch on CUDA tensors
+    (``_k8_table``), ``corr_table_plain`` on CPU tensors or with
+    plain=True. The row-sharded step runs it on a row block's
+    halo-extended planes (parallel/sharded_fft.py)."""
+    if plain or A.device.type == "cpu":
+        return corr_table_plain(A, B, rho_lo, nrho, wy)
+    A, B = A.contiguous(), B.contiguous()
+    _k8_check(A, B, wy)
+    return _k8_table(A, B, rho_lo, nrho, wy)
 
 
 def corr_window_conv(A: torch.Tensor, B: torch.Tensor, wx: int, wy: int,

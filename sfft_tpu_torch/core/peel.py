@@ -23,7 +23,7 @@ which runs K1 on CUDA tensors.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -371,60 +371,159 @@ def phi_table(ax0args: tuple, ax1args: tuple, exps_b: tuple) -> np.ndarray:
                      for (i1, j1) in exps_b])
 
 
-def peeled_greek_tables(
-    I: torch.Tensor,
-    J: torch.Tensor,
-    cfg: SFFTConfig,
-    plain: bool = False,
-) -> Tuple[torch.Tensor, ...]:
-    """(Comg, Cgam, Cthe, Cphi, Cdel) unscaled CC tables, mixed-precision:
-    exact f64 for every term touching smooth/polynomial content, fluct x fluct
-    via FFT in cfg.fluct_dtype. SEPARATE-VARYING adds a sixth entry
-    (Pbs, Pss, Pgs, Pts). plain=True keeps K3 and K1 out (plain twins)."""
-    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
-    if (cfg.kernel_basis.kind != "polynomial"
-            or cfg.bg_basis.kind != "polynomial"
-            or (separate_varying and cfg.scaling_basis.kind != "polynomial")):
-        # B-spline bases: the truncated-power generalization handles them
-        # (it raises where its knot layout is not supported)
-        from sfft_tpu_torch.core.peel_pw import peeled_pw_greek_tables
+class PeelShared(NamedTuple):
+    """What peeled_greek_tables consumes of the images: the raw-image moment
+    sets (I at the +-2w window, J at +-w; ``MomentSet``, or ``PWMoments``
+    for B-spline bases) and the peel fits computed from them (the
+    row-sharded step sums the blocks' moment sets)."""
 
-        return peeled_pw_greek_tables(I, J, cfg, plain=plain)
+    momI_o: MomentSet
+    momJ_g: MomentSet
+    mI: torch.Tensor
+    mJ: torch.Tensor
+
+
+class PeelGeom(NamedTuple):
+    """The peel's geometry of a polynomial-basis config (peeled and pexact)."""
+
+    exps_k: np.ndarray       # the union kernel(+scaling) exponents (Fij_u, 2)
+    exps_b: np.ndarray
+    Fk_only: int             # kernel-only count (cfg.Fij)
+    SP: int                  # poly-side exponents (S_a = mu * beta_a)
+    SG: int                  # moment exponents (F_b = Ftil * beta_b)
+    ax0o: AxisStatic         # the OMG window +-2w
+    ax1o: AxisStatic
+    ax0g: AxisStatic         # the GAM / THE window +-w
+    ax1g: AxisStatic
+    dmu: int
+
+
+def peel_geom(cfg: SFFTConfig) -> PeelGeom:
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dmu = cfg.peel_degree
     dk = cfg.kernel_basis.degree
     ds = cfg.scaling_basis.degree if separate_varying else 0
     db = cfg.bg_basis.degree
-    SP = dmu + max(dk, ds) + 1         # poly-side exponents (S_a = mu * beta_a)
-    SG = SP + max(dk, ds, db)          # moment exponents (F_b = Ftil * beta_b)
+    SP = dmu + max(dk, ds) + 1
+    SG = SP + max(dk, ds, db)
     EMAX = 2 * SG + 2
-    fd = torch_dtype(cfg.fluct_dtype)
-    dt = torch_dtype(cfg.dtype)
-    dev = I.device
-
     exps_k = ref_basis_exponents(cfg.kernel_basis)   # (Fij, 2)
-    exps_b = ref_basis_exponents(cfg.bg_basis)       # (Fpq, 2)
-    Fk_only = len(exps_k)
     if separate_varying:
         # the union of kernel and scaling basis functions: its correlation
         # tables hold the beta-beta, beta-sigma and sigma-sigma blocks
-        exps_s = ref_basis_exponents(cfg.scaling_basis)
-        exps_k = np.concatenate([exps_k, exps_s], axis=0)
+        exps_k = np.concatenate([exps_k, ref_basis_exponents(cfg.scaling_basis)], axis=0)
+    return PeelGeom(exps_k=exps_k, exps_b=ref_basis_exponents(cfg.bg_basis), Fk_only=cfg.Fij,
+                    SP=SP, SG=SG,
+                    ax0o=axis_static(N0, 2 * w0, SP, EMAX), ax1o=axis_static(N1, 2 * w1, SP, EMAX),
+                    ax0g=axis_static(N0, w0, SP, EMAX), ax1g=axis_static(N1, w1, SP, EMAX),
+                    dmu=dmu)
+
+
+def polynomial_bases(cfg: SFFTConfig) -> bool:
+    """Whether every basis the config uses is polynomial (the peel's and
+    pexact's closed-form shift algebra)."""
+    return (cfg.kernel_basis.kind == "polynomial" and cfg.bg_basis.kind == "polynomial"
+            and (cfg.scaling_mode != "SEPARATE-VARYING"
+                 or cfg.scaling_basis.kind == "polynomial"))
+
+
+def peel_moment_sets(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig, plain: bool = False,
+                     row0: int = 0):
+    """(momI_o, momJ_g): the exact moment sets of I (+-2w window) and J (+-w)
+    (K3 on CUDA tensors). I and J may be the row block of the images that
+    starts at image row row0: the results are that block's shares."""
+    g = peel_geom(cfg)
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    momI_o = moment_set(I.to(dt), N0, N1, 2 * w0, 2 * w1, g.SG, g.ax0o, g.ax1o, plain, row0=row0)
+    momJ_g = moment_set(J.to(dt), N0, N1, w0, w1, g.SG, g.ax0g, g.ax1g, plain, row0=row0)
+    return momI_o, momJ_g
+
+
+def peel_fits(momI_o: MomentSet, momJ_g: MomentSet, cfg: SFFTConfig) -> PeelShared:
+    """The peel fits of I and J from their (summed) moment sets."""
+    g = peel_geom(cfg)
+    dmu = cfg.peel_degree
+    mI = fit_poly_coeffs(momI_o.M, dmu, g.ax0o, g.ax1o)          # (dmu+1, dmu+1)
+    mJ = fit_poly_coeffs(momJ_g.M, dmu, g.ax0g, g.ax1g)
+    return PeelShared(momI_o=momI_o, momJ_g=momJ_g, mI=mI, mJ=mJ)
+
+
+def fluct_stack(I: torch.Tensor, J: torch.Tensor, mI: torch.Tensor, mJ: torch.Tensor,
+                cfg: SFFTConfig, rows=None) -> torch.Tensor:
+    """[F_J] + F_I * beta_union in cfg.fluct_dtype, (1 + Fij, n, N1): the
+    fluctuation planes whose windows are the fluct x fluct terms. rows =
+    (r0, r1): I and J are the image rows [r0, r1)."""
+    g = peel_geom(cfg)
+    N0, N1 = cfg.N0, cfg.N1
+    r0, r1 = (0, N0) if rows is None else rows
+    fd = torch_dtype(cfg.fluct_dtype)
+    dmu = cfg.peel_degree
+    U = _t(coord_powers, (N0, dmu + 1, 0, N0), I, fd)[:, r0:r1]   # (dmu+1, n)
+    V = _t(coord_powers, (N1, dmu + 1, 0, N1), I, fd)
+    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
+    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
+    FIf = I.to(fd) - smoothI
+    FJf = J.to(fd) - smoothJ
+    Uk = _t(coord_powers_of, (N0, tuple(int(i) for i in g.exps_k[:, 0])), I, fd)[:, r0:r1]
+    Vk = _t(coord_powers_of, (N1, tuple(int(j) for j in g.exps_k[:, 1])), I, fd)
+    Fplanes = FIf[None] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, n, N1)
+    return torch.cat([FJf[None], Fplanes], dim=0)
+
+
+def fluct_windows(specs: torch.Tensor, cfg: SFFTConfig, plain: bool = False, row0=None):
+    """(FF, FFJwin): CC(F_a, F_b) at +-2w and CC(F_a, F_J) at +-w in
+    cfg.dtype from the half spectra of ``fluct_stack`` (K1 on CUDA
+    tensors); row0: the spectra's frequency rows [row0, row0 + rows) only,
+    and the results are their shares."""
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    specJ, specF = specs[0:1], specs[1:]
+    FF = corr_window_fft(specF, specF, N0, N1, 2 * w0, 2 * w1, chunk=cfg.greek_chunk,
+                         symmetric=True, plain=plain, row0=row0).to(dt)
+    FFJwin = corr_window_fft(specF, specJ, N0, N1, w0, w1, chunk=cfg.greek_chunk, plain=plain,
+                             row0=row0)[:, 0].to(dt)
+    return FF, FFJwin
+
+
+def peeled_greek_tables(
+    I: torch.Tensor,
+    J: torch.Tensor,
+    cfg: SFFTConfig,
+    plain: bool = False,
+    shared: Optional[PeelShared] = None,
+    window=None,
+) -> Tuple[torch.Tensor, ...]:
+    """(Comg, Cgam, Cthe, Cphi, Cdel) unscaled CC tables, mixed-precision:
+    exact f64 for every term touching smooth/polynomial content, fluct x fluct
+    via FFT in cfg.fluct_dtype. SEPARATE-VARYING adds a sixth entry
+    (Pbs, Pss, Pgs, Pts). plain=True keeps K3 and K1 out (plain twins).
+    shared (``PeelShared``) and window() -> (FF, FFJwin), when given, stand
+    in for the moment stage and the fluctuation windows of (I, J) (the
+    row-sharded step sums them over row blocks; I and J are then unused)."""
+    if not polynomial_bases(cfg):
+        # B-spline bases: the truncated-power generalization handles them
+        # (it raises where its knot layout is not supported)
+        from sfft_tpu_torch.core.peel_pw import peeled_pw_greek_tables
+
+        return peeled_pw_greek_tables(I, J, cfg, plain=plain, shared=shared, window=window)
+    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
+    w0, w1 = cfg.w0, cfg.w1
+    dmu = cfg.peel_degree
+    g = peel_geom(cfg)
+    SP, SG = g.SP, g.SG
+    dt = torch_dtype(cfg.dtype)
+    exps_k, exps_b = g.exps_k, g.exps_b
+    Fk_only = g.Fk_only
     Fij, Fpq = len(exps_k), len(exps_b)
+    ax0o, ax1o, ax0g, ax1g = g.ax0o, g.ax1o, g.ax0g, g.ax1g
 
-    ax0o = axis_static(N0, 2 * w0, SP, EMAX)   # OMG window +-2w
-    ax1o = axis_static(N1, 2 * w1, SP, EMAX)
-    ax0g = axis_static(N0, w0, SP, EMAX)       # GAM/THE window +-w
-    ax1g = axis_static(N1, w1, SP, EMAX)
-
-    I = I.to(dt)
-    J = J.to(dt)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
-
-    # --- exact moment sets of raw images ------------------------------
-    momI_o = moment_set(I, N0, N1, 2 * w0, 2 * w1, SG, ax0o, ax1o, plain)
+    # --- exact moment sets of raw images, the polynomial peels -------------
+    if shared is None:
+        shared = peel_fits(*peel_moment_sets(I, J, cfg, plain), cfg)
+    momI_o, momJ_g, mI, mJ = shared
+    dev = mI.device
     # the +-w window set is a central slice of the +-2w one
     momI_g = MomentSet(
         M=momI_o.M,
@@ -432,11 +531,9 @@ def peeled_greek_tables(
         CS=momI_o.CS[w1 : 3 * w1 + 1],
         CNR=momI_o.CNR[w0 : 3 * w0 + 1, w1 : 3 * w1 + 1],
     )
-    momJ_g = moment_set(J, N0, N1, w0, w1, SG, ax0g, ax1g, plain)
 
-    # --- polynomial peels ----------------------------------------------
-    mI = fit_poly_coeffs(momI_o.M, dmu, ax0o, ax1o)          # (dmu+1, dmu+1)
-    mJ = fit_poly_coeffs(momJ_g.M, dmu, ax0g, ax1g)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings, (Fij, SP, SP)
     PA = zeros(Fij, SP, SP)
@@ -473,23 +570,12 @@ def peeled_greek_tables(
     SF = polycorr(PA, momFb_o, ax0o, ax1o)            # CC(S_a, F_b)
     FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))  # CC(F_a, S_b)
 
-    # fluct planes in fluct dtype for the FFT part
-    U = _t(coord_powers, (N0, dmu + 1, 0, N0), I, fd)  # (dmu+1, N0)
-    V = _t(coord_powers, (N1, dmu + 1, 0, N1), I, fd)
-    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
-    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
-    FIf = I.to(fd) - smoothI
-    FJf = J.to(fd) - smoothJ
-    Uk = _t(coord_powers_of, (N0, tuple(int(i) for i in exps_k[:, 0])), I, fd)
-    Vk = _t(coord_powers_of, (N1, tuple(int(j) for j in exps_k[:, 1])), I, fd)
-    Fplanes = FIf[None] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, N0, N1)
-
-    stack = torch.cat([FJf[None], Fplanes], dim=0)
-    specs = torch.fft.rfft2(stack)
-    specJ = specs[0:1]
-    specF = specs[1:]
-    FF = corr_window_fft(specF, specF, N0, N1, 2 * w0, 2 * w1,
-                         chunk=cfg.greek_chunk, symmetric=True, plain=plain).to(dt)
+    # --- fluct x fluct: the windows of the fluctuation planes --------------
+    if window is None:
+        specs = torch.fft.rfft2(fluct_stack(I.to(dt), J.to(dt), mI, mJ, cfg))
+        FF, FFJwin = fluct_windows(specs, cfg, plain)
+    else:
+        FF, FFJwin = window()
     Comg = SS + SF + FS + FF
 
     # --- GAM: (Fij, Fpq, R0g, R1g) — fully exact ------------------------
@@ -502,12 +588,10 @@ def peeled_greek_tables(
     # --- THE: (Fij, R0g, R1g) -------------------------------------------
     SJ = polycorr(PA, momJ_g, ax0g, ax1g)             # CC(S_a, J) exact
     FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[0], dims=(1, 2))  # CC(F_a, S_J)
-    FFJwin = corr_window_fft(specF, specJ, N0, N1, w0, w1,
-                             chunk=cfg.greek_chunk, plain=plain)[:, 0].to(dt)
     Cthe = SJ + FSJ + FFJwin
 
     # --- PHI / DEL: closed form from static sums / moments --------------
-    Cphi = _t(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b)), I, dt)
+    Cphi = _t(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b)), mI, dt)
     Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
 
     if not separate_varying:

@@ -51,7 +51,6 @@ import torch.nn.functional as F
 
 from sfft_tpu_torch.config import BasisSpec, SFFTConfig, torch_dtype
 from sfft_tpu_torch.core.basis import basis_1d_tables
-from sfft_tpu_torch.core.greek import corr_window_fft
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.peel import _exact_skinny_matmul, _shiftmat, axis_static, fit_poly_coeffs
 from sfft_tpu_torch.core.statics import Static, table
@@ -430,20 +429,42 @@ def _rows(G: torch.Tensor, ranges) -> torch.Tensor:
 
 
 def pw_moment_set(G: torch.Tensor, ax0: PWAxis, ax1: PWAxis, SG: int,
-                  plain: bool = False) -> PWMoments:
+                  plain: bool = False, row0: int = 0) -> PWMoments:
     """All nine moment classes of image G (N0, N1), exact f64 (the image
-    contractions through K3 on CUDA tensors; plain=True keeps it out)."""
+    contractions through K3 on CUDA tensors; plain=True keeps it out).
+
+    G may be a row block of the image: its rows are the image's rows
+    [row0, row0 + G.shape[0]), and the result is that block's share (every
+    class is a sum over image rows: the boundary strips and knot slivers
+    take the rows this block holds, zeros elsewhere), so that the blocks'
+    shares sum to the image's moment set (the row-sharded step)."""
     dt, dev = G.dtype, G.device
     N0, N1, w0, w1 = ax0.N, ax1.N, ax0.w, ax1.w
     M0, M1 = len(ax0.thr), len(ax1.thr)
     K0, K1 = M0 - 1, M1 - 1
     R0, R1 = 2 * w0 + 1, 2 * w1 + 1
+    n = G.shape[0]
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    def rows_of(lo, hi):
+        # the image rows [lo, hi) as far as G holds them (zero rows elsewhere)
+        a, b = max(lo, row0), min(hi, row0 + n)
+        if (a, b) == (lo, hi):
+            return G[lo - row0: hi - row0]
+        out = zeros(hi - lo, G.shape[1])
+        if a < b:
+            out[a - lo: b - lo] = G[a - row0: b - row0]
+        return out
+
+    def xrows(ranges):
+        return torch.cat([rows_of(lo, hi) for lo, hi in ranges], dim=0)
+
     Wx = _ax_t(ax0, G, "rows", SG)   # (M0*SG, N0)
     Wy = _ax_t(ax1, G, "rows", SG)   # (M1*SG, N1)
+    if (row0, n) != (0, N0):
+        Wx = Wx[:, row0:row0 + n].contiguous()
 
     # MM
     MM = (_exact_skinny_matmul(Wx, G, plain) @ Wy.T).reshape(M0, SG, M1, SG)
@@ -459,8 +480,8 @@ def pw_moment_set(G: torch.Tensor, ax0: PWAxis, ax1: PWAxis, SG: int,
         return _ax_t(ax1, G, "cpow", SG, ranges)
 
     # BM: boundary strips x<l (top, prefix) / x>=N-|l| (bottom, suffix)
-    top = xrows_ysuf(G[:w0]) if w0 else zeros(0, M1 * SG)
-    bot = xrows_ysuf(G[N0 - w0:]) if w0 else zeros(0, M1 * SG)
+    top = xrows_ysuf(rows_of(0, w0)) if w0 else zeros(0, M1 * SG)
+    bot = xrows_ysuf(rows_of(N0 - w0, N0)) if w0 else zeros(0, M1 * SG)
     Ttop = cp0(((0, w0),))[:, :, None] * top[None]            # (SG, w0, Q)
     Tbot = cp0(((N0 - w0, N0),))[:, :, None] * bot[None]
     pf = torch.cumsum(Ttop, dim=1)                             # sum_{x<l}
@@ -473,7 +494,7 @@ def pw_moment_set(G: torch.Tensor, ax0: PWAxis, ax1: PWAxis, SG: int,
     # KM: knot slivers; strip rows [T-w, T+w)
     KMs = []
     for t in ax0.thr[1:]:
-        rows = xrows_ysuf(G[t - w0 : t + w0])                  # (2w0, Q)
+        rows = xrows_ysuf(rows_of(t - w0, t + w0))             # (2w0, Q)
         cw = cp0(((t - w0, t + w0),))                          # (SG, 2w0)
         T = cw[:, :, None] * rows[None]
         fw = torch.cumsum(T[:, w0:, :], dim=1)                 # [T, T+d)
@@ -526,7 +547,7 @@ def pw_moment_set(G: torch.Tensor, ax0: PWAxis, ax1: PWAxis, SG: int,
     def block2d(xr, yr, kind0, kind1):
         """Lag-indexed rectangle sums over a power-weighted block, as one
         4-term gather over all (R0, R1) lag pairs."""
-        blk = _rows(_rows(G, xr).T, yr).T
+        blk = _rows(xrows(xr).T, yr).T
         cwx = cp0(xr)
         cwy = cp1(yr)
         T = cwx[:, None, :, None] * cwy[None, :, None, :] * blk[None, None]
@@ -1042,48 +1063,95 @@ def _pw_plan_entry(cfg: SFFTConfig, name: str):
     return _pw_plan(cfg)[name]
 
 
+def _pw_axes(cfg: SFFTConfig):
+    """(ax0o, ax1o, ax0g, ax1g): the union-threshold axes at the +-2w and
+    +-w windows."""
+    plan = _pw_plan(cfg)
+    thr0, thr1, SPA, EMAX = plan["thr0"], plan["thr1"], plan["SPA"], plan["EMAX"]
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    return (pw_axis(N0, 2 * w0, thr0, SPA, EMAX), pw_axis(N1, 2 * w1, thr1, SPA, EMAX),
+            pw_axis(N0, w0, thr0, SPA, EMAX), pw_axis(N1, w1, thr1, SPA, EMAX))
+
+
+def pw_peel_moment_sets(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
+                        plain: bool = False, row0: int = 0):
+    """(momI_o, momJ_g): the measured moment classes of I (+-2w) and J
+    (+-w); I and J may be the row block of the images that starts at image
+    row row0 (``pw_moment_set``)."""
+    SG = _pw_plan(cfg)["SG"]
+    dt = torch_dtype(cfg.dtype)
+    ax0o, ax1o, ax0g, ax1g = _pw_axes(cfg)
+    return (pw_moment_set(I.to(dt), ax0o, ax1o, SG, plain, row0=row0),
+            pw_moment_set(J.to(dt), ax0g, ax1g, SG, plain, row0=row0))
+
+
+def pw_peel_fits(momI_o: PWMoments, momJ_g: PWMoments, cfg: SFFTConfig):
+    """The smooth fits (exact plain power moments = MM[0, :, 0, :]) of I
+    and J from their (summed) moment classes, as a ``peel.PeelShared``."""
+    from sfft_tpu_torch.core.peel import PeelShared
+
+    EMAX = _pw_plan(cfg)["EMAX"]
+    dmu = cfg.peel_degree
+    axs0 = axis_static(cfg.N0, 1, 1, EMAX)
+    axs1 = axis_static(cfg.N1, 1, 1, EMAX)
+    return PeelShared(momI_o=momI_o, momJ_g=momJ_g,
+                      mI=fit_poly_coeffs(momI_o.MM[0, :, 0, :], dmu, axs0, axs1),
+                      mJ=fit_poly_coeffs(momJ_g.MM[0, :, 0, :], dmu, axs0, axs1))
+
+
+def pw_fluct_stack(I: torch.Tensor, J: torch.Tensor, mI: torch.Tensor, mJ: torch.Tensor,
+                   cfg: SFFTConfig, rows=None) -> torch.Tensor:
+    """[F_J] + F_I * beta_union in cfg.fluct_dtype (the evaluated basis
+    factors), (1 + Fij, n, N1); rows = (r0, r1): I and J are the image rows
+    [r0, r1)."""
+    fd = torch_dtype(cfg.fluct_dtype)
+    r0, r1 = (0, cfg.N0) if rows is None else rows
+
+    def host(name):
+        return table(Static(_pw_plan_entry, (cfg, name)), I.device, fd)
+
+    U, V = host("U")[:, r0:r1], host("V")
+    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
+    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
+    FIf = I.to(fd) - smoothI
+    FJf = J.to(fd) - smoothJ
+    Uaf, Vaf = host("Ua")[:, r0:r1], host("Va")
+    Fplanes = FIf[None] * (Uaf[:, :, None] * Vaf[:, None, :])
+    return torch.cat([FJf[None], Fplanes], dim=0)
+
+
 def peeled_pw_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
-                           plain: bool = False):
+                           plain: bool = False, shared=None, window=None):
     """(Comg, Cgam, Cthe, Cphi, Cdel) unscaled CC tables for arbitrary
     polynomial / B-spline bases, mixed-precision: exact f64 for every term
     touching smooth content, fluct x fluct via FFT in cfg.fluct_dtype.
     SEPARATE-VARYING adds a sixth entry (Pbs, Pss, Pgs, Pts). plain=True
-    keeps K3 and K1 out (plain twins).
+    keeps K3 and K1 out (plain twins). shared (``peel.PeelShared`` of
+    ``PWMoments``) and window() -> (FF, FFJwin), when given, stand in for
+    the moment stage and the fluctuation windows of (I, J), as in
+    ``peel.peeled_greek_tables``.
 
     Piecewise generalization of core/peel.py:peeled_greek_tables (same term
     structure: OMG = SS+SF+FS+FF, GAM = SS+FS exact, THE = SJ+FSJ+FFJ)."""
+    from sfft_tpu_torch.core.peel import fluct_windows
+
     separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
-    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    w0, w1 = cfg.w0, cfg.w1
     dmu = cfg.peel_degree
-    fd = torch_dtype(cfg.fluct_dtype)
     dt = torch_dtype(cfg.dtype)
-    dev = I.device
     plan = _pw_plan(cfg)
-    thr0, thr1, SPA, SG, EMAX, Pk = (plan[k] for k in ("thr0", "thr1", "SPA", "SG", "EMAX",
-                                                       "Pk"))
+    thr0, thr1, SPA, SG, Pk = (plan[k] for k in ("thr0", "thr1", "SPA", "SG", "Pk"))
+    ax0o, ax1o, ax0g, ax1g = _pw_axes(cfg)
+    M0, M1 = len(thr0), len(thr1)
+
+    # --- measured moment classes, smooth fits ------------------------------
+    if shared is None:
+        shared = pw_peel_fits(*pw_peel_moment_sets(I, J, cfg, plain), cfg)
+    momI_o, momJ_g, mI, mJ = shared
+    dev = mI.device
 
     def host(name, dtype=dt):
         return table(Static(_pw_plan_entry, (cfg, name)), dev, dtype)
-
-    ax0o = pw_axis(N0, 2 * w0, thr0, SPA, EMAX)
-    ax1o = pw_axis(N1, 2 * w1, thr1, SPA, EMAX)
-    ax0g = pw_axis(N0, w0, thr0, SPA, EMAX)
-    ax1g = pw_axis(N1, w1, thr1, SPA, EMAX)
-    M0, M1 = len(thr0), len(thr1)
-
-    I = I.to(dt)
-    J = J.to(dt)
-
-    # --- measured moment classes ------------------------------------------
-    momI_o = pw_moment_set(I, ax0o, ax1o, SG, plain)
-    momI_g = _slice_mom(momI_o, w0, w1, 2 * w0, 2 * w1)
-    momJ_g = pw_moment_set(J, ax0g, ax1g, SG, plain)
-
-    # --- smooth fits (exact plain power moments = MM[0, :, 0, :]) ---------
-    axs0 = axis_static(N0, 1, 1, EMAX)
-    axs1 = axis_static(N1, 1, 1, EMAX)
-    mI = fit_poly_coeffs(momI_o.MM[0, :, 0, :], dmu, axs0, axs1)
-    mJ = fit_poly_coeffs(momJ_g.MM[0, :, 0, :], dmu, axs0, axs1)
 
     # --- fluct moment classes = measured - static(smooth) ------------------
     def smooth_static(mcoef, ax0_, ax1_):
@@ -1116,19 +1184,11 @@ def peeled_pw_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     SF = pw_corr(A2_Sa, momFb_o, ax0o, ax1o, plain)
     FS = SF.permute(1, 0, 2, 3).flip((2, 3))
 
-    U, V = host("U", fd), host("V", fd)
-    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
-    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
-    FIf = I.to(fd) - smoothI
-    FJf = J.to(fd) - smoothJ
-    Uaf, Vaf = host("Ua", fd), host("Va", fd)
-    Fplanes = FIf[None] * (Uaf[:, :, None] * Vaf[:, None, :])
-
-    specs_f = torch.fft.rfft2(torch.cat([FJf[None], Fplanes], dim=0))
-    specJ = specs_f[0:1]
-    specF = specs_f[1:]
-    FF = corr_window_fft(specF, specF, N0, N1, 2 * w0, 2 * w1, chunk=cfg.greek_chunk,
-                         symmetric=True, plain=plain).to(dt)
+    if window is None:
+        specs = torch.fft.rfft2(pw_fluct_stack(I.to(dt), J.to(dt), mI, mJ, cfg))
+        FF, FFJwin = fluct_windows(specs, cfg, plain)
+    else:
+        FF, FFJwin = window()
     Comg = SS + SF + FS + FF
 
     # --- GAM (fully exact) --------------------------------------------------
@@ -1143,8 +1203,6 @@ def peeled_pw_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     # --- THE ----------------------------------------------------------------
     SJ = pw_corr(A2_Sa, momJ_g, ax0g, ax1g, plain)
     FSJ = pw_corr(mJ2, momFa_g, ax0g, ax1g, plain)[0].flip((1, 2))
-    FFJwin = corr_window_fft(specF, specJ, N0, N1, w0, w1, chunk=cfg.greek_chunk,
-                             plain=plain)[:, 0].to(dt)
     Cthe = SJ + FSJ + FFJwin
 
     # --- PHI / DEL (exact closed forms) --------------------------------------

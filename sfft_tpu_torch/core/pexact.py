@@ -33,10 +33,11 @@ from sfft_tpu_torch.core.fdiff import (exact_inverse_axis1, kernel_spectra,
                                         pair_model_spectrum, split_solution,
                                         standard_kernel_coeffs)
 from sfft_tpu_torch.core.indices import ref_basis_exponents
-from sfft_tpu_torch.core.peel import (AxisStatic, MomentSet, _axis_field, _exps_key,
+from sfft_tpu_torch.core.peel import (MomentSet, PeelGeom, _axis_field, _exps_key,
                                       axis_static, coord_powers, coord_powers_of,
-                                      fit_poly_coeffs, moment_set, phi_table, poly_moment_set,
-                                      polycorr, shift_moment_set)
+                                      fit_poly_coeffs, moment_set, peel_geom, phi_table,
+                                      poly_moment_set, polycorr, polynomial_bases,
+                                      shift_moment_set)
 from sfft_tpu_torch.core.statics import Static, index, table
 
 
@@ -74,53 +75,16 @@ def pair_poly_plane(C: torch.Tensor, N0: int, N1: int, plain: bool = False) -> C
 # ---------------------------------------------------------------------------
 
 
-class _Geom(NamedTuple):
-    exps_k: np.ndarray       # UNION kernel(+scaling) exponents (Fij_u, 2)
-    exps_b: np.ndarray
-    Fk_only: int             # kernel-only count (cfg.Fij)
-    SP: int                  # poly-side exponents (S_a = mu * beta_a)
-    SG: int                  # moment exponents
-    ax0o: AxisStatic
-    ax1o: AxisStatic
-    ax0g: AxisStatic
-    ax1g: AxisStatic
-    dmu: int
-
-
 def pexact_supported(cfg: SFFTConfig) -> bool:
-    if cfg.kernel_basis.kind != "polynomial" or cfg.bg_basis.kind != "polynomial":
-        return False
-    if cfg.scaling_mode == "SEPARATE-VARYING" and cfg.scaling_basis.kind != "polynomial":
-        return False
-    return True
+    return polynomial_bases(cfg)
 
 
-def _geom(cfg: SFFTConfig) -> _Geom:
+def _geom(cfg: SFFTConfig) -> PeelGeom:
     if not pexact_supported(cfg):
         raise ValueError(
             "pexact backends require polynomial kernel/background/scaling "
             "bases; B-spline configs use greek_backend='exact'")
-    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
-    separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
-    dmu = cfg.peel_degree
-    dk = cfg.kernel_basis.degree
-    ds = cfg.scaling_basis.degree if separate_varying else 0
-    db = cfg.bg_basis.degree
-    SP = dmu + max(dk, ds) + 1
-    SG = SP + max(dk, ds, db)
-    EMAX = 2 * SG + 2
-    exps_k = ref_basis_exponents(cfg.kernel_basis)
-    if separate_varying:
-        exps_k = np.concatenate([exps_k, ref_basis_exponents(cfg.scaling_basis)], axis=0)
-    return _Geom(
-        exps_k=exps_k, exps_b=ref_basis_exponents(cfg.bg_basis),
-        Fk_only=cfg.Fij, SP=SP, SG=SG,
-        ax0o=axis_static(N0, 2 * w0, SP, EMAX),
-        ax1o=axis_static(N1, 2 * w1, SP, EMAX),
-        ax0g=axis_static(N0, w0, SP, EMAX),
-        ax1g=axis_static(N1, w1, SP, EMAX),
-        dmu=dmu,
-    )
+    return peel_geom(cfg)
 
 
 class PexactShared(NamedTuple):

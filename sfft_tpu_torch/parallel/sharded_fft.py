@@ -19,13 +19,17 @@ and trim them after (zero columns transform to zero columns).
 
 ``sharded_subtract_step`` is the solve-and-subtract step of one pair with
 every image-size array in row blocks (or in column blocks inside a
-transform). Only three things cross devices inside it: (i) the pencil
+transform). Only four things cross devices inside it: (i) the pencil
 transposes; (ii) partial reductions of a block, summed in a fixed order on
 devices[0]: correlation tables of the normal system's size and moment sets
 (vectors no longer than one image side per plane), and what is computed
-from the sums alone (pexact's peel coefficients), copied back to each
-device; (iii) the solution, solved once on devices[0] and copied to each
-device. The difference is gathered only as the caller's output.
+from the sums alone (the peel coefficients of pexact and peeled), copied
+back to each device; (iii) the solution, solved once on devices[0] and
+copied to each device; (iv) halo rows (``halo_rows``): the rows of the
+neighbouring blocks that a windowed operation in real space needs (the
+FFT-free route: K8's lags, K9's taps), of the image planes only; each
+block builds its basis-weighted plane stacks at its wrapped row indices.
+The difference is gathered only as the caller's output.
 
 The exact products keep the local step's numbers: every block of an
 operand is sliced with the whole operand's scales (one max over the blocks,
@@ -33,9 +37,12 @@ a partial reduction of one value per part or per row), and a contraction
 over the row blocks sums the blocks' int32 products (exact) before one
 epilogue on devices[0]; so the exact engine's sharded step is the local
 step bit for bit. What the split changes: the f64 sums of pexact's moment
-sets (K3 per block), of the fft family's windows (K1 per frequency-row
-block), the blocks' own cuFFT transforms, and the f64 background and
-wrap-strip products taken at a block's rows.
+sets (K3 per block), of the fft family's and the peeled backend's windows
+(K1 per frequency-row block), of the corr route's tables (K8 per block on
+its halo-extended planes), the blocks' own cuFFT transforms, and the f64
+background and wrap-strip products taken at a block's rows. The conv
+difference (K9 per block on its halo-extended planes) computes each pixel
+as the local step does.
 """
 
 from __future__ import annotations
@@ -60,8 +67,8 @@ from sfft_tpu_torch.core.exact_fft import (KMAX, NSL_DATA, NSL_STATIC, CPair, Sl
 from sfft_tpu_torch.core.statics import Static, index
 from sfft_tpu_torch.parallel.batch import data_devices
 
-GREEK_BACKENDS = ("fft", "fft32", "exact", "pexact")
-FDIFF_BACKENDS = ("fft", "fft32", "exact", "pexact")
+GREEK_BACKENDS = ("fft", "fft32", "exact", "pexact", "peeled", "corr")
+FDIFF_BACKENDS = ("fft", "fft32", "exact", "pexact", "conv")
 
 
 class RowBlocks(NamedTuple):
@@ -165,6 +172,41 @@ def exchange(blocks: Sequence[torch.Tensor], devices, to_cols: bool) -> list:
 
 exchange.bytes = 0
 exchange.calls = 0
+
+
+def halo_rows(x: RowBlocks, above: int, below: int) -> list:
+    """Each block of x (tensors (..., n, C)) extended by its neighbours'
+    rows: block k becomes the image rows [k n - above, (k + 1) n + below)
+    mod N0 on devices[k], (..., n + above + below, C). A halo deeper than
+    one block takes rows from as many blocks as it spans; each piece of
+    another block is a copy to devices[k] (``exchange``'s ordering).
+    ``halo_rows.bytes`` counts the bytes of those pieces,
+    ``halo_rows.calls`` the calls."""
+    n, d = x.rows, len(x.devices)
+    out = []
+    for k, dev in enumerate(x.devices):
+        parts, r, hi = [], k * n - above, (k + 1) * n + below
+        while r < hi:
+            j, off = (r // n) % d, r % n
+            piece = x.blocks[j][..., off:min(n, off + hi - r), :]
+            if j != k:
+                halo_rows.bytes += piece.numel() * piece.element_size()
+                piece = piece.to(dev, non_blocking=True)
+            parts.append(piece)
+            r += piece.shape[-2]
+        out.append(torch.cat(parts, dim=-2))
+    halo_rows.calls += 1
+    return out
+
+
+halo_rows.bytes = 0
+halo_rows.calls = 0
+
+
+def _wrapped_rows(r0: int, r1: int, above: int, below: int, N0: int) -> np.ndarray:
+    """The image rows [r0 - above, r1 + below) mod N0: a halo-extended
+    block's row indices."""
+    return np.arange(r0 - above, r1 + below) % N0
 
 
 def _pexchange(blocks: Sequence[CPair], devices, to_cols: bool) -> list:
@@ -654,6 +696,91 @@ def _pexact_tables(cfg: SFFTConfig, sh, plain: bool):
     return out[:5], (out[5] if cfg.scaling_mode == "SEPARATE-VARYING" else None)
 
 
+def _peeled_tables(cfg: SFFTConfig, I: RowBlocks, J: RowBlocks, plain: bool):
+    """greek 'peeled' (peeled_greek_tables; peeled_pw_greek_tables for
+    B-spline bases): the moment sets per block (K3), summed on devices[0];
+    the fits there, copied to each device; the fluctuation planes per block
+    in cfg.fluct_dtype, their half spectra with row sharding, the windows
+    per frequency-row block (K1 with the block's rows of E0), summed in
+    cfg.dtype; the moment algebra once on devices[0]."""
+    from sfft_tpu_torch.core import peel, peel_pw
+
+    if peel.polynomial_bases(cfg):
+        moments, fits, fluct = peel.peel_moment_sets, peel.peel_fits, peel.fluct_stack
+    else:
+        moments, fits, fluct = (peel_pw.pw_peel_moment_sets, peel_pw.pw_peel_fits,
+                                peel_pw.pw_fluct_stack)
+    dt = torch_dtype(cfg.dtype)
+    dev0 = I.devices[0]
+    spans = I.spans()
+    Ib = [b.to(dt) for b in I.blocks]
+    Jb = [b.to(dt) for b in J.blocks]
+    moms = [moments(a, b, cfg, plain, row0=r0) for (_, _, r0, _), a, b in zip(spans, Ib, Jb)]
+    shared = fits(_sum_on([m[0] for m in moms], dev0), _sum_on([m[1] for m in moms], dev0), cfg)
+    mIs, mJs = _on_each(shared.mI, I.devices), _on_each(shared.mJ, I.devices)
+    stacks = [fluct(a, b, mIs[k], mJs[k], cfg, rows=(r0, r1))
+              for (k, _, r0, r1), a, b in zip(spans, Ib, Jb)]
+    specs = sharded_rfft2(RowBlocks(tuple(stacks), I.devices))
+    wins = [peel.fluct_windows(sp, cfg, plain, row0=r0)
+            for (_, _, r0, _), sp in zip(spans, specs.blocks)]
+    FF, FFJ = (_sum_on([w[i] for w in wins], dev0) for i in range(2))
+    out = peel.peeled_greek_tables(None, None, cfg, plain=plain, shared=shared,
+                                   window=lambda: (FF, FFJ))
+    return out[:5], (out[5] if cfg.scaling_mode == "SEPARATE-VARYING" else None)
+
+
+def _corr_tables(cfg: SFFTConfig, I: RowBlocks, J: RowBlocks, plain: bool):
+    """greek 'corr' (greek_tables and greek_tables_separate on K8): block
+    k's share of CC(A_a, B_b)[rho, eps] sums x over the block's own rows,
+    so its K8 launch (``greek.corr_table``) takes A zero outside them and B
+    over the rows [r0 + rho_min, r1 + rho_max]: the image planes' halo rows
+    (w0 above, 2 w0 below), the plane stacks built at the wrapped row
+    indices. K8's circular wrap over the extended rows lands on A's zeros,
+    and so does its operand swap. Comg takes the lag rows rho = 0 .. 2 w0
+    of every pair (only the successor halo) and mirrors the rows rho < 0
+    from the blocks' sum (a block's share is not symmetric); Cgam, Cthe and
+    Pbs (on the active scaling planes) take -w0 .. w0; the lag-zero blocks
+    are inner products per block. The sums run in block order on
+    devices[0]."""
+    from sfft_tpu_torch.core.engine import _plane_stacks
+    from sfft_tpu_torch.core.greek import _pad_scaling, corr_table, dot_planes
+
+    N0, w0, w1 = cfg.N0, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    sep = cfg.scaling_mode == "SEPARATE-VARYING"
+    nS = cfg.scaling_basis.num_funcs() if sep else 0
+    n, R0 = I.rows, 2 * w0 + 1
+    Ih = halo_rows(RowBlocks(tuple(b.to(dt) for b in I.blocks), I.devices), w0, 2 * w0)
+    Jh = halo_rows(RowBlocks(tuple(b.to(dt) for b in J.blocks), J.devices), w0, w0)
+    parts = []
+    for (k, dev, r0, r1), Ik, Jk in zip(I.spans(), Ih, Jh):
+        # SI over the rows [r0 - w0, r1 + 2 w0): Comg's frame starts at r0,
+        # the others' frame [r0 - w0, r1 + w0) at row 0 of the stacks
+        SI, ST, SSc = _plane_stacks(cfg, Ik, rows=_wrapped_rows(r0, r1, w0, 2 * w0, N0))
+        own, frame = slice(w0, w0 + n), slice(0, n + 2 * w0)
+        A2 = F.pad(SI[:, own], (0, 0, 0, 2 * w0))
+        A1 = F.pad(SI[:, own], (0, 0, w0, w0))
+        STb, Jb = ST[:, own], Jk[own]
+        pk = [corr_table(A2, SI[:, w0:], 0, 2 * w0 + 1, 2 * w1, plain),
+              corr_table(A1, ST[:, frame], -w0, R0, w1, plain),
+              corr_table(A1, Jk[None], -w0, R0, w1, plain)[:, 0],
+              dot_planes(STb, STb), dot_planes(STb, Jb[None])[:, 0]]
+        if sep:
+            SA = SSc[:nS]
+            SAb = SA[:, own]
+            pk += [corr_table(A1, SA[:, frame], -w0, R0, w1, plain), dot_planes(SAb, SAb),
+                   dot_planes(SAb, STb), dot_planes(SAb, Jb[None])[:, 0]]
+        parts.append(pk)
+    dev0 = I.devices[0]
+    sums = [_sum_on([p[i] for p in parts], dev0) for i in range(len(parts[0]))]
+    half = sums[0]                                               # rho = 0 .. 2 w0
+    Comg = half.new_empty(half.shape[:2] + (4 * w0 + 1, half.shape[3]))
+    Comg[:, :, 2 * w0:] = half
+    Comg[:, :, :2 * w0] = torch.flip(half[:, :, 1:], dims=(2, 3)).transpose(0, 1)
+    extra = _pad_scaling(*sums[5:], max(cfg.Fij, nS) - nS) if sep else None
+    return (Comg, *sums[1:5]), extra
+
+
 # ---------------------------------------------------------------------------
 # the differences of each fdiff backend
 # ---------------------------------------------------------------------------
@@ -688,6 +815,34 @@ def _fdiff_fft(cfg: SFFTConfig, sols, I: RowBlocks, J: RowBlocks, plain: bool) -
                         cfg.Fij, cfg.w0, cfg.w1, cfg.SCALE))
     D = sharded_irfft2(RowBlocks(tuple(FD), I.devices), cfg.N1)
     return RowBlocks(tuple(v.to(dt) for v in D.blocks), D.devices)
+
+
+def _fdiff_conv(cfg: SFFTConfig, sols, I: RowBlocks, J: RowBlocks, plain: bool) -> RowBlocks:
+    """fdiff 'conv' (fdiff_conv): per block, the image's halo rows (L0 // 2
+    each side), the SI planes (and the active scaling planes) at the
+    wrapped row indices, padded circularly by L1 // 2 columns, and one K9
+    launch in its padded-plane mode, whose output is the block's rows of
+    the difference (``conv_direct_nonfinite``: a second launch gives the
+    terms of non-finite pixels); the taps from each device's copy of the
+    solution."""
+    from sfft_tpu_torch.core import fdiff
+    from sfft_tpu_torch.core.engine import _plane_stacks
+
+    N0, w0, w1 = cfg.N0, cfg.w0, cfg.w1
+    dt = torch_dtype(cfg.dtype)
+    nS = cfg.scaling_basis.num_funcs() if cfg.scaling_mode == "SEPARATE-VARYING" else None
+    n = I.rows
+    Ih = halo_rows(RowBlocks(tuple(b.to(dt) for b in I.blocks), I.devices), w0, w0)
+    conv = fdiff.conv_direct_plain if plain else fdiff.conv_direct_nonfinite
+    out = []
+    for (k, dev, r0, r1), Ik, Jb, sol in zip(I.spans(), Ih, J.blocks, sols):
+        SI, ST, SSc = _plane_stacks(cfg, Ik, rows=_wrapped_rows(r0, r1, w0, w0, N0))
+        Astd, b_pq, a00 = fdiff.conv_taps(cfg, sol.to(dt), nS)
+        planes = F.pad(SI[None], (w1, w1, 0, 0), mode="circular")[0]
+        own = slice(w0, w0 + n)
+        out.append(conv(planes, Astd, False, Jb.to(dt), ST[:, own], b_pq,
+                        None if nS is None else SSc[:nS, own], a00, cfg.SCALE))
+    return RowBlocks(tuple(out), I.devices)
 
 
 def _fdiff_exact(cfg: SFFTConfig, sols, sh: ExactShared, plain: bool) -> RowBlocks:
@@ -758,17 +913,13 @@ def sharded_subtract_step(cfg: SFFTConfig, devices=None):
     are (N0, N1) arrays or tensors (split into row blocks over `devices`,
     every visible card when None; without a card this raises) or RowBlocks;
     the solution lies on devices[0], and the difference is gathered there
-    as the caller's output. Every greek backend of
-    GREEK_BACKENDS and fdiff backend of FDIFF_BACKENDS, any solver; the
-    module docstring says what crosses devices."""
+    as the caller's output. Every greek backend (GREEK_BACKENDS) and fdiff
+    backend (FDIFF_BACKENDS) of SFFTConfig, any solver; the module
+    docstring says what crosses devices."""
     devices = _check_devices(devices)
     d = len(devices)
     if cfg.N0 % d:
         raise ValueError(f"N0={cfg.N0} is not divisible by the {d} devices")
-    if cfg.greek_backend not in GREEK_BACKENDS or cfg.fdiff_backend not in FDIFF_BACKENDS:
-        raise NotImplementedError(
-            f"the row-sharded step runs greek {GREEK_BACKENDS} and fdiff {FDIFF_BACKENDS}, "
-            f"not {cfg.greek_backend!r} / {cfg.fdiff_backend!r}")
     from sfft_tpu_torch.core.solve import solve_system
     from sfft_tpu_torch.core.engine import system_from_tables
 
@@ -784,14 +935,20 @@ def sharded_subtract_step(cfg: SFFTConfig, devices=None):
         elif cfg.greek_backend == "exact":
             ex = exact_shared(cfg, mIb, mJb, plain)
             out, extra = _exact_tables(cfg, ex, plain)
-        else:
+        elif cfg.greek_backend == "pexact":
             pex = pexact_shared(cfg, mIb, mJb, plain)
             out, extra = _pexact_tables(cfg, pex[0], plain)
+        elif cfg.greek_backend == "peeled":
+            out, extra = _peeled_tables(cfg, mIb, mJb, plain)
+        else:
+            out, extra = _corr_tables(cfg, mIb, mJb, plain)
         lhs, rhs = system_from_tables(cfg, out, extra, devices[0])
         sol = solve_system(cfg, lhs, rhs, plain=plain).to(dt)
         sols = _on_each(sol, devices)
         if cfg.fdiff_backend in ("fft", "fft32"):
             D = _fdiff_fft(cfg, sols, Ib, Jb, plain)
+        elif cfg.fdiff_backend == "conv":
+            D = _fdiff_conv(cfg, sols, Ib, Jb, plain)
         elif cfg.fdiff_backend == "exact":
             if ex is None or not same:
                 ex = exact_shared(cfg, Ib, Jb, plain)

@@ -513,6 +513,40 @@ def test_convolve2d_nonfinite_fill_emulated(monkeypatch, fill, nan_treatment):
     _same_nonfinite(tconv.convolve2d(img, ker, device="cpu", **kw), ref)
 
 
+def test_gss_conv_nonfinite_pixel_emulated(monkeypatch):
+    """A NaN and a +inf pixel in I (mI finite) through GSS with corr / conv
+    / lu, K9's launches emulated: K9 spreads a staged non-finite value over
+    its 8-row output tile, so fdiff_conv zeroes the planes' non-finite
+    values and takes their terms from a second launch on their codes
+    (``conv_direct_nonfinite``). The NaN and +-inf pixels of the port's
+    difference are sfft_tpu's, the rest within 1e-8 max|J|."""
+    from sfft_tpu.core import engine as jengine
+    from test_torch_engine import make_bench_pair
+
+    I, J = make_bench_pair(64, seed=5, k=20)
+    mI, mJ = I.copy(), J.copy()
+    I[20, 31], I[47, 3] = np.nan, np.inf
+    jc, tc = _cfgs(N0=64, N1=64, w=2, greek_backend="corr", fdiff_backend="conv")
+    launches = []
+
+    def emulated(planes, taps, wrap=True, *extra):
+        launches.append(planes.shape[0])
+        extra = [v.numpy() if isinstance(v, torch.Tensor) else v for v in extra]
+        return torch.as_tensor(k9_emulated(planes.numpy(), taps.numpy(), wrap, *extra))
+
+    monkeypatch.setattr(tfdiff, "conv_direct", emulated)
+    st, dt, _ = tengine.GeneralSFFT.GSS(I, J, mI, mJ, tc, device="cpu")
+    sj, dj, _ = jengine.GeneralSFFT.GSS(I, J, mI, mJ, jc)
+    assert launches == [tc.Fij, tc.Fij]          # the difference and its codes
+    sj, dj, dt = np.asarray(sj), np.asarray(dj), dt.numpy()
+    np.testing.assert_allclose(st.numpy(), sj, rtol=0, atol=1e-6 * np.abs(sj).max())
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(dt), test(dj))
+    fin = np.isfinite(dj)
+    assert 0 < (~fin).sum() < 200
+    assert np.abs(dt[fin] - dj[fin]).max() <= 1e-8 * np.abs(J).max()
+
+
 # ---------------------------------------------------------------------------
 # on the card
 

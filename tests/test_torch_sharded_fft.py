@@ -7,15 +7,21 @@ sfft_tpu_torch (parallel/sharded_fft.py) on the CPU.
 - sharded_exact_fft2_pair (half False and True, 128 x 96, 8 blocks) against
   sfft_tpu's exact_fft2_pair within 1e-13 of max (tests/test_parallel.py:588);
   the sharded exact inverse against the local one.
-- sharded_subtract_step: fft/lu at 64^2, w = 1, against sfft_tpu's
-  (solution rtol 1e-8 / atol 1e-10, difference rtol 1e-7 / atol 1e-9:
-  tests/test_parallel.py:126-129); contract-exact, pexact and bspline-v2 on
-  __graft_entry__.py's pair generator (seed 77) at 64^2 over 8 blocks
-  against the port's local step, max |difference change| < 1e-7 (the
-  dryrun's bound; chip_smoke.py runs the dryrun's 128^2), the
-  contract-exact step and its normal system bit for bit. The local step is held to
+- sharded_subtract_step: fft/lu, corr/conv/lu and peeled (f64
+  fluctuations)/fft/lu at 64^2, w = 1, against sfft_tpu's (solution rtol
+  1e-8 / atol 1e-10, difference rtol 1e-7 / atol 1e-9:
+  tests/test_parallel.py:126-129); contract-exact, pexact, bspline-v2,
+  peeled-f64, corr-conv and bspline-v2-corr on __graft_entry__.py's pair
+  generator (seed 77) at 64^2 over 8 blocks against the port's local step,
+  max |difference change| < 1e-7 (the dryrun's bound; chip_smoke.py runs
+  the dryrun's 128^2), the contract-exact step and its normal system bit
+  for bit; the fast trio and v2-fast-peeled within FAST_TRIO's bounds. The local step is held to
   sfft_tpu by the other test files, which keeps the jitted exact compiles
   out of this one.
+- halo_rows against torch.roll (halos deeper than one block too); the
+  corr route's tables and the conv difference over 4 row blocks with K8's
+  and K9's launches emulated (tests/test_torch_corr_conv.py), against the
+  twins on the whole planes within 1e-12 of max.
 - N0 % d != 0 raises; with no card the default devices raise.
 
 The references are imported inside the tests, so the `gpu` cases also run
@@ -82,7 +88,25 @@ def families(n):
         "pexact": dataclasses.replace(base, greek_backend="pexact", fdiff_backend="pexact",
                                       solver="exact"),
         "bspline-v2": bsp,
+        "fast": dataclasses.replace(base, **FAST_TRIO),
+        "peeled-f64": dataclasses.replace(base, greek_backend="peeled", fluct_dtype="float64"),
+        "corr-conv": dataclasses.replace(base, greek_backend="corr", fdiff_backend="conv",
+                                         solver="exact"),
+        "bspline-v2-corr": dataclasses.replace(bsp, greek_backend="corr", fdiff_backend="conv"),
+        "bspline-v2-peeled": dataclasses.replace(bsp, **FAST_TRIO),
     }
+
+
+# the fast trio (config.TPU_MODES["fast"]; with B-spline bases the
+# v2-fast-peeled mode): f32 fluctuation windows, the fft32 difference and the
+# f32-LU refined solve. Held to the local step as the port's fast-mode tests
+# hold it to sfft_tpu's (tests/test_torch_engine.py
+# test_fast_mode_matches_reference, tests/test_torch_v2_fast.py): the tables
+# within 1e-5 of their max, the solution within 3e-2 of its max, the
+# difference within RMS 0.05
+FAST_TRIO = dict(greek_backend="peeled", fdiff_backend="fft32", solver="refined",
+                 fluct_dtype="float32")
+FAST_FAMILIES = ("fast", "bspline-v2-peeled")
 
 
 def test_sharded_fft2_matches_reference_and_numpy():
@@ -191,23 +215,36 @@ def test_sharded_exact_inverse_matches_local():
     assert np.max(np.abs(got - ref)) < 1e-13 * np.max(np.abs(ref))
 
 
-def test_sharded_subtract_step_fft_lu_matches_reference():
+@pytest.mark.parametrize("backends", [
+    "fft/lu", "corr/conv/lu", "peeled(f64)/fft/lu"])
+def test_sharded_subtract_step_fft_lu_matches_reference(backends):
+    """The port's step against sfft_tpu's sharded_subtract_step on the
+    conftest's 8-device CPU mesh: the fft route, the FFT-free route (K8's
+    and K9's twins on halo-extended row blocks) and the peeled tables with
+    f64 fluctuations."""
     from sfft_tpu.parallel.batch import make_data_mesh
     from sfft_tpu.parallel.sharded_fft import sharded_subtract_step as jstep
     from test_engine import base_cfg, make_pair
 
+    kw = {"fft/lu": {}, "corr/conv/lu": dict(greek_backend="corr", fdiff_backend="conv"),
+          "peeled(f64)/fft/lu": dict(greek_backend="peeled", fluct_dtype="float64")}[backends]
     I, J = make_pair(np.random.default_rng(6), N0=64, N1=64)
-    sol_ref, diff_ref = jstep(base_cfg(N0=64, N1=64, w=1), make_data_mesh(8))(I, J, I, J)
-    sol, diff = sh.sharded_subtract_step(poly_cfg(64), CPU8)(I, J, I, J)
+    jcfg = dataclasses.replace(base_cfg(N0=64, N1=64, w=1), **kw)
+    sol_ref, diff_ref = jstep(jcfg, make_data_mesh(8))(I, J, I, J)
+    sol, diff = sh.sharded_subtract_step(dataclasses.replace(poly_cfg(64), **kw), CPU8)(I, J, I, J)
     np.testing.assert_allclose(sol.numpy(), np.asarray(sol_ref), rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(diff.numpy(), np.asarray(diff_ref), rtol=1e-7, atol=1e-9)
 
 
-@pytest.mark.parametrize("family", ["contract-exact", "pexact", "bspline-v2", "pexact-masked"])
+@pytest.mark.parametrize("family", ["contract-exact", "pexact", "bspline-v2", "pexact-masked",
+                                    "fast", "peeled-f64", "corr-conv", "bspline-v2-corr",
+                                    "bspline-v2-peeled"])
 def test_sharded_subtract_step_families_match_local_step(family):
-    """Every engine family of the dryrun's leg 5 over 8 row blocks against
-    the port's local step; pexact-masked solves on a masked pair and
-    subtracts the unmasked one (no spectra shared)."""
+    """Every engine family of the dryrun's leg 5, and the peeled and corr /
+    conv backends, over 8 row blocks against the port's local step;
+    pexact-masked solves on a masked pair and subtracts the unmasked one
+    (no spectra shared). The fast families (FAST_TRIO) are held to its
+    bounds."""
     n = 64
     cfg = families(n)[family.replace("-masked", "")]
     I, J = (torch.as_tensor(a) for a in example_pair(n, n, seed=77))
@@ -218,6 +255,13 @@ def test_sharded_subtract_step_families_match_local_step(family):
     sol, diff, (lhs, rhs) = sh.sharded_subtract_step(cfg, CPU8)(I, J, mI, mJ, with_system=True)
     sol_ref, diff_ref = solve_and_subtract_fn(cfg)(I, J, mI, mJ)
     assert diff.shape == diff_ref.shape and diff.dtype == diff_ref.dtype
+    if family in FAST_FAMILIES:
+        lhs_ref, rhs_ref = normal_equations_fn(cfg)(mI, mJ)
+        for t, ref in ((lhs, lhs_ref), (rhs, rhs_ref)):
+            assert float((t - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert float((sol - sol_ref).abs().max()) <= 3e-2 * float(sol_ref.abs().max())
+        assert float(torch.sqrt(torch.mean((diff - diff_ref) ** 2))) < 0.05
+        return
     assert float((diff - diff_ref).abs().max()) < 1e-7
     assert float((sol - sol_ref).abs().max()) <= 1e-6 * float(sol_ref.abs().max())
     if family == "contract-exact":
@@ -226,6 +270,99 @@ def test_sharded_subtract_step_families_match_local_step(family):
         lhs_ref, rhs_ref = normal_equations_fn(cfg)(mI, mJ)
         assert torch.equal(lhs, lhs_ref) and torch.equal(rhs, rhs_ref)
         assert torch.equal(sol, sol_ref) and torch.equal(diff, diff_ref)
+
+
+@pytest.mark.parametrize("above,below", [(2, 3), (0, 19), (11, 1)])
+def test_halo_rows_match_roll(above, below):
+    """Each block extended by its neighbours' rows, wrapping mod N0, against
+    torch.roll of the whole array; halos of 19 and 11 rows span two and
+    three 8-row blocks. The bytes counted are those of other blocks."""
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=(2, 64, 12)))
+    blocks = sh.shard_rows(x, CPU8)
+    sh.halo_rows.bytes, calls = 0, sh.halo_rows.calls
+    ext = sh.halo_rows(blocks, above, below)
+    assert sh.halo_rows.calls == calls + 1
+    for k, e in enumerate(ext):
+        ref = torch.roll(x, shifts=above - 8 * k, dims=1)[:, :8 + above + below]
+        assert torch.equal(e, ref)
+    assert sh.halo_rows.bytes == 8 * (above + below) * 2 * 12 * 8
+
+
+def _blocked_cfg(n, **kw):
+    return dataclasses.replace(poly_cfg(n, w=2), **kw)
+
+
+def test_blocked_k8_partials_emulated(monkeypatch):
+    """The corr route's tables over 4 row blocks with K8's launches
+    emulated (tests/test_torch_corr_conv.py ``k8_launch_emulated``): each
+    block's halo-extended operands (A zero outside the block's rows, the
+    operand swap of Cthe's), the partials summed, Comg's rows rho < 0
+    mirrored from the sum; within 1e-12 of max of the whole planes'
+    corr_window_conv_plain."""
+    from sfft_tpu_torch.core import greek as tgreek
+    from sfft_tpu_torch.core.engine import _plane_stacks
+    from test_torch_corr_conv import k8_launch_emulated
+
+    n = 32
+    # a degree-3 kernel (10 planes against Cgam's 6 background planes) makes
+    # the background planes the launch's plane operand
+    cfg = _blocked_cfg(n, greek_backend="corr", N1=24, kernel_basis=BasisSpec("polynomial", 3))
+    I, J = (torch.as_tensor(a) for a in example_pair(n, 24, seed=4))
+    launches = []
+
+    def launch(A, B, rho_lo, nrho, wy):
+        launches.append((A.shape, B.shape[0], rho_lo, nrho))
+        return torch.as_tensor(k8_launch_emulated(A.numpy(), B.numpy(), rho_lo, nrho, wy))
+
+    monkeypatch.setattr(tgreek, "_k8_launch", launch)
+    monkeypatch.setattr(tgreek, "corr_table",
+                        lambda A, B, rho_lo, nrho, wy, plain: tgreek._k8_table(
+                            A.contiguous(), B.contiguous(), rho_lo, nrho, wy))
+    devs = ["cpu"] * 4
+    (Comg, Cgam, Cthe, _, _), extra = sh._corr_tables(cfg, sh.shard_rows(I, devs),
+                                                      sh.shard_rows(J, devs), plain=False)
+    assert extra is None and len(launches) == 12
+    assert all(shape[1] == 8 + 2 * cfg.w0 for shape, *_ in launches)
+    assert [shape[0] for shape, *_ in launches[:3]] == [10, 6, 10]   # Cgam's swapped
+    SI, ST, _ = _plane_stacks(cfg, I)
+    for got, ref in ((Comg, tgreek.corr_window_conv_plain(SI, SI, 4, 4)),
+                     (Cgam, tgreek.corr_window_conv_plain(SI, ST, 2, 2)),
+                     (Cthe, tgreek.corr_window_conv_plain(SI, J[None], 2, 2)[:, 0])):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def test_blocked_k9_emulated(monkeypatch):
+    """The conv difference over 4 row blocks with K9's launches emulated
+    (``k9_emulated``): each block's halo rows, its planes padded
+    circularly by L1 // 2 columns, the padded-plane mode's (n, N1) output;
+    within 1e-12 of max of conv_direct_plain on the whole planes."""
+    from sfft_tpu_torch.core import fdiff as tfdiff
+    from sfft_tpu_torch.core.engine import _plane_stacks
+    from test_torch_corr_conv import k9_emulated
+
+    n = 32
+    cfg = dataclasses.replace(_blocked_cfg(n, fdiff_backend="conv"), N1=24)
+    I, J = (torch.as_tensor(a) for a in example_pair(n, 24, seed=5))
+    sol = torch.as_tensor(np.random.default_rng(6).normal(0, 0.1, cfg.NEQ))
+    launches = []
+
+    def emulated(planes, taps, wrap=True, *extra):
+        launches.append((tuple(planes.shape), wrap))
+        extra = [v.numpy() if isinstance(v, torch.Tensor) else v for v in extra]
+        return torch.as_tensor(k9_emulated(planes.numpy(), taps.numpy(), wrap, *extra))
+
+    monkeypatch.setattr(tfdiff, "conv_direct", emulated)
+    devs = ["cpu"] * 4
+    D = sh._fdiff_conv(cfg, [sol] * 4, sh.shard_rows(I, devs), sh.shard_rows(J, devs),
+                       plain=False)
+    # per block the difference and its non-finite codes
+    assert launches == [((cfg.Fij, 8 + 2 * cfg.w0, 24 + 2 * cfg.w1), False)] * 8
+    SI, ST, _ = _plane_stacks(cfg, I)
+    Astd, b, _ = tfdiff.conv_taps(cfg, sol)
+    ref = tfdiff.conv_direct_plain(SI, Astd, True, J, ST, b, scale=cfg.SCALE)
+    got = sh.gather_rows(D)
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 def test_rows_not_divisible_by_devices_raise():
@@ -250,6 +387,41 @@ def cuda4():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return [torch.device("cuda", 0)] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["corr-conv", "fast"])
+def test_sharded_step_on_card(cuda4, family):
+    """The corr / conv step (K8, K9 on halo-extended row blocks) and the
+    fast step (K3 per block, K1 per frequency-row block, K2) over four row
+    blocks on one card against the local step there: the f64 family within
+    the CPU test's bounds, the fast one within FAST_TRIO's; every kernel of
+    the path launched."""
+    from sfft_tpu_torch.core import fdiff, greek, moments
+
+    n = 256
+    cfg = families(n)[family]
+    I, J = (torch.as_tensor(a, device="cuda") for a in example_pair(n, n, seed=77))
+    counts = {"K8": greek._K8, "K9": fdiff._K9, "K3": moments.moments,
+              "K2": fdiff.fdiff_model, "K1": greek.corr_window}
+    before = {k: f.launches for k, f in counts.items()}
+    sol, diff, (lhs, rhs) = sh.sharded_subtract_step(cfg, cuda4)(I, J, I, J, with_system=True)
+    torch.cuda.synchronize()
+    ran = {k: f.launches - before[k] for k, f in counts.items()}
+    sol_ref, diff_ref = solve_and_subtract_fn(cfg)(I, J, I, J)
+    lhs_ref, rhs_ref = normal_equations_fn(cfg)(I, J)
+    if family == "fast":
+        assert min(ran["K3"], ran["K1"], ran["K2"]) > 0, ran
+        for t, ref in ((lhs, lhs_ref), (rhs, rhs_ref)):
+            assert float((t - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert float((sol - sol_ref).abs().max()) <= 3e-2 * float(sol_ref.abs().max())
+        assert float(torch.sqrt(torch.mean((diff - diff_ref) ** 2))) < 0.05
+    else:
+        assert ran["K8"] == 3 * 4 and ran["K9"] == 2 * 4, ran
+        for t, ref in ((lhs, lhs_ref), (rhs, rhs_ref)):
+            assert float((t - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+        assert float((diff - diff_ref).abs().max()) < 1e-7
+        assert float((sol - sol_ref).abs().max()) <= 1e-6 * float(sol_ref.abs().max())
 
 
 @pytest.mark.gpu
