@@ -145,6 +145,22 @@ batched_subtract_packed on two fast 4096^2 pairs bit for bit
 batched_subtract on the dequantized planes, with the upload of one pair
 packed and in f64.
 
+Then phase 14, the leading pair axis (core/engine.solve_and_subtract_
+batched_fn: one set of K3, K1 and K2 launches and one pass of the table
+algebra for a batch of pairs): the fast mode and the default trio at
+4096^2 (KerHW 8, poly2 / poly2) for B = 1, 2, 4, 8 pairs (make_pair, seeds
+40-47) on one card, each pair's solution and difference bit for bit its
+single call, from stacks on the card and through batched_subtract from
+host stacks; per pair wall (median of 3) and device busy, launches a step
+and peak memory for each B; every K3, K1 and K2 launch of one batched step
+(B = 4 fast, 2 default) held to its twin as phase 12c holds them, twice
+bit-equal, and each pair's share of it bit for bit the pair's own launch;
+the single step (the batched step of one pair, which the survey paths'
+groups of one pair a device run) against the batched step called on one
+pair, in alternating order; batched_subtract's memory bound (max_batch)
+on the card, and 3 pairs at a lowered bound of 2 run as 2 batched steps,
+each pair bit for bit its single call.
+
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
 step run once more with K7 alone on its twin and once with K6 alone on its
@@ -237,6 +253,11 @@ builds the kernels and runs phase 12 (the multi-device layer) alone.
 builds the kernels and runs phase 13 (the FFT-free f64 route, convolve2d
 and the int16 upload) alone, and prints K8's and K9's kernels line.
 
+    python3 chip_smoke.py --batched
+
+builds the kernels and runs phase 14 (the batched fast and default steps)
+alone, and prints their launches as a "batched_kernels" line.
+
     python3 chip_smoke.py --stages OUT_DIR
 
 times the slicing stages of one steady contract step and one steady v2 step
@@ -251,6 +272,7 @@ one card.
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -287,6 +309,41 @@ def bound(nbytes, flops, peak):
     operations over the peak rate of their type."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# every process this script starts (spawn), and the sockets of the engine
+# daemons it spawns (phase 11): stop_children ends whatever of them still
+# runs when main returns or raises
+_CHILDREN = []
+_DAEMON_SOCKETS = []
+
+
+def spawn(cmd, **kw):
+    """subprocess.Popen, recorded for stop_children."""
+    proc = subprocess.Popen(cmd, **kw)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def stop_children():
+    """Kill and reap the processes spawn started that still run, and the
+    engine daemons serving a socket of _DAEMON_SOCKETS (a daemon runs in a
+    session of its own, so only its command line names it)."""
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for pid in (os.listdir("/proc") if _DAEMON_SOCKETS else ()):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\0")
+        except (OSError, ValueError):
+            continue
+        if "sfft_tpu_torch.serve" in argv and any(sk in argv for sk in _DAEMON_SOCKETS):
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+            except ProcessLookupError:
+                pass
 
 
 def log(msg):
@@ -884,16 +941,16 @@ def kernels_on_path(run, path, phase):
         seen3[key][2] += 1
         return real3(W, G)
 
-    def recording1(specA, specB, ia, ib, E0, E1, sym=False):
+    def recording1(specA, specB, ia, ib, E0, E1, sym=False, blocks=1):
         same = specA.data_ptr() == specB.data_ptr() and specA.shape == specB.shape
         key = (tuple(specA.shape), tuple(specB.shape), len(ia), tuple(E0.shape),
-               tuple(E1.shape), str(specA.dtype), bool(sym), same)
+               tuple(E1.shape), str(specA.dtype), bool(sym), blocks, same)
         if key not in seen1:
             a = specA.clone()
             seen1[key] = [(a, a if same else specB.clone(), np.array(ia), np.array(ib), E0, E1,
-                           sym), 0]
+                           sym, blocks), 0]
         seen1[key][1] += 1
-        return real1(specA, specB, ia, ib, E0, E1, sym=sym)
+        return real1(specA, specB, ia, ib, E0, E1, sym=sym, blocks=blocks)
 
     def recording2(specs, FS, solution, W0, W1, *rest):
         key = (tuple(specs.shape), 0 if FS is None else FS.shape[0], str(specs.dtype))
@@ -933,8 +990,8 @@ def kernels_on_path(run, path, phase):
             f"step; max|d| = {err:.3e} of max(|W| @ |G|) (bound 1e-13), two launches "
             f"bit-equal; kernel {ms:.4f} ms (graph replay), bound {bms:.4f} ms ({by})")
     for key, (args, count) in sorted(seen1.items(), key=lambda kv: str(kv[0])):
-        specA, specB, ia, ib, E0, E1, sym = args
-        call = lambda: real1(specA, specB, ia, ib, E0, E1, sym=sym)
+        specA, specB, ia, ib, E0, E1, sym, blocks = args
+        call = lambda: real1(specA, specB, ia, ib, E0, E1, sym=sym, blocks=blocks)
         out, again = call(), call()
         torch.cuda.synchronize()
         assert torch.equal(out, again), f"K1 {path} {key}: two launches differ"
@@ -1143,7 +1200,7 @@ def k6_on_twins(run):
             setattr(pairs, name, fn)
 
 
-def k1_matmul_twin(a, b, ia, ib, E0, E1, sym=False):
+def k1_matmul_twin(a, b, ia, ib, E0, E1, sym=False, blocks=1):
     from sfft_tpu_torch.core import greek
 
     return greek.corr_pairs_plain(a, b, ia, ib, E0, E1)
@@ -2537,6 +2594,11 @@ def _dev_us(e):
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+# times a profile that lost device records is taken again (direct_profile,
+# _warm_device_events)
+PROFILE_TRIES = 4
+
+
 def _on_device(e):
     # kernels and copies carry the device type; the host operators that
     # launched them report the same time again
@@ -2579,13 +2641,17 @@ def _warm_device_events(step):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-    return [e for e in prof.key_averages() if _on_device(e)]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages() if _on_device(e)]
+        if events:
+            return events
+    raise AssertionError(f"{PROFILE_TRIES} profiles of a step held no device record")
 
 
 def device_ms_of(step, keys):
@@ -4225,7 +4291,6 @@ def survey_server(d, dev, single, mesp, fast_ref, bench):
     fast step and phase 10's contract run; then ensure_server spawns a fresh
     daemon, whose time to first difference is taken beside the warm one's."""
     import pickle
-    import signal
     import threading
 
     from sfft_tpu_torch import EngineClient, EngineServer, ensure_server, make_config
@@ -4289,6 +4354,7 @@ def survey_server(d, dev, single, mesp, fast_ref, bench):
 
     # a fresh daemon: spawn, first difference, shutdown
     sock2 = os.path.join(d, "cold.sock")
+    _DAEMON_SOCKETS.append(sock2)
     t0 = time.perf_counter()
     pong = ensure_server(sock2, spawn_timeout=300.0,
                          device=None if dev.type == "cuda" else "cpu")
@@ -4991,10 +5057,10 @@ def phase_multihost(d):
     env = {k: v for k, v in os.environ.items()
            if k not in ("SFFT_COORDINATOR_ADDRESS", "WORLD_SIZE", "RANK")}
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER, HERE, prefix,
-                               f"localhost:{port}", str(pid), SHARD_DEV, str(N)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    procs = [spawn([sys.executable, "-c", MULTIHOST_WORKER, HERE, prefix,
+                    f"localhost:{port}", str(pid), SHARD_DEV, str(N)], env=env,
+                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for pid in range(2)]
     try:
         # the reference while the workers run: every task's pair through
         # batched_subtract on this card
@@ -5147,8 +5213,8 @@ def sass_start():
     if tool is None:
         return None
     f = tempfile.TemporaryFile(mode="w+")
-    return subprocess.Popen([tool, "-sass", _kernels.library_path()], stdout=f,
-                            stderr=subprocess.DEVNULL, text=True), f
+    return spawn([tool, "-sass", _kernels.library_path()], stdout=f,
+                  stderr=subprocess.DEVNULL, text=True), f
 
 
 def _device_fn_key(mangled, fns):
@@ -5367,10 +5433,10 @@ def phase_direct_library(lam):
     did not report gets its failure: the error that ended the child, or the
     time limit that stopped it (the table it was on), and the tables after
     that one are not run."""
-    proc = subprocess.Popen([sys.executable, "-c", K8_LIBRARY_CHILD, HERE,
-                             *(str(v) for v in (N, V2_N, KERHW, V2_KERHW)), DIRECT_DEV,
-                             repr(lam), *K8_LIBRARY_TABLES],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = spawn([sys.executable, "-c", K8_LIBRARY_CHILD, HERE,
+                  *(str(v) for v in (N, V2_N, KERHW, V2_KERHW)), DIRECT_DEV,
+                  repr(lam), *K8_LIBRARY_TABLES],
+                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         out, err = proc.communicate(timeout=K8_LIBRARY_TIMEOUT_S)
         why = f"the child exited {proc.returncode}: " + " ".join(err.strip().splitlines()[-1:])
@@ -5436,12 +5502,13 @@ def direct_profile(step, nk8, nk9, k_ms):
     tables); `unwarmed` is such a profile's (busy s, K8 launches seen),
     kept to show it. The kept step must hold its nk8 K8 and nk9 K9 launches,
     and its busy time must be at least k_ms, their CUDA-event times from
-    13a-b."""
+    13a-b. The warmed profile, too, has come back without a single device
+    record; one that lost records is taken again, up to PROFILE_TRIES
+    times, and the last is held to the check."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    def read(prof):
-        ev = [e for e in prof.key_averages() if _on_device(e)]
+    def read(ev):
         return (sum(_dev_us(e) for e in ev) / 1e6, sum(e.count for e in ev),
                 sum(e.count for e in ev if "corr_mma" in e.key),
                 sum(e.count for e in ev if "conv_mma" in e.key))
@@ -5450,14 +5517,13 @@ def direct_profile(step, nk8, nk9, k_ms):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    ubusy, _, un8, _ = read(prof)
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-    busy, nk, n8, n9 = read(prof)
+    ubusy, _, un8, _ = read([e for e in prof.key_averages() if _on_device(e)])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        busy, nk, n8, n9 = read(_warm_device_events(step))
+        if (n8, n9) == (nk8, nk9) and busy * 1e3 >= k_ms:
+            break
+        log(f"phase 13c profile {attempt} of {PROFILE_TRIES} lost records: {n8} K8 and {n9} "
+            f"K9 launches of {nk8}, {nk9}, {busy * 1e3:.1f} ms busy")
     assert (n8, n9) == (nk8, nk9) and busy * 1e3 >= k_ms, (
         f"the profiled step holds {n8} K8 and {n9} K9 launches (the step launches {nk8}, {nk9}) "
         f"and {busy * 1e3:.1f} ms busy (its K8 and K9 take {k_ms:.1f} ms by CUDA events)")
@@ -5767,8 +5833,267 @@ def phase_direct(lam=V2_LAMBDA):
     return report, line, launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: the leading pair axis (core/engine.solve_and_subtract_batched_fn)
+# --------------------------------------------------------------------------
+
+# the kernels of the batched step (the --batched run's kernels line)
+BATCHED_KERNELS = [
+    ("moments", "sfft_tpu_torch/csrc/moments.cu", "sfft_tpu/core/pallas_moments.py:143"),
+    ("corr_window", "sfft_tpu_torch/csrc/corr_window.cuh", "sfft_tpu/core/greek.py:94"),
+    ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90")]
+# the batch sizes of phase 14, the seed of its first pair, the batch whose
+# kernel launches are held to their twins and to their per-pair launches
+BATCH_SIZES = (1, 2, 4, 8)
+BATCH_SEED = 40
+BATCH_TRIOS = {"fast": FAST_CFG, "default": dict(greek_backend="fft", fdiff_backend="fft",
+                                                  solver="lu")}
+BATCH_TWIN_B = {"fast": 4, "default": 2}
+# one set of the config's launches a batched step, whatever B (K2's counter
+# counts its two launches a call)
+BATCH_LAUNCHES = {"fast": {"moments": 2, "corr_window": 2, "fdiff_model": 2},
+                  "default": {"corr_window": 3, "fdiff_model": 2}}
+
+
+def batched_twins(step, label):
+    """Drive one batched step (`step`) recording the operands of every K3,
+    K1 and K2 launch, then hold each launch to its twin (step_twins'
+    bounds), launched again twice (bit-equal), and each pair's share of it
+    bit for bit that pair's own launch: K3 M[b] = W @ G[b], K1 the pair's
+    segment of the list on its own planes, K2 the pair's model spectrum.
+    These launches are not counted on the path. Returns {kernel: [launches
+    held, max error against the twin]}."""
+    import torch
+    from sfft_tpu_torch.core import fdiff, greek, moments, peel
+
+    real = {"K3": (peel, "moments"), "K1": (greek, "_corr_window"),
+            "K2": (fdiff, "fdiff_model")}
+    fns = {k: getattr(mod, name) for k, (mod, name) in real.items()}
+    calls = {k: [] for k in real}
+
+    def recorder(key):
+        def call(*args, **kw):
+            seen = {}
+            calls[key].append((tuple(seen.setdefault(id(a), a.clone())
+                                     if isinstance(a, torch.Tensor) else a for a in args), kw))
+            return fns[key](*args, **kw)
+        call.launches = 0
+        return call
+
+    for key, (mod, name) in real.items():
+        setattr(mod, name, recorder(key))
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for key, (mod, name) in real.items():
+            setattr(mod, name, fns[key])
+
+    def pairs_of(key, args, kw, out):
+        # each pair's share of the batched launch and the pair's own launch
+        if key == "K3":
+            W, G = args
+            return [(out[b], fns[key](W, G[b].contiguous())) for b in range(G.shape[0])]
+        if key == "K2":
+            specs, FS, sol = args[:3]
+            return [(out[b], fns[key](specs[b], None if FS is None else FS[b], sol[b], *args[3:]))
+                    for b in range(specs.shape[0])]
+        A, Bv, ia, ib, E0, E1 = args
+        blocks = kw.get("blocks", 1)
+        n = len(ia) // blocks
+        one = A.data_ptr() == Bv.data_ptr() and A.shape == Bv.shape
+        res = []
+        for z in range(blocks):
+            seg = slice(z * n, (z + 1) * n)
+            if one:   # one stack: the pair's planes of it, as its single call has them
+                loa = lob = int(min(ia[seg].min(), ib[seg].min()))
+                hia = hib = int(max(ia[seg].max(), ib[seg].max())) + 1
+            else:
+                loa, hia = int(ia[seg].min()), int(ia[seg].max()) + 1
+                lob, hib = int(ib[seg].min()), int(ib[seg].max()) + 1
+            ownA = A[loa:hia]
+            ownB = ownA if one else Bv[lob:hib]
+            res.append((out[seg], fns[key](ownA, ownB, np.asarray(ia[seg]) - loa,
+                                           np.asarray(ib[seg]) - lob, E0, E1,
+                                           sym=kw.get("sym"))))
+        return res
+
+    held = {}
+    for key, launches in calls.items():
+        worst = 0.0
+        for args, kw in launches:
+            out, again = fns[key](*args, **kw), fns[key](*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again), f"{label} {key}: two batched launches differ"
+            for b, (mine, own) in enumerate(pairs_of(key, args, kw, out)):
+                assert torch.equal(mine, own), \
+                    f"{label} {key}: pair {b} differs from its own launch"
+            if key == "K3":
+                W, G = args
+                diff = float((out - moments.moments_plain(W, G)).abs().max())
+                scale = float((W.abs() @ G.abs()).max())
+                err, tol = diff / scale, 1e-13
+            elif key == "K1":
+                c64 = args[0].dtype == torch.complex64
+                err, tol = rel_err(out, greek.corr_pairs_plain(*args[:6])), 1e-5 if c64 else 1e-11
+            else:
+                c64 = args[0].dtype == torch.complex64
+                ref = fdiff.fdiff_model_plain(*args)
+                err = float((out - ref).abs().max() / (args[0][:, 0] - ref).abs().max())
+                tol = 1e-5 if c64 else 1e-12
+            assert err <= tol, f"{label} {key}: {err:.3e} from its twin (bound {tol:g})"
+            worst = max(worst, err)
+            del out, again
+        held[key] = [len(launches), worst]
+    del calls
+    torch.cuda.empty_cache()
+    return held
+
+
+def phase_batched():
+    """Phase 14: the batched fast and default steps at 4096^2 (KerHW 8,
+    poly2 / poly2) for B = 1, 2, 4, 8 pairs on one card: each pair's
+    solution and difference bit for bit its single call; per-pair wall
+    (median of 3 after a warm-up) and device busy (a warmed profile) of the
+    batched step on stacks already on the card, launches a step and peak
+    memory; the same batches through batched_subtract from host stacks;
+    every K3, K1 and K2 launch of one batched step held to its twin and to
+    its per-pair launches (``batched_twins``). Returns (report, launches
+    of the timed steps, the kernels line's counts)."""
+    import torch
+    from sfft_tpu_torch import make_config
+    from sfft_tpu_torch.core.engine import solve_and_subtract_batched_fn, solve_and_subtract_fn
+    from sfft_tpu_torch.parallel import batch as pbatch
+    from sfft_tpu_torch.parallel.batch import batched_subtract
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    nmax = max(BATCH_SIZES)
+    host = [make_pair(N, BATCH_SEED + k) for k in range(nmax)]
+    Ih, Jh = (np.stack([p[r] for p in host]) for r in range(2))
+    del host
+    I, J = (torch.as_tensor(a, device=dev) for a in (Ih, Jh))
+    log(f"phase 14 {nmax} pairs {N}^2 made and uploaded in {time.perf_counter() - t_start:.1f} s")
+    report, launches = {}, {}
+    for name, trio in BATCH_TRIOS.items():
+        cfg = make_config(N, N, KERHW, **trio)
+        step = solve_and_subtract_batched_fn(cfg)
+        single = solve_and_subtract_fn(cfg)
+        ones = []
+        for k in range(nmax):
+            s1, d1 = single(I[k], J[k], I[k], J[k])
+            ones.append((s1.cpu(), d1.cpu()))
+        rows = {}
+        for B in BATCH_SIZES:
+            Ib, Jb = I[:B], J[:B]
+            run = lambda: step(Ib, Jb, Ib, Jb)   # noqa: E731
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sol, diff = run()
+            torch.cuda.synchronize()
+            for k in range(B):
+                assert torch.equal(sol[k].cpu(), ones[k][0]), \
+                    f"phase 14 {name} B={B}: pair {k}'s solution differs from its single call"
+                assert torch.equal(diff[k].cpu(), ones[k][1]), \
+                    f"phase 14 {name} B={B}: pair {k}'s difference differs from its single call"
+            del sol, diff
+            zero_kernel_counts()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                del out
+            counts = kernel_counts()
+            peak = torch.cuda.max_memory_allocated()
+            busy, nk = device_busy(run)
+            torch.cuda.empty_cache()
+            hw = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = batched_subtract(Ih[:B], Jh[:B], Ih[:B], Jh[:B], cfg, devices=[dev])
+                torch.cuda.synchronize()
+                hw.append(time.perf_counter() - t0)
+                for k in range(B):
+                    assert torch.equal(out[0][k].cpu(), ones[k][0]) and \
+                        torch.equal(out[1][k].cpu(), ones[k][1]), \
+                        f"phase 14 {name} B={B}: batched_subtract pair {k} differs"
+                del out
+            per = {k: v / 3 for k, v in counts.items() if v}
+            if dev.type == "cuda":
+                assert per == BATCH_LAUNCHES[name], \
+                    f"phase 14 {name} B={B}: launches a step {per}, not {BATCH_LAUNCHES[name]}"
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            rows[B] = dict(wall_ms_per_pair=statistics.median(walls) * 1e3 / B,
+                           busy_ms_per_pair=busy * 1e3 / B, device_events=nk,
+                           launches_per_step=per, peak_bytes=peak,
+                           host_stacks_ms_per_pair=min(hw) * 1e3 / B)
+            log(f"phase 14 {name} B={B}: each pair bit for bit its single call (solution, "
+                f"difference; device stacks and batched_subtract from host stacks); per pair "
+                f"wall {rows[B]['wall_ms_per_pair']:.2f} ms (median of 3; walls "
+                f"{[round(w * 1e3, 1) for w in walls]} ms), busy "
+                f"{rows[B]['busy_ms_per_pair']:.2f} ms ({nk} kernels and copies a step), "
+                f"host stacks {rows[B]['host_stacks_ms_per_pair']:.2f} ms; launches a step "
+                f"{per}; peak {peak / 2**30:.2f} GiB")
+        # the survey paths' groups are one pair a device: the single step,
+        # which is the batched step of one pair, against that batched step
+        # called directly, in alternating order
+        t_one, t_b1 = [], []
+        for k in range(6):
+            for which in ((0, 1) if k % 2 == 0 else (1, 0)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = (single(I[0], J[0], I[0], J[0]) if which == 0
+                       else step(I[:1], J[:1], I[:1], J[:1]))
+                torch.cuda.synchronize()
+                (t_one if which == 0 else t_b1).append(time.perf_counter() - t0)
+                del out
+        one_ms, b1_ms = (statistics.median(t) * 1e3 for t in (t_one, t_b1))
+        log(f"phase 14 {name}: single step {one_ms:.2f} ms, batched step of one pair "
+            f"{b1_ms:.2f} ms (medians of 6, alternating; walls "
+            f"{[round(t * 1e3, 1) for t in t_one]} / {[round(t * 1e3, 1) for t in t_b1]} ms)")
+        # the memory bound: the pairs a batched step takes on this card, and a
+        # batch beyond a lowered bound split into steps, bit for bit
+        cap = pbatch.max_batch(cfg, dev)
+        real_cap = pbatch.max_batch
+        pbatch.max_batch = lambda cfg, device: 2
+        try:
+            steps0 = solve_and_subtract_batched_fn.steps
+            out = batched_subtract(I[:3], J[:3], I[:3], J[:3], cfg, devices=[dev])
+            nsteps = solve_and_subtract_batched_fn.steps - steps0
+        finally:
+            pbatch.max_batch = real_cap
+        assert nsteps == 2, f"phase 14 {name}: 3 pairs at a bound of 2 took {nsteps} steps"
+        for k in range(3):
+            assert torch.equal(out[0][k].cpu(), ones[k][0]) and \
+                torch.equal(out[1][k].cpu(), ones[k][1]), \
+                f"phase 14 {name}: pair {k} of the split batch differs from its single call"
+        del out
+        log(f"phase 14 {name}: max_batch {cap} pairs at {N}^2 on this card now; 3 pairs at a "
+            f"bound of 2 ran as {nsteps} batched steps, each pair bit for bit its single call")
+        twin_b = BATCH_TWIN_B[name]
+        held = batched_twins(lambda: step(I[:twin_b], J[:twin_b], I[:twin_b], J[:twin_b]),
+                             f"phase 14 {name} B={twin_b}")
+        log(f"phase 14 {name} B={twin_b}: every K3 / K1 / K2 launch of the batched step held to "
+            f"its twin and each pair's share bit for bit its own launch, two launches bit-equal: "
+            f"{held}")
+        report[name] = dict(rows=rows, twins=held, twin_batch=twin_b, single_ms=one_ms,
+                            batched_one_ms=b1_ms, max_batch=cap)
+        torch.cuda.empty_cache()
+    del I, J
+    torch.cuda.empty_cache()
+    report["s"] = time.perf_counter() - t_start
+    log(f"phase 14 done in {report['s']:.1f} s; launches {launches}")
+    return report, launches
+
+
 USAGE = ("usage: chip_smoke.py [--profile OUT_DIR | --steady PAIRS | --kernels OUT_DIR | "
-         "--fidelity | --easy | --survey | --sharded | --direct | "
+         "--fidelity | --easy | --survey | --sharded | --direct | --batched | "
          "--slicers OUT_DIR | --stages OUT_DIR]")
 
 
@@ -5807,6 +6132,15 @@ def main():
         return 0
     if sys.argv[1:] == ["--fidelity"]:
         phase_fidelity(*(torch.as_tensor(a, device="cuda") for a in make_pair(N)))
+        log(smi)
+        print(ok_line, flush=True)
+        return 0
+    if sys.argv[1:] == ["--batched"]:
+        batched, counts = phase_batched()
+        log(json.dumps({"batched": batched, "batched_launches": counts}))
+        log(json.dumps({"batched_kernels": [dict(name=name, route="cuda", source=source,
+                                                 replaces=replaces, launches=counts.get(name, 0))
+                                            for name, source, replaces in BATCHED_KERNELS]}))
         log(smi)
         print(ok_line, flush=True)
         return 0
@@ -5917,6 +6251,9 @@ def main():
     direct, direct_line, direct_launches = phase_direct(v2["lam"])
     report.update(direct_line)
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    batched, batched_launches = phase_batched()
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     assert not any(m == "jax" or m.startswith("jax.") or m == "sfft_tpu"
                    or m.startswith("sfft_tpu.") for m in sys.modules), "jax or sfft_tpu imported"
 
@@ -5956,7 +6293,8 @@ def main():
                                                       "fft/fft/exact"))
                                       + survey_launches.get(name, 0)
                                       + sharded_launches.get(name, 0)
-                                      + direct_launches.get(name, 0)),
+                                      + direct_launches.get(name, 0)
+                                      + batched_launches.get(name, 0)),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
@@ -5998,7 +6336,8 @@ def main():
                                     for k in ("eager_ms", "library_eager_ms")},
                     "easy": {p: ({k: v for k, v in e.items() if k not in ("on_path", "slicers")}
                                  if p != "golden_contract" else e) for p, e in easy.items()},
-                    "survey": survey, "sharded": sharded, "direct": direct, "card": smi}))
+                    "survey": survey, "sharded": sharded, "direct": direct,
+                    "batched": batched, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(ok_line, flush=True)
@@ -6006,4 +6345,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -45,11 +45,11 @@ _SIGNATURES = {
     "sfft_slice_rows_f64": [_P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _P],
     "sfft_slice_vec_f64": [_P, _P, _P, _L, _L, _I, _P],
     "sfft_slice_triple_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _P],
-    "sfft_moments_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sfft_moments_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P],
     "sfft_corr_window_c64": [_P] * 8 + [_I] * 11 + [_P],
     "sfft_corr_window_c128": [_P] * 8 + [_I] * 11 + [_P],
-    "sfft_fdiff_model_c64": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
-    "sfft_fdiff_model_c128": [_P] * 8 + [_I] * 9 + [ctypes.c_double, _P],
+    "sfft_fdiff_model_c64": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
+    "sfft_fdiff_model_c128": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
     "sfft_sliced_epilogue": [_P, _P],
     "sfft_pair_products": [_P, _P],
     "sfft_pair_model": [_P, _P],

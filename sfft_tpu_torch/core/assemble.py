@@ -108,9 +108,13 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
     also is whenever Fij*Fab >= 8192).
     reg_terms: optional Kronecker factors [(M (Fij,Fij), R (Fab,Fab))] of
     lambda*REGMAT, added inside the OMG row construction.
+    Tables with a leading pair axis (the batched step) give (B, NEQ, NEQ)
+    and (B, NEQ): the same gathers and elementwise sums for the batch, each
+    pair's bits those of its single call.
     """
     p = _gather_plan(cfg)
     Fij, Fpq, Fab = cfg.Fij, cfg.Fpq, cfg.Fab
+    lead = tuple(t.Pbb.shape[:-4])     # () or (B,): the pair axis
     dt = t.Pbb.dtype
     dev = t.Pbb.device
     odt = out_dtype if out_dtype is not None else dt
@@ -124,17 +128,17 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
     cs = const("cs")
 
     # ---- OMG block -----------------------------------------------------
-    Pbbf = t.Pbb.reshape(Fij, Fij, -1)
-    Pbsf = t.Pbs.reshape(Fij, Fij, -1)
-    Psbf = Pbsf.transpose(0, 1)
-    bb_zero = Pbbf[:, :, p["omg_zero"]][:, :, None, None]
-    bs_zero = Pbsf[:, :, p["g_zero"]][:, :, None, None]
-    sb_zero = Psbf[:, :, p["g_zero"]][:, :, None, None]
-    ss = t.Pss[:, :, None, None]
+    Pbbf = t.Pbb.reshape(lead + (Fij, Fij, -1))
+    Pbsf = t.Pbs.reshape(lead + (Fij, Fij, -1))
+    Psbf = Pbsf.transpose(-3, -2)
+    bb_zero = Pbbf[..., p["omg_zero"]][..., None, None]
+    bs_zero = Pbsf[..., p["g_zero"]][..., None, None]
+    sb_zero = Psbf[..., p["g_zero"]][..., None, None]
+    ss = t.Pss[..., None, None]
     k1, k0, ks = c1[None, :], c0[None, :], cs[None, :]
     # column-indexed terms (row-independent)
-    bb_col = Pbbf[:, :, const("omg_col", torch.long)][:, :, None, :]
-    sb_colneg = Psbf[:, :, const("g_row", torch.long)][:, :, None, :]
+    bb_col = Pbbf[..., const("omg_col", torch.long)][..., None, :]
+    sb_colneg = Psbf[..., const("g_row", torch.long)][..., None, :]
     col_part = (k1 * bb_col + k0 * bb_zero + ks * bs_zero)      # x c0 row
     scl_part = (k1 * sb_colneg + k0 * sb_zero + ks * ss)        # x cs row
 
@@ -150,9 +154,9 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
 
     def rows_for(idx):
         """OMG rows for a row-offset subset idx (CH,): (Fij, CH, Fij*Fab)."""
-        bb_cross = Pbbf[:, :, oc[idx]]                           # (F,F,CH,Fab)
-        bb_row = Pbbf[:, :, orow[idx]][:, :, :, None]
-        bs_row = Pbsf[:, :, grow[idx]][:, :, :, None]
+        bb_cross = Pbbf[..., oc[idx]]                           # (F,F,CH,Fab)
+        bb_row = Pbbf[..., orow[idx]][..., None]
+        bs_row = Pbsf[..., grow[idx]][..., None]
         r1 = c1[idx][:, None]
         r0 = c0[idx][:, None]
         rs = cs[idx][:, None]
@@ -161,39 +165,39 @@ def assemble_system(cfg: SFFTConfig, t: GreekTables,
         if reg is not None:
             for M, R in reg:
                 blk = blk + M[:, :, None, None] * R[idx][None, None, :, :]
-        return blk.permute(0, 2, 1, 3).reshape(Fij, len(idx), Fij * Fab).to(odt)
+        return blk.transpose(-3, -2).reshape(lead + (Fij, len(idx), Fij * Fab)).to(odt)
 
     if CH == Fab:
-        omg = rows_for(torch.arange(Fab, device=dev)).reshape(Fij * Fab, Fij * Fab)
+        omg = rows_for(torch.arange(Fab, device=dev)).reshape(lead + (Fij * Fab, Fij * Fab))
     else:
         chunks = [rows_for(torch.arange(s, s + CH, device=dev)) for s in range(0, Fab, CH)]
-        omg = torch.stack(chunks, dim=1).reshape(Fij * Fab, Fij * Fab)
+        omg = torch.stack(chunks, dim=-3).reshape(lead + (Fij * Fab, Fij * Fab))
 
     # ---- GAM block: rows (i8j8, a8b8), cols pq -------------------------
-    Gbf = t.Pgb.reshape(Fij, Fpq, -1)
+    Gbf = t.Pgb.reshape(lead + (Fij, Fpq, -1))
     gam = (
-        c1[None, None, :] * Gbf[:, :, grow]
-        + c0[None, None, :] * Gbf[:, :, p["g_zero"]][:, :, None]
-        + cs[None, None, :] * t.Pgs[:, :, None]
+        c1[None, None, :] * Gbf[..., grow]
+        + c0[None, None, :] * Gbf[..., p["g_zero"]][..., None]
+        + cs[None, None, :] * t.Pgs[..., None]
     )
     # the PSI block is the transpose layout of the same values:
     # CC(T, I*beta)[-a] == Pgb(a); CC(T, I*sigma)[0] == Pgs
-    psi = gam.permute(1, 0, 2).reshape(Fpq, Fij * Fab)
-    gam = gam.permute(0, 2, 1).reshape(Fij * Fab, Fpq)
+    psi = gam.transpose(-3, -2).reshape(lead + (Fpq, Fij * Fab))
+    gam = gam.transpose(-2, -1).reshape(lead + (Fij * Fab, Fpq))
 
     # ---- THE / DEL RHS -------------------------------------------------
-    Tbf = t.Ptb.reshape(Fij, -1)
+    Tbf = t.Ptb.reshape(lead + (Fij, -1))
     the = (
-        c1[None, :] * Tbf[:, grow]
-        + c0[None, :] * Tbf[:, p["g_zero"]][:, None]
-        + cs[None, :] * t.Pts[:, None]
-    ).reshape(Fij * Fab)
+        c1[None, :] * Tbf[..., grow]
+        + c0[None, :] * Tbf[..., p["g_zero"]][..., None]
+        + cs[None, :] * t.Pts[..., None]
+    ).reshape(lead + (Fij * Fab,))
 
     lhs = torch.cat([
-        torch.cat([omg, gam.to(odt)], dim=1),
-        torch.cat([psi.to(odt), t.Pphi.to(odt)], dim=1),
-    ], dim=0)
-    rhs = torch.cat([the.to(odt), t.Pdel.to(odt)])
+        torch.cat([omg, gam.to(odt)], dim=-1),
+        torch.cat([psi.to(odt), t.Pphi.to(odt)], dim=-1),
+    ], dim=-2)
+    rhs = torch.cat([the.to(odt), t.Pdel.to(odt)], dim=-1)
     return lhs, rhs
 
 
@@ -206,14 +210,15 @@ def entangled_tables(
     Cdel: torch.Tensor,
 ) -> GreekTables:
     """Derive the sigma tables from the beta tables when sigma == beta:
-    Pbs is the central +-w window of Pbb; lag-0 entries come from the centers."""
+    Pbs is the central +-w window of Pbb; lag-0 entries come from the
+    centers. The tables may carry a leading pair axis."""
     w0, w1 = cfg.w0, cfg.w1
     win0 = slice(w0, 3 * w0 + 1)
     win1 = slice(w1, 3 * w1 + 1)
-    Pbs = Comg[:, :, win0, win1]
-    Pss = Comg[:, :, 2 * w0, 2 * w1]
-    Pgs = Cgam[:, :, w0, w1]
-    Pts = Cthe[:, w0, w1]
+    Pbs = Comg[..., win0, win1]
+    Pss = Comg[..., 2 * w0, 2 * w1]
+    Pgs = Cgam[..., w0, w1]
+    Pts = Cthe[..., w0, w1]
     return GreekTables(
         Pbb=Comg, Pbs=Pbs, Pss=Pss, Pgb=Cgam, Pgs=Pgs,
         Ptb=Cthe, Pts=Pts, Pphi=Cphi, Pdel=Cdel,

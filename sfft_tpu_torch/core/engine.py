@@ -31,19 +31,22 @@ def _plane_stacks(cfg: SFFTConfig, I: torch.Tensor, dtype=None, rows=None):
     planes (reference SPixA_Tpq); SSc = I * scaling-basis planes, zero-padded to
     Fij, for SEPARATE-VARYING (reference ScaSPixA_Iij). rows = (r0, r1): I
     is the row block [r0, r1) of the image, and so are the planes; an
-    integer array: I holds the image rows it lists (``basis_planes``)."""
+    integer array: I holds the image rows it lists (``basis_planes``). I
+    (B, N0, N1), a batch of pairs: SI and SSc gain the pair axis, ST (the
+    same for every pair) does not."""
     dt = torch_dtype(cfg.dtype if dtype is None else dtype)
     dev = I.device
     Bk = basis_planes(cfg.kernel_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
     ST = basis_planes(cfg.bg_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
-    SI = I[None, :, :].to(dt) * Bk
+    SI = I[..., None, :, :].to(dt) * Bk
     SSc = None
     if cfg.scaling_mode == "SEPARATE-VARYING":
         Bs = basis_planes(cfg.scaling_basis, cfg.N0, cfg.N1, dtype=dt, device=dev, rows=rows)
-        SSc = I[None, :, :].to(dt) * Bs
-        if SSc.shape[0] < cfg.Fij:
-            pad = torch.zeros((cfg.Fij - SSc.shape[0],) + tuple(I.shape), dtype=dt, device=dev)
-            SSc = torch.cat([SSc, pad], dim=0)
+        SSc = I[..., None, :, :].to(dt) * Bs
+        if SSc.shape[-3] < cfg.Fij:
+            shape = tuple(I.shape[:-2]) + (cfg.Fij - SSc.shape[-3],) + tuple(I.shape[-2:])
+            pad = torch.zeros(shape, dtype=dt, device=dev)
+            SSc = torch.cat([SSc, pad], dim=-3)
     return SI, ST, SSc
 
 
@@ -52,7 +55,10 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
     masked pair — everything `_solve_impl` does short of the solve (reference
     LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the exact or
-    pexact plane spectra of (mI, mJ), when the caller has them."""
+    pexact plane spectra of (mI, mJ), when the caller has them. The peeled
+    and the fft / fft32 backends with polynomial bases also take a batch of
+    pairs, mI and mJ (B, N0, N1), and give (B, NEQ, NEQ) and (B, NEQ), each
+    pair's bits those of its single call."""
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
@@ -117,6 +123,24 @@ def system_from_tables(cfg: SFFTConfig, out, extra, device):
                            reg_terms=regularization_terms_on(cfg, device, tables.Pbb.dtype))
 
 
+# the (greek, fdiff, solver) trios whose batch of pairs runs as one batched
+# step (``solve_and_subtract_batched_fn``): the fast mode and the default
+# trio, as sfft_tpu's jax.vmap runs any config
+BATCHED_TRIOS = (("peeled", "fft32", "refined"), ("fft", "fft", "lu"))
+
+
+def batched_step_supported(cfg: SFFTConfig) -> bool:
+    """Whether a batch of pairs of this config runs as one batched step: the
+    fast mode (peeled / fft32 / refined) and the default trio (fft / fft /
+    lu), with polynomial bases in either scaling mode. Every other config
+    (contract pexact / transformed, exact, corr / conv, B-spline and v2,
+    the piecewise peel) takes the per-pair loop of parallel/batch.py."""
+    from sfft_tpu_torch.core.peel import polynomial_bases
+
+    return ((cfg.greek_backend, cfg.fdiff_backend, cfg.solver) in BATCHED_TRIOS
+            and polynomial_bases(cfg))
+
+
 def normal_equations_fn(cfg: SFFTConfig):
     """(mI, mJ) -> (lhs, rhs), for residual certificates of candidate
     solutions."""
@@ -148,7 +172,7 @@ def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
     if SSc is not None:
         # the planes past the active scaling functions are zero padding:
         # they add nothing to the model spectrum
-        SSc = SSc[: cfg.scaling_basis.num_funcs()]
+        SSc = SSc[..., : cfg.scaling_basis.num_funcs(), :, :]
     return fdiff(cfg, solution.to(dt), SI, ST, J, SSc, plain=plain)
 
 
@@ -157,7 +181,14 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
     the unmasked pair (I, J). Returns (solution, difference). With the
     exact (or the pexact) backends for both tables and difference, the plane
     spectra are computed once and shared when the masked and unmasked images
-    are the same tensors."""
+    are the same tensors. A ``batched_step_supported`` config runs the
+    batched step on the batch of one pair."""
+    if batched_step_supported(cfg):
+        def one(I, J, mI, mJ, plain: bool = False):
+            sol, diff = _batched_step(cfg, I[None], J[None], mI[None], mJ[None], plain)
+            return sol[0], diff[0]
+
+        return one
     both_exact = cfg.greek_backend == "exact" and cfg.fdiff_backend == "exact"
     both_pexact = cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact"
 
@@ -179,6 +210,42 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
         return sol, diff
 
     return step
+
+
+def _batched_step(cfg: SFFTConfig, I, J, mI, mJ, plain: bool):
+    """The batched step's work on (B, N0, N1) tensors: the tables, the
+    assembly and the difference for the batch, the solve pair by pair (a
+    batched LU changes a pair's bits)."""
+    dt = torch_dtype(cfg.dtype)
+    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain)
+    sol = torch.stack([solve_system(cfg, a, b, plain=plain).to(dt) for a, b in zip(lhs, rhs)])
+    return sol, _subtract_impl(cfg, I, J, sol, plain=plain)
+
+
+def solve_and_subtract_batched_fn(cfg: SFFTConfig):
+    """The step for a batch of pairs on one device, the counterpart of
+    sfft_tpu's jax.vmap of ``solve_and_subtract_fn``: step(I, J, mI, mJ)
+    with (B, N0, N1) tensors returns (solutions (B, NEQ), differences (B,
+    N0, N1)), each pair's bits those of its single call. One set of the
+    config's K3, K1 and K2 launches and one pass of the table algebra and
+    the assembly for the batch; the library calls whose bits would change
+    with the batch's size (the solve, the rfft2 and irfft2, the products
+    with long contractions) run pair by pair. Only for
+    ``batched_step_supported`` configs (it raises for the others); the
+    single step of those configs is this step on one pair."""
+    if not batched_step_supported(cfg):
+        raise ValueError(f"no batched step for greek {cfg.greek_backend!r}, fdiff "
+                         f"{cfg.fdiff_backend!r}, solver {cfg.solver!r} with these bases: "
+                         f"run its pairs one by one")
+
+    def step(I, J, mI, mJ, plain: bool = False):
+        solve_and_subtract_batched_fn.steps += 1
+        return _batched_step(cfg, I, J, mI, mJ, plain)
+
+    return step
+
+
+solve_and_subtract_batched_fn.steps = 0   # batched steps run (any config)
 
 
 def solve_and_subtract_same_fn(cfg: SFFTConfig):

@@ -78,7 +78,13 @@ def fdiff_model_plain(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch
     SCALE (K'_ij - s_nc_ij) FI_ij - sum_pq b_pq FT_pq - SCALE sum_ij a00_ij
     FX_ij with K'_ij = W0 @ A'_ij @ W1 (center-zeroed), FX = FS when given
     (its nS <= Fij planes pair with the first nS centers), else FI.
-    specs: (1 + Fij + Fpq, N0, N1h) rfft2 half spectra of J, SI, ST."""
+    specs: (1 + Fij + Fpq, N0, N1h) rfft2 half spectra of J, SI, ST. A
+    batch (specs (B, 1 + Fij + Fpq, N0, N1h), FS (B, nS, N0, N1h),
+    solution (B, NEQ)) runs pair by pair: (B, N0, N1h)."""
+    if specs.dim() == 4:
+        return torch.stack([fdiff_model_plain(specs[b], None if FS is None else FS[b],
+                                              solution[b], W0, W1, Fij, w0, w1, SCALE)
+                            for b in range(specs.shape[0])])
     cdt = W0.dtype
     L0, L1 = W0.shape[1], W1.shape[0]
     FJ = specs[0]
@@ -109,20 +115,22 @@ _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE):
+    """K2's two launches for the batch specs (B, 1 + Fij + Fpq, N0, N1h)
+    (FS (B, nS, N0, N1h) or None, solution (B, NEQ)): (B, N0, N1h)."""
     from sfft_tpu_torch import _kernels
 
     L0, L1 = W0.shape[1], W1.shape[0]
-    N0, N1h = specs.shape[1], specs.shape[2]
+    B, nplanes, N0, N1h = specs.shape
     dev = specs.device
-    T = torch.empty((Fij, L0, N1h), dtype=specs.dtype, device=dev)
-    snc = torch.empty((Fij,), dtype=solution.dtype, device=dev)
-    out = torch.empty((N0, N1h), dtype=specs.dtype, device=dev)
-    nS = 0 if FS is None else FS.shape[0]
+    T = torch.empty((B, Fij, L0, N1h), dtype=specs.dtype, device=dev)
+    snc = torch.empty((B, Fij), dtype=solution.dtype, device=dev)
+    out = torch.empty((B, N0, N1h), dtype=specs.dtype, device=dev)
+    nS = 0 if FS is None else FS.shape[1]
     with torch.cuda.device(dev):
         err = getattr(_kernels.lib(), _K2_ENTRY[specs.dtype])(
             specs.data_ptr(), FS.data_ptr() if nS else None, solution.data_ptr(),
             W0.data_ptr(), W1.data_ptr(), T.data_ptr(), snc.data_ptr(), out.data_ptr(),
-            Fij, specs.shape[0] - 1 - Fij, nS, L0, L1, w0, w1, N0, N1h, float(SCALE),
+            Fij, nplanes - 1 - Fij, nS, L0, L1, w0, w1, N0, N1h, B, float(SCALE),
             _kernels.stream_ptr(specs))
     fdiff_model.launches += 2
     _kernels.check(err, "fdiff_model kernel launch")
@@ -132,10 +140,13 @@ def _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE):
 def fdiff_model(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch.Tensor,
                 W1: torch.Tensor, Fij: int, w0: int, w1: int, SCALE: float) -> torch.Tensor:
     """The model spectrum FDIFF (N0, N1h) of ``fdiff_model_plain``'s
-    arguments, all contiguous, complex64 (f32 solution) or complex128 (f64).
-    CUDA tensors go through the K2 kernel (two launches: the per-ij rows
-    A'_ij @ W1, then one pass over the half spectrum that never writes K');
-    CPU tensors through ``fdiff_model_plain``."""
+    arguments, all contiguous, complex64 (f32 solution) or complex128 (f64);
+    a batch of pairs (specs (B, 1 + Fij + Fpq, N0, N1h), FS (B, nS, N0,
+    N1h) or None, solution (B, NEQ)) gives (B, N0, N1h), each pair's bits
+    those of its single call. CUDA tensors go through the K2 kernel (two
+    launches for the batch: the per-ij rows A'_ij @ W1, then one pass over
+    the half spectrum that never writes K'); CPU tensors through
+    ``fdiff_model_plain``."""
     cdt = specs.dtype
     spectra = [specs, W0, W1] + ([] if FS is None else [FS])
     if cdt not in _REAL or any(t.dtype != cdt for t in spectra) or solution.dtype != _REAL[cdt]:
@@ -146,22 +157,30 @@ def fdiff_model(specs: torch.Tensor, FS, solution: torch.Tensor, W0: torch.Tenso
         raise ValueError("fdiff_model needs contiguous operands")
     if any(t.device != specs.device for t in tensors):
         raise ValueError("fdiff_model operands on more than one device")
-    if specs.dim() != 3:
-        raise ValueError("fdiff_model needs (1 + Fij + Fpq, N0, N1h) spectra")
-    nplanes, N0, N1h = specs.shape
+    if specs.dim() not in (3, 4):
+        raise ValueError("fdiff_model needs ([B,] 1 + Fij + Fpq, N0, N1h) spectra")
+    batched = specs.dim() == 4
+    nplanes, N0, N1h = specs.shape[-3:]
+    B = specs.shape[0] if batched else 1
     L0, L1 = W0.shape[1], W1.shape[0]
     Fpq = nplanes - 1 - Fij
+    lead = (B,) if batched else ()
     if (Fpq < 0 or tuple(W0.shape) != (N0, L0) or tuple(W1.shape) != (L1, N1h)
-            or tuple(solution.shape) != (Fij * L0 * L1 + Fpq,)
-            or (FS is not None and (FS.shape[0] > Fij or tuple(FS.shape[1:]) != (N0, N1h)))):
+            or tuple(solution.shape) != lead + (Fij * L0 * L1 + Fpq,)
+            or (FS is not None and (FS.dim() != specs.dim() or FS.shape[-3] > Fij
+                                    or tuple(FS.shape[-2:]) != (N0, N1h)
+                                    or tuple(FS.shape[:-3]) != lead))):
         raise ValueError("fdiff_model: inconsistent shapes")
     if specs.device.type == "cpu":
         return fdiff_model_plain(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
     if specs.device.type != "cuda":
         raise ValueError(f"fdiff_model runs on cpu or cuda tensors, not {specs.device}")
-    if specs.numel() >= 2 ** 31 or Fij * (L0 + 1) > 65535:
-        raise ValueError("fdiff_model kernel takes int32 extents")
-    return _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
+    if specs.numel() >= 2 ** 31 or Fij * (L0 + 1) > 65535 or B > 65535:
+        raise ValueError("fdiff_model kernel takes int32 extents and at most 65535 pairs")
+    if batched:
+        return _fdiff_model_launch(specs, FS, solution, W0, W1, Fij, w0, w1, SCALE)
+    return _fdiff_model_launch(specs[None], None if FS is None else FS[None], solution[None],
+                               W0, W1, Fij, w0, w1, SCALE)[0]
 
 
 fdiff_model.launches = 0
@@ -183,17 +202,26 @@ def fdiff_fft(
     variant, sfft/BSplineSFFT.py:2430-2528); it may hold fewer than Fij
     planes (the active ones). The model spectrum between the forward and the
     inverse rfft2 is ``fdiff_model`` (K2 on the card); plain=True takes its
-    twin."""
+    twin. A batch of pairs (J (B, N0, N1), SI and SSc (B, F, N0, N1),
+    solution (B, NEQ); ST shared) gives (B, N0, N1): one K2 call for the
+    batch, the forward and inverse rfft2 pair by pair (cuFFT's batched
+    transforms change a pair's bits), each pair's bits those of its single
+    call."""
+    from sfft_tpu_torch.core.greek import irfft2_pairs, rfft2_pairs
+
     N0, N1 = cfg.N0, cfg.N1
     dev = J.device
     W0 = table(Static(phase_matrix, (cfg, True, 0)), dev)
     W1 = table(Static(phase_matrix, (cfg, True, 1)), dev)
-    specs = torch.fft.rfft2(torch.cat([J[None], SI, ST], dim=0))
-    FS = None if SSc is None else torch.fft.rfft2(SSc)
+    lead = tuple(J.shape[:-2])
+    rfft2 = rfft2_pairs if lead else torch.fft.rfft2
+    specs = rfft2(torch.cat([J[..., None, :, :], SI, ST.expand(lead + tuple(ST.shape))], dim=-3))
+    FS = None if SSc is None else rfft2(SSc)
     model = fdiff_model_plain if plain else fdiff_model
     FDIFF = model(specs, FS, solution.to(_REAL[W0.dtype]).contiguous(), W0, W1, cfg.Fij,
                   cfg.w0, cfg.w1, cfg.SCALE)
-    return torch.fft.irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
+    irfft2 = irfft2_pairs if lead else torch.fft.irfft2
+    return irfft2(FDIFF, s=(N0, N1)).to(J.dtype)
 
 
 def conv_direct_plain(planes: torch.Tensor, taps: torch.Tensor, wrap: bool = True, J=None,

@@ -34,7 +34,7 @@ over the lags, one product each) on CPU tensors.
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -215,24 +215,38 @@ def _group_table(groups) -> np.ndarray:
     return tab
 
 
+def _batch_groups(ia, ib, same: bool, ppb: int, blocks: int = 1):
+    """``_pair_groups`` of a list that is `blocks` equal consecutive
+    segments (the pairs of a batch: each segment is one image pair's list
+    of plane pairs), scheduled segment by segment, so that a group never
+    mixes two segments and each segment's groups are those of its own list."""
+    n = len(ia) // blocks
+    groups = []
+    for k in range(blocks):
+        for slots, pairs in _pair_groups(ia[k * n:(k + 1) * n], ib[k * n:(k + 1) * n], same, ppb):
+            groups.append((slots, [(sa, sb, c + k * n) for sa, sb, c in pairs]))
+    return groups
+
+
 @lru_cache(maxsize=256)
-def _schedule(ia: tuple, ib: tuple, same: bool, ppb: int, device: torch.device):
-    """(group table on `device`, ngroups) of a pair list: built and uploaded
-    once per list."""
-    groups = _group_table(_pair_groups(ia, ib, same, ppb))
+def _schedule(ia: tuple, ib: tuple, same: bool, ppb: int, device: torch.device,
+              blocks: int = 1):
+    """(group table on `device`, ngroups) of a pair list of `blocks`
+    segments (``_batch_groups``): built and uploaded once per list."""
+    groups = _group_table(_batch_groups(ia, ib, same, ppb, blocks))
     return torch.tensor(groups.ravel(), device=device), len(groups)
 
 
-def _corr_launch(specA, specB, ia, ib, E0, E1, sym=False):
+def _corr_launch(specA, specB, ia, ib, E0, E1, sym=False, blocks=1):
     """One K1 launch; with `sym` (and an odd R1) on the conjugate-pair
-    route: the plan, the pair schedule and the packed E1, then
-    ``_k1_call``."""
+    route: the plan, the pair schedule (of `blocks` segments) and the
+    packed E1, then ``_k1_call``."""
     R1 = E1.shape[1]
     sym = bool(sym) and R1 % 2 == 1
     _, NT, nng = _k1_plan(R1, sym)
     same = specA.data_ptr() == specB.data_ptr() and specA.shape == specB.shape
     table_dev, ngroups = _schedule(tuple(int(v) for v in ia), tuple(int(v) for v in ib), same,
-                                   _k1_pairs_per_block(nng), specA.device)
+                                   _k1_pairs_per_block(nng), specA.device, blocks)
     E1p = _k1_pack_e1(E1, sym, NT * nng)
     return _k1_call(specA, specB, table_dev, ngroups, len(ia), E0, E1p, R1, NT, nng, sym)
 
@@ -274,13 +288,14 @@ def corr_window(specA: torch.Tensor, specB: torch.Tensor, ia, ib,
     return _corr_window(specA, specB, ia, ib, E0, E1, sym=False)
 
 
-def _corr_window(specA, specB, ia, ib, E0, E1, sym: bool) -> torch.Tensor:
+def _corr_window(specA, specB, ia, ib, E0, E1, sym: bool, blocks: int = 1) -> torch.Tensor:
     """``corr_window``; with `sym` the kernel takes E1's columns as
     conjugate-symmetric about the middle one, E1[:, w + d] == conj(E1[:,
     w - d]) with w = R1 // 2: it forms both lags from one set of products
     (half the multiply-adds) and reads only the columns from w on. Only for
     the matrices of ``_partial_idft_mats``, which are built so and checked
-    there."""
+    there. `blocks`: the list is that many equal segments (a batch's
+    pairs), which the kernel's schedule keeps apart (``_batch_groups``)."""
     tensors = (specA, specB, E0, E1)
     if specA.dtype not in (torch.complex64, torch.complex128) or any(
             t.dtype != specA.dtype for t in tensors):
@@ -314,10 +329,46 @@ def _corr_window(specA, specB, ia, ib, E0, E1, sym: bool) -> torch.Tensor:
     if E1.shape[1] > 64 or len(ia) == 0 or len(ia) > 65535:
         raise ValueError(f"corr_window kernel takes 1..65535 pairs and at most "
                          f"64 lags along axis 1, got {len(ia)} and {E1.shape[1]}")
-    return _corr_launch(specA, specB, ia, ib, E0, E1, sym=sym)
+    if len(ia) % blocks:
+        raise ValueError("corr_window: the pair list is not whole segments")
+    return _corr_launch(specA, specB, ia, ib, E0, E1, sym=sym, blocks=blocks)
 
 
 corr_window.launches = 0
+
+
+def _plane_view(X: torch.Tensor):
+    """K1's operand for the plane stacks of a batch of pairs, X (B, F, N0,
+    N1h): a (planes, N0, N1h) view of X's storage in which pair z's plane f
+    is plane off[z] + f, and off. A slice of a larger stack along its plane
+    axis (the views of one transform that the tables take) passes without
+    a copy; another layout is made contiguous first."""
+    X = X.resolve_conj()
+    B, F, n0, n1 = X.shape
+    P = n0 * n1
+    if tuple(X.stride()[1:]) != (P, n1, 1) or (B > 1 and X.stride(0) % P):
+        X = X.contiguous()
+    step = X.stride(0) // P if B > 1 else F
+    return X.as_strided(((B - 1) * step + F, n0, n1), (P, n1, 1)), np.arange(B) * step
+
+
+def _corr_irfft(specA, specB, N0: int, N1: int, wx: int, wy: int, chunk: int) -> torch.Tensor:
+    """The 'irfft' method of ``corr_window_fft`` for one pair's stacks."""
+    Fa, Fb = specA.shape[0], specB.shape[0]
+    rows = index(_window_row_indices(N0, wx), specA.device, torch.long)
+    cols = index(_window_row_indices(N1, wy), specA.device, torch.long)
+    H = specA[:, None, :, :] * torch.conj(specB)[None, :, :, :]
+    H = H.reshape(Fa * Fb, N0, specA.shape[-1])
+
+    def one_chunk(h):
+        cc = torch.fft.irfft2(h, s=(N0, N1))
+        return cc[:, rows][:, :, cols]
+
+    if chunk and Fa * Fb > chunk:
+        out = torch.cat([one_chunk(H[k:k + chunk]) for k in range(0, Fa * Fb, chunk)], dim=0)
+    else:
+        out = one_chunk(H)
+    return out.reshape(Fa, Fb, 2 * wx + 1, 2 * wy + 1)
 
 
 def corr_window_fft(
@@ -344,61 +395,105 @@ def corr_window_fft(
     frequency rows [row0, row0 + rows) of the spectra only, and the result
     is their share of the windows (the partial inverse DFT over those rows;
     'auto' then takes 'matmul' where it would take 'irfft').
+
+    A leading pair axis, specA (B, Fa, N0, N1h) and specB (B, Fb, N0, N1h),
+    gives (B, Fa, Fb, 2*wx+1, 2*wy+1), pair z's windows bit for bit those of
+    the call on specA[z], specB[z]; a single call is the batch of one. The
+    kernel takes the batch folded into its plane axis (``_plane_view``):
+    one pair list, each pair's the list of its own call offset to its
+    planes and scheduled apart (``_corr_window``'s `blocks`), at most 65535
+    pairs a launch. 'irfft' and 'matmul' run pair by pair (a batched
+    irfft2 changes a pair's bits).
     """
-    Fa, Fb = specA.shape[0], specB.shape[0]
+    same = symmetric and specA is specB
+    one = specA.dim() == 3
+    if one:
+        specA = specA[None]
+        specB = specA if same else specB[None]
+    B, Fa, Fb = specA.shape[0], specA.shape[1], specB.shape[1]
+    R0, R1 = 2 * wx + 1, 2 * wy + 1
     if method == "auto":
         method = "irfft" if (plain or specA.device.type == "cpu") else "kernel"
         if method == "irfft" and row0 is not None:
             method = "matmul"
     if row0 is not None and method == "irfft":
         raise ValueError("a row block of the spectra takes the 'matmul' or 'kernel' method")
-
-    if method in ("matmul", "kernel"):
-        e0_rows = None if row0 is None else (row0, row0 + specA.shape[1])
-        E0, E1 = _idft_mats_on(N0, N1, wx, wy, specA.dtype, specA.device, e0_rows)
-        # the window's weights come in conjugate pairs of lags (+d, -d)
-        pair_fn = partial(_corr_window, sym=True) if method == "kernel" else corr_pairs_plain
-        same = symmetric and specA is specB
-        if method == "kernel":
-            specA = specA.resolve_conj().contiguous()
-            specB = specA if same else specB.resolve_conj().contiguous()
-        if same:
-            iu, ju = np.triu_indices(Fa)
-            csize = chunk if chunk else len(iu)
-            tri = torch.cat([pair_fn(specA, specB, iu[k:k + csize], ju[k:k + csize], E0, E1)
-                             for k in range(0, len(iu), csize)], dim=0)
-            full = torch.zeros((Fa, Fa, 2 * wx + 1, 2 * wy + 1), dtype=tri.dtype,
-                               device=tri.device)
-            iu_t = index(iu, tri.device, torch.long)
-            ju_t = index(ju, tri.device, torch.long)
-            full[iu_t, ju_t] = tri
-            full[ju_t, iu_t] = torch.flip(tri, dims=(1, 2))
-            return full
-        ia, ib = np.meshgrid(np.arange(Fa), np.arange(Fb), indexing="ij")
-        ia = ia.ravel()
-        ib = ib.ravel()
-        npairs = Fa * Fb
-        csize = chunk if chunk else npairs
-        out = torch.cat([pair_fn(specA, specB, ia[k:k + csize], ib[k:k + csize], E0, E1)
-                         for k in range(0, npairs, csize)], dim=0)
-        return out.reshape(Fa, Fb, 2 * wx + 1, 2 * wy + 1)
-    if method != "irfft":
+    if method == "irfft":
+        out = torch.stack([_corr_irfft(specA[z], specB[z], N0, N1, wx, wy, chunk)
+                           for z in range(B)])
+        return out[0] if one else out
+    if method not in ("matmul", "kernel"):
         raise ValueError(f"unknown corr_window_fft method {method!r}")
 
-    rows = index(_window_row_indices(N0, wx), specA.device, torch.long)
-    cols = index(_window_row_indices(N1, wy), specA.device, torch.long)
-    H = specA[:, None, :, :] * torch.conj(specB)[None, :, :, :]
-    H = H.reshape(Fa * Fb, N0, specA.shape[-1])
-
-    def one_chunk(h):
-        cc = torch.fft.irfft2(h, s=(N0, N1))
-        return cc[:, rows][:, :, cols]
-
-    if chunk and Fa * Fb > chunk:
-        out = torch.cat([one_chunk(H[k:k + chunk]) for k in range(0, Fa * Fb, chunk)], dim=0)
+    e0_rows = None if row0 is None else (row0, row0 + specA.shape[2])
+    E0, E1 = _idft_mats_on(N0, N1, wx, wy, specA.dtype, specA.device, e0_rows)
+    if same:
+        iu, ju = np.triu_indices(Fa)
     else:
-        out = one_chunk(H)
-    return out.reshape(Fa, Fb, 2 * wx + 1, 2 * wy + 1)
+        iu, ju = (g.ravel() for g in np.meshgrid(np.arange(Fa), np.arange(Fb), indexing="ij"))
+    n = len(iu)
+    csize = chunk if chunk else n
+    if method == "kernel":
+        # the window's weights come in conjugate pairs of lags (+d, -d)
+        A, offA = _plane_view(specA)
+        Bv, offB = (A, offA) if same else _plane_view(specB)
+        ia, ib = (offA[:, None] + iu).ravel(), (offB[:, None] + ju).ravel()
+        if csize < n:   # a pair's own list in chunks, as its single call cuts it
+            parts = [_corr_window(A, Bv, ia[z * n + k:z * n + min(n, k + csize)],
+                                  ib[z * n + k:z * n + min(n, k + csize)], E0, E1, sym=True)
+                     for z in range(B) for k in range(0, n, csize)]
+        else:
+            per = max(1, min(65535, chunk or 65535) // n)   # pairs of the batch a launch
+            parts = [_corr_window(A, Bv, ia[z * n:min(B, z + per) * n],
+                                  ib[z * n:min(B, z + per) * n], E0, E1, sym=True,
+                                  blocks=min(B, z + per) - z)
+                     for z in range(0, B, per)]
+    else:
+        parts = [corr_pairs_plain(specA[z], specB[z], iu[k:k + csize], ju[k:k + csize], E0, E1)
+                 for z in range(B) for k in range(0, n, csize)]
+    tri = torch.cat(parts, dim=0).reshape(B, n, R0, R1)
+    if same:
+        full = torch.zeros((B, Fa, Fa, R0, R1), dtype=tri.dtype, device=tri.device)
+        iu_t = index(iu, tri.device, torch.long)
+        ju_t = index(ju, tri.device, torch.long)
+        full[:, iu_t, ju_t] = tri
+        full[:, ju_t, iu_t] = torch.flip(tri, dims=(2, 3))
+    else:
+        full = tri.reshape(B, Fa, Fb, R0, R1)
+    return full[0] if one else full
+
+
+def rfft2_pairs(x: torch.Tensor) -> torch.Tensor:
+    """rfft2 of each pair's plane stack x[b] (B, F, N0, N1) into one (B, F,
+    N0, N1h) tensor: one transform call a pair, on the shape of the single
+    call's, because cuFFT picks its plan by the whole batch (a batched call
+    changed a pair's bits at 128^2 on the card, the `gpu` case of
+    tests/test_torch_pair_axis.py, though not at 4096^2). A batch of one is
+    the pair's own transform (``out=`` costs a copy of the spectra on the
+    card)."""
+    if x.shape[0] == 1:
+        return torch.fft.rfft2(x[0])[None]
+    out = torch.empty(tuple(x.shape[:-1]) + (x.shape[-1] // 2 + 1,),
+                      dtype=torch.complex128 if x.dtype == torch.float64 else torch.complex64,
+                      device=x.device)
+    for b in range(x.shape[0]):
+        torch.fft.rfft2(x[b], out=out[b])
+    return out
+
+
+def irfft2_pairs(X: torch.Tensor, s) -> torch.Tensor:
+    """irfft2 of each pair's spectra X[b] (B, ..., N0, N1h) to the real
+    shape `s` into one tensor, one call a pair (cuFFT's batched inverse
+    transform changes a pair's bits with B); a batch of one is the pair's
+    own transform."""
+    if X.shape[0] == 1:
+        return torch.fft.irfft2(X[0], s=s)[None]
+    out = torch.empty(tuple(X.shape[:-2]) + tuple(s),
+                      dtype=torch.float64 if X.dtype == torch.complex128 else torch.float32,
+                      device=X.device)
+    for b in range(X.shape[0]):
+        torch.fft.irfft2(X[b], s=s, out=out[b])
+    return out
 
 
 def corr_direct_plain(A: torch.Tensor, B: torch.Tensor, ia, ib, wx: int, wy: int) -> torch.Tensor:
@@ -920,9 +1015,11 @@ def greek_tables_separate(
     Returns (Pbs_raw, Pss_raw, Pgs_raw, Pts_raw) unscaled CC tables:
       Pbs: CC(SI_a, SSc_b) window +-w; Pss: CC(SSc_a, SSc_b)[0];
       Pgs: CC(SSc_a, T_q)[0]; Pts: CC(SSc_a, J)[0].
-    Backends 'fft', 'fft32' (f32 tables), 'exact' and 'corr' (K8).
+    Backends 'fft', 'fft32' (f32 tables), 'exact' and 'corr' (K8). The fft
+    backends take a batch of pairs too (SI, SSc (B, F, N0, N1), J (B, N0,
+    N1), ST shared), as ``greek_tables`` does.
     """
-    N0, N1 = J.shape
+    N0, N1 = J.shape[-2:]
     if backend == "exact":
         from sfft_tpu_torch.core.exact_fft import _pmap, exact_corr_window
 
@@ -952,17 +1049,20 @@ def greek_tables_separate(
                             dot_planes(SScA, J[None])[:, 0], SSc.shape[0] - SScA.shape[0])
     if backend not in ("fft", "fft32"):
         raise ValueError(f"unknown greek backend {backend!r}")
-    Pss = dot_planes(SSc, SSc)
-    Pgs = dot_planes(SSc, ST)
-    Pts = dot_planes(SSc, J[None])[:, 0]
+    if J.dim() == 2:   # one pair: the batch of one
+        return tuple(t[0] for t in greek_tables_separate(
+            SI[None], SSc[None], ST, J[None], w0, w1, backend=backend, chunk=chunk,
+            plain=plain))
+    Pss = torch.stack([dot_planes(x, x) for x in SSc])
+    Pgs = torch.stack([dot_planes(x, ST) for x in SSc])
+    Pts = torch.stack([dot_planes(x, j[None])[:, 0] for x, j in zip(SSc, J)])
     if backend == "fft32":
         # c64 spectra into the windowed correlation (K1 in c64 on the card);
         # the lag-zero blocks stay f64 inner products, cast to f32
         SI, SSc = SI.to(torch.float32), SSc.to(torch.float32)
         Pss, Pgs, Pts = (t.to(torch.float32) for t in (Pss, Pgs, Pts))
-    specI = torch.fft.rfft2(SI)
-    specS = torch.fft.rfft2(SSc)
-    Pbs = corr_window_fft(specI, specS, N0, N1, w0, w1, chunk=chunk, plain=plain)
+    Pbs = corr_window_fft(rfft2_pairs(SI), rfft2_pairs(SSc), N0, N1, w0, w1, chunk=chunk,
+                          plain=plain)
     return Pbs, Pss, Pgs, Pts
 
 
@@ -995,8 +1095,15 @@ def greek_tables(
     for everything against the background planes, else the generic spectral
     route on the ST planes). plain=True keeps every correlation and slicer
     on the plain twins.
+
+    The 'fft' and 'fft32' backends take a batch of pairs, SI (B, Fij, N0,
+    N1) and J (B, N0, N1) with ST shared, and give every table a leading
+    pair axis, each pair's bits those of its single call (which is the
+    batch of one): the forward transforms and the lag-zero inner products
+    pair by pair, each window one K1 launch for the batch
+    (``corr_window_fft``).
     """
-    N0, N1 = J.shape
+    N0, N1 = J.shape[-2:]
     if backend == "exact":
         from sfft_tpu_torch.core.exact_fft import _pmap, exact_corr_window
 
@@ -1020,28 +1127,32 @@ def greek_tables(
         return Comg, Cgam, Cthe, Cphi, Cdel
     if backend not in ("fft", "fft32", "corr"):
         raise ValueError(f"unknown greek backend {backend!r}")
-    # lag-zero blocks are plain inner products, in the input dtype
-    Cphi = dot_planes(ST, ST)
-    Cdel = dot_planes(ST, J[None])[:, 0]
     if backend == "corr":
+        # lag-zero blocks are plain inner products, in the input dtype
         Comg = corr_window_conv(SI, SI, 2 * w0, 2 * w1, plain=plain)
         Cgam = corr_window_conv(SI, ST, w0, w1, plain=plain)
         Cthe = corr_window_conv(SI, J[None], w0, w1, plain=plain)[:, 0]
-        return Comg, Cgam, Cthe, Cphi, Cdel
+        return Comg, Cgam, Cthe, dot_planes(ST, ST), dot_planes(ST, J[None])[:, 0]
+    if J.dim() == 2:   # one pair: the batch of one
+        return tuple(t[0] for t in greek_tables(SI[None], ST, J[None], w0, w1, backend=backend,
+                                                chunk=chunk, plain=plain))
+    B, Fij = SI.shape[:2]
+    # lag-zero blocks are plain inner products, in the input dtype, pair by
+    # pair (long contractions: a batched one changes a pair's bits)
+    Cphi = dot_planes(ST, ST).expand((B,) + (ST.shape[0],) * 2)
+    Cdel = torch.stack([dot_planes(ST, j[None])[:, 0] for j in J])
     if backend == "fft32":
         # f32 compute: the inputs cast to f32 go through the fft route (K1 in
         # c64 on the card), so the correlation tables come out f32 and the
         # assembly runs in f32; Cphi and Cdel are the f64 products cast
         SI, ST, J = (t.to(torch.float32) for t in (SI, ST, J))
         Cphi, Cdel = Cphi.to(torch.float32), Cdel.to(torch.float32)
-    stack = torch.cat([J[None], SI, ST], dim=0)
-    specs = torch.fft.rfft2(stack)
-    Fij = SI.shape[0]
-    specJ = specs[0:1]
-    specI = specs[1 : 1 + Fij]
-    specT = specs[1 + Fij :]
+    specs = rfft2_pairs(torch.cat([J[:, None], SI, ST.expand((B,) + tuple(ST.shape))], dim=1))
+    specJ = specs[:, 0:1]
+    specI = specs[:, 1:1 + Fij]
+    specT = specs[:, 1 + Fij:]
     Comg = corr_window_fft(specI, specI, N0, N1, 2 * w0, 2 * w1,
                            chunk=chunk, symmetric=True, plain=plain)
     Cgam = corr_window_fft(specI, specT, N0, N1, w0, w1, chunk=chunk, plain=plain)
-    Cthe = corr_window_fft(specI, specJ, N0, N1, w0, w1, chunk=chunk, plain=plain)[:, 0]
+    Cthe = corr_window_fft(specI, specJ, N0, N1, w0, w1, chunk=chunk, plain=plain)[:, :, 0]
     return Comg, Cgam, Cthe, Cphi, Cdel

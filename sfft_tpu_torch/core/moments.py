@@ -30,7 +30,10 @@ _tickets = {}        # (device index, stream) -> zeroed uint32 tickets, one per 
 
 
 def moments_plain(W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch twin: W @ G in f64."""
+    """The plain PyTorch twin: W @ G in f64; a batch G (B, N0, N1) pair by
+    pair, so that each pair's bits are those of its single call."""
+    if G.dim() == 3:
+        return torch.stack([W @ g for g in G])
     return W @ G
 
 
@@ -71,39 +74,42 @@ def _ticket(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def _launch(W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """One kernel launch. The host side is kept short (one allocation, the
-    plan cached): at the peeled path's shape the kernel takes 0.050 ms
-    (NVIDIA H100 80GB HBM3, 700 W)."""
+def _launch(W: torch.Tensor, G: torch.Tensor, out: torch.Tensor) -> None:
+    """One kernel launch for the batch G (B, N0, N1), its results into out
+    (B, S, N1), a view whose pairs may lie further apart than S * N1 (a
+    chunk of a larger S). The host side is kept short (the plan cached): at
+    the peeled path's shape the kernel takes 0.050 ms a pair (NVIDIA H100
+    80GB HBM3, 700 W)."""
     from sfft_tpu_torch import _kernels
 
     S, N0 = W.shape
-    N1 = G.shape[1]
-    plan = _launch_plan(N0, N1, aligned=G.data_ptr() % 16 == 0)
+    B, N1 = G.shape[0], G.shape[2]
+    plan = _launch_plan(N0, N1, aligned=G.data_ptr() % 16 == 0 and G.stride(0) % 2 == 0
+                        and out.stride(0) % 2 == 0)
     nsplit = plan["nsplit"]
-    # the result and, behind it, the splits' partial sums
-    buf = torch.empty(((1 + (nsplit if nsplit > 1 else 0)) * S * N1,), dtype=torch.float64,
-                      device=G.device)
-    out = buf[:S * N1].view(S, N1)
+    # the splits' partial sums, pair by pair
+    part = torch.empty((B * nsplit * S * N1 if nsplit > 1 else 1,), dtype=torch.float64,
+                       device=G.device)
     with torch.cuda.device(G.device):
         stream = _kernels.stream_ptr(G)
         err = _kernels.lib().sfft_moments_f64(
-            W.data_ptr(), G.data_ptr(), buf.data_ptr() + 8 * S * N1, out.data_ptr(),
-            _ticket(G.device, stream, plan["col_blocks"]).data_ptr(),
-            S, N0, N1, nsplit, plan["rows"], plan["vec"], stream)
+            W.data_ptr(), G.data_ptr(), part.data_ptr(), out.data_ptr(),
+            _ticket(G.device, stream, B * plan["col_blocks"]).data_ptr(),
+            S, N0, N1, nsplit, plan["rows"], plan["vec"], B, G.stride(0), out.stride(0), stream)
     moments.launches += 1
     _kernels.check(err, "moments kernel launch")
-    return out
 
 
 def moments(W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """M = W @ G, W (S, N0) f64, G (N0, N1) f64, both contiguous, on one
-    device. Returns (S, N1) f64. CUDA tensors go through the K3 kernel (one
-    launch per 16 rows of W); CPU tensors through ``moments_plain``."""
+    device. Returns (S, N1) f64. A batch G (B, N0, N1) gives (B, S, N1):
+    M_b = W @ G_b, each pair's bits those of its single call. CUDA tensors
+    go through the K3 kernel (one launch for the batch per 16 rows of W);
+    CPU tensors through ``moments_plain``."""
     if W.dtype != torch.float64 or G.dtype != torch.float64:
         raise TypeError(f"moments needs float64 operands, got {W.dtype} and {G.dtype}")
-    if W.dim() != 2 or G.dim() != 2 or W.shape[1] != G.shape[0]:
-        raise ValueError(f"moments needs W (S, N0) and G (N0, N1), got "
+    if W.dim() != 2 or G.dim() not in (2, 3) or W.shape[1] != G.shape[-2]:
+        raise ValueError(f"moments needs W (S, N0) and G ([B,] N0, N1), got "
                          f"{tuple(W.shape)} and {tuple(G.shape)}")
     if not (W.is_contiguous() and G.is_contiguous()):
         raise ValueError("moments needs contiguous operands")
@@ -112,15 +118,22 @@ def moments(W: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     if W.device.type not in ("cpu", "cuda"):
         raise ValueError(f"moments runs on cpu or cuda tensors, not {W.device}")
     S, N0 = W.shape
-    N1 = G.shape[1]
-    if W.device.type == "cuda" and max(S * N1, N0, N1) >= 2 ** 31:
-        raise ValueError("moments kernel takes int32 extents")
-    if S == 0 or N0 == 0 or N1 == 0:
-        return torch.zeros((S, N1), dtype=torch.float64, device=W.device)
-    fn = _launch if W.device.type == "cuda" else moments_plain
-    if S <= _S_MAX:
-        return fn(W, G)
-    return torch.cat([fn(W[i:i + _S_MAX], G) for i in range(0, S, _S_MAX)], dim=0)
+    N1 = G.shape[-1]
+    B = G.shape[0] if G.dim() == 3 else 1
+    if W.device.type == "cuda" and (max(S * N1, N0, N1) >= 2 ** 31 or B > 65535):
+        raise ValueError("moments kernel takes int32 extents and at most 65535 pairs")
+    if S == 0 or N0 == 0 or N1 == 0 or B == 0:
+        return torch.zeros(tuple(G.shape[:-2]) + (S, N1), dtype=torch.float64, device=W.device)
+    if W.device.type == "cpu":
+        if S <= _S_MAX:
+            return moments_plain(W, G)
+        return torch.cat([moments_plain(W[i:i + _S_MAX], G) for i in range(0, S, _S_MAX)],
+                         dim=-2)
+    G3 = G if G.dim() == 3 else G[None]
+    out = torch.empty((B, S, N1), dtype=torch.float64, device=G.device)
+    for i in range(0, S, _S_MAX):
+        _launch(W[i:i + _S_MAX], G3, out[:, i:i + _S_MAX])
+    return out if G.dim() == 3 else out[0]
 
 
 moments.launches = 0

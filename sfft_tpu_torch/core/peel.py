@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from sfft_tpu_torch.config import SFFTConfig, torch_dtype
-from sfft_tpu_torch.core.greek import corr_window_fft
+from sfft_tpu_torch.core.greek import corr_window_fft, rfft2_pairs
 from sfft_tpu_torch.core.indices import ref_basis_exponents
 from sfft_tpu_torch.core.moments import moments
 from sfft_tpu_torch.core.statics import Static, table
@@ -39,10 +39,21 @@ def _exact_skinny_matmul(P0: torch.Tensor, G: torch.Tensor,
                          plain: bool = False) -> torch.Tensor:
     """P0 @ G to full f64 accuracy: every f64 product goes through the
     moments wrapper (K3 on CUDA tensors, whatever the size; W @ G on CPU
-    tensors). plain=True, or a non-f64 G, takes the plain matmul."""
+    tensors). plain=True, or a non-f64 G, takes the plain matmul. G may
+    carry a leading pair axis (B, N0, N1): one K3 launch for the batch."""
     if G.dtype == torch.float64 and not plain:
         return moments(P0.contiguous(), G.contiguous())
-    return P0 @ G
+    return _each(lambda g: P0 @ g, G, 2)
+
+
+def _each(fn, x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """fn of one pair's operand x (`ndim` dimensions), or pair by pair over
+    a leading pair axis: a library product with a long contraction (cuBLAS
+    picks its split of the contraction by the whole shape, so a batched
+    product changes a pair's bits on the card) runs as in the single call."""
+    if x.dim() == ndim:
+        return fn(x)
+    return torch.stack([fn(v) for v in x])
 
 
 # --------------------------------------------------------------------------
@@ -160,92 +171,126 @@ def moment_set(
     """Compute the moment set of image G on its device (exact f64).
 
     G may be a row block of the (N0, N1) image: its rows are the image's
-    rows [row0, row0 + G.shape[0]), and the result is that block's share,
+    rows [row0, row0 + G.shape[-2]), and the result is that block's share,
     so that the shares of all blocks sum to the image's moment set (the
-    row-sharded step, parallel/sharded_fft.py)."""
+    row-sharded step, parallel/sharded_fft.py). G (B, n, N1) is a batch of
+    images (the batched step): the set's tensors gain the leading pair
+    axis, each pair's bits those of its single call."""
     dt, dev = G.dtype, G.device
-    n = G.shape[0]
+    lead = tuple(G.shape[:-2])
+    n = G.shape[-2]
     P0 = _t(coord_powers, (N0, SG, row0, row0 + n), G)  # (SG, n)
     P1 = _t(coord_powers, (N1, SG, 0, N1), G)  # (SG, N1)
     R0, R1 = 2 * w0 + 1, 2 * w1 + 1
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
     def rows_of(lo, hi):
         # the image rows [lo, hi) as far as G holds them (zero rows elsewhere)
         a, b = max(lo, row0), min(hi, row0 + n)
         if (a, b) == (lo, hi):
-            return G[lo - row0: hi - row0]
-        out = zeros(hi - lo, G.shape[1])
+            return G[..., lo - row0: hi - row0, :]
+        out = zeros(hi - lo, G.shape[-1])
         if a < b:
-            out[a - lo: b - lo] = G[a - row0: b - row0]
+            out[..., a - lo: b - lo, :] = G[..., a - row0: b - row0, :]
         return out
 
     # full moments: (SG, N0) @ (N0, N1) @ (N1, SG)
-    M = _exact_skinny_matmul(P0, G, plain) @ P1.T
+    M = _each(lambda m: m @ P1.T, _exact_skinny_matmul(P0, G, plain), 2)
 
     # row strips: rows [0, w0) and [N0-w0, N0)
     G_top, G_bot = rows_of(0, w0), rows_of(N0 - w0, N0)
-    rowmom_top = G_top @ P1.T if w0 else zeros(0, SG)      # (w0, SG)
-    rowmom_bot = G_bot @ P1.T if w0 else zeros(0, SG)
+    rowmom_top = _each(lambda g: g @ P1.T, G_top, 2) if w0 else zeros(0, SG)   # (w0, SG)
+    rowmom_bot = _each(lambda g: g @ P1.T, G_bot, 2) if w0 else zeros(0, SG)
     cx_top = _t(coord_powers, (N0, SG, 0, w0), G)        # (SG, w0)
     cx_bot = _t(coord_powers, (N0, SG, N0 - w0, N0), G)
-    top_terms = cx_top[:, :, None] * rowmom_top[None, :, :]   # (SG, w0, SG)
-    bot_terms = cx_bot[:, :, None] * rowmom_bot[None, :, :]
-    top_pref = torch.cumsum(top_terms, dim=1)                   # sum_{x<rho}
-    bot_suff = torch.cumsum(torch.flip(bot_terms, dims=(1,)), dim=1)  # sum_{x>=N0-|rho|}
+    top_terms = cx_top[:, :, None] * rowmom_top[..., None, :, :]   # (SG, w0, SG)
+    bot_terms = cx_bot[:, :, None] * rowmom_bot[..., None, :, :]
+    top_pref = torch.cumsum(top_terms, dim=-2)                   # sum_{x<rho}
+    bot_suff = torch.cumsum(torch.flip(bot_terms, dims=(-2,)), dim=-2)  # sum_{x>=N0-|rho|}
     RS = zeros(R0, SG, SG)
     if w0:
         # rho = 1..w0 -> index w0+rho ; strip x in [0, rho)
-        RS[w0 + 1 :] = top_pref.movedim(1, 0)
+        RS[..., w0 + 1:, :, :] = top_pref.movedim(-2, -3)
         # rho = -1..-w0 -> index w0+rho ; strip x in [N0-|rho|, N0)
-        RS[:w0] = torch.flip(bot_suff.movedim(1, 0), dims=(0,))
+        RS[..., :w0, :, :] = torch.flip(bot_suff.movedim(-2, -3), dims=(-3,))
 
-    colmom_l = (P0 @ G[:, :w1]) if w1 else zeros(SG, 0)          # (SG, w1)
-    colmom_r = (P0 @ G[:, N1 - w1 :]) if w1 else zeros(SG, 0)
+    colmom_l = _each(lambda g: P0 @ g[:, :w1], G, 2) if w1 else zeros(SG, 0)   # (SG, w1)
+    colmom_r = _each(lambda g: P0 @ g[:, N1 - w1:], G, 2) if w1 else zeros(SG, 0)
     cy_l = _t(coord_powers, (N1, SG, 0, w1), G)
     cy_r = _t(coord_powers, (N1, SG, N1 - w1, N1), G)
-    l_terms = colmom_l[:, None, :] * cy_l[None, :, :]         # (SG, SG, w1)
-    r_terms = colmom_r[:, None, :] * cy_r[None, :, :]
-    l_pref = torch.cumsum(l_terms, dim=2)
-    r_suff = torch.cumsum(torch.flip(r_terms, dims=(2,)), dim=2)
+    l_terms = colmom_l[..., :, None, :] * cy_l[None, :, :]         # (SG, SG, w1)
+    r_terms = colmom_r[..., :, None, :] * cy_r[None, :, :]
+    l_pref = torch.cumsum(l_terms, dim=-1)
+    r_suff = torch.cumsum(torch.flip(r_terms, dims=(-1,)), dim=-1)
     CS = zeros(R1, SG, SG)
     if w1:
-        CS[w1 + 1 :] = l_pref.movedim(2, 0)
-        CS[:w1] = torch.flip(r_suff.movedim(2, 0), dims=(0,))
+        CS[..., w1 + 1:, :, :] = l_pref.movedim(-1, -3)
+        CS[..., :w1, :, :] = torch.flip(r_suff.movedim(-1, -3), dims=(-3,))
 
     # corners: region x in strip(rho), y in strip(eps) — four corner blocks
     CNR = zeros(R0, R1, SG, SG)
     if w0 and w1:
         blocks = {
-            (False, False): G_top[:, :w1],
-            (False, True): G_top[:, N1 - w1 :],
-            (True, False): G_bot[:, :w1],
-            (True, True): G_bot[:, N1 - w1 :],
+            (False, False): G_top[..., :, :w1],
+            (False, True): G_top[..., :, N1 - w1:],
+            (True, False): G_bot[..., :, :w1],
+            (True, True): G_bot[..., :, N1 - w1:],
         }
         for (f0, f1), blk in blocks.items():
             cxp = cx_bot if f0 else cx_top
             cyp = cy_r if f1 else cy_l
             # T[a, x, y, b], then a 2D prefix over the strip rows / cols
-            T = cxp[:, :, None, None] * blk[None, :, :, None] * cyp.T[None, None, :, :]
+            T = cxp[:, :, None, None] * blk[..., None, :, :, None] * cyp.T[None, None, :, :]
             if f0:
-                T = torch.flip(T, dims=(1,))
+                T = torch.flip(T, dims=(-3,))
             if f1:
-                T = torch.flip(T, dims=(2,))
-            pre = torch.cumsum(torch.cumsum(T, dim=1), dim=2)   # (SG, w0, w1, SG)
+                T = torch.flip(T, dims=(-2,))
+            pre = torch.cumsum(torch.cumsum(T, dim=-3), dim=-2)   # (SG, w0, w1, SG)
             # pre[a, k0, k1, b] = moments over |strip|=k0+1, |strip|=k1+1
-            sub = pre.movedim((1, 2), (0, 1))  # (w0, w1, SG, SG)
+            sub = pre.movedim((-3, -2), (-4, -3))  # (w0, w1, SG, SG)
             # lag index of strip depth k: w+1+k for positive lags, w-1-k for
             # negative ones (a reversed range: flip the depth axis)
             if f0:
-                sub = torch.flip(sub, dims=(0,))
+                sub = torch.flip(sub, dims=(-4,))
             if f1:
-                sub = torch.flip(sub, dims=(1,))
+                sub = torch.flip(sub, dims=(-3,))
             rows = slice(0, w0) if f0 else slice(w0 + 1, R0)
             cols = slice(0, w1) if f1 else slice(w1 + 1, R1)
-            CNR[rows, cols] = sub
+            CNR[..., rows, cols, :, :] = sub
     return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
+
+
+def contract(spec: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """einsum(spec, x, y) of two operands ("...ab,bc->...ac": '...' the
+    same leading axes on the output and on the operands that have them), as
+    one broadcast product and one sum over the contracted letters, which lie
+    innermost and contiguous in the product. Every output element sums its
+    own products in one order whatever the leading axes hold: a pair's bits
+    do not depend on the batch around it, where a library product's do
+    (cuBLAS and MKL pick their kernels and splits by the whole shape)."""
+    ins, out = spec.split("->")
+    specs = ins.split(",")
+    body = out.replace("...", "")
+    summed = sorted({c for t in specs for c in t.replace("...", "")} - set(body))
+    order = body + "".join(summed)
+    lead = max(t.dim() - len(sp.replace("...", "")) for t, sp in zip((x, y), specs))
+
+    def view(t, sp):
+        letters = sp.replace("...", "")
+        extra = t.dim() - len(letters)
+        t = t.permute(list(range(extra)) + [extra + letters.index(c) for c in order
+                                            if c in letters])
+        shape = [1] * (lead - extra) + list(t.shape[:extra])
+        it = iter(t.shape[extra:])
+        shape += [next(it) if c in letters else 1 for c in order]
+        return t.reshape(shape)
+
+    prod = view(x, specs[0]) * view(y, specs[1])
+    if not summed:
+        return prod
+    return prod.sum(dim=tuple(range(-len(summed), 0)))
 
 
 def poly_moment_set(
@@ -255,17 +300,20 @@ def poly_moment_set(
     """MomentSet of a *polynomial* plane with coeff stack Q[..., u2, v2]
     (exponents < SP), from static power/prefix sums — no grid work.
 
-    Supports a leading batch axis on Q.
+    Supports leading batch axes on Q (``contract``: a batch's bits are
+    those of its members' single calls).
     """
     ps0 = _t(_ps_table, (ax0.args, SG, SP), Q)          # (SG, SP)
     ps1 = _t(_ps_table, (ax1.args, SG, SP), Q)
     pr0 = _t(_strip_sums, (ax0.args, w0, SG, SP), Q)    # (R0, SG, SP)
     pr1 = _t(_strip_sums, (ax1.args, w1, SG, SP), Q)
 
-    M = torch.einsum("...uv,au,bv->...ab", Q, ps0, ps1)
-    RS = torch.einsum("...uv,rau,bv->...rab", Q, pr0, ps1)
-    CS = torch.einsum("...uv,au,ebv->...eab", Q, ps0, pr1)
-    CNR = torch.einsum("...uv,rau,ebv->...reab", Q, pr0, pr1)
+    Qa = contract("...uv,au->...av", Q, ps0)           # sum over u
+    Qr = contract("...uv,rau->...rav", Q, pr0)
+    M = contract("...av,bv->...ab", Qa, ps1)
+    RS = contract("...rav,bv->...rab", Qr, ps1)
+    CS = contract("...av,ebv->...eab", Qa, pr1)
+    CNR = contract("...rav,ebv->...reab", Qr, pr1)
     return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
 
 
@@ -273,43 +321,45 @@ def polycorr(
     P: torch.Tensor, mom: MomentSet, ax0: AxisStatic, ax1: AxisStatic
 ) -> torch.Tensor:
     """CC(poly(P), G)[rho, eps] from G's moment set. Batched:
-    P: (..., SP, SP) poly coeffs; mom tensors may carry their own leading batch
-    axis ('b'). Returns (...P-batch, ...mom-batch, R0, R1)."""
+    P: (..., A, SP, SP) poly coeffs ('...': a pair axis, the batched step);
+    the mom tensors carry the same leading axes and then their own batch
+    axis ('b'), or none. Returns (..., A, [b,] R0, R1); each pair's bits
+    are those of its single call (``contract``)."""
     S0 = _t(_axis_field, (ax0.args, "S"), P)
     D0 = _t(_axis_field, (ax0.args, "D"), P)
     S1 = _t(_axis_field, (ax1.args, "S"), P)
     D1 = _t(_axis_field, (ax1.args, "D"), P)
-    Mm, RS, CS, CNR = mom
-    squeeze = Mm.dim() == 2
+    squeeze = mom.M.dim() == P.dim() - 1
     if squeeze:  # add singleton mom batch
-        Mm, RS, CS, CNR = Mm[None], RS[None], CS[None], CNR[None]
+        mom = MomentSet(*(t.unsqueeze(P.dim() - 3) for t in mom))
     # moment sets may carry more exponents (SG) than the poly side needs (SP)
     SP = S0.shape[1]
-    Mm = Mm[..., :SP, :SP]
-    RS = RS[..., :SP, :SP]
-    CS = CS[..., :SP, :SP]
-    CNR = CNR[..., :SP, :SP]
+    Mm, RS, CS, CNR = (t[..., :SP, :SP] for t in mom)
+    PS = contract("...ast,rsu->...atru", P, S0)         # sum over s
+    PD = contract("...ast,rsu->...atru", P, D0)
     out = (
-        torch.einsum("ast,rsu,etv,buv->abre", P, S0, S1, Mm)
-        + torch.einsum("ast,rsu,etv,bruv->abre", P, D0, S1, RS)
-        + torch.einsum("ast,rsu,etv,beuv->abre", P, S0, D1, CS)
-        + torch.einsum("ast,rsu,etv,breuv->abre", P, D0, D1, CNR)
+        contract("...aruev,...buv->...abre", contract("...atru,etv->...aruev", PS, S1), Mm)
+        + contract("...aruev,...bruv->...abre", contract("...atru,etv->...aruev", PD, S1), RS)
+        + contract("...aruev,...beuv->...abre", contract("...atru,etv->...aruev", PS, D1), CS)
+        + contract("...aruev,...breuv->...abre", contract("...atru,etv->...aruev", PD, D1), CNR)
     )
     if squeeze:
-        out = out[:, 0]
+        out = out.squeeze(P.dim() - 2)
     return out
 
 
 def shift_moment_set(mom: MomentSet, exps: np.ndarray, SP: int) -> MomentSet:
     """Moment sets of G*beta_k planes from the moment set of G:
     moments of cx^i cy^j G are exponent-shifted moments of G.
-    exps: (F, 2) monomial exponents. Output tensors gain leading F axis,
-    truncated to SP exponent entries."""
-    M = torch.stack([mom.M[i : i + SP, j : j + SP] for (i, j) in exps])
-    RS = torch.stack([mom.RS[:, i : i + SP, j : j + SP] for (i, j) in exps])
-    CS = torch.stack([mom.CS[:, i : i + SP, j : j + SP] for (i, j) in exps])
-    CNR = torch.stack([mom.CNR[:, :, i : i + SP, j : j + SP] for (i, j) in exps])
-    return MomentSet(M=M, RS=RS, CS=CS, CNR=CNR)
+    exps: (F, 2) monomial exponents. Output tensors gain an F axis (after a
+    leading pair axis, when mom.M has one), truncated to SP exponent
+    entries."""
+    at = mom.M.dim() - 2
+
+    def shifted(t):
+        return torch.stack([t[..., i: i + SP, j: j + SP] for (i, j) in exps], dim=at)
+
+    return MomentSet(*(shifted(t) for t in mom))
 
 
 def fit_poly_coeffs(
@@ -321,15 +371,17 @@ def fit_poly_coeffs(
     sum cx^(s+u) cy^(t+v) (static, inverted on the host) and rhs = M[s, t]
     (on the device; no host round trip). Exactness of the peel does NOT
     depend on fit quality, so a small ridge keeps the (Hilbert-like) system
-    tame. Returns (deg+1, deg+1) tensor coeffs (total-degree mask)."""
+    tame. Returns (deg+1, deg+1) tensor coeffs (total-degree mask); M with
+    a leading pair axis (B, SG, SG) gives (B, deg+1, deg+1)."""
     exps = _fit_exponents(deg)
     args = (ax0.args, ax1.args, deg, ridge)
     dd = _t(_fit_gram, args + ("d",), M)
-    rhs = torch.stack([M[s, t] for (s, t) in exps]) / dd
-    sol = (_t(_fit_gram, args + ("inv",), M) @ rhs) / dd
-    out = torch.zeros((deg + 1, deg + 1), dtype=M.dtype, device=M.device)
+    inv = _t(_fit_gram, args + ("inv",), M)
     st = _t(np.array, (tuple(zip(*exps)),), M, torch.int64)     # (2, n)
-    out[st[0], st[1]] = sol
+    rhs = M[..., st[0], st[1]] / dd
+    sol = _each(lambda r: inv @ r, rhs, 1) / dd   # a batched product differs (MKL)
+    out = torch.zeros(tuple(M.shape[:-2]) + (deg + 1, deg + 1), dtype=M.dtype, device=M.device)
+    out[..., st[0], st[1]] = sol
     return out
 
 
@@ -454,7 +506,8 @@ def fluct_stack(I: torch.Tensor, J: torch.Tensor, mI: torch.Tensor, mJ: torch.Te
                 cfg: SFFTConfig, rows=None) -> torch.Tensor:
     """[F_J] + F_I * beta_union in cfg.fluct_dtype, (1 + Fij, n, N1): the
     fluctuation planes whose windows are the fluct x fluct terms. rows =
-    (r0, r1): I and J are the image rows [r0, r1)."""
+    (r0, r1): I and J are the image rows [r0, r1). A batch (I, J (B, n,
+    N1), mI, mJ (B, dmu+1, dmu+1)) gives (B, 1 + Fij, n, N1)."""
     g = peel_geom(cfg)
     N0, N1 = cfg.N0, cfg.N1
     r0, r1 = (0, N0) if rows is None else rows
@@ -462,28 +515,32 @@ def fluct_stack(I: torch.Tensor, J: torch.Tensor, mI: torch.Tensor, mJ: torch.Te
     dmu = cfg.peel_degree
     U = _t(coord_powers, (N0, dmu + 1, 0, N0), I, fd)[:, r0:r1]   # (dmu+1, n)
     V = _t(coord_powers, (N1, dmu + 1, 0, N1), I, fd)
-    smoothI = torch.einsum("st,sx,ty->xy", mI.to(fd), U, V)
-    smoothJ = torch.einsum("st,sx,ty->xy", mJ.to(fd), U, V)
+    def smooth(m):
+        return _each(lambda c: torch.einsum("st,sx,ty->xy", c, U, V), m.to(fd), 2)
+
+    smoothI, smoothJ = smooth(mI), smooth(mJ)
     FIf = I.to(fd) - smoothI
     FJf = J.to(fd) - smoothJ
     Uk = _t(coord_powers_of, (N0, tuple(int(i) for i in g.exps_k[:, 0])), I, fd)[:, r0:r1]
     Vk = _t(coord_powers_of, (N1, tuple(int(j) for j in g.exps_k[:, 1])), I, fd)
-    Fplanes = FIf[None] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, n, N1)
-    return torch.cat([FJf[None], Fplanes], dim=0)
+    Fplanes = FIf[..., None, :, :] * (Uk[:, :, None] * Vk[:, None, :])   # (Fij, n, N1)
+    return torch.cat([FJf[..., None, :, :], Fplanes], dim=-3)
 
 
 def fluct_windows(specs: torch.Tensor, cfg: SFFTConfig, plain: bool = False, row0=None):
     """(FF, FFJwin): CC(F_a, F_b) at +-2w and CC(F_a, F_J) at +-w in
     cfg.dtype from the half spectra of ``fluct_stack`` (K1 on CUDA
     tensors); row0: the spectra's frequency rows [row0, row0 + rows) only,
-    and the results are their shares."""
+    and the results are their shares. A batch of spectra (B, 1 + Fij, N0,
+    N1h) gives the windows of each pair (``corr_window_fft``: one K1
+    launch for the batch's FF windows, one for its FFJ)."""
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
-    specJ, specF = specs[0:1], specs[1:]
+    specJ, specF = specs[..., 0:1, :, :], specs[..., 1:, :, :]
     FF = corr_window_fft(specF, specF, N0, N1, 2 * w0, 2 * w1, chunk=cfg.greek_chunk,
                          symmetric=True, plain=plain, row0=row0).to(dt)
     FFJwin = corr_window_fft(specF, specJ, N0, N1, w0, w1, chunk=cfg.greek_chunk, plain=plain,
-                             row0=row0)[:, 0].to(dt)
+                             row0=row0)[..., 0, :, :].to(dt)
     return FF, FFJwin
 
 
@@ -501,7 +558,11 @@ def peeled_greek_tables(
     (Pbs, Pss, Pgs, Pts). plain=True keeps K3 and K1 out (plain twins).
     shared (``PeelShared``) and window() -> (FF, FFJwin), when given, stand
     in for the moment stage and the fluctuation windows of (I, J) (the
-    row-sharded step sums them over row blocks; I and J are then unused)."""
+    row-sharded step sums them over row blocks; I and J are then unused).
+    I and J (B, N0, N1), polynomial bases: a batch of pairs (the batched
+    step), every table with a leading pair axis; each pair's bits are those
+    of its single call (one K3 launch per moment set and one K1 launch per
+    window kind for the batch, the table algebra once for the batch)."""
     if not polynomial_bases(cfg):
         # B-spline bases: the truncated-power generalization handles them
         # (it raises where its knot layout is not supported)
@@ -524,32 +585,37 @@ def peeled_greek_tables(
         shared = peel_fits(*peel_moment_sets(I, J, cfg, plain), cfg)
     momI_o, momJ_g, mI, mJ = shared
     dev = mI.device
+    lead = tuple(mI.shape[:-2])          # () or (B,): the pair axis
     # the +-w window set is a central slice of the +-2w one
     momI_g = MomentSet(
         M=momI_o.M,
-        RS=momI_o.RS[w0 : 3 * w0 + 1],
-        CS=momI_o.CS[w1 : 3 * w1 + 1],
-        CNR=momI_o.CNR[w0 : 3 * w0 + 1, w1 : 3 * w1 + 1],
+        RS=momI_o.RS[..., w0: 3 * w0 + 1, :, :],
+        CS=momI_o.CS[..., w1: 3 * w1 + 1, :, :],
+        CNR=momI_o.CNR[..., w0: 3 * w0 + 1, w1: 3 * w1 + 1, :, :],
     )
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
-    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings, (Fij, SP, SP)
+    def batch(x):
+        # a table shared by the pairs, as each pair's own (a view)
+        return x.expand(lead + tuple(x.shape)) if lead else x
+
+    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings, (Fij, SP, SP),
+    # one scatter for the batch
     PA = zeros(Fij, SP, SP)
-    for k, (i, j) in enumerate(exps_k):
-        PA[k, i : i + dmu + 1, j : j + dmu + 1] = mI
+    pk, pi, pj, ms, mt = (_t(_embed_index, (_exps_key(exps_k), dmu), mI, torch.int64)[r]
+                          for r in range(5))
+    PA[..., pk, pi, pj] = mI[..., ms, mt]
     mJ_pad = zeros(1, SP, SP)
-    mJ_pad[0, : dmu + 1, : dmu + 1] = mJ
+    mJ_pad[..., 0, : dmu + 1, : dmu + 1] = mJ
     # background basis coeffs (static monomials), (Fpq, SP, SP)
-    TQ = zeros(Fpq, SP, SP)
-    for k, (p, q) in enumerate(exps_b):
-        TQ[k, p, q] = 1.0
+    TQ = _t(_monomial_coeffs, (_exps_key(exps_b), SP), mI, dt)
 
     # --- fluctuation moment sets (pure algebra, no grid) ---------------
     def fluct_mom(momG: MomentSet, mcoef, ax0, ax1) -> MomentSet:
         Q = zeros(SP, SP)
-        Q[: dmu + 1, : dmu + 1] = mcoef
+        Q[..., : dmu + 1, : dmu + 1] = mcoef
         pm = poly_moment_set(
             Q, (ax0.S.shape[0] - 1) // 2, (ax1.S.shape[0] - 1) // 2, SP, SG, ax0, ax1)
         return MomentSet(
@@ -568,11 +634,12 @@ def peeled_greek_tables(
     momSb_o = poly_moment_set(PA, 2 * w0, 2 * w1, SP, SG, ax0o, ax1o)
     SS = polycorr(PA, momSb_o, ax0o, ax1o)            # CC(S_a, S_b)
     SF = polycorr(PA, momFb_o, ax0o, ax1o)            # CC(S_a, F_b)
-    FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))  # CC(F_a, S_b)
+    FS = torch.flip(SF.transpose(-4, -3), dims=(-2, -1))  # CC(F_a, S_b)
 
     # --- fluct x fluct: the windows of the fluctuation planes --------------
     if window is None:
-        specs = torch.fft.rfft2(fluct_stack(I.to(dt), J.to(dt), mI, mJ, cfg))
+        stack = fluct_stack(I.to(dt), J.to(dt), mI, mJ, cfg)
+        specs = rfft2_pairs(stack) if lead else torch.fft.rfft2(stack)
         FF, FFJwin = fluct_windows(specs, cfg, plain)
     else:
         FF, FFJwin = window()
@@ -580,19 +647,21 @@ def peeled_greek_tables(
 
     # --- GAM: (Fij, Fpq, R0g, R1g) — fully exact ------------------------
     momTq = poly_moment_set(TQ, w0, w1, SP, SG, ax0g, ax1g)
-    SS_gam = polycorr(PA, momTq, ax0g, ax1g)          # CC(S_a, T_q)
-    FT = polycorr(TQ, momFa_g, ax0g, ax1g)            # CC(T_q, F_a)
-    FS_gam = torch.flip(FT.permute(1, 0, 2, 3), dims=(2, 3))
+    SS_gam = polycorr(PA, MomentSet(*(batch(t) for t in momTq)), ax0g, ax1g)   # CC(S_a, T_q)
+    FT = polycorr(batch(TQ), momFa_g, ax0g, ax1g)       # CC(T_q, F_a)
+    FS_gam = torch.flip(FT.transpose(-4, -3), dims=(-2, -1))
     Cgam = SS_gam + FS_gam
 
     # --- THE: (Fij, R0g, R1g) -------------------------------------------
     SJ = polycorr(PA, momJ_g, ax0g, ax1g)             # CC(S_a, J) exact
-    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[0], dims=(1, 2))  # CC(F_a, S_J)
+    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[..., 0, :, :, :],
+                     dims=(-2, -1))                   # CC(F_a, S_J)
     Cthe = SJ + FSJ + FFJwin
 
     # --- PHI / DEL: closed form from static sums / moments --------------
-    Cphi = _t(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b)), mI, dt)
-    Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
+    Cphi = batch(_t(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b)), mI, dt))
+    bi, bj = (_t(np.array, (tuple(exps_b[:, r]),), mI, torch.int64) for r in range(2))
+    Cdel = momJ_g.M[..., bi, bj]
 
     if not separate_varying:
         return Comg, Cgam, Cthe, Cphi, Cdel
@@ -602,19 +671,39 @@ def peeled_greek_tables(
     Fs = Fij - Fk  # actual scaling dof (engine pads placeholders with zeros)
     win0 = slice(w0, 3 * w0 + 1)
     win1 = slice(w1, 3 * w1 + 1)
-    Pbs = Comg[:Fk, Fk:, win0, win1]          # CC(I*beta_a, I*sigma_b), +-w
-    Pss = Comg[Fk:, Fk:, 2 * w0, 2 * w1]      # lag 0
-    Pgs = Cgam[Fk:, :, w0, w1]                # CC(I*sigma, T)[0]
-    Pts = Cthe[Fk:, w0, w1]                   # CC(I*sigma, J)[0]
+    Pbs = Comg[..., :Fk, Fk:, win0, win1]          # CC(I*beta_a, I*sigma_b), +-w
+    Pss = Comg[..., Fk:, Fk:, 2 * w0, 2 * w1]      # lag 0
+    Pgs = Cgam[..., Fk:, :, w0, w1]                # CC(I*sigma, T)[0]
+    Pts = Cthe[..., Fk:, w0, w1]                   # CC(I*sigma, J)[0]
 
     def pad_k(x, axes):
+        # axes count after the pair axis
         shape = list(x.shape)
         for ax in axes:
-            shape[ax] = Fk
+            shape[len(lead) + ax] = Fk
         out = torch.zeros(shape, dtype=x.dtype, device=x.device)
         out[tuple(slice(0, n) for n in x.shape)] = x
         return out
 
     extra = (pad_k(Pbs, [1]), pad_k(Pss, [0, 1]), pad_k(Pgs, [0]),
              pad_k(Pts, [0]))
-    return Comg[:Fk, :Fk], Cgam[:Fk], Cthe[:Fk], Cphi, Cdel, extra
+    return (Comg[..., :Fk, :Fk, :, :], Cgam[..., :Fk, :, :, :], Cthe[..., :Fk, :, :], Cphi, Cdel,
+            extra)
+
+
+def _embed_index(exps_k: tuple, dmu: int) -> np.ndarray:
+    """(5, Fij (dmu+1)^2): where each coefficient of the peel's fit lands in
+    PA (k, i + s, j + t) and which it is (s, t), for the S_a = mu * beta_a
+    embedding of every kernel exponent (i, j)."""
+    k, s, t = np.meshgrid(np.arange(len(exps_k)), np.arange(dmu + 1), np.arange(dmu + 1),
+                          indexing="ij")
+    e = np.asarray(exps_k).reshape(-1, 2)
+    return np.stack([k, e[k, 0] + s, e[k, 1] + t, s, t]).reshape(5, -1)
+
+
+def _monomial_coeffs(exps_b: tuple, SP: int) -> np.ndarray:
+    """(Fpq, SP, SP): the background basis as monomial coefficient stacks."""
+    TQ = np.zeros((len(exps_b), SP, SP))
+    for k, (p, q) in enumerate(exps_b):
+        TQ[k, p, q] = 1.0
+    return TQ

@@ -42,6 +42,11 @@
 // bound at 4096^2, 10.6% at the v2 widths.) Every sum has a fixed order
 // (launch 2's the first design's, term for term), so two launches on the
 // same input give the same bits.
+//
+// A batch of pairs (the batched step's difference: one pair of launches for
+// the batch) puts the pair on gridDim.z of both launches: a pair's spectra,
+// solution, scratch and output are those of its single launch, offset by
+// the pair, so its bits do not depend on B or on its place in the batch.
 
 #include <cuda_runtime.h>
 
@@ -68,8 +73,12 @@ __global__ void kernel_spectrum_rows(const R* __restrict__ sol,
                                      const typename Cx<R>::T* __restrict__ W1,
                                      typename Cx<R>::T* __restrict__ T,
                                      R* __restrict__ snc, int Fij, int L0, int L1,
-                                     int w0, int w1, int N1h) {
+                                     int w0, int w1, int N1h, int neq) {
   using C = typename Cx<R>::T;
+  // this block's pair
+  sol += static_cast<long long>(blockIdx.z) * neq;
+  T += static_cast<long long>(blockIdx.z) * Fij * L0 * N1h;
+  snc += static_cast<long long>(blockIdx.z) * Fij;
   const int ia = blockIdx.y;  // i * L0 + a
   if (ia >= Fij * L0) {
     __shared__ R part[kRowThreads];
@@ -164,6 +173,15 @@ __global__ void __launch_bounds__(kThreads)
                    int L1, int w0, int w1, int N0, int N1h, R scale) {
   using C = typename Cx<R>::T;
   constexpr int kTileRows = kWarps * ROWS;
+  {  // this block's pair
+    const long long z = blockIdx.z, plane = static_cast<long long>(N0) * N1h;
+    specs += z * (1 + Fij + Fpq) * plane;
+    FS += z * nS * plane;
+    sol += z * (static_cast<long long>(Fij) * L0 * L1 + Fpq);
+    T += z * Fij * L0 * N1h;
+    snc += z * Fij;
+    out += z * plane;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   C* W0s = reinterpret_cast<C*>(smem_raw);       // [L0][kTileRows]
   C* Ts = W0s + L0 * kTileRows;                  // [2][L0][kCols]
@@ -273,7 +291,8 @@ constexpr size_t kSmemMax = 232448;
 template <typename R, int ROWS>
 int launch_model(const void* specs, const void* FS, const void* sol, const void* W0,
                  const void* T, const void* snc, void* out, int Fij, int Fpq, int nS, int L0,
-                 int L1, int w0, int w1, int N0, int N1h, double scale, cudaStream_t st) {
+                 int L1, int w0, int w1, int N0, int N1h, int npairs, double scale,
+                 cudaStream_t st) {
   using C = typename Cx<R>::T;
   constexpr int kTileRows = kWarps * ROWS;
   const int ublocks = (N0 + kTileRows - 1) / kTileRows;
@@ -286,7 +305,8 @@ int launch_model(const void* specs, const void* FS, const void* sol, const void*
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  model_spectrum<R, ROWS><<<dim3((N1h + kCols - 1) / kCols, ublocks), kThreads, smem, st>>>(
+  model_spectrum<R, ROWS><<<dim3((N1h + kCols - 1) / kCols, ublocks, npairs), kThreads, smem,
+                            st>>>(
       static_cast<const C*>(specs), static_cast<const C*>(FS), static_cast<const R*>(sol),
       static_cast<const C*>(W0), static_cast<const C*>(T), static_cast<const R*>(snc),
       static_cast<C*>(out), Fij, Fpq, nS, L0, L1, w0, w1, N0, N1h, static_cast<R>(scale));
@@ -296,48 +316,51 @@ int launch_model(const void* specs, const void* FS, const void* sol, const void*
 template <typename R>
 int launch(const void* specs, const void* FS, const void* sol, const void* W0,
            const void* W1, void* T, void* snc, void* out, int Fij, int Fpq, int nS, int L0,
-           int L1, int w0, int w1, int N0, int N1h, double scale, void* stream) {
+           int L1, int w0, int w1, int N0, int N1h, int npairs, double scale, void* stream) {
   using C = typename Cx<R>::T;
   if (Fij < 1 || Fpq < 0 || nS < 0 || nS > Fij || L0 < 1 || L1 < 1 || w0 < 0 ||
       w0 >= L0 || w1 < 0 || w1 >= L1 || N0 < 1 || N1h < 1 || (nS > 0 && FS == nullptr) ||
-      Fij * (L0 + 1) > 65535)
+      Fij * (L0 + 1) > 65535 || npairs < 1 || npairs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel_spectrum_rows<R><<<dim3((N1h + kRowThreads - 1) / kRowThreads, Fij * (L0 + 1)),
+  kernel_spectrum_rows<R><<<dim3((N1h + kRowThreads - 1) / kRowThreads, Fij * (L0 + 1),
+                                 npairs),
                             kRowThreads, 0, st>>>(
       static_cast<const R*>(sol), static_cast<const C*>(W1), static_cast<C*>(T),
-      static_cast<R*>(snc), Fij, L0, L1, w0, w1, N1h);
+      static_cast<R*>(snc), Fij, L0, L1, w0, w1, N1h, Fij * L0 * L1 + Fpq);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return Fij * L0 >= kDenseK
              ? launch_model<R, 8>(specs, FS, sol, W0, T, snc, out, Fij, Fpq, nS, L0, L1, w0, w1,
-                                  N0, N1h, scale, st)
+                                  N0, N1h, npairs, scale, st)
              : launch_model<R, 4>(specs, FS, sol, W0, T, snc, out, Fij, Fpq, nS, L0, L1, w0, w1,
-                                  N0, N1h, scale, st);
+                                  N0, N1h, npairs, scale, st);
 }
 
 }  // namespace
 
-// specs (1 + Fij + Fpq, N0, N1h) complex: FJ, the FI planes, the FT planes;
-// FS (nS, N0, N1h) complex or null when nS = 0; sol the solution vector
-// (Fij * L0 * L1 kernel coefficients, then Fpq background ones); W0
-// (N0, L0), W1 (L1, N1h) complex; scratch T (Fij, L0, N1h) complex and snc
-// (Fij) real; out (N0, N1h) complex. All contiguous device pointers of one
-// precision. Two launches on `stream`. Returns cudaGetLastError().
+// For each of npairs pairs: specs (1 + Fij + Fpq, N0, N1h) complex: FJ, the
+// FI planes, the FT planes; FS (nS, N0, N1h) complex or null when nS = 0;
+// sol the solution vector (Fij * L0 * L1 kernel coefficients, then Fpq
+// background ones); scratch T (Fij, L0, N1h) complex and snc (Fij) real;
+// out (N0, N1h) complex; each the pair's block of a contiguous (npairs,
+// ...) array. W0 (N0, L0), W1 (L1, N1h) complex, shared. All device
+// pointers of one precision. Two launches on `stream`. Returns
+// cudaGetLastError().
 extern "C" int sfft_fdiff_model_c64(const void* specs, const void* FS, const void* sol,
                                     const void* W0, const void* W1, void* T, void* snc,
                                     void* out, int Fij, int Fpq, int nS, int L0, int L1,
-                                    int w0, int w1, int N0, int N1h, double scale,
+                                    int w0, int w1, int N0, int N1h, int npairs, double scale,
                                     void* stream) {
   return launch<float>(specs, FS, sol, W0, W1, T, snc, out, Fij, Fpq, nS, L0, L1, w0, w1,
-                       N0, N1h, scale, stream);
+                       N0, N1h, npairs, scale, stream);
 }
 
 extern "C" int sfft_fdiff_model_c128(const void* specs, const void* FS, const void* sol,
                                      const void* W0, const void* W1, void* T, void* snc,
                                      void* out, int Fij, int Fpq, int nS, int L0, int L1,
-                                     int w0, int w1, int N0, int N1h, double scale,
+                                     int w0, int w1, int N0, int N1h, int npairs, double scale,
                                      void* stream) {
   return launch<double>(specs, FS, sol, W0, W1, T, snc, out, Fij, Fpq, nS, L0, L1, w0, w1,
-                        N0, N1h, scale, stream);
+                        N0, N1h, npairs, scale, stream);
 }

@@ -37,6 +37,12 @@
 // 0. One launch, and every f64 sum has a fixed order: two launches on the
 // same input give the same bits. Ragged N0 and N1 are masked inside the
 // kernel (rows past the end load as zeros).
+//
+// A batch of pairs: M_b = W @ G_b for B images G_b sharing W (the batched
+// step's moment sets, one launch for the batch). The pair is gridDim.z; a
+// pair's blocks, splits, scratch and tickets are those of its single
+// launch, offset by the pair, so its bits do not depend on B or on its
+// place in the batch.
 
 #include <cuda_runtime.h>
 
@@ -76,13 +82,19 @@ template <> struct Cols<2> {
 // S accumulator rows (the launch's Sw <= S moment rows; the others carry
 // zeros and are not stored), VEC columns per thread, WX x WY warps per block,
 // U rows of G in flight per thread. grid = (column blocks, splits of the
-// contraction).
+// contraction, pairs).
 template <int S, int VEC, int WX, int WY, int U>
 __global__ void __launch_bounds__(32 * WX * WY, 512 / (32 * WX * WY) > 0 ? 512 / (32 * WX * WY) : 1)
 moments_kernel(const double* __restrict__ W, const double* __restrict__ G,
                double* part, double* __restrict__ out, unsigned int* ticket,
-               int Sw, int N0, int N1, int rows_per_split) {
+               int Sw, int N0, int N1, int rows_per_split, long long g_stride,
+               long long o_stride) {
   constexpr int T = 32 * WX * WY;
+  // this block's pair
+  G += blockIdx.z * g_stride;
+  out += blockIdx.z * o_stride;
+  part += (size_t)blockIdx.z * gridDim.y * Sw * N1;
+  ticket += (size_t)blockIdx.z * gridDim.x;
   constexpr int CV = 32 * WX;                    // column vectors per block
   constexpr int GPC = kChunk / (WY * U);         // row groups per warp and chunk
   constexpr int WPT = (S * kChunk + T - 1) / T;  // W values staged per thread
@@ -225,16 +237,17 @@ struct Args {
   double* part;
   double* out;
   unsigned int* ticket;
-  int S, N0, N1, nsplit, rows;
+  int S, N0, N1, nsplit, rows, npairs;
+  long long g_stride, o_stride;
   cudaStream_t st;
 };
 
 template <int S, int VEC, int WX, int WY, int U>
 void run(const Args& a) {
   const int cols = 32 * WX * VEC;
-  const dim3 grid((a.N1 + cols - 1) / cols, a.nsplit);
+  const dim3 grid((a.N1 + cols - 1) / cols, a.nsplit, a.npairs);
   moments_kernel<S, VEC, WX, WY, U><<<grid, 32 * WX * WY, 0, a.st>>>(
-      a.W, a.G, a.part, a.out, a.ticket, a.S, a.N0, a.N1, a.rows);
+      a.W, a.G, a.part, a.out, a.ticket, a.S, a.N0, a.N1, a.rows, a.g_stride, a.o_stride);
 }
 
 // any S <= 16: the next of 2, 4, 8, 16 accumulator rows (the surplus rows
@@ -254,19 +267,23 @@ bool run_any_s(const Args& a) {
 
 }  // namespace
 
-// W (S, N0), G (N0, N1), part (nsplit, S, N1) scratch, out (S, N1): f64
-// device pointers; ticket: one zeroed unsigned int per column block, left
-// zeroed. rows * nsplit >= N0. vec = 2 needs an even N1 and 16-byte aligned
+// W (S, N0); npairs images G_b (N0, N1) at G + b * g_stride, rows of
+// length N1; results M_b (S, N1) at out + b * o_stride, rows of length N1;
+// part (npairs, nsplit, S, N1) scratch: f64 device pointers; ticket: one
+// zeroed unsigned int per column block and pair, left zeroed. rows *
+// nsplit >= N0. vec = 2 needs an even N1, even strides and 16-byte aligned
 // G, part and out. Returns cudaGetLastError().
 extern "C" int sfft_moments_f64(const void* W, const void* G, void* part, void* out,
                                 void* ticket, int S, int N0, int N1, int nsplit,
-                                int rows, int vec, void* stream) {
+                                int rows, int vec, int npairs, long long g_stride,
+                                long long o_stride, void* stream) {
   const Args a{static_cast<const double*>(W), static_cast<const double*>(G),
                static_cast<double*>(part), static_cast<double*>(out),
-               static_cast<unsigned int*>(ticket), S, N0, N1, nsplit, rows,
-               static_cast<cudaStream_t>(stream)};
-  if (S < 1 || nsplit < 1 || nsplit > 65535 || rows < 1 ||
-      (vec != 1 && vec != 2) || (vec == 2 && N1 % 2 != 0))
+               static_cast<unsigned int*>(ticket), S, N0, N1, nsplit, rows, npairs,
+               g_stride, o_stride, static_cast<cudaStream_t>(stream)};
+  if (S < 1 || nsplit < 1 || nsplit > 65535 || rows < 1 || npairs < 1 || npairs > 65535 ||
+      (vec != 1 && vec != 2) ||
+      (vec == 2 && (N1 % 2 != 0 || g_stride % 2 != 0 || o_stride % 2 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!((vec == 2) ? run_any_s<2>(a) : run_any_s<1>(a)))
     return static_cast<int>(cudaErrorInvalidValue);

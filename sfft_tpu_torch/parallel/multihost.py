@@ -151,8 +151,11 @@ def process_local_batch(local_I, local_J, local_mI, local_mJ, cfg: SFFTConfig,
                         devices=None):
     """One batch of this process's pairs (B_local, N0, N1): pair k solves on
     (mI[k], mJ[k]) and subtracts (I[k], J[k]) on devices[k % n]
-    (``batch.batched_subtract``). Every process calls it collectively with
-    the same B_local, a multiple of its device count; otherwise it raises.
+    (``batch.batched_subtract``: batched steps for the fast and the
+    default configs; ``run_survey_multihost`` passes one pair a device,
+    whose batched step is the single step). Every process calls it
+    collectively with the same B_local, a multiple of its device count;
+    otherwise it raises.
     Returns (solutions, differences, rms) of the local pairs as numpy."""
     devices = data_devices(devices=devices)
     B = len(local_I)

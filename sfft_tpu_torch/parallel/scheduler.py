@@ -17,7 +17,10 @@ The port keeps sfft_tpu's semantics and names:
     upload of the next ready task's planes on a side stream;
   * run_mesh_batched streams same-config groups through
     parallel/batch.batched_subtract over the devices, with sfft_tpu's
-    two-deep pipeline, padding, drain and per-task fall-back.
+    two-deep pipeline, padding, drain and per-task fall-back; a group is
+    one task a device, as sfft_tpu's is, so each device runs the batched
+    step of the fast or the default config on one pair, which is that
+    config's single step (core/engine.solve_and_subtract_fn).
 
 One compute thread per card: the kernel wrappers' launch counters and the
 static-table caches are shared by every thread of the process.

@@ -19,7 +19,8 @@ survive the round trip exactly.
 pack_i16 and pack_stack_i16 are numpy copies of sfft_tpu's (on the host);
 unpack_i16 is torch on the tensors' device, with the same operations as
 sfft_tpu's (an f32 multiply, the sentinel to NaN, then the cast), so it is
-bit for bit the same. Two elementwise passes once per upload: no hand
+bit for bit the same; a stack of planes dequantizes in one pass (the
+batched step's sub-batch). Two elementwise passes once per upload: no hand
 kernel (sfft_tpu runs them as XLA ops, not as a Pallas kernel).
 """
 
@@ -72,15 +73,18 @@ def pack_i16(a: np.ndarray, block: int = 64) -> PackedI16:
 def unpack_i16(q, scales, n0: int, block: int, dtype=None):
     """Dequantize on the tensors' device: (nblocks*block, N1) int16 + per-
     block scales (nblocks, 1) f32 -> (n0, N1) float. dtype defaults to
-    float64 (the engine's input dtype). NaN sentinels are restored."""
+    float64 (the engine's input dtype). NaN sentinels are restored. A stack
+    (q (B, nblocks*block, N1), scales (B, nblocks, 1)) dequantizes in one
+    pass to (B, n0, N1), each plane's bits those of its own call."""
     if dtype is None:
         dtype = torch.float64
-    npad, n1 = q.shape
+    lead = tuple(q.shape[:-2])
+    npad, n1 = q.shape[-2:]
     nb = npad // block
-    qb = q.reshape(nb, block, n1)
-    out = qb.to(torch.float32) * scales[:, :, None]
+    qb = q.reshape(lead + (nb, block, n1))
+    out = qb.to(torch.float32) * scales[..., :, :, None]
     out = torch.where(qb == _NAN_SENTINEL, torch.nan, out)
-    return out.reshape(npad, n1)[:n0].to(dtype)
+    return out.reshape(lead + (npad, n1))[..., :n0, :].to(dtype)
 
 
 def pack_stack_i16(stack: np.ndarray, block: int = 64

@@ -10,7 +10,8 @@ parallel/batch.py, parallel/scheduler.py) against sfft_tpu's on the CPU.
 - batched_subtract on three pairs against sfft_tpu's on the CPU mesh:
   solutions to rtol 1e-6, differences to 1e-8 max|J|
   (tests/test_engine.py:56-58), and bit for bit against the port's
-  single GSS calls.
+  single GSS calls; the default trio runs them as one batched step
+  (counted).
 - A real MESP (both dispatch modes) on two small pairs and one broken pair
   made from the golden sparse FITS, bit for bit against the port's single
   ESP calls (no sfft_tpu packet runs here).
@@ -31,7 +32,7 @@ from sfft_tpu.parallel import scheduler as jsched
 from sfft_tpu.utils import multiproc as jmp
 
 from sfft_tpu_torch.api.easy_sparse import EasySparsePacket
-from sfft_tpu_torch.core.engine import GeneralSFFT
+from sfft_tpu_torch.core.engine import GeneralSFFT, solve_and_subtract_batched_fn
 from sfft_tpu_torch.io import fits
 from sfft_tpu_torch.parallel import batch as tbatch
 from sfft_tpu_torch.parallel import scheduler as tsched
@@ -317,7 +318,10 @@ def _stack_of_pairs():
 def test_batched_subtract_matches_reference_and_single_calls():
     jc, tc = cfgs(N0=56, N1=48, w=2)
     stacks = _stack_of_pairs()
+    # the default trio runs the device's pairs as one batched step
+    steps = solve_and_subtract_batched_fn.steps
     sols, diffs, rms = tbatch.batched_subtract(*stacks, tc, devices=["cpu"])
+    assert solve_and_subtract_batched_fn.steps == steps + 1
     jsols, jdiffs, jrms = jbatch.batched_subtract(
         *(jnp.asarray(np.stack(s)) for s in stacks), jc, jbatch.make_data_mesh(1))
     assert sols.shape == (3, tc.NEQ) and diffs.shape == (3, 56, 48) and rms.dtype == torch.float32
