@@ -1457,7 +1457,9 @@ def k6_call_work(name, args):
     the output planes written once; operations per output element: K6A_OPS
     (both lanes of a complex pair in 'mul_static_rr'), per ij of the model
     118 (the shift, the product, the compensated add) and 58 per scaling
-    plane plus 62; K6p's from k6p_work."""
+    plane plus 62; K6p's from k6p_work. A call over a batch of pairs (the
+    batched step; the single step is its batch of one) counts each pair's
+    work."""
     planes = lambda p: [v for v in p if v is not None]          # noqa: E731
     if name == "pair_products":
         mode, A, B = args[:3]
@@ -1470,15 +1472,19 @@ def k6_call_work(name, args):
         flops = n * K6A_OPS[mode] * (nout // 2 if mode == "mul_static_rr" else 1)
     elif name == "pair_model":
         sp, K, c, a00, scale, fold = args
-        Fk, N0, N1h = K.rh.shape
-        nss = 0 if a00 is None else a00.shape[0]
-        n = N0 * N1h
-        nbytes = (16 * n * (1 + Fk + nss + Fk + 1) + 8 * (Fk + nss) + 8
+        *lead, Fk, N0, N1h = K.rh.shape
+        pairs_ = int(np.prod(lead))
+        nss = 0 if a00 is None else a00.shape[-1]
+        n = pairs_ * N0 * N1h
+        nbytes = (16 * n * (1 + Fk + nss + Fk + 1) + 8 * pairs_ * (Fk + nss) + 8
                   + (0 if fold is None else 4 * N1h))
         flops = n * (118 * Fk + 58 * nss + 62)
     else:
         Uh, Ul, Mh, Ml = args[-4:]
-        nbytes, flops = k6p_work(K6P_MODES[name], Uh.shape[0], Uh.shape[1], Mh.shape[1])
+        plane = args[0] if name == "pair_poly_sub" else args[0].rh if name != "pair_poly" else Uh
+        pairs_ = plane.shape[0] if plane.dim() == 3 else 1
+        nbytes, flops = k6p_work(K6P_MODES[name], Uh.shape[-2], Uh.shape[-1], Mh.shape[-1])
+        nbytes, flops = pairs_ * nbytes, pairs_ * flops
     return nbytes, flops
 
 
@@ -1489,7 +1495,8 @@ def k6_library(name, args):
     single call does (the separable weights' two products, the model
     spectrum). A * conj(B) and the table products: torch.mul; K6p: the
     plane U^T M as torch.matmul, I - U^T M and Dfl + U^T M as torch.addmm
-    (K = SP). Timed here only; the port never calls them."""
+    (K = SP; torch.baddbmm over a batch of pairs). Timed here only; the
+    port never calls them."""
     import torch
 
     def f64(p):
@@ -1506,14 +1513,16 @@ def k6_library(name, args):
         return lambda: torch.mul(a, b)
     if name in K6P_MODES:
         Uh, Ul, Mh, Ml = args[-4:]
-        UT, M = (Uh.double() + Ul).t(), Mh.double() + Ml
+        UT, M = (Uh.double() + Ul).transpose(-1, -2), Mh.double() + Ml
         if name == "pair_poly":
             return lambda: torch.matmul(UT, M)
-        if name == "pair_poly_sub":
-            I = args[0]
-            return lambda: torch.addmm(I, UT, M, alpha=-1)
-        D = f64(args[0])
-        return lambda: torch.addmm(D, UT, M)
+        X = args[0] if name == "pair_poly_sub" else f64(args[0])
+        alpha = -1 if name == "pair_poly_sub" else 1
+        if X.dim() == 3:   # a batch of pairs (the single step: its batch of one)
+            UT = UT.expand(X.shape[:1] + UT.shape[-2:])
+            M = M.expand(X.shape[:1] + M.shape[-2:])
+            return lambda: torch.baddbmm(X, UT, M, alpha=alpha)
+        return lambda: torch.addmm(X, UT, M, alpha=alpha)
     return None
 
 
@@ -2109,8 +2118,9 @@ def slicers_on_path(run, phase, path):
             inputs[sig] = make()
         counts[step[0]][sig] = counts[step[0]].get(sig, 0) + 1
 
-    def checked4(parts, nsl, Kp, rowwise, scales=None):
-        got = launch4(parts, nsl, Kp, rowwise, scales)
+    def checked4(parts, nsl, Kp, rowwise, scales=None, batch=0):
+        assert batch <= 1, f"a batch of {batch} pairs on the {path} path's single step"
+        got = launch4(parts, nsl, Kp, rowwise, scales, batch)
         if scales is None:
             ref = slicing.slice_pairs_plain(parts, nsl, Kp, rowwise)
         else:
@@ -2475,7 +2485,8 @@ def capture_stages(run):
     real_cm, real_setup, real_mv = (exact_fft._cmatmul_sliced, solve._sliced_residual_setup,
                                     solve._sliced_matvec)
 
-    def cm(data, W, rowwise=False, real_out=False, prof=None, plain=False):
+    def cm(data, W, rowwise=False, real_out=False, prof=None, plain=False, **kw):
+        assert kw.get("batch", 0) <= 1, "capture_stages drives single steps"
         nsl = (prof or exact_fft.SliceProfile(exact_fft.NSL_DATA, exact_fft.NSL_STATIC,
                                               exact_fft.KMAX)).nsl_data
         K = W.host().shape[0]
@@ -2483,7 +2494,7 @@ def capture_stages(run):
         sig = ("K4", tuple(data.rh.shape), tuple(data.rh.stride()),
                data.rh.data_ptr() % 16 == 0, bool(rowwise), nsl, K + (-K) % 8, len(parts))
         note(sig, lambda: [(_clone_view(h), _clone_view(l)) for h, l in parts])
-        return real_cm(data, W, rowwise, real_out, prof, plain)
+        return real_cm(data, W, rowwise, real_out, prof, plain, **kw)
 
     def setup(A, d, *args, **kw):
         note(("K5 matrix", tuple(A.shape)), lambda: (A.clone(), d.clone()))
@@ -5841,18 +5852,33 @@ def phase_direct(lam=V2_LAMBDA):
 BATCHED_KERNELS = [
     ("moments", "sfft_tpu_torch/csrc/moments.cu", "sfft_tpu/core/pallas_moments.py:143"),
     ("corr_window", "sfft_tpu_torch/csrc/corr_window.cuh", "sfft_tpu/core/greek.py:94"),
-    ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90")]
-# the batch sizes of phase 14, the seed of its first pair, the batch whose
-# kernel launches are held to their twins and to their per-pair launches
+    ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90"),
+    ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
+    ("sliced_epilogue", "sfft_tpu_torch/csrc/sliced_epilogue.cu",
+     "sfft_tpu/core/exact_fft.py:372"),
+    ("pair_products", "sfft_tpu_torch/csrc/pair_products.cu", "sfft_tpu/core/exact_fft.py:963"),
+    ("pair_model", "sfft_tpu_torch/csrc/pair_model.cu", "sfft_tpu/core/pexact.py:397"),
+    ("pair_poly", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:71")]
+# the batch sizes of phase 14 (per trio where they differ: the contract
+# trio's, as far as max_batch allows), the seed of its first pair, the batch
+# whose kernel launches are held to their twins and to their per-pair
+# launches
 BATCH_SIZES = (1, 2, 4, 8)
+BATCH_SIZES_OF = {"contract": (1, 2, 4)}
 BATCH_SEED = 40
 BATCH_TRIOS = {"fast": FAST_CFG, "default": dict(greek_backend="fft", fdiff_backend="fft",
-                                                  solver="lu")}
-BATCH_TWIN_B = {"fast": 4, "default": 2}
+                                                  solver="lu"),
+               "contract": dict(greek_backend="pexact", fdiff_backend="pexact",
+                                solver="transformed")}
+BATCH_TWIN_B = {"fast": 4, "default": 2, "contract": 2}
 # one set of the config's launches a batched step, whatever B (K2's counter
-# counts its two launches a call)
+# counts its two launches a call; K4 its slicing and its scale launches;
+# K6p all its modes, and the sub and add64 modes each)
 BATCH_LAUNCHES = {"fast": {"moments": 2, "corr_window": 2, "fdiff_model": 2},
-                  "default": {"corr_window": 3, "fdiff_model": 2}}
+                  "default": {"corr_window": 3, "fdiff_model": 2},
+                  "contract": {"moments": 2, "slice_pair": 83, "sliced_epilogue": 46,
+                               "pair_products": 32, "pair_model": 1, "pair_poly": 3,
+                               "pair_poly_sub": 2, "pair_poly_add64": 1}}
 
 
 def batched_twins(step, label):
@@ -5861,8 +5887,9 @@ def batched_twins(step, label):
     bounds), launched again twice (bit-equal), and each pair's share of it
     bit for bit that pair's own launch: K3 M[b] = W @ G[b], K1 the pair's
     segment of the list on its own planes, K2 the pair's model spectrum.
-    These launches are not counted on the path. Returns {kernel: [launches
-    held, max error against the twin]}."""
+    The contract trio's K4, K7, K6a, K6m and K6p launches are held as they
+    run (``exact_twins_inline``). These launches are not counted on the
+    path. Returns {kernel: [launches held, max error against the twin]}."""
     import torch
     from sfft_tpu_torch.core import fdiff, greek, moments, peel
 
@@ -5883,8 +5910,9 @@ def batched_twins(step, label):
     for key, (mod, name) in real.items():
         setattr(mod, name, recorder(key))
     try:
-        step()
-        torch.cuda.synchronize()
+        with exact_twins_inline(label) as inline:
+            step()
+            torch.cuda.synchronize()
     finally:
         for key, (mod, name) in real.items():
             setattr(mod, name, fns[key])
@@ -5946,20 +5974,152 @@ def batched_twins(step, label):
             del out, again
         held[key] = [len(launches), worst]
     del calls
+    held.update({k: v for k, v in inline.items() if v[0]})
     torch.cuda.empty_cache()
     return held
 
 
+def _pair_share(t, b: int, B: int):
+    """Pair b's operand of a batched launch: t[b] where t carries the
+    batch's leading pair axis (B > 1), else t itself (a shared table)."""
+    return t[b] if t is not None and B > 1 and t.dim() >= 3 and t.shape[0] == B else t
+
+
+def _k7_pair_share(P, plan, sd, b: int, B: int):
+    """K7's operands for pair b of a batched epilogue (products of every
+    pair's rows): the pair's rows of each slab, laid out as its own
+    product would be (``exact_fft._sliced_products``: shallow (nd, groups,
+    rows, ncols), deep (nd, slabs x rows, ncols); at least 17 rows)."""
+    import torch
+
+    rows = int(np.prod(plan.lead, dtype=np.int64))
+    r1 = rows // B
+    nd = P.shape[0]
+    nslab = P.shape[1] if P.dim() == 4 else P[0].numel() // plan.slab_stride
+    S = P.as_strided((nd, nslab, rows, plan.ncols),
+                     (P.stride(0), plan.slab_stride, plan.ncols, 1))[:, :, b * r1:(b + 1) * r1]
+    if P.dim() == 4:
+        Pb = torch.zeros((nd, nslab, max(r1, 17), plan.ncols), dtype=P.dtype, device=P.device)
+        Pb[:, :, :r1] = S
+        stride = max(r1, 17) * plan.ncols
+    else:
+        Pb = torch.zeros((nd, max(nslab * r1, 17), plan.ncols), dtype=P.dtype, device=P.device)
+        Pb[:, :nslab * r1] = S.reshape(nd, nslab * r1, plan.ncols)
+        stride = r1 * plan.ncols
+    sdb = [s[b:b + 1].contiguous() if s.dim() else s for s in sd]
+    return Pb, plan._replace(lead=(1,) + tuple(plan.lead[1:]), slab_stride=stride), sdb
+
+
+@contextlib.contextmanager
+def exact_twins_inline(label):
+    """While the block runs, hold every K4, K7, K6a, K6m and K6p launch as it
+    runs (their operands are too large to keep for the whole step): the
+    launch again (bit-equal), its plain twin bit for bit, and, for a launch
+    over a batch of B pairs, each pair's share bit for bit the kernel on
+    that pair's own operands (K4 with its own global scale). Yields {kernel:
+    [launches held, 0.0]} (the twins are bit-exact)."""
+    import torch
+    from sfft_tpu_torch.core import exact_fft, pairs, slicing
+
+    held = {k: [0, 0.0] for k in ("slice_pair", "sliced_epilogue", "pair_products",
+                                  "pair_model", "pair_poly")}
+    launch4, epi7 = slicing._launch_pairs, exact_fft.sliced_epilogue
+    k6 = {n: getattr(pairs, n) for n in ("pair_products", "pair_model", "pair_poly_sub",
+                                         "pair_poly_add64")}
+
+    def eq(a, b):
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
+        return (a is None and b is None) or (a is not None and b is not None
+                                            and a.shape == b.shape and torch.equal(a, b))
+
+    def k4(parts, nsl, Kp, rowwise, scales=None, batch=0):
+        got = launch4(parts, nsl, Kp, rowwise, scales, batch)
+        assert eq(got, launch4(parts, nsl, Kp, rowwise, scales, batch)), \
+            f"{label} K4: two launches differ"
+        assert eq(got, slicing.slice_pairs_plain(parts, nsl, Kp, rowwise, scales, batch)), \
+            f"{label} K4: differs from its twin"
+        B = parts[0][0].shape[0]
+        if scales is None and B > 1 and (rowwise or batch > 1):
+            for b in range(B):
+                own = launch4([(h[b], lo[b]) for h, lo in parts], nsl, Kp, rowwise)
+                for (sl, sc), (osl, osc) in zip(got, own):
+                    assert torch.equal(sl[:, b], osl) and torch.equal(
+                        sc[b], osc.expand_as(sc[b])), f"{label} K4: pair {b} differs"
+        held["slice_pair"][0] += 1
+        return got
+
+    def k7(P, plan, sd):
+        got = epi7(P, plan, sd)
+        assert eq(got, epi7(P, plan, sd)), f"{label} K7: two launches differ"
+        assert eq(got, exact_fft.sliced_epilogue_plain(P, plan, sd)), \
+            f"{label} K7: differs from its twin"
+        B = plan.lead[0]
+        if B > 1:
+            for b in range(B):
+                own = epi7(*_k7_pair_share(P, plan, sd, b, B))
+                assert eq([None if g is None else g[b] for g in got],
+                          [None if o is None else o[0] for o in own]), \
+                    f"{label} K7: pair {b} differs"
+        held["sliced_epilogue"][0] += 1
+        return got
+
+    def k6_wrap(name):
+        real = k6[name]
+        twin = getattr(pairs, K6_TWINS[name])
+        key = name if name in held else "pair_poly"
+
+        def run(*args):
+            got = real(*args)
+            assert k6_equal(got, real(*args)), f"{label} {name}: two launches differ"
+            assert k6_equal(got, twin(*args)), f"{label} {name}: differs from its twin"
+            out0 = got if isinstance(got, torch.Tensor) else got[0]
+            B = out0.shape[0] if out0.dim() >= 3 else 1
+            if B > 1:
+                for b in range(B):
+                    mine = (got[b] if isinstance(got, torch.Tensor)
+                            else type(got)(*(None if v is None else v[b] for v in got)))
+                    if name == "pair_model":   # sp, K, c, a00: the pair's own
+                        sp, K, c, a00 = args[:4]
+                        own = real(pairs._plane(sp, b), pairs._plane(K, b), c[b],
+                                   None if a00 is None else a00[b], *args[4:])
+                    else:
+                        own = real(*(type(a)(*(_pair_share(v, b, B) for v in a))
+                                     if isinstance(a, pairs.CPair) else
+                                     _pair_share(a, b, B) if isinstance(a, torch.Tensor)
+                                     else a for a in args))
+                    assert k6_equal(mine, own), f"{label} {name}: pair {b} differs"
+            held[key][0] += 1
+            return got
+
+        return run
+
+    slicing._launch_pairs, exact_fft.sliced_epilogue = k4, k7
+    for n in k6:
+        setattr(pairs, n, k6_wrap(n))
+    try:
+        yield held
+    finally:
+        slicing._launch_pairs, exact_fft.sliced_epilogue = launch4, epi7
+        for n, fn in k6.items():
+            setattr(pairs, n, fn)
+
+
 def phase_batched():
     """Phase 14: the batched fast and default steps at 4096^2 (KerHW 8,
-    poly2 / poly2) for B = 1, 2, 4, 8 pairs on one card: each pair's
-    solution and difference bit for bit its single call; per-pair wall
-    (median of 3 after a warm-up) and device busy (a warmed profile) of the
-    batched step on stacks already on the card, launches a step and peak
-    memory; the same batches through batched_subtract from host stacks;
-    every K3, K1 and K2 launch of one batched step held to its twin and to
-    its per-pair launches (``batched_twins``). Returns (report, launches
-    of the timed steps, the kernels line's counts)."""
+    poly2 / poly2) for B = 1, 2, 4, 8 pairs on one card, and the contract
+    trio's (pexact / pexact / transformed) for B = 1, 2, 4 (each size as
+    far as ``max_batch`` allows; the sizes left out are logged): each
+    pair's solution and difference bit for bit its single call; per-pair
+    wall (median of 3 after a warm-up) and device busy (a warmed profile)
+    of the batched step on stacks already on the card, launches a step and
+    peak memory; the same batches through batched_subtract from host
+    stacks; every K3, K1 and K2 launch of one batched step held to its twin
+    and to its per-pair launches (``batched_twins``), and every K4, K7,
+    K6a, K6m and K6p launch of the contract's (``exact_twins_inline``); one
+    contract pair's difference held to the f64 fft tables solved by
+    'exact' (phase 6's bound). Returns (report, launches of the timed
+    steps)."""
     import torch
     from sfft_tpu_torch import make_config
     from sfft_tpu_torch.core.engine import solve_and_subtract_batched_fn, solve_and_subtract_fn
@@ -5968,7 +6128,7 @@ def phase_batched():
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    nmax = max(BATCH_SIZES)
+    nmax = max(max(BATCH_SIZES), *(max(v) for v in BATCH_SIZES_OF.values()))
     host = [make_pair(N, BATCH_SEED + k) for k in range(nmax)]
     Ih, Jh = (np.stack([p[r] for p in host]) for r in range(2))
     del host
@@ -5976,15 +6136,28 @@ def phase_batched():
     log(f"phase 14 {nmax} pairs {N}^2 made and uploaded in {time.perf_counter() - t_start:.1f} s")
     report, launches = {}, {}
     for name, trio in BATCH_TRIOS.items():
+        t_trio = time.perf_counter()
         cfg = make_config(N, N, KERHW, **trio)
         step = solve_and_subtract_batched_fn(cfg)
         single = solve_and_subtract_fn(cfg)
+        # the sizes this card's memory takes (max_batch), before any step
+        torch.cuda.empty_cache()
+        cap = pbatch.max_batch(cfg, dev)
+        wanted = BATCH_SIZES_OF.get(name, BATCH_SIZES)
+        sizes = [B for B in wanted if B <= cap]
+        log(f"phase 14 {name}: max_batch {cap} pairs at {N}^2 on this card; B run {sizes}"
+            + (f"; left out (beyond max_batch) {[B for B in wanted if B > cap]}"
+               if len(sizes) < len(wanted) else ""))
+        # each single call with the masked planes the unmasked ones (one
+        # object a role, as PCP passes them: the contract trio shares its
+        # spectra then)
         ones = []
-        for k in range(nmax):
-            s1, d1 = single(I[k], J[k], I[k], J[k])
+        for k in range(max(max(sizes), 3)):
+            Ik, Jk = I[k], J[k]
+            s1, d1 = single(Ik, Jk, Ik, Jk)
             ones.append((s1.cpu(), d1.cpu()))
         rows = {}
-        for B in BATCH_SIZES:
+        for B in sizes:
             Ib, Jb = I[:B], J[:B]
             run = lambda: step(Ib, Jb, Ib, Jb)   # noqa: E731
             torch.cuda.synchronize()
@@ -6015,7 +6188,11 @@ def phase_batched():
             for _ in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = batched_subtract(Ih[:B], Jh[:B], Ih[:B], Jh[:B], cfg, devices=[dev])
+                # the contract trio shares its spectra where the masked stacks
+                # are the unmasked ones: one stack object a role pair
+                hI, hJ = Ih[:B], Jh[:B]
+                out = batched_subtract(hI, hJ, *((hI, hJ) if name == "contract"
+                                                 else (Ih[:B], Jh[:B])), cfg, devices=[dev])
                 torch.cuda.synchronize()
                 hw.append(time.perf_counter() - t0)
                 for k in range(B):
@@ -6039,17 +6216,17 @@ def phase_batched():
                 f"{[round(w * 1e3, 1) for w in walls]} ms), busy "
                 f"{rows[B]['busy_ms_per_pair']:.2f} ms ({nk} kernels and copies a step), "
                 f"host stacks {rows[B]['host_stacks_ms_per_pair']:.2f} ms; launches a step "
-                f"{per}; peak {peak / 2**30:.2f} GiB")
+                f"{per}; peak {peak / 2**30:.2f} GiB ({peak / 2**30 / B:.2f} GiB a pair)")
         # the survey paths' groups are one pair a device: the single step,
         # which is the batched step of one pair, against that batched step
         # called directly, in alternating order
         t_one, t_b1 = [], []
+        I0, J0, I1, J1 = I[0], J[0], I[:1], J[:1]
         for k in range(6):
             for which in ((0, 1) if k % 2 == 0 else (1, 0)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = (single(I[0], J[0], I[0], J[0]) if which == 0
-                       else step(I[:1], J[:1], I[:1], J[:1]))
+                out = (single(I0, J0, I0, J0) if which == 0 else step(I1, J1, I1, J1))
                 torch.cuda.synchronize()
                 (t_one if which == 0 else t_b1).append(time.perf_counter() - t0)
                 del out
@@ -6057,14 +6234,28 @@ def phase_batched():
         log(f"phase 14 {name}: single step {one_ms:.2f} ms, batched step of one pair "
             f"{b1_ms:.2f} ms (medians of 6, alternating; walls "
             f"{[round(t * 1e3, 1) for t in t_one]} / {[round(t * 1e3, 1) for t in t_b1]} ms)")
-        # the memory bound: the pairs a batched step takes on this card, and a
-        # batch beyond a lowered bound split into steps, bit for bit
-        cap = pbatch.max_batch(cfg, dev)
+        if name == "contract":
+            # phase 6's fidelity bound on one pair: the f64 fft tables solved
+            # by 'exact'
+            cfg64 = make_config(N, N, KERHW, greek_backend="fft", fdiff_backend="fft",
+                                solver="exact")
+            s64, d64 = (t.cpu() for t in solve_and_subtract_fn(cfg64)(I0, J0, I0, J0))
+            drms = float(torch.sqrt(torch.mean((ones[0][1] - d64) ** 2)))
+            srel = float((ones[0][0] - s64).abs().max() / s64.abs().max())
+            assert drms < 1e-6 and srel <= 1e-6, \
+                f"phase 14 contract: RMS(diff - diff_f64) {drms:.3e}, solution {srel:.3e} of max"
+            log(f"phase 14 contract pair 0: RMS(diff - diff_f64) = {drms:.3e} (bound 1e-6), "
+                f"max|sol - sol_f64|/max|sol_f64| = {srel:.3e} (bound 1e-6; the f64 fft "
+                f"tables solved by 'exact')")
+            vs64 = dict(rms=drms, sol_rel=srel)
+            del s64, d64
+        # a batch beyond a lowered bound split into steps, bit for bit
         real_cap = pbatch.max_batch
         pbatch.max_batch = lambda cfg, device: 2
         try:
             steps0 = solve_and_subtract_batched_fn.steps
-            out = batched_subtract(I[:3], J[:3], I[:3], J[:3], cfg, devices=[dev])
+            I3, J3 = I[:3], J[:3]
+            out = batched_subtract(I3, J3, I3, J3, cfg, devices=[dev])
             nsteps = solve_and_subtract_batched_fn.steps - steps0
         finally:
             pbatch.max_batch = real_cap
@@ -6074,16 +6265,21 @@ def phase_batched():
                 torch.equal(out[1][k].cpu(), ones[k][1]), \
                 f"phase 14 {name}: pair {k} of the split batch differs from its single call"
         del out
-        log(f"phase 14 {name}: max_batch {cap} pairs at {N}^2 on this card now; 3 pairs at a "
-            f"bound of 2 ran as {nsteps} batched steps, each pair bit for bit its single call")
+        log(f"phase 14 {name}: 3 pairs at a bound of 2 ran as {nsteps} batched steps, each pair "
+            f"bit for bit its single call")
         twin_b = BATCH_TWIN_B[name]
-        held = batched_twins(lambda: step(I[:twin_b], J[:twin_b], I[:twin_b], J[:twin_b]),
+        It, Jt = I[:twin_b], J[:twin_b]
+        held = batched_twins(lambda: step(It, Jt, It, Jt),
                              f"phase 14 {name} B={twin_b}")
-        log(f"phase 14 {name} B={twin_b}: every K3 / K1 / K2 launch of the batched step held to "
-            f"its twin and each pair's share bit for bit its own launch, two launches bit-equal: "
-            f"{held}")
+        log(f"phase 14 {name} B={twin_b}: every kernel launch of the batched step held to its "
+            f"twin (K4, K7, K6 bit for bit) and each pair's share bit for bit its own launch, "
+            f"two launches bit-equal: {held}")
         report[name] = dict(rows=rows, twins=held, twin_batch=twin_b, single_ms=one_ms,
-                            batched_one_ms=b1_ms, max_batch=cap)
+                            batched_one_ms=b1_ms, max_batch=cap, sizes=sizes,
+                            s=time.perf_counter() - t_trio)
+        if name == "contract":
+            report[name]["vs_f64"] = vs64
+        log(f"phase 14 {name} done in {report[name]['s']:.1f} s")
         torch.cuda.empty_cache()
     del I, J
     torch.cuda.empty_cache()

@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 # C entry -> argument types (pointers and the stream as void*, sizes as int
 # or long long)
 _SIGNATURES = {
-    "sfft_slice_pairs": [_P, _I, _I, _I, _I, _I, _L, _I, _L, _I, _P],
-    "sfft_slice_pairs_absmax": [_P, _I, _I, _I, _P, _P, _P],
+    "sfft_slice_pairs": [_P, _I, _I, _I, _I, _I, _L, _I, _L, _I, _I, _P],
+    "sfft_slice_pairs_absmax": [_P, _I, _I, _I, _I, _P, _P, _P],
     "sfft_slice_pairs_rowmax": [_P, _L, _I, _I, _P, _P, _P],
     "sfft_slice_rows_f64": [_P, _L, _P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _P],
     "sfft_slice_vec_f64": [_P, _P, _P, _L, _L, _I, _P],
@@ -52,8 +52,8 @@ _SIGNATURES = {
     "sfft_fdiff_model_c128": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
     "sfft_sliced_epilogue": [_P, _P],
     "sfft_pair_products": [_P, _P],
-    "sfft_pair_model": [_P, _P],
-    "sfft_pair_poly": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
+    "sfft_pair_model": [_P, _I, _P],
+    "sfft_pair_poly": [_I, _I] + [_P] * 8 + [_I] * 4 + [_L] * 4 + [_P],
     "sfft_corr_direct": [_P] * 4 + [_I] * 14 + [_P],
     "sfft_conv_direct": [_P] * 8 + [_I] * 10 + [ctypes.c_double, _P],
     "sfft_cuda_error_string": [_I],

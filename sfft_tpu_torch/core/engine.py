@@ -55,10 +55,10 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
     masked pair — everything `_solve_impl` does short of the solve (reference
     LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the exact or
-    pexact plane spectra of (mI, mJ), when the caller has them. The peeled
-    and the fft / fft32 backends with polynomial bases also take a batch of
-    pairs, mI and mJ (B, N0, N1), and give (B, NEQ, NEQ) and (B, NEQ), each
-    pair's bits those of its single call."""
+    pexact plane spectra of (mI, mJ), when the caller has them. The peeled,
+    pexact and fft / fft32 backends with polynomial bases also take a batch
+    of pairs, mI and mJ (B, N0, N1), and give (B, NEQ, NEQ) and (B, NEQ),
+    each pair's bits those of its single call."""
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
@@ -124,17 +124,20 @@ def system_from_tables(cfg: SFFTConfig, out, extra, device):
 
 
 # the (greek, fdiff, solver) trios whose batch of pairs runs as one batched
-# step (``solve_and_subtract_batched_fn``): the fast mode and the default
-# trio, as sfft_tpu's jax.vmap runs any config
-BATCHED_TRIOS = (("peeled", "fft32", "refined"), ("fft", "fft", "lu"))
+# step (``solve_and_subtract_batched_fn``): the fast mode, the default trio
+# and the contract trio (sfft_tpu's TPU default, with the transformed or the
+# exact solver), as sfft_tpu's jax.vmap runs any config
+BATCHED_TRIOS = (("peeled", "fft32", "refined"), ("fft", "fft", "lu"),
+                 ("pexact", "pexact", "transformed"), ("pexact", "pexact", "exact"))
 
 
 def batched_step_supported(cfg: SFFTConfig) -> bool:
     """Whether a batch of pairs of this config runs as one batched step: the
-    fast mode (peeled / fft32 / refined) and the default trio (fft / fft /
-    lu), with polynomial bases in either scaling mode. Every other config
-    (contract pexact / transformed, exact, corr / conv, B-spline and v2,
-    the piecewise peel) takes the per-pair loop of parallel/batch.py."""
+    fast mode (peeled / fft32 / refined), the default trio (fft / fft /
+    lu) and the contract trio (pexact / pexact / transformed or exact),
+    with polynomial bases in either scaling mode. Every other config
+    (exact, corr / conv, B-spline and v2, the piecewise peel) takes the
+    per-pair loop of parallel/batch.py."""
     from sfft_tpu_torch.core.peel import polynomial_bases
 
     return ((cfg.greek_backend, cfg.fdiff_backend, cfg.solver) in BATCHED_TRIOS
@@ -185,7 +188,8 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
     batched step on the batch of one pair."""
     if batched_step_supported(cfg):
         def one(I, J, mI, mJ, plain: bool = False):
-            sol, diff = _batched_step(cfg, I[None], J[None], mI[None], mJ[None], plain)
+            sol, diff = _batched_step(cfg, I[None], J[None], mI[None], mJ[None], plain,
+                                      same=I is mI and J is mJ)
             return sol[0], diff[0]
 
         return one
@@ -200,9 +204,9 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
             dt = torch_dtype(cfg.dtype)
             shared = exact_plane_spectra(mI.to(dt), mJ.to(dt), cfg, plain=plain)
         elif both_pexact:
-            from sfft_tpu_torch.core.pexact import pexact_plane_spectra
+            from sfft_tpu_torch.core import pexact
 
-            shared = pexact_plane_spectra(mI, mJ, cfg, plain=plain)
+            shared = pexact.pexact_plane_spectra(mI, mJ, cfg, plain=plain)
         sol = _solve_impl(cfg, mI, mJ, plain=plain, shared=shared)
         same = (I is mI) and (J is mJ)
         diff = _subtract_impl(cfg, I, J, sol, plain=plain,
@@ -212,14 +216,21 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
     return step
 
 
-def _batched_step(cfg: SFFTConfig, I, J, mI, mJ, plain: bool):
+def _batched_step(cfg: SFFTConfig, I, J, mI, mJ, plain: bool, same: bool = False):
     """The batched step's work on (B, N0, N1) tensors: the tables, the
     assembly and the difference for the batch, the solve pair by pair (a
-    batched LU changes a pair's bits)."""
+    batched LU changes a pair's bits, and each pair keeps its own fallback
+    decision). pexact: one PexactShared of the masked stacks for the batch,
+    which the difference reuses when they are the unmasked ones (`same`)."""
     dt = torch_dtype(cfg.dtype)
-    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain)
+    shared = None
+    if cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact":
+        from sfft_tpu_torch.core import pexact
+
+        shared = pexact.pexact_plane_spectra(mI, mJ, cfg, plain=plain)
+    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain, shared=shared)
     sol = torch.stack([solve_system(cfg, a, b, plain=plain).to(dt) for a, b in zip(lhs, rhs)])
-    return sol, _subtract_impl(cfg, I, J, sol, plain=plain)
+    return sol, _subtract_impl(cfg, I, J, sol, plain=plain, shared=shared if same else None)
 
 
 def solve_and_subtract_batched_fn(cfg: SFFTConfig):
@@ -227,10 +238,12 @@ def solve_and_subtract_batched_fn(cfg: SFFTConfig):
     sfft_tpu's jax.vmap of ``solve_and_subtract_fn``: step(I, J, mI, mJ)
     with (B, N0, N1) tensors returns (solutions (B, NEQ), differences (B,
     N0, N1)), each pair's bits those of its single call. One set of the
-    config's K3, K1 and K2 launches and one pass of the table algebra and
-    the assembly for the batch; the library calls whose bits would change
-    with the batch's size (the solve, the rfft2 and irfft2, the products
-    with long contractions) run pair by pair. Only for
+    config's kernel launches (K3, K1 and K2; the contract trio's K3, K4, K7,
+    K6a, K6m and K6p) and one pass of the table algebra and the assembly
+    for the batch; the library calls whose bits would change with the
+    batch's size (the solve, the rfft2 and irfft2, the products with long
+    contractions, the small einsums of pexact's smooth model) run pair by
+    pair. Only for
     ``batched_step_supported`` configs (it raises for the others); the
     single step of those configs is this step on one pair."""
     if not batched_step_supported(cfg):
@@ -240,7 +253,7 @@ def solve_and_subtract_batched_fn(cfg: SFFTConfig):
 
     def step(I, J, mI, mJ, plain: bool = False):
         solve_and_subtract_batched_fn.steps += 1
-        return _batched_step(cfg, I, J, mI, mJ, plain)
+        return _batched_step(cfg, I, J, mI, mJ, plain, same=I is mI and J is mJ)
 
     return step
 

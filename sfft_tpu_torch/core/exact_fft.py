@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from sfft_tpu_torch.core.slicing import (NB, _padk, _pow2ceil_scalar, slice_pairs,
                                           slice_pairs_plain, slice_triple, slice_triple_plain)
 from sfft_tpu_torch.core import pairs
-from sfft_tpu_torch.core.pairs import CPair, _two_prod, _two_sum  # noqa: F401
+from sfft_tpu_torch.core.pairs import CPair, _two_prod, _two_sum, pair_stack  # noqa: F401
 from sfft_tpu_torch.core.statics import Static, index, table
 
 NSL_DATA = 9            # data slices (54 bits)
@@ -143,12 +143,15 @@ def _row_block(W: np.ndarray, r0: int, r1: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _slice_pairs(parts, nsl: int, Kp: int, rowwise: bool, plain: bool, scales=None):
+def _slice_pairs(parts, nsl: int, Kp: int, rowwise: bool, plain: bool, scales=None,
+                 batch: int = 0):
     """The K4 stage (core/slicing.py slice_pairs) on the operand's parts,
     or its plain twin with plain=True (CPU tensors always take the twin);
-    scales: given scales, one per part."""
+    scales: given scales, one per part; batch > 1: the leading axis holds
+    that many pairs, each sliced under its own global scale."""
     if scales is None:
-        return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise)
+        return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise, None,
+                                                             batch)
     return (slice_pairs_plain if plain else slice_pairs)(parts, nsl, Kp, rowwise, scales)
 
 
@@ -545,7 +548,7 @@ _K7 = sliced_epilogue
 def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: bool = False,
                     prof: Optional[SliceProfile] = None, plain: bool = False, scales=None,
                     k_total: Optional[int] = None, static_big: Optional[bool] = None,
-                    epilogue: bool = True):
+                    epilogue: bool = True, batch: int = 0):
     """Exact complex matmul: data (..., K) pair @ the static (complex or
     real) table W (K, M). Returns the pair (..., M). real_out=True (complex
     data and W): only the real part (re = dr.wr - di.wi). The int8 products
@@ -558,7 +561,13 @@ def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: boo
     products' route and plan); static_big, the whole static table's slicing
     rule; epilogue=False returns (int32 products, epilogue plan, data
     scales) instead of the pair, so that the blocks' products sum exactly
-    before one epilogue."""
+    before one epilogue.
+
+    batch > 1: the data's leading axis holds that many independent pairs
+    (the batched step), and a global scale is taken per pair (the K4
+    stage's per-pair mode), so that each pair's result is that of its
+    single call: the int8 products are exact and the epilogue works row by
+    row."""
     p = prof or SliceProfile(NSL_DATA, NSL_STATIC, KMAX)
     dev = data.rh.device
     K, M = W.host().shape
@@ -574,7 +583,7 @@ def _cmatmul_sliced(data: CPair, W: Static, rowwise: bool = False, real_out: boo
     # the producers' views as they are (transposed ones too): one K4 stage
     # for the real and the imaginary part, padded to Kp by the slicer
     pairs = [(data.rh, data.rl)] + ([] if data.is_real else [(data.ih, data.il)])
-    sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain, scales)
+    sliced = _slice_pairs(pairs, p.nsl_data, Kp, rowwise, plain, scales, batch)
     sd = [s for _, s in sliced]
     if real_out and not data.is_real and have_wi:
         # re = dr.wr - di.wi: the two products alone
@@ -612,14 +621,18 @@ def _common_scales(datas, rowwise: bool = False):
 
 
 def _cmatmul_blocks(datas, W, rowwise: bool = False, real_out: bool = False,
-                    prof: Optional[SliceProfile] = None, plain: bool = False) -> list:
+                    prof: Optional[SliceProfile] = None, plain: bool = False,
+                    batch: int = 0) -> list:
     """``_cmatmul_sliced`` of each block of an operand held as blocks (W one
     static table, or one per block), each block sliced as the whole operand
     would be (``_common_scales``; a rowwise product over full rows needs no
-    common scale). One block is ``_cmatmul_sliced`` itself."""
+    common scale). One block is ``_cmatmul_sliced`` itself (with its
+    ``batch``: a leading pair axis; blocks take none)."""
     Ws = [W] * len(datas) if isinstance(W, Static) else list(W)
     if len(datas) == 1:
-        return [_cmatmul_sliced(datas[0], Ws[0], rowwise, real_out, prof, plain)]
+        return [_cmatmul_sliced(datas[0], Ws[0], rowwise, real_out, prof, plain, batch=batch)]
+    if batch > 1:
+        raise ValueError("_cmatmul_blocks: row blocks of one pair, or one block of a batch")
     if rowwise:
         return [_cmatmul_sliced(d, w, rowwise, real_out, prof, plain) for d, w in zip(datas, Ws)]
     return [_cmatmul_sliced(d, w, rowwise, real_out, prof, plain, scales=s)
@@ -687,34 +700,26 @@ def pair_sep_mul(p: CPair, u: Static, v: Static, plain: bool = False) -> CPair:
                        CPair(*_split_on(v, dev), None, None))
 
 
-def pair_stack(parts) -> CPair:
-    """Stack CPairs along a new leading axis (imag parts must match)."""
-    rh = torch.stack([q.rh for q in parts])
-    rl = torch.stack([q.rl for q in parts])
-    if parts[0].ih is None:
-        return CPair(rh, rl, None, None)
-    return CPair(rh, rl, torch.stack([q.ih for q in parts]),
-                 torch.stack([q.il for q in parts]))
-
-
 def _swap(v: torch.Tensor) -> torch.Tensor:
     return v.transpose(-1, -2)
 
 
 def exact_dft_axis(x: CPair, N: int, inverse: bool = False, real_out: bool = False,
                    half_out: bool = False, prof: Optional[SliceProfile] = None,
-                   plain: bool = False) -> CPair:
+                   plain: bool = False, batch: int = 0) -> CPair:
     """Exact-grade DFT over the LAST axis (length N) of a pair tensor.
 
     real_out=True: only the real part of the transform (a real pair).
     half_out=True: only bins k <= N//2 (the Hermitian half for real input);
-    the second stage then runs at half width."""
-    return exact_dft_axis_blocks([x], N, inverse, real_out, half_out, prof, plain)[0]
+    the second stage then runs at half width. batch > 1: the leading axis
+    holds that many independent pairs, each transformed as its single call
+    (``_cmatmul_sliced``)."""
+    return exact_dft_axis_blocks([x], N, inverse, real_out, half_out, prof, plain, batch)[0]
 
 
 def exact_dft_axis_blocks(xs, N: int, inverse: bool = False, real_out: bool = False,
                           half_out: bool = False, prof: Optional[SliceProfile] = None,
-                          plain: bool = False) -> list:
+                          plain: bool = False, batch: int = 0) -> list:
     """``exact_dft_axis`` of one operand held as blocks (split along a
     leading axis, each on its own device): each stage's products slice
     every block as the whole operand would be (``_cmatmul_blocks``), so
@@ -728,15 +733,16 @@ def exact_dft_axis_blocks(xs, N: int, inverse: bool = False, real_out: bool = Fa
         # prime N: one full DFT product over b (depth N)
         DSc = Static(_cols, (DS, N // 2 + 1)) if half_out else DS
         return _cmatmul_blocks([_pmap(d, lambda v: v[..., 0]) for d in datas], DSc,
-                               real_out=real_out, prof=prof, plain=plain)
+                               real_out=real_out, prof=prof, plain=plain, batch=batch)
     # stage 1: G[a, d] = sum_b x[b, a] DS[b, d] — contraction axis last
-    Gs = _cmatmul_blocks([_pmap(d, _swap) for d in datas], DS, prof=prof, plain=plain)
+    Gs = _cmatmul_blocks([_pmap(d, _swap) for d in datas], DS, prof=prof, plain=plain,
+                         batch=batch)
     Us = [_pair_mul_static(G, tw, plain) for G in Gs]
     # stage 2: X[S c + d] = sum_a U[a, d] DR[a, c]
     Rc = R // 2 + 1 if half_out else R
     DRc = Static(_cols, (DR, Rc)) if half_out else DR
     Vs = _cmatmul_blocks([_pmap(U, _swap) for U in Us], DRc, real_out=real_out, prof=prof,
-                         plain=plain)                                # (..., d, c)
+                         plain=plain, batch=batch)                   # (..., d, c)
     Nc = N // 2 + 1 if half_out else N
 
     def fin(v, sh):
@@ -778,7 +784,10 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
     head: real pairs transformed as they are; base: one real pair; U (F, N0),
     V (F, N1): static f64 row / column weight tables per output plane. The
     axis-1 legs run once per DISTINCT V row (U commutes with the axis-1
-    transform); the legs and the axis-0 bodies run one plane at a time."""
+    transform); the legs and the axis-0 bodies run one plane at a time.
+    Planes (B, N0, N1) are a batch of pairs: the result is (B, planes, N0,
+    N1h), each pair's spectra those of its single call (one set of launches
+    for the batch)."""
     # sfft_tpu transforms only the real lanes of the inputs and would drop
     # imaginary parts silently: take real pairs only
     if not base.is_real or any(not h.is_real for h in head):
@@ -788,11 +797,13 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
     N0 = base.rh.shape[-2]
     N1 = base.rh.shape[-1]
     dev = base.rh.device
+    batch = base.rh.shape[0] if base.rh.dim() == 3 else 0
 
     planes1 = list(head)
     for k, ones in firsts:
         planes1.append(base if ones else _pair_mul_static_rr(base, Static(_row, (V, k)), plain))
-    T = [exact_dft_axis(pl_, N1, half_out=True, prof=prof, plain=plain) for pl_ in planes1]
+    T = [exact_dft_axis(pl_, N1, half_out=True, prof=prof, plain=plain, batch=batch)
+         for pl_ in planes1]
     del planes1
 
     src = np.concatenate([np.arange(nh), nh + np.asarray(vsrc, dtype=np.int64)])
@@ -803,9 +814,9 @@ def exact_sep_weighted_spectra(head, base: CPair, U: Static, V: Static,
         # launch)
         z = _k6a(plain)("mul_static_rr", T[int(t)], CPair(Wh[k][:, None], Wl[k][:, None],
                                                           None, None))
-        zt = exact_dft_axis(_pmap(z, _swap), N0, prof=prof, plain=plain)
+        zt = exact_dft_axis(_pmap(z, _swap), N0, prof=prof, plain=plain, batch=batch)
         out.append(_pmap(zt, _swap))
-    return pair_stack(out)
+    return pair_stack(out, dim=-3)
 
 
 def exact_fft2_pair(F, plane_chunk: int = 0, half: bool = False,
@@ -863,18 +874,19 @@ def _alt_sign(N: int) -> np.ndarray:
 
 
 def exact_idft_halfin_real(x: CPair, N: int, prof: Optional[SliceProfile] = None,
-                           plain: bool = False) -> CPair:
+                           plain: bool = False, batch: int = 0) -> CPair:
     """Real inverse DFT over the last axis from the FOLDED Hermitian half.
 
     x: pair (..., N//2+1), fold weights already applied (2 for interior
     columns, 1 for DC and Nyquist). Returns the real pair
     y[n] = Re(sum_{k<=N/2} x[k] e^{+2 pi i k n/N}) without the 1/N scale.
-    N must be even."""
-    return exact_idft_halfin_real_blocks([x], N, prof, plain)[0]
+    N must be even. batch > 1: a leading axis of that many pairs, each
+    transformed as its single call."""
+    return exact_idft_halfin_real_blocks([x], N, prof, plain, batch)[0]
 
 
 def exact_idft_halfin_real_blocks(xs, N: int, prof: Optional[SliceProfile] = None,
-                                  plain: bool = False) -> list:
+                                  plain: bool = False, batch: int = 0) -> list:
     """``exact_idft_halfin_real`` of one operand held as blocks (split along
     a leading axis), each block sliced as the whole operand would be."""
     assert N % 2 == 0, "half-input inverse needs even N"
@@ -885,10 +897,10 @@ def exact_idft_halfin_real_blocks(xs, N: int, prof: Optional[SliceProfile] = Non
     # x[a + R b] == x[..., :M].reshape(S, R)[b, a]; contract b
     d1s = [_pmap(x, lambda v, sh=sh: _swap(v[..., :M].reshape(sh + (S, R))))
            for x, sh in zip(xs, shs)]                                  # (..., a, b)
-    Hs = _cmatmul_blocks(d1s, ES, prof=prof, plain=plain)              # (..., a, m)
+    Hs = _cmatmul_blocks(d1s, ES, prof=prof, plain=plain, batch=batch)  # (..., a, m)
     Us = [_pair_mul_static(H, tw, plain) for H in Hs]
     Ys = _cmatmul_blocks([_pmap(U, _swap) for U in Us], ER, real_out=True, prof=prof,
-                         plain=plain)                                  # (..., m, t)
+                         plain=plain, batch=batch)                     # (..., m, t)
     out = []
     for x, Y, sh in zip(xs, Ys, shs):
         yh = _swap(Y.rh).reshape(sh + (N,))                            # n = m_ t + m
@@ -942,9 +954,12 @@ def exact_corr_window(specA: CPair, specB: CPair, N0: int, N1: int, wx: int, wy:
     (npairs, R0, R1); symmetric=True computes the upper triangle of A x A
     and mirrors. Pairs run in chunks of `chunk` (sfft_tpu's size by
     default), each row sliced with its own scale, so a chunk's result does
-    not depend on its neighbours."""
-    Fa = specA.rh.shape[0]
-    Fb = specB.rh.shape[0]
+    not depend on its neighbours. Stacks with a leading axis of B image
+    pairs, (B, Fa, N0, N1[h]), give each image pair's windows, (B, ...):
+    a chunk takes its plane pairs of every image pair in one set of
+    launches."""
+    Fa = specA.rh.shape[-3]
+    Fb = specB.rh.shape[-3]
     half = specA.rh.shape[-1] != N1
     E0, E1 = (Static(_corr_emat, (N0, N1, wx, wy, half, m)) for m in ("E0", "E1"))
     if chunk is None:
@@ -963,8 +978,8 @@ def exact_corr_window(specA: CPair, specB: CPair, N0: int, N1: int, wx: int, wy:
     for c0 in range(0, npairs, chunk):
         iaa = index(ia[c0:c0 + chunk], dev)
         jbb = index(jb[c0:c0 + chunk], dev)
-        A = _pmap(specA, lambda v: v.index_select(0, iaa))
-        B = _pmap(specB, lambda v: v.index_select(0, jbb))
+        A = _pmap(specA, lambda v: v.index_select(-3, iaa))
+        B = _pmap(specB, lambda v: v.index_select(-3, jbb))
         H = _pair_hadamard_conj(A, B, plain)                           # (c, N0, N1h)
         del A, B
         Y = _cmatmul_sliced(H, E1, rowwise=True, prof=prof, plain=plain)  # (c, N0, R1)
@@ -974,15 +989,16 @@ def exact_corr_window(specA: CPair, specB: CPair, N0: int, N1: int, wx: int, wy:
         Z = _cmatmul_sliced(_pmap(Y, _swap), E0, rowwise=True, real_out=True, prof=prof,
                             plain=plain)                               # (c, R1, R0)
         outs.append(_swap(Z.rh.to(torch.float64) + Z.rl))              # (c, R0, R1)
-    out = torch.cat(outs, dim=0)
+    out = torch.cat(outs, dim=-3)
+    lead = tuple(out.shape[:-3])
 
     if symmetric:
-        full = torch.zeros((Fa, Fa, 2 * wx + 1, 2 * wy + 1), dtype=out.dtype, device=dev)
+        full = torch.zeros(lead + (Fa, Fa, 2 * wx + 1, 2 * wy + 1), dtype=out.dtype, device=dev)
         ia_t = index(ia, dev)
         jb_t = index(jb, dev)
-        full[ia_t, jb_t] = out
-        full[jb_t, ia_t] = torch.flip(out, dims=(1, 2))
+        full[..., ia_t, jb_t, :, :] = out
+        full[..., jb_t, ia_t, :, :] = torch.flip(out, dims=(-2, -1))
         return full
     if pairs is not None:
         return out
-    return out.reshape(Fa, Fb, 2 * wx + 1, 2 * wy + 1)
+    return out.reshape(lead + (Fa, Fb, 2 * wx + 1, 2 * wy + 1))

@@ -58,8 +58,11 @@ def phase_matrix(cfg: SFFTConfig, half: bool, k: int) -> np.ndarray:
 
 
 def split_solution(cfg: SFFTConfig, solution: torch.Tensor):
-    a_ijab = solution[: cfg.Fijab].reshape(cfg.Fij, cfg.L0, cfg.L1)
-    b_pq = solution[cfg.Fijab :]
+    """(a_ijab (Fij, L0, L1), b_pq (Fpq,)) views of a solution (NEQ,), or
+    of a batch's (B, NEQ) with the leading pair axis."""
+    lead = tuple(solution.shape[:-1])
+    a_ijab = solution[..., : cfg.Fijab].reshape(lead + (cfg.Fij, cfg.L0, cfg.L1))
+    b_pq = solution[..., cfg.Fijab :]
     return a_ijab, b_pq
 
 
@@ -420,7 +423,9 @@ def pair_model_spectrum(cfg: SFFTConfig, sp, K, a00: torch.Tensor, s_nc: torch.T
     Construct_FDIFF): for the ENTANGLED center dof the delta-basis term is
     a00 * 1, so c_i = a00_i - s_nc_i; SEPARATE-VARYING applies a00 to the
     scaling planes and c_i = -s_nc_i. K6m (core/pairs.py ``pair_model``, one
-    launch on CUDA tensors), or its twin with plain=True."""
+    launch on CUDA tensors), or its twin with plain=True. A batch (sp and K
+    (B, ...), a00 and s_nc (B, Fij)) gives (B, N0, N1h) in that one
+    launch."""
     from sfft_tpu_torch.core.exact_fft import _split_on
 
     dev = sp.rh.device
@@ -428,7 +433,7 @@ def pair_model_spectrum(cfg: SFFTConfig, sp, K, a00: torch.Tensor, s_nc: torch.T
     c = -s_nc if separate_varying else a00 - s_nc
     model = pairs.pair_model_spectrum_plain if plain else pairs.pair_model
     return model(sp, K, c.to(torch.float64),
-                 a00[:nss].to(torch.float64) if separate_varying else None,
+                 a00[..., :nss].to(torch.float64) if separate_varying else None,
                  _split_on(Static(np.float64, (float(cfg.SCALE),)), dev),
                  table(Static(_fold_weights, (cfg.N1,)), dev))
 
@@ -477,14 +482,18 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
     return (D - background_model(cfg, b_pq, dev)).to(J.dtype)
 
 
-def kernel_spectra(cfg: SFFTConfig, a_ijab: torch.Tensor, plain: bool = False):
+def kernel_spectra(cfg: SFFTConfig, a_ijab: torch.Tensor, plain: bool = False,
+                   batch: int = 0):
     """The center-zeroed kernel spectra K_ij = W0 @ A'_ij @ W1 of the exact
     differences as a pair (Fij, N0, N1h): two sliced products against the
-    static phase matrices."""
-    return kernel_spectra_blocks(cfg, [a_ijab], [None], plain)[0]
+    static phase matrices. batch > 1: a_ijab (B, Fij, L0, L1) holds that
+    many pairs' solutions, each sliced under its own scales (its single
+    call's), giving (B, Fij, N0, N1h)."""
+    return kernel_spectra_blocks(cfg, [a_ijab], [None], plain, batch)[0]
 
 
-def kernel_spectra_blocks(cfg: SFFTConfig, a_list, rows_list, plain: bool = False) -> list:
+def kernel_spectra_blocks(cfg: SFFTConfig, a_list, rows_list, plain: bool = False,
+                          batch: int = 0) -> list:
     """``kernel_spectra`` for frequency-row blocks: a_list, the solution's
     a_ijab on each block's device; rows_list, each block's (r0, r1), or
     None for all rows. The second product slices every block as the whole
@@ -499,36 +508,40 @@ def kernel_spectra_blocks(cfg: SFFTConfig, a_list, rows_list, plain: bool = Fals
     T1s = []
     for a_ijab, rows in zip(a_list, rows_list):
         Ap = a_ijab.clone()
-        Ap[:, w0, w1] = 0.0
+        Ap[..., w0, w1] = 0.0
         # T1[i, b, u] = sum_a Ap[i, a, b] W0[u, a];  K[i, u, v] = sum_b T1[i, b, u] W1[b, v]
-        data = pair_from_f64(Ap.transpose(1, 2))
+        data = pair_from_f64(Ap.transpose(-1, -2))
         if rows is None:
-            T1s.append(_cmatmul_sliced(data, Static(np.transpose, (W0,)), plain=plain))
+            T1s.append(_cmatmul_sliced(data, Static(np.transpose, (W0,)), plain=plain,
+                                       batch=batch))
         else:
             # the block's columns of W0^T, sliced as the whole table is
             T1s.append(_cmatmul_sliced(
                 data, Static(np.transpose, (Static(_row_block, (W0,) + tuple(rows)),)),
                 plain=plain, static_big=_static_big(Static(np.transpose, (W0,)), NSL_STATIC)))
-    return _cmatmul_blocks([_pmap(T1, _swap) for T1 in T1s], W1, plain=plain)
+    return _cmatmul_blocks([_pmap(T1, _swap) for T1 in T1s], W1, plain=plain, batch=batch)
 
 
-def exact_inverse_axis1(z, N1: int, prof=None, plain: bool = False):
+def exact_inverse_axis1(z, N1: int, prof=None, plain: bool = False, batch: int = 0):
     """The real inverse over the last axis of the Hermitian half z (..., N1h),
     fold weights applied: the half-input inverse for even N1, else the full
-    real-only inverse of the zero-padded half. Unscaled real pair."""
-    return exact_inverse_axis1_blocks([z], N1, prof, plain)[0]
+    real-only inverse of the zero-padded half. Unscaled real pair. batch >
+    1: a leading axis of that many pairs, each as its single call."""
+    return exact_inverse_axis1_blocks([z], N1, prof, plain, batch)[0]
 
 
-def exact_inverse_axis1_blocks(zs, N1: int, prof=None, plain: bool = False) -> list:
+def exact_inverse_axis1_blocks(zs, N1: int, prof=None, plain: bool = False,
+                               batch: int = 0) -> list:
     """``exact_inverse_axis1`` of one operand held as row blocks, each
     sliced as the whole operand would be."""
     from sfft_tpu_torch.core.exact_fft import (_pmap, exact_dft_axis_blocks,
                                                exact_idft_halfin_real_blocks)
 
     if N1 % 2 == 0:
-        return exact_idft_halfin_real_blocks(zs, N1, prof=prof, plain=plain)
+        return exact_idft_halfin_real_blocks(zs, N1, prof=prof, plain=plain, batch=batch)
     zps = [_pmap(z, lambda v: torch.nn.functional.pad(v, (0, N1 - v.shape[-1]))) for z in zs]
-    return exact_dft_axis_blocks(zps, N1, inverse=True, real_out=True, prof=prof, plain=plain)
+    return exact_dft_axis_blocks(zps, N1, inverse=True, real_out=True, prof=prof, plain=plain,
+                                 batch=batch)
 
 
 def background_model(cfg: SFFTConfig, b_pq: torch.Tensor, device, rows=None) -> torch.Tensor:

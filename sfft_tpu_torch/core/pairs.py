@@ -295,7 +295,12 @@ def _scale_pair(P: CPair, c32, cres) -> CPair:
 
 
 def _plane(P: CPair, k: int) -> CPair:
-    return CPair(*(v[k] for v in P))
+    return CPair(*(None if v is None else v[k] for v in P))
+
+
+def pair_stack(parts, dim: int = 0) -> CPair:
+    """CPairs stacked along a new axis `dim` (imag parts must match)."""
+    return CPair(*(None if vs[0] is None else torch.stack(vs, dim=dim) for vs in zip(*parts)))
 
 
 def pair_model_spectrum_plain(sp: CPair, K: CPair, c: torch.Tensor,
@@ -311,7 +316,15 @@ def pair_model_spectrum_plain(sp: CPair, K: CPair, c: torch.Tensor,
     tensors (hi, lo); fold: (N1h,) f32 Hermitian-fold weights, or None.
     Returns FD = sp[0] - SCALE * acc (times fold), acc the compensated sum
     over i of sp[1+i] * (K_i + c_i) (A * conj(conj B)), then over s of
-    a00_s sp[1+Fk+s]."""
+    a00_s sp[1+Fk+s].
+
+    A batch of B image pairs (sp (B, P, N0, N1h), K (B, Fk, N0, N1h), c
+    (B, Fk), a00 (B, nss)) gives (B, N0, N1h): each pair's spectrum as its
+    single call computes it."""
+    if sp.rh.dim() == 4:
+        return pair_stack([pair_model_spectrum_plain(_plane(sp, b), _plane(K, b), c[b],
+                                                 None if a00 is None else a00[b], scale, fold)
+                       for b in range(sp.rh.shape[0])])
     Fk = K.rh.shape[0]
     acc = None
 
@@ -344,8 +357,8 @@ class _PMArgs(ctypes.Structure):
     _fields_ = [("sp", ctypes.c_void_p * 4), ("k", ctypes.c_void_p * 4),
                 ("c", ctypes.c_void_p), ("a00", ctypes.c_void_p),
                 ("scale", ctypes.c_void_p * 2), ("fold", ctypes.c_void_p),
-                ("out", ctypes.c_void_p * 4), ("sps", ctypes.c_longlong * 3),
-                ("ks", ctypes.c_longlong * 3), ("N0", ctypes.c_int), ("N1h", ctypes.c_int),
+                ("out", ctypes.c_void_p * 4), ("sps", ctypes.c_longlong * 4),
+                ("ks", ctypes.c_longlong * 4), ("N0", ctypes.c_int), ("N1h", ctypes.c_int),
                 ("Fk", ctypes.c_int), ("nss", ctypes.c_int)]
 
 
@@ -360,17 +373,19 @@ def _pm_check(sp, K, c, a00, scale, fold):
     dev = sp.rh.device
     if any(t.device != dev for t in tensors + [c] + ([] if a00 is None else [a00])):
         raise ValueError("pair_model operands on more than one device")
-    if any(v.dim() != 3 or v.shape != sp.rh.shape for v in _planes(sp)):
-        raise ValueError("pair_model: sp is a (P, N0, N1h) pair")
-    Fk, N0, N1h = K.rh.shape if K.rh.dim() == 3 else (0, 0, 0)
-    nss = 0 if a00 is None else a00.shape[0]
-    if (Fk < 1 or any(tuple(v.shape) != (Fk, N0, N1h) for v in _planes(K))
-            or tuple(sp.rh.shape[1:]) != (N0, N1h) or sp.rh.shape[0] < 1 + Fk + nss
-            or tuple(c.shape) != (Fk,) or (a00 is not None and a00.dim() != 1)
+    if sp.rh.dim() not in (3, 4) or any(v.shape != sp.rh.shape for v in _planes(sp)):
+        raise ValueError("pair_model: sp is a (P, N0, N1h) pair, or (B, P, N0, N1h)")
+    lead = tuple(sp.rh.shape[:-3])
+    Fk, N0, N1h = K.rh.shape[-3:] if K.rh.dim() == 3 + len(lead) else (0, 0, 0)
+    nss = 0 if a00 is None else a00.shape[-1]
+    if (Fk < 1 or any(tuple(v.shape) != lead + (Fk, N0, N1h) for v in _planes(K))
+            or tuple(sp.rh.shape[-2:]) != (N0, N1h) or sp.rh.shape[-3] < 1 + Fk + nss
+            or tuple(c.shape) != lead + (Fk,)
+            or (a00 is not None and tuple(a00.shape) != lead + (nss,))
             or len(scale) != 2 or any(s.dim() != 0 for s in scale)
             or (fold is not None and tuple(fold.shape) != (N1h,))):
         raise ValueError("pair_model: inconsistent shapes")
-    return Fk, N0, N1h, nss
+    return Fk, N0, N1h, nss, (lead[0] if lead else 1)
 
 
 def _same_strides(vs):
@@ -387,18 +402,22 @@ def pair_model(sp: CPair, K: CPair, c: torch.Tensor, a00: Optional[torch.Tensor]
     """K6m: ``pair_model_spectrum_plain``'s model spectrum as one kernel
     launch on CUDA tensors (bit for bit; the scalars c, a00 and SCALE are
     read on the device, nothing is copied to the host), the twin on CPU
-    tensors. ``pair_model.launches`` counts the launches."""
-    Fk, N0, N1h, nss = _pm_check(sp, K, c, a00, scale, fold)
+    tensors; a batch of image pairs (a leading axis on sp, K, c and a00)
+    in one launch, the pair on the grid's y axis, each pair's spectrum
+    that of its single call. ``pair_model.launches`` counts the
+    launches."""
+    Fk, N0, N1h, nss, B = _pm_check(sp, K, c, a00, scale, fold)
     dev = sp.rh.device
     if dev.type == "cpu":
         return pair_model_spectrum_plain(sp, K, c, a00, scale, fold)
     if dev.type != "cuda":
         raise ValueError(f"pair_model runs on cpu or cuda tensors, not {dev}")
-    if N0 * N1h >= 2 ** 31:
-        raise ValueError("pair_model: a plane of fewer than 2^31 elements")
+    if N0 * N1h >= 2 ** 31 or B > 65535:
+        raise ValueError("pair_model: planes of fewer than 2^31 elements, at most 65535 pairs")
     from sfft_tpu_torch import _kernels
 
-    outs = [torch.empty((N0, N1h), dtype=torch.float32, device=dev) for _ in range(4)]
+    lead = tuple(sp.rh.shape[:-3])
+    outs = [torch.empty(lead + (N0, N1h), dtype=torch.float32, device=dev) for _ in range(4)]
     sps, ks = _same_strides(_planes(sp)), _same_strides(_planes(K))
     c = c.contiguous()
     a00 = None if a00 is None else a00.contiguous()
@@ -406,15 +425,16 @@ def pair_model(sp: CPair, K: CPair, c: torch.Tensor, a00: Optional[torch.Tensor]
     a = _PMArgs()
     for k in range(4):
         a.sp[k], a.k[k], a.out[k] = sps[k].data_ptr(), ks[k].data_ptr(), outs[k].data_ptr()
-    for k in range(3):
-        a.sps[k], a.ks[k] = sps[0].stride(k), ks[0].stride(k)
+    # (pair, plane, row, column) strides; the pair's is unused without one
+    a.sps[:] = (sps[0].stride(0) if lead else 0,) + sps[0].stride()[-3:]
+    a.ks[:] = (ks[0].stride(0) if lead else 0,) + ks[0].stride()[-3:]
     a.c = c.data_ptr()
     a.a00 = None if a00 is None else a00.data_ptr()
     a.scale[0], a.scale[1] = scale[0].data_ptr(), scale[1].data_ptr()
     a.fold = None if fold is None else fold.data_ptr()
     a.N0, a.N1h, a.Fk, a.nss = N0, N1h, Fk, nss
     with torch.cuda.device(dev):
-        err = _kernels.lib().sfft_pair_model(ctypes.addressof(a), _kernels.stream_ptr(sp.rh))
+        err = _kernels.lib().sfft_pair_model(ctypes.addressof(a), B, _kernels.stream_ptr(sp.rh))
     _K6M.launches += 1
     _kernels.check(err, "pair_model kernel launch")
     return CPair(*outs)
@@ -448,11 +468,20 @@ def pair_poly_plain(Uh, Ul, Mh, Ml) -> CPair:
     return CPair(hi, lo, None, None)
 
 
+def _table_of(t: torch.Tensor, b: int) -> torch.Tensor:
+    """Pair b's table: its own (a (B, SP, n) stack) or the shared (SP, n)."""
+    return t[b] if t.dim() == 3 else t
+
+
 def pair_poly_sub_plain(I, Uh, Ul, Mh, Ml) -> CPair:
     """The plain twin of K6p's sub mode: pair(I) - the plane, for an f64
     image I (sfft_tpu's pexact fluctuation, pair_sub(pair_from_f64(I),
     pair_poly_plane(...))): hi by TwoSum(f32(I), -plane.hi), lo = (f32(I -
-    f32(I)) - plane.lo) + e."""
+    f32(I)) - plane.lo) + e. A batch (I (B, N0, N1), tables (B, SP, n) or
+    shared) runs pair by pair."""
+    if I.dim() == 3:
+        return pair_stack([pair_poly_sub_plain(I[b], *(_table_of(t, b) for t in (Uh, Ul, Mh, Ml)))
+                       for b in range(I.shape[0])])
     P = pair_poly_plain(Uh, Ul, Mh, Ml)
     ih = I.to(torch.float32)
     il = (I - ih.to(torch.float64)).to(torch.float32)
@@ -463,7 +492,13 @@ def pair_poly_sub_plain(I, Uh, Ul, Mh, Ml) -> CPair:
 def pair_poly_add64_plain(Dfl: CPair, Uh, Ul, Mh, Ml) -> torch.Tensor:
     """The plain twin of K6p's add64 mode: the pair Dfl plus the plane,
     materialised in f64 (sfft_tpu's fdiff_pexact combination): h, e =
-    TwoSum(Dfl.hi, plane.hi); f64(h) + f64((Dfl.lo + plane.lo) + e)."""
+    TwoSum(Dfl.hi, plane.hi); f64(h) + f64((Dfl.lo + plane.lo) + e). A
+    batch (Dfl (B, N0, N1), tables (B, SP, n) or shared) runs pair by
+    pair."""
+    if Dfl.rh.dim() == 3:
+        return torch.stack([pair_poly_add64_plain(_plane(Dfl, b),
+                                                  *(_table_of(t, b) for t in (Uh, Ul, Mh, Ml)))
+                            for b in range(Dfl.rh.shape[0])])
     P = pair_poly_plain(Uh, Ul, Mh, Ml)
     h, e = _two_sum(Dfl.rh, P.rh)
     return h.to(torch.float64) + (Dfl.rl + P.rl + e)
@@ -474,59 +509,76 @@ _POLY_MODES = {"plane": 0, "sub": 1, "add64": 2}
 _POLY_MAX_SP = 32       # csrc/pair_poly.cu kMaxSP
 
 
-def _poly_tables(name, tabs):
-    """The tables' rules; returns (SP, N0, N1)."""
-    if any(t.dtype != torch.float32 or t.dim() != 2 for t in tabs):
-        raise ValueError(f"{name} takes 2-D float32 tables")
+def _poly_tables(name, tabs, batched: bool = False):
+    """The tables' rules; returns (SP, N0, N1, B). batched: a U or M pair
+    may be a (B, SP, n) stack, each pair's own (B = 0 when none is)."""
+    if any(t.dtype != torch.float32 or t.dim() not in ((2, 3) if batched else (2,))
+           for t in tabs):
+        raise ValueError(f"{name} takes 2-D float32 tables" + (", or (B, SP, n) stacks"
+                                                               if batched else ""))
     if any(t.device != tabs[0].device for t in tabs):
         raise ValueError(f"{name} operands on more than one device")
     Uh, Ul, Mh, Ml = tabs
-    SP, N0 = Uh.shape
-    N1 = Mh.shape[1]
-    if SP < 1 or Ul.shape != Uh.shape or tuple(Mh.shape) != (SP, N1) or Ml.shape != Mh.shape:
+    SP, N0 = Uh.shape[-2:]
+    N1 = Mh.shape[-1]
+    B = {t.shape[0] for t in tabs if t.dim() == 3}
+    if (SP < 1 or Ul.shape != Uh.shape or tuple(Mh.shape[-2:]) != (SP, N1)
+            or Ml.shape != Mh.shape or len(B) > 1):
         raise ValueError(f"{name}: U (SP, N0) and M (SP, N1) pairs")
     if SP > _POLY_MAX_SP:
         raise ValueError(f"{name}: at most {_POLY_MAX_SP} terms")
-    return SP, N0, N1
+    return SP, N0, N1, (B.pop() if B else 0)
 
 
 def _transposed(name, planes, shape):
     """Whether the planes (all of one layout) lie with strides (1, N0)
-    rather than row-major; any other layout raises (the kernel copies
-    nothing)."""
+    rather than row-major (in each pair's plane, for a (B, N0, N1) batch);
+    any other layout raises (the kernel copies nothing)."""
     if any(tuple(v.shape) != tuple(shape) for v in planes):
         raise ValueError(f"{name}: planes of shape {tuple(shape)}")
-    if all(v.is_contiguous() for v in planes):
-        return False
-    if all(v.t().is_contiguous() for v in planes):
-        return True
+    N0, N1 = shape[-2:]
+    st = {tuple(v.stride()) for v in planes}
+    if len(st) == 1:
+        st = st.pop()
+        if N0 == 1 or N1 == 1 or st[-2:] == (N1, 1):
+            return False
+        if st[-2:] == (1, N0):
+            return True
     raise ValueError(f"{name}: planes row-major or transposed (strides (N1, 1) or (1, N0)), "
                      "all of one layout")
 
 
 def _poly_launch(name, mode, tabs, ins, shape, out_dtype, nout):
     """One K6p launch on CUDA tensors: `nout` fresh output planes in the
-    layout of the inputs `ins` (row-major for the plane mode)."""
-    SP, N0, N1 = shape
+    layout of the inputs `ins` (row-major for the plane mode); shape (SP,
+    N0, N1, B), B > 0 a batch of pairs (ins (B, N0, N1), each pair's own
+    tables where a table is a (B, SP, n) stack)."""
+    SP, N0, N1, B = shape
     dev = tabs[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
-    if N0 * N1 >= 2 ** 31:
-        raise ValueError(f"{name}: a plane of fewer than 2^31 elements")
+    if N0 * N1 >= 2 ** 31 or B > 65535:
+        raise ValueError(f"{name}: planes of fewer than 2^31 elements, at most 65535 pairs")
     from sfft_tpu_torch import _kernels
 
-    transposed = bool(ins) and _transposed(name, ins, (N0, N1))
+    lead = (B,) if B else ()
+    transposed = bool(ins) and _transposed(name, ins, lead + (N0, N1))
     tabs = [t.contiguous() for t in tabs]
     if transposed:
-        outs = [torch.empty((N1, N0), dtype=out_dtype, device=dev).t() for _ in range(nout)]
+        outs = [torch.empty(lead + (N1, N0), dtype=out_dtype, device=dev).transpose(-1, -2)
+                for _ in range(nout)]
     else:
-        outs = [torch.empty((N0, N1), dtype=out_dtype, device=dev) for _ in range(nout)]
+        outs = [torch.empty(lead + (N0, N1), dtype=out_dtype, device=dev) for _ in range(nout)]
     ptrs = [v.data_ptr() for v in ins] + [None] * (2 - len(ins))
     optrs = [v.data_ptr() for v in outs] + [None] * (2 - nout)
+    in_ps = ins[0].stride(0) * ins[0].element_size() if B and ins else 0
+    out_ps = N0 * N1 * outs[0].element_size() if B else 0
+    u_ps, m_ps = (t.stride(0) if t.dim() == 3 else 0 for t in (tabs[0], tabs[2]))
     with torch.cuda.device(dev):
         err = _kernels.lib().sfft_pair_poly(_POLY_MODES[mode], int(transposed),
                                             *(t.data_ptr() for t in tabs), *ptrs, *optrs,
-                                            SP, N0, N1, _kernels.stream_ptr(tabs[0]))
+                                            SP, N0, N1, max(B, 1), in_ps, out_ps, u_ps, m_ps,
+                                            _kernels.stream_ptr(tabs[0]))
     _K6P.launches += 1
     _K6P.mode_launches[mode] += 1
     _kernels.check(err, f"{name} kernel launch")
@@ -547,20 +599,33 @@ def pair_poly(Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
     return CPair(hi, lo, None, None)
 
 
+def _batch_of(name, planes, shape):
+    """The tables' and the planes' batch: B of a (B, N0, N1) batch of
+    planes (the tables' too, where they have one), else 0."""
+    B = planes[0].shape[0] if planes[0].dim() == 3 else 0
+    if shape[3] and shape[3] != B:
+        raise ValueError(f"{name}: tables of {shape[3]} pairs for planes of shape "
+                         f"{tuple(planes[0].shape)}")
+    want = ((B,) if B else ()) + shape[1:3]
+    if any(tuple(v.shape) != want for v in planes):
+        raise ValueError(f"{name}: planes of shape {want}")
+    return shape[:3] + (B,)
+
+
 def pair_poly_sub(I: torch.Tensor, Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Tensor,
                   Ml: torch.Tensor) -> CPair:
     """K6p, sub mode: ``pair_poly_sub_plain``, the pair I - plane for an f64
     image I (N0, N1), row-major or transposed, in one kernel launch on CUDA
     tensors (bit for bit; the output in I's layout), the twin on CPU
-    tensors."""
+    tensors. A batch: I (B, N0, N1) and each pair's own tables (B, SP, n)
+    where they differ, in one launch."""
     tabs = [Uh, Ul, Mh, Ml]
-    shape = _poly_tables("pair_poly_sub", tabs)
+    shape = _poly_tables("pair_poly_sub", tabs, batched=True)
     if I.dtype != torch.float64:
         raise ValueError("pair_poly_sub takes a float64 image")
     if I.device != Uh.device:
         raise ValueError("pair_poly_sub operands on more than one device")
-    if tuple(I.shape) != shape[1:]:
-        raise ValueError(f"pair_poly_sub: an image of shape {shape[1:]}")
+    shape = _batch_of("pair_poly_sub", [I], shape)
     if I.device.type == "cpu":
         return pair_poly_sub_plain(I, *tabs)
     hi, lo = _poly_launch("pair_poly_sub", "sub", tabs, [I], shape, torch.float32, 2)
@@ -571,9 +636,11 @@ def pair_poly_add64(Dfl: CPair, Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Te
                     Ml: torch.Tensor) -> torch.Tensor:
     """K6p, add64 mode: ``pair_poly_add64_plain``, the real pair Dfl (N0, N1)
     plus the plane as one f64 plane, in one kernel launch on CUDA tensors
-    (bit for bit; the output in Dfl's layout), the twin on CPU tensors."""
+    (bit for bit; the output in Dfl's layout), the twin on CPU tensors. A
+    batch: Dfl (B, N0, N1) and each pair's own tables (B, SP, n) where
+    they differ, in one launch."""
     tabs = [Uh, Ul, Mh, Ml]
-    shape = _poly_tables("pair_poly_add64", tabs)
+    shape = _poly_tables("pair_poly_add64", tabs, batched=True)
     if not Dfl.is_real:
         raise ValueError("pair_poly_add64 takes a real pair")
     planes = [Dfl.rh, Dfl.rl]
@@ -581,8 +648,7 @@ def pair_poly_add64(Dfl: CPair, Uh: torch.Tensor, Ul: torch.Tensor, Mh: torch.Te
         raise ValueError("pair_poly_add64 takes float32 planes")
     if any(v.device != Uh.device for v in planes):
         raise ValueError("pair_poly_add64 operands on more than one device")
-    if any(tuple(v.shape) != shape[1:] for v in planes):
-        raise ValueError(f"pair_poly_add64: planes of shape {shape[1:]}")
+    shape = _batch_of("pair_poly_add64", planes, shape)
     if Uh.device.type == "cpu":
         return pair_poly_add64_plain(Dfl, *tabs)
     return _poly_launch("pair_poly_add64", "add64", tabs, planes, shape, torch.float64, 1)[0]

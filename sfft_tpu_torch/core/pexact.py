@@ -15,6 +15,15 @@ shift algebra plus wrap corrections on the <= w-wide boundary bands.
 
 Requires polynomial kernel, background and scaling bases. Every function
 takes ``plain``: True runs the plain twins of K3, K4, K6 and K7.
+
+A batch of pairs (images (B, N0, N1), the batched step of core/engine.py)
+runs through the same functions: every table, spectrum and plane gains the
+leading pair axis, and each pair's bits are those of its single call. The
+kernels run once for the batch (K3 per moment set, the K4 stage and K7 per
+sliced product with each pair's own global scale, K6a, K6m and K6p with the
+pair on their grids); the moment algebra goes through ``peel.contract``,
+and the small library products whose bits change with the batch's shape
+run pair by pair (``peel._each``).
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ from sfft_tpu_torch.core.fdiff import (exact_inverse_axis1, kernel_spectra,
                                         pair_model_spectrum, split_solution,
                                         standard_kernel_coeffs)
 from sfft_tpu_torch.core.indices import ref_basis_exponents
-from sfft_tpu_torch.core.peel import (MomentSet, PeelGeom, _axis_field, _exps_key,
+from sfft_tpu_torch.core.peel import (MomentSet, PeelGeom, _axis_field, _each,
+                                      _embed_index, _exps_key, _monomial_coeffs, _t,
                                       axis_static, coord_powers, coord_powers_of,
                                       fit_poly_coeffs, moment_set, peel_geom, phi_table,
                                       poly_moment_set, polycorr, polynomial_bases,
@@ -50,11 +60,13 @@ def _poly_tables(C: torch.Tensor, N0: int, N1: int, r0: int = 0, r1: Optional[in
     """K6p's tables for a ScaledFortranCoor polynomial C (SP, SP) f64 over
     c0^s c1^t with c = (idx+1)/N: U = c0^s (SP, N0) and M = C @ c1^t (SP,
     N1, a tiny f64 product), each split into f32 (hi, lo). (r0, r1) keeps
-    the image rows [r0, r1) of U (a row block of the sharded step)."""
-    SP = C.shape[0]
+    the image rows [r0, r1) of U (a row block of the sharded step). C (B,
+    SP, SP), a batch of polynomials: M is each pair's own (B, SP, N1), its
+    product pair by pair; U is shared."""
+    SP = C.shape[-1]
     dev = C.device
     V = table(Static(coord_powers, (N1, SP, 0, N1)), dev)       # (SP, N1) f64
-    M = C.to(torch.float64) @ V                                  # (SP, N1) f64
+    M = _each(lambda c: c.to(torch.float64) @ V, C, 2)          # (SP, N1) f64
     Mh = M.to(torch.float32)
     Ml = (M - Mh.to(torch.float64)).to(torch.float32)
     Uh, Ul = _split_on(Static(coord_powers, (N0, SP, r0, N0 if r1 is None else r1)), dev)
@@ -89,7 +101,7 @@ def _geom(cfg: SFFTConfig) -> PeelGeom:
 
 class PexactShared(NamedTuple):
     """What the Greek tables and the difference both consume, computed once
-    per (I, J) pair."""
+    per (I, J) pair (for a batch, every field with the leading pair axis)."""
 
     mI: torch.Tensor         # (dmu+1, dmu+1) f64 peel coeffs of I
     mJ: torch.Tensor
@@ -100,6 +112,10 @@ class PexactShared(NamedTuple):
 
 def pexact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
                          plain: bool = False) -> PexactShared:
+    """The moment sets, the peel fits and the fluctuation spectra of (I, J),
+    or of a batch of pairs (B, N0, N1): one K3 launch per moment set, one
+    K6p launch per image role and one set of K4 / K7 / K6a launches for the
+    spectra, whatever B."""
     g = _geom(cfg)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
@@ -135,7 +151,9 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     via the sliced pair-FFT windows at cfg.pexact_prof. window(ia, jb), when
     given, returns those windows (npairs, 4w0+1, 4w1+1) for the pair list
     of the fluctuation spectra instead of ``exact_corr_window`` on
-    shared.sp (the row-sharded step sums them over row blocks)."""
+    shared.sp (the row-sharded step sums them over row blocks). I and J (B,
+    N0, N1) (or `shared` of such a batch): every table with a leading pair
+    axis, each pair's bits those of its single call."""
     g = _geom(cfg)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
@@ -148,31 +166,36 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     Fij, Fpq = len(exps_k), len(exps_b)
     ax0o, ax1o, ax0g, ax1g = g.ax0o, g.ax1o, g.ax0g, g.ax1g
     dev = mI.device
+    lead = tuple(mI.shape[:-2])          # () or (B,): the pair axis
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
+
+    def batch(x):
+        # a table shared by the pairs, as each pair's own (a view)
+        return x.expand(lead + tuple(x.shape)) if lead else x
 
     # +-w moment window is a central slice of the +-2w one
     momI_g = MomentSet(
         M=momI_o.M,
-        RS=momI_o.RS[w0: 3 * w0 + 1],
-        CS=momI_o.CS[w1: 3 * w1 + 1],
-        CNR=momI_o.CNR[w0: 3 * w0 + 1, w1: 3 * w1 + 1],
+        RS=momI_o.RS[..., w0: 3 * w0 + 1, :, :],
+        CS=momI_o.CS[..., w1: 3 * w1 + 1, :, :],
+        CNR=momI_o.CNR[..., w0: 3 * w0 + 1, w1: 3 * w1 + 1, :, :],
     )
 
-    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings
+    # S_a coeffs: mu_I * beta_a — exponent-shifted embeddings, one scatter
+    # for the batch
     PA = zeros(Fij, SP, SP)
-    for k, (i, j) in enumerate(exps_k):
-        PA[k, i: i + dmu + 1, j: j + dmu + 1] = mI
+    pk, pi, pj, ms, mt = (_t(_embed_index, (_exps_key(exps_k), dmu), mI, torch.int64)[r]
+                          for r in range(5))
+    PA[..., pk, pi, pj] = mI[..., ms, mt]
     mJ_pad = zeros(1, SP, SP)
-    mJ_pad[0, : dmu + 1, : dmu + 1] = mJ
-    TQ = zeros(Fpq, SP, SP)
-    for k, (p, q) in enumerate(exps_b):
-        TQ[k, p, q] = 1.0
+    mJ_pad[..., 0, : dmu + 1, : dmu + 1] = mJ
+    TQ = _t(_monomial_coeffs, (_exps_key(exps_b), SP), mI, dt)
 
     def fluct_mom(momG: MomentSet, mcoef, ax0, ax1) -> MomentSet:
         Q = zeros(SP, SP)
-        Q[: dmu + 1, : dmu + 1] = mcoef
+        Q[..., : dmu + 1, : dmu + 1] = mcoef
         pm = poly_moment_set(Q, (ax0.S.shape[0] - 1) // 2, (ax1.S.shape[0] - 1) // 2,
                              SP, g.SG, ax0, ax1)
         return MomentSet(M=momG.M - pm.M, RS=momG.RS - pm.RS,
@@ -187,7 +210,7 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     momSb_o = poly_moment_set(PA, 2 * w0, 2 * w1, SP, g.SG, ax0o, ax1o)
     SS = polycorr(PA, momSb_o, ax0o, ax1o)                 # CC(S_a, S_b)
     SF = polycorr(PA, momFb_o, ax0o, ax1o)                 # CC(S_a, F_b)
-    FS = torch.flip(SF.permute(1, 0, 2, 3), dims=(2, 3))
+    FS = torch.flip(SF.transpose(-4, -3), dims=(-2, -1))
 
     # --- fluct x fluct via ONE sliced windowed-correlation pass -----------
     # (the THE window +-w is a central slice of the +-2w one)
@@ -196,7 +219,7 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     ia = np.concatenate([iu + 1, np.arange(Fij) + 1])
     jb = np.concatenate([ju + 1, np.zeros(Fij, np.int64)])
     if window is None:
-        spec_all = _pmap(sp, lambda v: v[: 1 + Fij])
+        spec_all = _pmap(sp, lambda v: v[..., : 1 + Fij, :, :])
         cc = exact_corr_window(spec_all, spec_all, N0, N1, 2 * w0, 2 * w1,
                                pairs=(ia, jb), prof=prof, plain=plain)
     else:
@@ -204,48 +227,52 @@ def pexact_greek_tables(I: torch.Tensor, J: torch.Tensor, cfg: SFFTConfig,
     n_omg = len(iu)
     iu_t = index(iu, dev)
     ju_t = index(ju, dev)
-    FF = torch.zeros((Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
-    FF[iu_t, ju_t] = cc[:n_omg]
-    FF[ju_t, iu_t] = torch.flip(cc[:n_omg], dims=(1, 2))
-    FFJwin = cc[n_omg:, w0: 3 * w0 + 1, w1: 3 * w1 + 1]
+    FF = torch.zeros(lead + (Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
+    FF[..., iu_t, ju_t, :, :] = cc[..., :n_omg, :, :]
+    FF[..., ju_t, iu_t, :, :] = torch.flip(cc[..., :n_omg, :, :], dims=(-2, -1))
+    FFJwin = cc[..., n_omg:, w0: 3 * w0 + 1, w1: 3 * w1 + 1]
     Comg = SS + SF + FS + FF.to(dt)
 
     # --- GAM: fully exact (moment algebra, no FFT at all) ------------------
     momTq = poly_moment_set(TQ, w0, w1, SP, g.SG, ax0g, ax1g)
-    SS_gam = polycorr(PA, momTq, ax0g, ax1g)               # CC(S_a, T_q)
-    FT = polycorr(TQ, momFa_g, ax0g, ax1g)                 # CC(T_q, F_a)
-    Cgam = SS_gam + torch.flip(FT.permute(1, 0, 2, 3), dims=(2, 3))
+    SS_gam = polycorr(PA, MomentSet(*(batch(t) for t in momTq)), ax0g, ax1g)  # CC(S_a, T_q)
+    FT = polycorr(batch(TQ), momFa_g, ax0g, ax1g)          # CC(T_q, F_a)
+    Cgam = SS_gam + torch.flip(FT.transpose(-4, -3), dims=(-2, -1))
 
     # --- THE ---------------------------------------------------------------
     SJ = polycorr(PA, momJ_g, ax0g, ax1g)                  # CC(S_a, J) exact
-    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[0], dims=(1, 2))
+    FSJ = torch.flip(polycorr(mJ_pad, momFa_g, ax0g, ax1g)[..., 0, :, :, :], dims=(-2, -1))
     Cthe = SJ + FSJ + FFJwin.to(dt)
 
     # --- PHI / DEL: closed form --------------------------------------------
-    Cphi = table(Static(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b))), dev, dt)
-    Cdel = torch.stack([momJ_g.M[i, j] for (i, j) in exps_b])
+    Cphi = batch(table(Static(phi_table, (ax0g.args, ax1g.args, _exps_key(exps_b))), dev, dt))
+    bi, bj = (_t(np.array, (tuple(exps_b[:, r]),), mI, torch.int64) for r in range(2))
+    Cdel = momJ_g.M[..., bi, bj]
 
     if not separate_varying:
         return Comg, Cgam, Cthe, Cphi, Cdel
 
     # --- union tables -> SEPARATE-VARYING blocks (as in core/peel.py) ------
     Fk = g.Fk_only
-    Fs = Fij - Fk
     win0 = slice(w0, 3 * w0 + 1)
     win1 = slice(w1, 3 * w1 + 1)
-    Pbs = Comg[:Fk, Fk:, win0, win1]
-    Pss = Comg[Fk:, Fk:, 2 * w0, 2 * w1]
-    Pgs = Cgam[Fk:, :, w0, w1]
-    Pts = Cthe[Fk:, w0, w1]
+    Pbs = Comg[..., :Fk, Fk:, win0, win1]
+    Pss = Comg[..., Fk:, Fk:, 2 * w0, 2 * w1]
+    Pgs = Cgam[..., Fk:, :, w0, w1]
+    Pts = Cthe[..., Fk:, w0, w1]
 
     def pad_k(x, axes):
-        pads = []
-        for ax in reversed(range(x.dim())):
-            pads += [0, Fk - Fs] if ax in axes else [0, 0]
-        return torch.nn.functional.pad(x, pads)
+        # axes count after the pair axis
+        shape = list(x.shape)
+        for ax in axes:
+            shape[len(lead) + ax] = Fk
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out[tuple(slice(0, n) for n in x.shape)] = x
+        return out
 
     extra = (pad_k(Pbs, [1]), pad_k(Pss, [0, 1]), pad_k(Pgs, [0]), pad_k(Pts, [0]))
-    return Comg[:Fk, :Fk], Cgam[:Fk], Cthe[:Fk], Cphi, Cdel, extra
+    return (Comg[..., :Fk, :Fk, :, :], Cgam[..., :Fk, :, :, :], Cthe[..., :Fk, :, :], Cphi, Cdel,
+            extra)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +291,9 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
     smooth part is one polynomial evaluated in pair arithmetic plus f64
     wrap-correction strips. Reference semantics: Construct_FDIFF
     (sfft/sfftcore/SFFTSubtract.py:771-816) and its SEPARATE-VARYING variant
-    (sfft/BSplineSFFT.py:2430-2528)."""
+    (sfft/BSplineSFFT.py:2430-2528). A batch (solution (B, NEQ), I and J
+    (B, N0, N1)) gives (B, N0, N1), each pair's bits those of its single
+    call."""
     g = _geom(cfg)
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
@@ -273,54 +302,50 @@ def fdiff_pexact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor,
         shared = pexact_plane_spectra(I, J, cfg, plain=plain)
     mI, mJ, _momI_o, _momJ_g, sp = shared
     solution = solution.to(dt)
+    batch = solution.shape[0] if solution.dim() == 2 else 0
     Fs = len(g.exps_k) - g.Fk_only   # union scaling planes (0 if ENTANGLED)
 
     a_ijab, _ = split_solution(cfg, solution)
-    a00 = a_ijab[:, w0, w1]
-    s_nc = a_ijab.sum(dim=(1, 2)) - a00
+    a00 = a_ijab[..., w0, w1]
+    s_nc = _each(lambda a: a.sum(dim=(1, 2)), a_ijab, 3) - a00
 
     # --- spectral fluct model (on the fluct spectra) -----------------------
-    K = kernel_spectra(cfg, a_ijab, plain=plain)                        # (i, u, v)
+    K = kernel_spectra(cfg, a_ijab, plain=plain, batch=batch)           # (i, u, v)
 
     # the model spectrum, FD = sp[0] - SCALE * sum (compensated), folded
     FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, Fs, plain=plain)
 
     # inverse of the Hermitian half: axis 0 first at half width, then the
     # real-only axis-1 inverse
-    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, prof=prof, plain=plain)
-    y = exact_inverse_axis1(_pmap(zt, _swap), N1, prof=prof, plain=plain)
+    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, prof=prof, plain=plain,
+                        batch=batch)
+    y = exact_inverse_axis1(_pmap(zt, _swap), N1, prof=prof, plain=plain, batch=batch)
     Dfl = _pair_mul_static_rr(y, Static(np.float64, (1.0 / (N0 * N1),)), plain)
     return pexact_smooth_model(cfg, solution, mI, mJ, Dfl, plain=plain).to(J.dtype)
 
 
-def pexact_smooth_model(cfg: SFFTConfig, solution: torch.Tensor, mI: torch.Tensor,
-                        mJ: torch.Tensor, Dfl: CPair, row0: int = 0,
-                        plain: bool = False) -> torch.Tensor:
-    """fdiff_pexact's smooth part: the fluctuation difference Dfl (a real
-    pair) plus the main polynomial's plane in one f64 materialisation (K6p
-    add64), then the f64 wrap-correction strips. Dfl may be a row block of
-    the image, its rows [row0, row0 + rows); returns f64 of Dfl's shape."""
-    g = _geom(cfg)
-    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+def _smooth_terms(cfg: SFFTConfig, g: PeelGeom, solution: torch.Tensor, mI: torch.Tensor,
+                  mJ: torch.Tensor, dev):
+    """One pair's smooth model in closed form: the main polynomial's
+    coefficients Ctot (SPt, SPt) and the lag tables (Gx, Gy, Gc) of its
+    wrap corrections, from the solution and the peel fits (tiny f64
+    algebra, run pair by pair: torch.einsum's products change a pair's
+    bits with a batch's shape)."""
+    w0, w1 = cfg.w0, cfg.w1
     dt = torch_dtype(cfg.dtype)
     separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
-    dev = mI.device
-    solution = solution.to(dt)
     Fk = g.Fk_only
-    n = Dfl.rh.shape[0]
-    r1 = row0 + n
     a_ijab, b_pq = split_solution(cfg, solution)
     a00 = a_ijab[:, w0, w1]
     s_nc = a_ijab.sum(dim=(1, 2)) - a00
 
-    # --- smooth model: closed-form shift algebra ----------------------------
     dmu, dk = g.dmu, cfg.kernel_basis.degree
     ds = cfg.scaling_basis.degree if separate_varying else 0
     db = cfg.bg_basis.degree
     SPc = dmu + dk + 1                      # conv coeff exponents per axis
     SPt = max(SPc, dmu + ds + 1, db + 1)    # total smooth poly exponents
-    axs0 = axis_static(N0, w0, SPc, 2 * SPc + 2)
-    axs1 = axis_static(N1, w1, SPc, 2 * SPc + 2)
+    axs0 = axis_static(cfg.N0, w0, SPc, 2 * SPc + 2)
+    axs1 = axis_static(cfg.N1, w1, SPc, 2 * SPc + 2)
 
     def T(build, *args):
         return table(Static(build, args), dev, torch.float64)
@@ -356,12 +381,20 @@ def pexact_smooth_model(cfg: SFFTConfig, solution: torch.Tensor, mI: torch.Tenso
         exps_s = ref_basis_exponents(cfg.scaling_basis)
         for k, (i, j) in enumerate(exps_s):
             Ctot[i: i + dmu + 1, j: j + dmu + 1] += -s * a00[k] * mI
-    # fluct + the main polynomial's plane in pair arithmetic, ONE f64
-    # materialisation: one K6p launch
-    add64 = pairs.pair_poly_add64_plain if plain else pairs.pair_poly_add64
-    D = add64(Dfl, *_poly_tables(Ctot, N0, N1, row0, r1))
+    return Ctot, Gx, Gy, Gc
 
-    # --- wrap-correction strips (f64, tiny) ---------------------------------
+
+def _wrap_strips(cfg: SFFTConfig, g: PeelGeom, D: torch.Tensor, Gx, Gy, Gc, row0: int, dev):
+    """Add one pair's f64 wrap-correction strips to its plane D (its image
+    rows [row0, row0 + rows)), in place."""
+    N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
+    SPc = g.dmu + cfg.kernel_basis.degree + 1
+    s = cfg.SCALE
+    r1 = row0 + D.shape[0]
+
+    def T(build, *args):
+        return table(Static(build, args), dev, torch.float64)
+
     def pows(N, lo, hi):
         # (hi - lo, SPc): c^u over rows x in [lo, hi)
         return T(np.transpose, Static(coord_powers, (N, SPc, lo, hi)))
@@ -410,4 +443,33 @@ def pexact_smooth_model(cfg: SFFTConfig, solution: torch.Tensor, mI: torch.Tenso
             corr = torch.einsum("xu,xyuv,yv->xy", Ux, cum2(blk, rev0, rev1), Vy)
             add_rows(0 if sx.start is None else sx.start, corr, sy)
 
+
+def pexact_smooth_model(cfg: SFFTConfig, solution: torch.Tensor, mI: torch.Tensor,
+                        mJ: torch.Tensor, Dfl: CPair, row0: int = 0,
+                        plain: bool = False) -> torch.Tensor:
+    """fdiff_pexact's smooth part: the fluctuation difference Dfl (a real
+    pair) plus the main polynomial's plane in one f64 materialisation (K6p
+    add64), then the f64 wrap-correction strips. Dfl may be a row block of
+    the image, its rows [row0, row0 + rows); returns f64 of Dfl's shape. A
+    batch (solution (B, NEQ), mI and mJ (B, ...), Dfl (B, rows, N1)): the
+    closed-form algebra and the strips pair by pair, one K6p launch for the
+    batch."""
+    g = _geom(cfg)
+    dev = mI.device
+    solution = solution.to(torch_dtype(cfg.dtype))
+    n = Dfl.rh.shape[-2]
+    if solution.dim() == 1:
+        Ctot, *lags = _smooth_terms(cfg, g, solution, mI, mJ, dev)
+        lags = [lags]
+    else:
+        terms = [_smooth_terms(cfg, g, *x, dev) for x in zip(solution, mI, mJ)]
+        Ctot = torch.stack([t[0] for t in terms])
+        lags = [t[1:] for t in terms]
+    # fluct + the main polynomial's plane in pair arithmetic, ONE f64
+    # materialisation: one K6p launch (for a batch too)
+    add64 = pairs.pair_poly_add64_plain if plain else pairs.pair_poly_add64
+    D = add64(Dfl, *_poly_tables(Ctot, cfg.N0, cfg.N1, row0, row0 + n))
+    # --- wrap-correction strips (f64, tiny) ---------------------------------
+    for Dk, (Gx, Gy, Gc) in zip([D] if solution.dim() == 1 else D, lags):
+        _wrap_strips(cfg, g, Dk, Gx, Gy, Gc, row0, dev)
     return D

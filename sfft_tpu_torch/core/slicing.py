@@ -103,13 +103,17 @@ def slice_pair_plain(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
     return torch.stack(_seq_slices(hi2 / s, lo2 / s, nsl, INJECT))
 
 
-def slice_pairs_plain(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None):
+def slice_pairs_plain(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None,
+                      batch: int = 0):
     """The plain twin of the K4 stage: for each (hi, lo) pair, the chain
     that sfft_tpu's ``_slice_pair_real`` is (after the caller's zero pad of
     the last axis to Kp): the scale from max|hi| (per row with rowwise, else
-    over the operand) rounded up to a power of two, then ``slice_pair_plain``
-    on contiguous copies. scales: one given scale per part instead (shape
-    () or the rows' + (1,)). Returns [(slices (nsl, ..., Kp) int8, scale)]."""
+    over the operand, or over each pair's part of it when batch > 1: the
+    leading axis holds `batch` pairs, and each pair's scale stands on each
+    of its rows, shape rows + (1,)) rounded up to a power of two, then
+    ``slice_pair_plain`` on contiguous copies. scales: one given scale per
+    part instead (shape () or the rows' + (1,)). Returns [(slices (nsl,
+    ..., Kp) int8, scale)]."""
     out = []
     for p, (hi, lo) in enumerate(parts):
         Kq = hi.shape[-1] if Kp is None else Kp
@@ -118,6 +122,9 @@ def slice_pairs_plain(parts, nsl: int, Kp: int = None, rowwise: bool = False, sc
             s = scales[p]
         elif rowwise:
             s = _pow2ceil_scalar(hi.abs().amax(dim=-1, keepdim=True))
+        elif batch > 1:
+            m = hi.abs().amax(dim=tuple(range(1, hi.dim())), keepdim=True)
+            s = _pow2ceil_scalar(m).expand(hi.shape[:-1] + (1,)).contiguous()
         else:
             s = _pow2ceil_scalar(hi.abs().amax())
         out.append((slice_pair_plain(hi.contiguous(), lo.contiguous(), s, nsl), s))
@@ -135,7 +142,9 @@ class _PartArgs(ctypes.Structure):
                 ("hs", ctypes.c_longlong * 3), ("ls", ctypes.c_longlong * 3),
                 ("scale_in", ctypes.c_void_p), ("scale_out", ctypes.c_void_p),
                 ("out", ctypes.c_void_p),
-                ("mn", ctypes.c_longlong * 3), ("ms", ctypes.c_longlong * 3)]
+                ("mn", ctypes.c_longlong * 3), ("ms", ctypes.c_longlong * 3),
+                ("pair_scale", ctypes.c_void_p), ("pair_stride", ctypes.c_longlong),
+                ("pair_stride_lo", ctypes.c_longlong)]
 
 
 class _StageArgs(ctypes.Structure):
@@ -256,10 +265,14 @@ def _max_scratch(device: torch.device, stream: int, tickets: int, partials: int)
     return got
 
 
-def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None):
+def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None, batch: int = 0):
     """K4 on CUDA tensors: [(slices, scale)] of each part. scales: given
     scales (one tensor per part; shape () or rows + (1,)); None computes
-    them (rowwise in the slicing launch, global in a max launch before it)."""
+    them (rowwise in the slicing launch, global in a max launch before it:
+    with batch > 1, one for each of the `batch` pairs on the leading axis,
+    both launches taking the pair on the grid's z axis, the plan one
+    pair's, and the slicing launch writing the pair's scale to each of its
+    rows)."""
     from sfft_tpu_torch import _kernels
 
     hi0 = parts[0][0]
@@ -270,12 +283,20 @@ def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None):
     tensors = [t for pr in parts for t in pr]
     strides = [tuple(t.stride()) for t in tensors]
     compute = scales is None
-    plan = _pairs_plan(shape, strides, Kp, compute and rowwise)
+    per_pair = compute and not rowwise and batch > 1
+    # the launches' view: one pair's (the pair on the grid's z axis), or the
+    # whole operand's
+    pairs = batch if per_pair else 1
+    k = 1 if per_pair else 0
+    view, vstrides = shape[k:], [st_[k:] for st_ in strides]
+    plan = _pairs_plan(view, vstrides, Kp, compute and rowwise)
     st = _StageArgs()
     st.n_outer, st.n_inner = plan["n_outer"], plan["n_inner"]
     st.o_outer, st.o_inner = plan["o_outer"], plan["o_inner"]
     st.K, st.Kp, st.nsl = K, Kp, nsl
-    if compute:
+    if per_pair:
+        st.scale_mode = 3
+    elif compute:
         # rowwise: in the slicing launch, or given by the row-max launch
         st.scale_mode = (1 if plan["rowmax"] else 2) if rowwise else 0
     else:
@@ -285,7 +306,8 @@ def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None):
     for p, (hi, lo) in enumerate(parts):
         out = torch.empty((nsl,) + lead + (Kp,), dtype=torch.int8, device=dev)
         if compute:
-            s = torch.empty(lead + (1,) if rowwise else (), dtype=torch.float32, device=dev)
+            s = torch.empty(lead + (1,) if rowwise or per_pair else (), dtype=torch.float32,
+                            device=dev)
         else:
             s = scales[p]
         a = st.part[p]
@@ -293,20 +315,29 @@ def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None):
         a.hs[:] = plan["strides"][2 * p]
         a.ls[:] = plan["strides"][2 * p + 1]
         a.scale_in = a.scale_out = s.data_ptr()
-        mn, ms, dense = _absmax_plan(shape, strides[2 * p])
+        if per_pair:
+            ps = torch.empty(batch, dtype=torch.float32, device=dev)
+            a.pair_scale = ps.data_ptr()
+            a.pair_stride, a.pair_stride_lo = strides[2 * p][0], strides[2 * p + 1][0]
+            outs.append((out, s, ps))
+        else:
+            a.pair_scale, a.pair_stride, a.pair_stride_lo = s.data_ptr(), 0, 0
+            outs.append((out, s))
+        mn, ms, dense = _absmax_plan(view, vstrides[2 * p])
         a.mn[:], a.ms[:] = mn, ms
-        dense4 = dense4 and dense and hi.data_ptr() % 16 == 0
-        outs.append((out, s))
+        dense4 = (dense4 and dense and hi.data_ptr() % 16 == 0
+                  and a.pair_stride % 4 == 0)
     vec_in = int(plan["mode"] == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-                 and all(x % 4 == 0 for t in plan["strides"] for x in t[:2]))
+                 and all(x % 4 == 0 for t in plan["strides"] for x in t[:2])
+                 and (not per_pair or all(st_[0] % 4 == 0 for st_ in strides)))
     lib = _kernels.lib()
     with torch.cuda.device(dev):
         stream = _kernels.stream_ptr(hi0)
         if compute and not rowwise:
-            blocks = max(1, min(1024, -(-hi0.numel() // (_THREADS * 8))))
-            ticket, partial = _max_scratch(dev, stream, 2, 2 * blocks)
+            blocks = max(1, min(1024, -(-(hi0.numel() // pairs) // (_THREADS * 8))))
+            ticket, partial = _max_scratch(dev, stream, 2 * pairs, 2 * pairs * blocks)
             err = lib.sfft_slice_pairs_absmax(ctypes.addressof(st), int(dense4), blocks,
-                                              len(parts), partial.data_ptr(),
+                                              len(parts), pairs, partial.data_ptr(),
                                               ticket.data_ptr(), stream)
             slice_pair.scale_launches += 1
             _kernels.check(err, "slice_pairs global-scale launch")
@@ -321,10 +352,11 @@ def _launch_pairs(parts, nsl: int, Kp: int, rowwise: bool, scales=None):
             _kernels.check(err, "slice_pairs row-scale launch")
         err = lib.sfft_slice_pairs(ctypes.addressof(st), plan["mode"], vec_in, plan["store"],
                                    plan["G"], plan["WC"], plan["tiles_inner"], plan["kblocks"],
-                                   plan["blocks"], len(parts), stream)
+                                   plan["blocks"], len(parts), pairs, stream)
     slice_pair.launches += 1
     _kernels.check(err, "slice_pairs kernel launch")
-    return outs
+    # (the per-pair scales are held until both launches are enqueued)
+    return [o[:2] for o in outs]
 
 
 def _check_parts(parts, nsl: int, Kp: int, what: str):
@@ -347,7 +379,8 @@ def _check_parts(parts, nsl: int, Kp: int, what: str):
         raise ValueError(f"{what} needs Kp >= {hi0.shape[-1]}, got {Kp}")
 
 
-def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None):
+def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=None,
+                batch: int = 0):
     """K4 stage: each (hi, lo) f32 pair of `parts` (one, or a complex
     operand's real and imaginary parts; all of one shape, any strides) ->
     (slices (nsl, *hi.shape[:-1], Kp) int8, power-of-two scale of shape
@@ -357,11 +390,20 @@ def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=N
     scale); CPU tensors: ``slice_pairs_plain``. scales: one given
     power-of-two scale per part (contiguous f32 of that shape on the
     operands' device), which the slices then take instead of their own (a
-    row block of an operand sliced as the whole operand would be)."""
+    row block of an operand sliced as the whole operand would be). batch >
+    1 (without rowwise or scales): the leading axis holds that many
+    independent pairs (the batched step), each sliced under its own global
+    scale, which stands on each of its rows (scale shape hi.shape[:-1] +
+    (1,)): each pair's slices and scale values are those of its single
+    call."""
     parts = list(parts)
     Kp = parts[0][0].shape[-1] if Kp is None else Kp
     _check_parts(parts, nsl, Kp, "slice_pairs")
     hi0 = parts[0][0]
+    if batch > 1 and scales is None and not rowwise and (hi0.dim() < 2
+                                                         or hi0.shape[0] != batch):
+        raise ValueError(f"slice_pairs: a batch of {batch} pairs on the leading axis, got "
+                         f"shape {tuple(hi0.shape)}")
     if scales is not None:
         want = hi0.shape[:-1] + (1,) if rowwise else ()
         if len(scales) != len(parts) or any(
@@ -370,12 +412,14 @@ def slice_pairs(parts, nsl: int, Kp: int = None, rowwise: bool = False, scales=N
             raise ValueError(f"slice_pairs needs one contiguous float32 scale of shape "
                              f"{tuple(want)} per part on {hi0.device}")
     if hi0.device.type == "cpu":
-        return slice_pairs_plain(parts, nsl, Kp, rowwise, scales)
+        return slice_pairs_plain(parts, nsl, Kp, rowwise, scales, batch)
     if hi0.numel() == 0:
         raise ValueError("slice_pairs needs a non-empty operand (its scale is a max)")
     if NB != 6:
         raise ValueError("csrc/slice_pair.cu is built for 6-bit slices (NB == 6)")
-    return _launch_pairs(parts, nsl, Kp, rowwise, scales)
+    if batch > 65535:
+        raise ValueError("slice_pairs: at most 65535 pairs a launch")
+    return _launch_pairs(parts, nsl, Kp, rowwise, scales, batch)
 
 
 def slice_pair(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor, nsl: int) -> torch.Tensor:

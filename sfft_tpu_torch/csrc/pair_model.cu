@@ -20,6 +20,11 @@
 // __double2float_rn as the twin's .to(float32) rounds, SCALE's (hi, lo) and
 // the fold weights are read from their tensors; nothing goes to the host.
 //
+// A batch of image pairs (the batched step) runs in one launch: the pair is
+// the grid's y index, with its own planes (a pair stride on sp and K), its
+// own scalars c and a00 and its own output plane; each pair's spectrum is
+// its single launch's.
+//
 // What bounds it: bytes. An element reads (1 + Fk + nss) plane-spectrum
 // pairs and Fk kernel-spectrum pairs, 16 bytes each, and writes 16, for
 // ~120 f32 operations per ij. Design (simple first): one thread per element
@@ -38,15 +43,15 @@ constexpr int kThreads = 256;
 
 // The launch of one call; sfft_tpu_torch/core/pairs.py _PMArgs mirrors it.
 struct PM {
-  const float* sp[4];       // plane spectra (P, N0, N1h): rh, rl, ih, il
-  const float* k[4];        // kernel spectra (Fk, N0, N1h)
-  const double* c;          // (Fk,) shifts of K_i
-  const double* a00;        // (nss,) weights of the scaling planes, or null
+  const float* sp[4];       // plane spectra ([B,] P, N0, N1h): rh, rl, ih, il
+  const float* k[4];        // kernel spectra ([B,] Fk, N0, N1h)
+  const double* c;          // ([B,] Fk) shifts of K_i
+  const double* a00;        // ([B,] nss) weights of the scaling planes, or null
   const float* scale[2];    // SCALE as (hi, lo), 0-d tensors
   const float* fold;        // (N1h,) fold weights, or null
-  float* out[4];            // contiguous (N0, N1h)
-  long long sps[3];         // element strides of sp: plane, row, column
-  long long ks[3];          // of K
+  float* out[4];            // contiguous ([B,] N0, N1h)
+  long long sps[4];         // element strides of sp: pair, plane, row, column
+  long long ks[4];          // of K
   int N0, N1h, Fk, nss;
 };
 
@@ -61,18 +66,22 @@ __device__ __forceinline__ pairs::Cx load(const float* const* P, long long off) 
 
 __global__ void __launch_bounds__(kThreads) pair_model_kernel(const PM m) {
   const unsigned e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= static_cast<unsigned>(m.N0) * static_cast<unsigned>(m.N1h)) return;
+  const unsigned plane = static_cast<unsigned>(m.N0) * static_cast<unsigned>(m.N1h);
+  if (e >= plane) return;
+  const long long z = blockIdx.y;   // the pair of a batch
   const unsigned u = e / static_cast<unsigned>(m.N1h);
   const unsigned v = e - u * static_cast<unsigned>(m.N1h);
-  const long long osp = u * m.sps[1] + v * m.sps[2];
-  const long long ok = u * m.ks[1] + v * m.ks[2];
+  const long long osp = z * m.sps[0] + u * m.sps[2] + v * m.sps[3];
+  const long long ok = z * m.ks[0] + u * m.ks[2] + v * m.ks[3];
+  const double* c = m.c + z * m.Fk;
+  const double* a00 = m.a00 + z * m.nss;
   using pairs::Cx;
   Cx acc;
   for (int i = 0; i < m.Fk; ++i) {
-    const Cx A = load(m.sp, osp + (1 + i) * m.sps[0]);
-    const Cx K = load(m.k, ok + i * m.ks[0]);
+    const Cx A = load(m.sp, osp + (1 + i) * m.sps[1]);
+    const Cx K = load(m.k, ok + i * m.ks[1]);
     float c32, cres;
-    split64(__ldg(m.c + i), c32, cres);
+    split64(__ldg(c + i), c32, cres);
     // B = conj(K + c): the shift on the real hi lane, lanes of the
     // imaginary part negated (exact)
     Cx B;
@@ -89,9 +98,9 @@ __global__ void __launch_bounds__(kThreads) pair_model_kernel(const PM m) {
     }
   }
   for (int s = 0; s < m.nss; ++s) {
-    const Cx P = load(m.sp, osp + (1 + m.Fk + s) * m.sps[0]);
+    const Cx P = load(m.sp, osp + (1 + m.Fk + s) * m.sps[1]);
     float a32, ares;
-    split64(__ldg(m.a00 + s), a32, ares);
+    split64(__ldg(a00 + s), a32, ares);
     Cx t;
     pairs::scale_rr(P.rh, P.rl, a32, ares, t.rh, t.rl);
     pairs::scale_rr(P.ih, P.il, a32, ares, t.ih, t.il);
@@ -113,16 +122,18 @@ __global__ void __launch_bounds__(kThreads) pair_model_kernel(const PM m) {
     for (int k = 0; k < 4; ++k) out[k] = pairs::mul(out[k], w);
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) m.out[k][e] = out[k];
+  for (int k = 0; k < 4; ++k) m.out[k][z * plane + e] = out[k];
 }
 
 }  // namespace
 
-extern "C" int sfft_pair_model(const void* args, void* stream_ptr) {
+// pairs: the batch's image pairs (1 without a pair axis), at most 65535.
+extern "C" int sfft_pair_model(const void* args, int pairs, void* stream_ptr) {
   const PM& m = *static_cast<const PM*>(args);
   const unsigned n = static_cast<unsigned>(m.N0) * static_cast<unsigned>(m.N1h);
   if (n == 0) return cudaSuccess;
-  pair_model_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  if (pairs < 1 || pairs > 65535) return cudaErrorInvalidValue;
+  pair_model_kernel<<<dim3((n + kThreads - 1) / kThreads, pairs), kThreads, 0,
                       static_cast<cudaStream_t>(stream_ptr)>>>(m);
   return cudaGetLastError();
 }

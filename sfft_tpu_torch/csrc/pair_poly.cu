@@ -48,7 +48,12 @@
 //     order): the kernel walks memory rows either way, with U or M as the
 //     row table, and writes its output in the same layout;
 //   * widths not a multiple of 4, or unaligned pointers, take a scalar
-//     epilogue with direct loads (same arithmetic).
+//     epilogue with direct loads (same arithmetic);
+//   * a batch of image pairs (the batched step) runs in one launch, the
+//     pair on the grid's z axis: each pair has its own image or Dfl and
+//     output plane (a pair stride) and its own tables where they differ
+//     (pexact's M, from each pair's polynomial; U is shared), so each
+//     pair's plane is its single launch's.
 // On the H100 its arithmetic and its memory traffic (about a copy of the
 // same bytes) add more than they overlap: PERF.md, K6p.
 
@@ -76,6 +81,8 @@ struct Args {
   const void *in0, *in1;  // sub: the f64 image; add64: Dfl's hi and lo planes
   void *out0, *out1;      // plane / sub: hi and lo; add64: the f64 plane
   int SP, N0, N1;
+  long long in_ps, out_ps;  // bytes from one pair's input / output plane to the next
+  long long u_ps, m_ps;     // floats from one pair's U / M table to the next (0: shared)
 };
 
 // a table value (hi, lo) with the Veltkamp split of hi by 4097
@@ -269,6 +276,17 @@ __device__ __forceinline__ void epilogue(const Args& a, const char* tile,
 template <int MODE, bool TR, bool VEC>
 __global__ void __launch_bounds__(kThreads, 4) pair_poly_kernel(Args a) {
   extern __shared__ float4 smem[];
+  if (blockIdx.z) {   // the pair of a batch: its planes and tables
+    const long long z = blockIdx.z;
+    a.Uh += z * a.u_ps;
+    a.Ul += z * a.u_ps;
+    a.Mh += z * a.m_ps;
+    a.Ml += z * a.m_ps;
+    if (a.in0) a.in0 = static_cast<const char*>(a.in0) + z * a.in_ps;
+    if (a.in1) a.in1 = static_cast<const char*>(a.in1) + z * a.in_ps;
+    a.out0 = static_cast<char*>(a.out0) + z * a.out_ps;
+    if (a.out1) a.out1 = static_cast<char*>(a.out1) + z * a.out_ps;
+  }
   const int nrow = TR ? a.N1 : a.N0;
   const int ncol = TR ? a.N0 : a.N1;
   const float* rH = TR ? a.Mh : a.Uh;
@@ -369,9 +387,9 @@ __global__ void __launch_bounds__(kThreads, 4) pair_poly_kernel(Args a) {
 bool aligned(const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; }
 
 template <int MODE, bool TR>
-int launch(const Args& a, bool vec, cudaStream_t stream) {
+int launch(const Args& a, int pairs, bool vec, cudaStream_t stream) {
   const int nrow = TR ? a.N1 : a.N0, ncol = TR ? a.N0 : a.N1;
-  const dim3 grid((ncol + kTileCols - 1) / kTileCols, (nrow + kTileRows - 1) / kTileRows);
+  const dim3 grid((ncol + kTileCols - 1) / kTileCols, (nrow + kTileRows - 1) / kTileRows, pairs);
   const size_t tables = static_cast<size_t>(a.SP) * (kTileRows + kTileCols) * sizeof(float4);
   const size_t bytes = tables + (vec && MODE != kPlane ? kTileBytes : 0);
   void (*kernel)(Args) = vec ? pair_poly_kernel<MODE, TR, true> : pair_poly_kernel<MODE, TR, false>;
@@ -389,26 +407,35 @@ int launch(const Args& a, bool vec, cudaStream_t stream) {
 // mode: 0 plane (out0/out1 = hi/lo), 1 sub (in0 = the f64 image), 2 add64
 // (in0/in1 = Dfl's hi/lo, out0 = the f64 plane). transposed: the input and
 // the output lie with strides (1, N0) instead of (N1, 1). The tables are
-// contiguous (SP, N0) and (SP, N1) f32.
+// contiguous (SP, N0) and (SP, N1) f32. pairs: a batch of image pairs in
+// one launch (1 without one), at most 65535: pair z's input and output
+// planes lie in_ps and out_ps bytes, its U and M tables u_ps and m_ps
+// floats (0 for a table the pairs share) past pair z - 1's.
 extern "C" int sfft_pair_poly(int mode, int transposed, const void* Uh, const void* Ul,
                               const void* Mh, const void* Ml, const void* in0, const void* in1,
-                              void* out0, void* out1, int SP, int N0, int N1, void* stream_ptr) {
+                              void* out0, void* out1, int SP, int N0, int N1, int pairs,
+                              long long in_ps, long long out_ps, long long u_ps, long long m_ps,
+                              void* stream_ptr) {
   if (N0 <= 0 || N1 <= 0) return cudaSuccess;
-  if (SP < 1 || SP > kMaxSP || mode < kPlane || mode > kAdd64 || (mode == kPlane && transposed))
+  if (SP < 1 || SP > kMaxSP || mode < kPlane || mode > kAdd64 || (mode == kPlane && transposed) ||
+      pairs < 1 || pairs > 65535)
     return cudaErrorInvalidValue;
   Args a{static_cast<const float*>(Uh), static_cast<const float*>(Ul),
          static_cast<const float*>(Mh), static_cast<const float*>(Ml), in0, in1, out0, out1,
-         SP, N0, N1};
+         SP, N0, N1, in_ps, out_ps, u_ps, m_ps};
   const int ncol = transposed ? N0 : N1;
   const void* col_tables[2] = {transposed ? Uh : Mh, transposed ? Ul : Ml};
+  const long long col_ps = transposed ? u_ps : m_ps;
+  // every pair's planes 16-byte aligned and its column tables 8-byte aligned
   const bool vec = ncol % 4 == 0 && aligned(in0, 16) && aligned(in1, 16) && aligned(out0, 16) &&
-                   aligned(out1, 16) && aligned(col_tables[0], 8) && aligned(col_tables[1], 8);
+                   aligned(out1, 16) && aligned(col_tables[0], 8) && aligned(col_tables[1], 8) &&
+                   in_ps % 16 == 0 && out_ps % 16 == 0 && col_ps % 2 == 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (mode * 2 + (transposed ? 1 : 0)) {
-    case 0: return launch<kPlane, false>(a, vec, stream);
-    case 2: return launch<kSub, false>(a, vec, stream);
-    case 3: return launch<kSub, true>(a, vec, stream);
-    case 4: return launch<kAdd64, false>(a, vec, stream);
-    default: return launch<kAdd64, true>(a, vec, stream);
+    case 0: return launch<kPlane, false>(a, pairs, vec, stream);
+    case 2: return launch<kSub, false>(a, pairs, vec, stream);
+    case 3: return launch<kSub, true>(a, pairs, vec, stream);
+    case 4: return launch<kAdd64, false>(a, pairs, vec, stream);
+    default: return launch<kAdd64, true>(a, pairs, vec, stream);
   }
 }

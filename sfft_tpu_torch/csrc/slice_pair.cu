@@ -36,8 +36,16 @@
 // max|hi| over each row itself and writes the scales. A global scale needs
 // the whole operand's max before any slice: a first small launch
 // (absmax_kernel, both parts) reduces it, the last of its blocks (integer
-// ticket after __threadfence()) rounds it to the power of two. Nothing else
-// runs: no pad copy, no transpose copy, no elementwise scale kernels.
+// ticket after __threadfence()) rounds it to the power of two. An operand
+// that stacks a batch of independent pairs on its leading axis (the batched
+// step) takes one global scale per pair, as sfft_tpu's jax.vmap does: both
+// launches take the pair on gridDim.z (its part of the operand at a pair
+// stride, its output rows after the previous pairs'), the max launch
+// reduces each pair's part on its own, and the slicing launch reads the
+// pair's scale and writes it to each of the pair's rows, so the consumers
+// see per-row scales. The max is exact, so a pair's scale and slices are
+// those of its single call. Nothing else runs: no pad copy, no transpose
+// copy, no elementwise scale kernels.
 //
 // What bounds it: bytes. Each live element reads 8 bytes and each padded
 // element writes nsl bytes (17 B at nsl = 9), for ~4 nsl + 6 f32 operations.
@@ -81,10 +89,13 @@ struct Part {
   long long hs[3];
   long long ls[3];
   const float* scale_in;   // scale_mode 0: one value; 1: one per output row
-  float* scale_out;        // scale_mode 2: one per output row; absmax: one value
+  float* scale_out;        // scale_mode 2 and 3: one per output row
   int8_t* out;             // (nsl, rows, Kp)
-  long long mn[3];         // absmax: hi's sizes ordered by ascending stride
+  long long mn[3];         // absmax: hi's sizes ordered by ascending stride (of one pair)
   long long ms[3];         //         and those strides
+  float* pair_scale;       // absmax: one value per pair (gridDim.z); scale_mode 3 reads it
+  long long pair_stride;   // hi's stride from one pair (gridDim.z) to the next
+  long long pair_stride_lo;  // lo's
 };
 
 struct Stage {
@@ -93,7 +104,8 @@ struct Stage {
   long long o_outer, o_inner;   // output row of (o, i) = o * o_outer + i * o_inner
   long long K, Kp;
   int nsl;
-  int scale_mode;               // 0 given global, 1 given per row, 2 computed per row
+  int scale_mode;               // 0 given global, 1 given per row, 2 computed per row,
+                                // 3 one per pair (pair_scale), written to every row
 };
 
 __device__ __forceinline__ float pow2ceil(float m) {
@@ -158,21 +170,23 @@ __device__ __forceinline__ void store16(int8_t* row, long long c, long long Kp, 
   }
 }
 
-// Row mode: K stride 1. grid = (row blocks, parts); G threads per row: a
-// power of two up to 32 (blocks of 256 threads, 256 / G rows), or a multiple
-// of 32 up to 512 (one row per block of G threads).
+// Row mode: K stride 1. grid = (row blocks, parts, pairs); G threads per row:
+// a power of two up to 32 (blocks of 256 threads, 256 / G rows), or a
+// multiple of 32 up to 512 (one row per block of G threads).
 template <bool VIN, bool ST8>
 __global__ void __launch_bounds__(kRowThreads, 2)
 pairs_row_kernel(const __grid_constant__ Stage st, int G) {
   const Part& p = st.part[blockIdx.y];
+  const long long z = blockIdx.z;                       // the pair (0 without a batch)
   const int g = G <= 32 ? (threadIdx.x & (G - 1)) : threadIdx.x;
-  const long long rows = st.n_outer * st.n_inner;
-  const long long row = (long long)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
-  const bool live = row < rows;
-  const long long o = live ? row / st.n_inner : 0;
-  const long long i = live ? row - o * st.n_inner : 0;
-  const float* hrow = p.hi + o * p.hs[0] + i * p.hs[1];
-  const float* lrow = p.lo + o * p.ls[0] + i * p.ls[1];
+  const long long rows = st.n_outer * st.n_inner;       // a pair's
+  const long long prow = (long long)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = prow < rows;
+  const long long o = live ? prow / st.n_inner : 0;
+  const long long i = live ? prow - o * st.n_inner : 0;
+  const long long row = z * rows + prow;                // the output row
+  const float* hrow = p.hi + z * p.pair_stride + o * p.hs[0] + i * p.hs[1];
+  const float* lrow = p.lo + z * p.pair_stride_lo + o * p.ls[0] + i * p.ls[1];
   const long long K = st.K, Kp = st.Kp;
   const long long span = (long long)G * kRowCols;
   const int ntiles = (int)((Kp + span - 1) / span);
@@ -220,13 +234,16 @@ pairs_row_kernel(const __grid_constant__ Stage st, int G) {
     }
     s = pow2ceil(m);
     if (live && g == 0) p.scale_out[row] = s;
+  } else if (st.scale_mode == 3) {
+    s = __ldg(p.pair_scale + z);
+    if (live && g == 0) p.scale_out[row] = s;
   } else {
     s = __ldg(p.scale_in + (st.scale_mode == 1 && live ? row : 0));
   }
   if (!live) return;
   const float inv_s = __frcp_rn(s);
   int8_t* orow = p.out + row * Kp;
-  const long long plane = rows * Kp;
+  const long long plane = gridDim.z * rows * Kp;
   for (int t = 0; t < ntiles; ++t) {
     const long long c0 = (long long)t * span + (long long)g * kRowCols;
     if (c0 >= Kp) break;
@@ -244,7 +261,8 @@ pairs_row_kernel(const __grid_constant__ Stage st, int G) {
   }
 }
 
-// Tile mode: K strided. grid = (outer x inner tiles x column blocks, parts).
+// Tile mode: K strided. grid = (outer x inner tiles x column blocks, parts,
+// pairs).
 // WC warps along K (16 columns each) and RG groups of 32 rows (blockDim.x =
 // 32 WC RG <= 256; RG below 8 / WC when the inner axis is short): a tile of
 // 32 RG inner rows x 16 WC columns; lane = inner row, so the loads are
@@ -258,6 +276,7 @@ pairs_tile_kernel(const __grid_constant__ Stage st, long long tiles_inner, int k
   __shared__ uint4 buf[2][kTileWords];
   __shared__ float red[kThreads / 32][33];
   const Part& p = st.part[blockIdx.y];
+  const long long z = blockIdx.z;                 // the pair (0 without a batch)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wcol = warp % WC, rgrp = warp / WC;
   const int TR = (int)blockDim.x / WC, TC = kCols * WC;
@@ -269,18 +288,18 @@ pairs_tile_kernel(const __grid_constant__ Stage st, long long tiles_inner, int k
   const int r = rgrp * 32 + lane;                 // this thread's row in the tile
   const long long i = it * TR + r;
   const bool live = i < st.n_inner;
-  const float* hrow = p.hi + o * p.hs[0] + (live ? i : 0) * p.hs[1];
-  const float* lrow = p.lo + o * p.ls[0] + (live ? i : 0) * p.ls[1];
+  const float* hrow = p.hi + z * p.pair_stride + o * p.hs[0] + (live ? i : 0) * p.hs[1];
+  const float* lrow = p.lo + z * p.pair_stride_lo + o * p.ls[0] + (live ? i : 0) * p.ls[1];
   const long long K = st.K, Kp = st.Kp;
   const long long hk = p.hs[2], lk = p.ls[2];
-  const long long rows = st.n_outer * st.n_inner;
+  const long long rows = st.n_outer * st.n_inner;   // a pair's
   const long long ntiles = (Kp + TC - 1) / TC;
-  const long long my_row = o * st.o_outer + i * st.o_inner;
+  const long long my_row = z * rows + o * st.o_outer + i * st.o_inner;
   // the write-out: thread -> (row of the tile, 16 columns)
   const int wr = threadIdx.x / WC, wc = threadIdx.x % WC;
   const long long wi = it * TR + wr;
-  int8_t* wrow = p.out + (o * st.o_outer + wi * st.o_inner) * Kp;
-  const long long plane = rows * Kp;
+  int8_t* wrow = p.out + (z * rows + o * st.o_outer + wi * st.o_inner) * Kp;
+  const long long plane = gridDim.z * rows * Kp;
   const int pitch = WC + 1;                       // uint4 words per tile row
   int b = 0;
   for (long long t = kb; t < ntiles; t += kblocks) {
@@ -304,6 +323,9 @@ pairs_tile_kernel(const __grid_constant__ Stage st, long long tiles_inner, int k
       for (int w = 0; w < WC; ++w) m = fmaxf(m, red[rgrp * WC + w][lane]);
       s = pow2ceil(m);
       if (live && wcol == 0) p.scale_out[my_row] = s;
+    } else if (st.scale_mode == 3) {
+      s = __ldg(p.pair_scale + z);
+      if (live && wcol == 0 && t == 0) p.scale_out[my_row] = s;
     } else {
       s = __ldg(p.scale_in + (st.scale_mode == 1 && live ? my_row : 0));
     }
@@ -373,15 +395,19 @@ rowmax_tile_kernel(const __grid_constant__ Stage st, long long tiles_inner, int 
   if (live) p.scale_out[o * st.o_outer + i * st.o_inner] = pow2ceil(m);
 }
 
-// max |hi| of each part over its whole view, rounded up to the scale; grid =
-// (blocks per part, parts). partial: gridDim.x floats per part; ticket: one
-// zeroed unsigned int per part, left zeroed.
+// max |hi| of each part over its whole view (or over each pair's part of it:
+// gridDim.z pairs, pair z at hi + z * pair_stride), rounded up to the scale,
+// written to pair_scale[z]; grid = (blocks per part and pair, parts, pairs).
+// partial: gridDim.x floats per part and pair; ticket: one zeroed unsigned
+// int per part and pair, left zeroed.
 template <bool DENSE4>
 __global__ void __launch_bounds__(kThreads)
 absmax_kernel(const __grid_constant__ Stage st, float* partial, unsigned int* ticket) {
   __shared__ float red[kThreads / 32];
   __shared__ bool last;
   const Part& p = st.part[blockIdx.y];
+  const float* hi = p.hi + (long long)blockIdx.z * p.pair_stride;
+  const long long seg = (long long)blockIdx.y * gridDim.z + blockIdx.z;   // part and pair
   const long long n0 = p.mn[0], n1 = p.mn[1], n2 = p.mn[2];
   const long long total = n0 * n1 * n2;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -389,20 +415,20 @@ absmax_kernel(const __grid_constant__ Stage st, float* partial, unsigned int* ti
   float m = 0.0f;
   if (DENSE4) {
     // one contiguous, 16-byte aligned run of n0 elements
-    const float4* h4 = reinterpret_cast<const float4*>(p.hi);
+    const float4* h4 = reinterpret_cast<const float4*>(hi);
     const long long nv = n0 / 4;
     for (long long j = tid; j < nv; j += stride) {
       const float4 a = __ldg(h4 + j);
       m = fmaxf(m, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
     }
-    for (long long j = 4 * nv + tid; j < n0; j += stride) m = fmaxf(m, fabsf(__ldg(p.hi + j)));
+    for (long long j = 4 * nv + tid; j < n0; j += stride) m = fmaxf(m, fabsf(__ldg(hi + j)));
   } else {
     for (long long e = tid; e < total; e += stride) {
       const long long r = e / n0;
       const long long a0 = e - r * n0;
       const long long a2 = r / n1;
       const long long a1 = r - a2 * n1;
-      m = fmaxf(m, fabsf(__ldg(p.hi + a0 * p.ms[0] + a1 * p.ms[1] + a2 * p.ms[2])));
+      m = fmaxf(m, fabsf(__ldg(hi + a0 * p.ms[0] + a1 * p.ms[1] + a2 * p.ms[2])));
     }
   }
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -410,25 +436,25 @@ absmax_kernel(const __grid_constant__ Stage st, float* partial, unsigned int* ti
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-    partial[(long long)blockIdx.y * gridDim.x + blockIdx.x] = m;
+    partial[seg * gridDim.x + blockIdx.x] = m;
     __threadfence();
-    const unsigned int t = atomicAdd(ticket + blockIdx.y, 1u);
+    const unsigned int t = atomicAdd(ticket + seg, 1u);
     last = t == gridDim.x - 1;
-    if (last) ticket[blockIdx.y] = 0u;   // ready for the next launch on this stream
+    if (last) ticket[seg] = 0u;   // ready for the next launch on this stream
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
   m = 0.0f;
   for (int j = threadIdx.x; j < (int)gridDim.x; j += kThreads)
-    m = fmaxf(m, __ldcg(partial + (long long)blockIdx.y * gridDim.x + j));
+    m = fmaxf(m, __ldcg(partial + seg * gridDim.x + j));
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-    *p.scale_out = pow2ceil(m);
+    p.pair_scale[blockIdx.z] = pow2ceil(m);
   }
 }
 
@@ -440,17 +466,19 @@ absmax_kernel(const __grid_constant__ Stage st, float* partial, unsigned int* ti
 // or 1 bytes (Kp % 16 == 0, Kp % 8 == 0, any). G: row mode's threads per
 // row (a power of two <= 32, or a multiple of 32 <= 256), tile mode's
 // threads per block (32 WC RG); WC: tile mode's warps along K (1, 2, 4 or
-// 8), with tiles_inner and kblocks. nparts: 1 or 2. Returns
-// cudaGetLastError().
+// 8), with tiles_inner and kblocks. nparts: 1 or 2. pairs: a batch's pairs
+// (gridDim.z; 1 without one): the stage's sizes are one pair's, pair z's
+// operand lies Part.pair_stride (lo: pair_stride_lo) elements past pair
+// z - 1's, and its rows follow theirs. Returns cudaGetLastError().
 extern "C" int sfft_slice_pairs(const void* st, int mode, int vec_in, int store, int G, int WC,
                                 long long tiles_inner, int kblocks, long long blocks,
-                                int nparts, void* stream) {
+                                int nparts, int pairs, void* stream) {
   const Stage& a = *static_cast<const Stage*>(st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks < 1 || blocks > 0x7fffffffLL || nparts < 1 || nparts > 2 ||
-      a.nsl < 1 || a.nsl > 16 || a.Kp < a.K)
+  if (blocks < 1 || blocks > 0x7fffffffLL || nparts < 1 || nparts > 2 || pairs < 1 ||
+      pairs > 65535 || a.nsl < 1 || a.nsl > 16 || a.Kp < a.K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)blocks, (unsigned)nparts);
+  const dim3 grid((unsigned)blocks, (unsigned)nparts, (unsigned)pairs);
   if (mode == 0) {
     const bool ok = G >= 1 && (G <= 32 ? (G & (G - 1)) == 0 : (G % 32 == 0 && G <= kRowThreads));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -473,17 +501,20 @@ extern "C" int sfft_slice_pairs(const void* st, int mode, int vec_in, int store,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The global scale of each part: max |hi| over the view (hi's sizes and
-// strides in Part.mn / Part.ms, ascending strides; dense4 = 1 when the view
-// is one contiguous 16-byte aligned run, mn = (numel, 1, 1)), rounded up to
-// the power of two, written to *Part.scale_out. partial: blocks * nparts
-// floats; ticket: nparts zeroed unsigned ints (left zeroed).
+// The global scale of each part, or of each pair's part of it: max |hi|
+// over the view (of one pair: hi's sizes and strides in Part.mn / Part.ms,
+// ascending strides; dense4 = 1 when the view is one contiguous 16-byte
+// aligned run, mn = (numel, 1, 1); pair z at hi + z * Part.pair_stride),
+// rounded up to the power of two, written to Part.pair_scale[z]. partial:
+// blocks * nparts * pairs floats; ticket: nparts * pairs zeroed unsigned ints
+// (left zeroed).
 extern "C" int sfft_slice_pairs_absmax(const void* st, int dense4, int blocks, int nparts,
-                                       void* partial, void* ticket, void* stream) {
+                                       int pairs, void* partial, void* ticket, void* stream) {
   const Stage& a = *static_cast<const Stage*>(st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks < 1 || nparts < 1 || nparts > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)blocks, (unsigned)nparts);
+  if (blocks < 1 || nparts < 1 || nparts > 2 || pairs < 1 || pairs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)blocks, (unsigned)nparts, (unsigned)pairs);
   float* pa = static_cast<float*>(partial);
   unsigned int* tk = static_cast<unsigned int*>(ticket);
   if (dense4) absmax_kernel<true><<<grid, kThreads, 0, s>>>(a, pa, tk);

@@ -5,17 +5,18 @@ sfft_tpu stacks same-config pairs on a leading axis and runs jax.vmap of the
 fused solve+subtract, sharded over a 1-D device mesh. Here pair k goes to
 devices[k % len(devices)], and each device runs its pairs as batched
 steps (core/engine.solve_and_subtract_batched_fn: one set of the config's
-K3, K1 and K2 launches and one pass of the table algebra for the step's
-pairs, each pair's bits those of its single call) where the config has one
+kernel launches and one pass of the table algebra for the step's pairs,
+each pair's bits those of its single call) where the config has one
 (core/engine.batched_step_supported: the fast mode peeled / fft32 /
-refined and the default trio fft / fft / lu, polynomial bases): one step
-for the device's pairs where its memory holds them, else steps of
-``max_batch`` pairs. The survey paths (parallel/scheduler.run_mesh_batched,
+refined, the default trio fft / fft / lu and the contract trio pexact /
+pexact / transformed or exact, polynomial bases): one step for the
+device's pairs where its memory holds them, else steps of ``max_batch``
+pairs. The survey paths (parallel/scheduler.run_mesh_batched,
 parallel/multihost.process_local_batch) pass one pair a device, as
 sfft_tpu's do, and the batched step of one pair is the single step. Every
-other config (contract pexact / transformed, exact, corr / conv, B-spline
-and v2, the piecewise peel) runs its pairs one after another through the
-step of a single call (core/engine.solve_and_subtract_fn). Either way the
+other config (exact, corr / conv, B-spline and v2, the piecewise peel)
+runs its pairs one after another through the step of a single call
+(core/engine.solve_and_subtract_fn). Either way the
 upload of the next step's pairs (or the next pair) is issued on a
 side stream before the current step, so it overlaps that step; the step
 waits for its own upload through an event.
@@ -28,7 +29,9 @@ batched step stacks a role's planes on the device in their layout where
 they share one (row- or column-major), row-major otherwise: the default
 trio gives the same bits on any layout, the peel's moment products read
 the masked planes in their layout, so a fast config whose masked planes
-mix layouts takes the per-pair loop.
+mix layouts takes the per-pair loop; the contract trio's moment sets read
+the masked planes, and its difference the unmasked ones where they are
+other planes, so it takes the loop where any role mixes layouts.
 
 batched_subtract_packed is sfft_tpu's int16 upload of the fast survey
 path (utils/pack.py): the planes are quantized on the host, go up as int16
@@ -205,11 +208,11 @@ def batched_subtract_packed(I_stack, J_stack, mI_stack, mJ_stack, cfg: SFFTConfi
 # the device memory of a batched step, in bytes per image pixel: (the
 # step's own share, each pair's share), keyed by the greek backend. From
 # the peaks of chip_smoke.py's phase 14 on the card at 4096^2 (one pair's
-# step 5.44 GiB fast and 8.57 GiB default, with 2 GiB of the phase's own
-# planes; each further pair 2.15 and 4.02 GiB: 137 and 257 bytes a
-# pixel), rounded up, with a pair's four f64 planes (32 bytes a pixel)
-# added for the next step's upload
-_STEP_BYTES = {"peeled": (320, 192), "fft": (448, 320)}
+# step 5.44 GiB fast, 8.57 GiB default and 10.83 GiB contract, with 2 GiB
+# of the phase's own planes; each further pair 2.15, 4.02 and 8.63 GiB:
+# 137, 257 and 552 bytes a pixel), rounded up, with a pair's four f64
+# planes (32 bytes a pixel) added for the next step's upload
+_STEP_BYTES = {"peeled": (320, 192), "fft": (448, 320), "pexact": (64, 592)}
 
 
 def max_batch(cfg: SFFTConfig, device) -> int:
@@ -235,16 +238,17 @@ def _layout(p) -> str:
     return "C" if a.flags.c_contiguous else "F" if a.flags.f_contiguous else ""
 
 
-def _batchable(cfg: SFFTConfig, mI_stack, mJ_stack) -> bool:
-    """Whether a batch runs as batched steps: a ``batched_step_supported``
-    config, and for the peel (whose moment products read the masked planes
-    in their layout) masked planes of one layout a role."""
+def _batchable(cfg: SFFTConfig, stacks) -> bool:
+    """Whether a batch (the stacks I, J, mI, mJ) runs as batched steps: a
+    ``batched_step_supported`` config, and for the backends whose moment
+    products read planes in their layout, planes of one layout a role: the
+    masked ones for the peel, all four for the contract trio (its
+    difference takes the moments of the unmasked planes where they are
+    other planes)."""
     if not batched_step_supported(cfg):
         return False
-    if cfg.greek_backend != "peeled":
-        return True
-    return all(len({_layout(p) for p in s}) == 1 and _layout(s[0])
-               for s in (mI_stack, mJ_stack))
+    roles = {"peeled": stacks[2:], "pexact": stacks}.get(cfg.greek_backend, ())
+    return all(len({_layout(p) for p in s}) == 1 and _layout(s[0]) for s in roles)
 
 
 def _device_stack(planes: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -288,7 +292,7 @@ def batched_subtract(I_stack, J_stack, mI_stack, mJ_stack, cfg: SFFTConfig,
         diffs[k] = diff.to(devices[0])
         rms[k] = torch.sqrt(torch.mean(diff.to(torch.float32) ** 2)).to(devices[0])
 
-    if not _batchable(cfg, mI_stack, mJ_stack):
+    if not _batchable(cfg, stacks):
         step = solve_and_subtract_fn(cfg)
 
         def upload(k):

@@ -259,12 +259,17 @@ def test_batched_steps_bounded_by_memory(monkeypatch):
 def test_batched_step_keeps_the_masked_planes_layout():
     """Column-major masked planes (the layout of a transposed prep product)
     run as one batched step in that layout, bit for bit the single calls on
-    them; a fast batch whose masked planes mix layouts takes the per-pair
-    loop (the peel's moment products read them in their layout), the
-    default trio (layout-free) stays batched."""
+    them; a fast or contract batch whose masked planes mix layouts takes the
+    per-pair loop (the peel's and pexact's moment products read them in
+    their layout), the default trio (layout-free) stays batched."""
     I, J, mI, mJ = _pairs()
     fI, fJ = [np.asfortranarray(a) for a in mI], [np.asfortranarray(a) for a in mJ]
     mixed = [fI[0]] + mI[1:]
+    # the contract trio's moments read every role's planes in their layout
+    contract = _cfg(dict(greek_backend="pexact", fdiff_backend="pexact", solver="transformed"))
+    assert tbatch._batchable(contract, (I, J, fI, fJ))
+    assert not tbatch._batchable(contract, (I, J, mixed, mJ))
+    assert not tbatch._batchable(contract, ([np.asfortranarray(I[0])] + I[1:], J, mI, mJ))
     for cfg, masked, batched in [(_cfg(FAST), (fI, fJ), True), (_cfg(FAST), (mixed, mJ), False),
                                  (_cfg({}), (mixed, mJ), True)]:
         steps = tengine.solve_and_subtract_batched_fn.steps
@@ -300,11 +305,26 @@ def test_packed_route_is_batched_subtract_on_the_dequantized_planes():
 def test_config_outside_the_slice_takes_the_loop():
     """solver 'cho' (and any trio or basis outside BATCHED_TRIOS' polynomial
     configs) runs its pairs one by one: no batched step, each pair its
-    single call."""
+    single call. The contract trio (pexact / pexact with the transformed or
+    the exact solver, polynomial bases, either scaling mode) is inside;
+    pexact with any other solver is not."""
     cfg = _cfg(dict(solver="cho"))
     assert not tengine.batched_step_supported(cfg)
     bsp = dataclasses.replace(_cfg(FAST), kernel_basis=BasisSpec("bspline", 1, (28.5,), (24.5,)))
     assert not tengine.batched_step_supported(bsp)
+    for solver in ("transformed", "exact", "lu", "cho", "refined", "host", "blocked_cho"):
+        for separate in (False, True):
+            pex = _cfg(dict(greek_backend="pexact", fdiff_backend="pexact", solver=solver),
+                       separate)
+            assert tengine.batched_step_supported(pex) == (solver in ("transformed", "exact"))
+    for trio in (dict(greek_backend="exact", fdiff_backend="exact", solver="exact"),
+                 dict(greek_backend="pexact", fdiff_backend="exact", solver="exact"),
+                 dict(greek_backend="corr", fdiff_backend="conv", solver="exact")):
+        assert not tengine.batched_step_supported(_cfg(trio))
+    pbsp = dataclasses.replace(_cfg(dict(greek_backend="pexact", fdiff_backend="pexact",
+                                         solver="transformed")),
+                               kernel_basis=BasisSpec("bspline", 1, (28.5,), (24.5,)))
+    assert not tengine.batched_step_supported(pbsp)
     with pytest.raises(ValueError):
         tengine.solve_and_subtract_batched_fn(cfg)
     stacks = _pairs(2)

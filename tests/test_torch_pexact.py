@@ -21,19 +21,25 @@ import numpy as np
 import pytest
 import torch
 
-import sfft_tpu  # noqa: F401  (x64)
-import jax
-import jax.numpy as jnp
-from sfft_tpu.config import BasisSpec
-from sfft_tpu.core import engine as jengine
-from sfft_tpu.core import solve as jsolve
+try:
+    import sfft_tpu  # noqa: F401  (x64)
+    import jax
+    import jax.numpy as jnp
+    from sfft_tpu.config import BasisSpec
+    from sfft_tpu.core import engine as jengine
+    from sfft_tpu.core import solve as jsolve
+    from test_pexact import _cfg, _pair
+except ImportError:   # a machine without jax (the card's): only the `gpu` case runs there
+    from sfft_tpu_torch.config import BasisSpec
 
+from sfft_tpu_torch import make_config
 from sfft_tpu_torch.config import config_from_fields
 from sfft_tpu_torch.core import engine as tengine
+from sfft_tpu_torch.core import exact_fft as texact
+from sfft_tpu_torch.core import pairs as tpairs
 from sfft_tpu_torch.core import pexact as tpexact
+from sfft_tpu_torch.core import slicing as tslicing
 from sfft_tpu_torch.core import solve as tsolve
-
-from test_pexact import _cfg, _pair
 
 # the suite runs in several worker processes on one CPU: two threads each
 torch.set_num_threads(2)
@@ -47,10 +53,11 @@ CASES = {
 }
 
 
-def _pair_for(name):
+def _pair_for(name, seed=None):
+    """The case's pair, or (seed) another pair of its shape."""
     if name == "odd-N1":
-        return _pair(np.random.default_rng(7), 80, 63)
-    return _pair(np.random.default_rng(42))
+        return _pair(np.random.default_rng(7 if seed is None else seed), 80, 63)
+    return _pair(np.random.default_rng(42 if seed is None else seed))
 
 
 def _cfgs(name):
@@ -60,16 +67,17 @@ def _cfgs(name):
 
 @pytest.fixture(scope="module")
 def refs():
-    """sfft_tpu's (solution, difference) per case, computed on first use."""
+    """sfft_tpu's (solution, difference) per case (and pair seed), computed
+    on first use."""
     cache = {}
 
-    def get(name):
-        if name not in cache:
-            I, J = _pair_for(name)
+    def get(name, seed=None):
+        if (name, seed) not in cache:
+            I, J = _pair_for(name, seed)
             jc, _ = _cfgs(name)
             sol, diff, _ = jengine.GeneralSFFT.GSS(I, J, I, J, jc)
-            cache[name] = (np.asarray(sol), np.asarray(diff))
-        return cache[name]
+            cache[name, seed] = (np.asarray(sol), np.asarray(diff))
+        return cache[name, seed]
 
     return get
 
@@ -205,3 +213,115 @@ def test_pexact_rejects_bspline():
     assert not tpexact.pexact_supported(tc)
     with pytest.raises(ValueError, match="polynomial"):
         tengine.GeneralSFFT.GSS(*(np.zeros((80, 64)),) * 4, tc, device="cpu")
+
+
+# --- the leading pair axis: a batch of pairs as one batched step -----------
+
+
+def _single(tc, I, J):
+    """The port's single call of a pair (solution, difference)."""
+    return tengine.solve_and_subtract_fn(tc)(I, J, I, J)
+
+
+@pytest.mark.parametrize("name", ["contract", "separate-varying"])
+def test_batched_step_is_the_single_calls(refs, name):
+    """Two pairs of one shape (the case's pair and one from another seed)
+    as one batched step: each pair bit for bit its single call; the
+    contract case also within the file's bounds of sfft_tpu's GSS of each
+    pair (the separate-varying case runs the exact solver)."""
+    _, tc = _cfgs(name)
+    assert tengine.batched_step_supported(tc)
+    planes = [_pair_for(name), _pair_for(name, 5)]
+    I, J = (torch.stack([torch.as_tensor(p[r]) for p in planes]) for r in range(2))
+    steps = tengine.solve_and_subtract_batched_fn.steps
+    sol, diff = tengine.solve_and_subtract_batched_fn(tc)(I, J, I, J)
+    assert tengine.solve_and_subtract_batched_fn.steps == steps + 1
+    assert sol.shape == (2, tc.NEQ) and diff.shape == I.shape
+    for k, seed in enumerate((None, 5)):
+        s1, d1 = _single(tc, I[k], J[k])
+        assert torch.equal(sol[k], s1) and torch.equal(diff[k], d1)
+        if name == "contract":
+            sj, dj = refs(name, seed)
+            assert np.abs(sol[k].numpy() - sj).max() <= 1e-6 * np.abs(sj).max()
+            assert np.abs(diff[k].numpy() - dj).max() <= 1e-8 * np.abs(J[k].numpy()).max()
+
+
+def test_batched_step_slices_each_pair_with_its_own_scale(monkeypatch):
+    """A batch whose second pair is the first scaled by 2^-20: every K4
+    stage call of the batched step gives each pair the slices and scales of
+    that pair's single call, every K7 epilogue its output, and the
+    solutions and differences are the single calls' bit for bit (one data
+    scale shared by the batch would lose 20 bits of the small pair)."""
+    _, tc = _cfgs("contract")
+    I0, J0 = (torch.as_tensor(a) for a in _pair_for("contract"))
+    I = torch.stack([I0, I0 * 2.0 ** -20])
+    J = torch.stack([J0, J0 * 2.0 ** -20])
+    _single(tc, I[1], J[1])       # the static tables' slices, cached from here on
+    k4, k7 = tslicing.slice_pairs, texact.sliced_epilogue
+    log = []
+
+    def rec4(*args, **kw):
+        out = k4(*args, **kw)
+        log[-1][0].append(out)
+        return out
+
+    def rec7(*args):
+        out = k7(*args)
+        log[-1][1].append(out)
+        return out
+
+    monkeypatch.setattr(texact, "slice_pairs", rec4)
+    monkeypatch.setattr(texact, "sliced_epilogue", rec7)
+    runs = []
+    for k in range(2):
+        log.append(([], []))
+        runs.append(_single(tc, I[k], J[k]))
+    log.append(([], []))
+    sol, diff = tengine.solve_and_subtract_batched_fn(tc)(I, J, I, J)
+    (b4, b7), singles = log[-1], log[:2]
+    assert len(b4) > 20 and len(b7) > 20
+    for k, (s4, s7) in enumerate(singles):
+        assert torch.equal(sol[k], runs[k][0]) and torch.equal(diff[k], runs[k][1])
+        assert len(s4) == len(b4) and len(s7) == len(b7)
+        for got, own in zip(b4, s4):
+            for (sl, sc), (osl, osc) in zip(got, own):
+                assert torch.equal(sl[:, k], osl[:, 0])
+                assert torch.equal(sc[k], osc[0].expand_as(sc[k]) if osc.dim() else
+                                   osc.expand_as(sc[k]))
+        for got, own in zip(b7, s7):
+            assert all((g is None and o is None) or torch.equal(g[k], o[0])
+                       for g, o in zip(got, own))
+
+
+@pytest.mark.gpu
+def test_batched_contract_kernels_on_the_card():
+    """On the card: one batched contract step of two pairs at 128^2
+    launches K4, K7, K6a, K6m and K6p once a set for the batch (the same
+    counts as the single step), and each pair's solution and difference is
+    its single call bit for bit (chip_smoke.py phase 14 holds every launch
+    to its twin at 4096^2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    cfg = make_config(128, 128, 4, greek_backend="pexact", fdiff_backend="pexact",
+                      solver="transformed")
+    rng = np.random.default_rng(40)
+    sky = 100.0 + 10.0 * rng.random((2, 128, 128))
+    I = torch.as_tensor(sky + rng.normal(0, 1, sky.shape), device=dev)
+    J = torch.as_tensor(1.1 * sky + 5.0 + rng.normal(0, 1, sky.shape), device=dev)
+    counters = (tslicing.slice_pair, texact._K7, tpairs._K6A, tpairs._K6M, tpairs._K6P)
+
+    def counts():
+        return [c.launches for c in counters]
+
+    _single(cfg, I[1], J[1])      # the static tables, built from here on
+    c0 = counts()
+    ones = [_single(cfg, I[k], J[k]) for k in range(2)]
+    c1 = counts()
+    sol, diff = tengine.solve_and_subtract_batched_fn(cfg)(I, J, I, J)
+    torch.cuda.synchronize()
+    c2 = counts()
+    single = [(b - a) // 2 for a, b in zip(c0, c1)]
+    assert [b - a for a, b in zip(c1, c2)] == single and min(single) >= 1
+    for k in range(2):
+        assert torch.equal(sol[k], ones[k][0]) and torch.equal(diff[k], ones[k][1])

@@ -1,6 +1,7 @@
 """Times sfft_tpu_torch's single solve+subtract step
 (core/engine.solve_and_subtract_fn) on the card, for the fast mode
-(peeled / fft32 / refined) and the default trio (fft / fft / lu) at 4096^2,
+(peeled / fft32 / refined), the default trio (fft / fft / lu) and the
+contract trio (pexact / pexact / transformed) at 4096^2,
 KerHW 8, poly2 / poly2, on chip_smoke.py's benchmark pair (seed 40), with
 the masked pair the unmasked one, as the survey paths' groups of one pair a
 device run it. Each checkout named on the command line runs in a process
@@ -11,10 +12,14 @@ card in one call (give them as parent, change, change, parent):
 
 Each process builds the checkout's kernels (or finds them built), warms each
 config with 3 steps and times 12 (wall, synchronized), then prints one JSON
-line: {"root": ..., "fast": {"median_ms": ..., "ms": [...]}, "default": ...}.
+line: {"root": ..., "fast": {"median_ms": ..., "ms": [...], "sha256": ...},
+"default": ..., "contract": ...}; sha256 is the digest of the last step's
+solution and difference bytes, so that equal digests across checkouts show
+the same bits.
 The card's name and power limit are printed first. Needs a CUDA card.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -24,7 +29,8 @@ import time
 
 N, KERHW, SEED, WARM, REPS = 4096, 8, 40, 3, 12
 TRIOS = {"fast": dict(greek_backend="peeled", fdiff_backend="fft32", solver="refined"),
-         "default": dict(greek_backend="fft", fdiff_backend="fft", solver="lu")}
+         "default": dict(greek_backend="fft", fdiff_backend="fft", solver="lu"),
+         "contract": dict(greek_backend="pexact", fdiff_backend="pexact", solver="transformed")}
 
 
 def run_one(root: str) -> dict:
@@ -48,8 +54,14 @@ def run_one(root: str) -> dict:
             torch.cuda.synchronize()
             if k >= WARM:
                 walls.append((time.perf_counter() - t0) * 1e3)
-            del res
-        out[name] = dict(median_ms=statistics.median(walls), ms=[round(w, 2) for w in walls])
+            if k < WARM + REPS - 1:
+                del res
+        digest = hashlib.sha256()
+        for t in res:
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+        del res
+        out[name] = dict(median_ms=statistics.median(walls), ms=[round(w, 2) for w in walls],
+                         sha256=digest.hexdigest()[:16])
     return out
 
 
