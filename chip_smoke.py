@@ -146,20 +146,27 @@ batched_subtract on the dequantized planes, with the upload of one pair
 packed and in f64.
 
 Then phase 14, the leading pair axis (core/engine.solve_and_subtract_
-batched_fn: one set of K3, K1 and K2 launches and one pass of the table
-algebra for a batch of pairs): the fast mode and the default trio at
+batched_fn: one set of the config's kernel launches and one pass of the
+table algebra for a batch of pairs): the fast mode and the default trio at
 4096^2 (KerHW 8, poly2 / poly2) for B = 1, 2, 4, 8 pairs (make_pair, seeds
-40-47) on one card, each pair's solution and difference bit for bit its
-single call, from stacks on the card and through batched_subtract from
-host stacks; per pair wall (median of 3) and device busy, launches a step
-and peak memory for each B; every K3, K1 and K2 launch of one batched step
-(B = 4 fast, 2 default) held to its twin as phase 12c holds them, twice
-bit-equal, and each pair's share of it bit for bit the pair's own launch;
-the single step (the batched step of one pair, which the survey paths'
-groups of one pair a device run) against the batched step called on one
-pair, in alternating order; batched_subtract's memory bound (max_batch)
-on the card, and 3 pairs at a lowered bound of 2 run as 2 batched steps,
-each pair bit for bit its single call.
+40-47), the contract trio for B = 1, 2, 4, the polynomial exact trio for
+B = 1, 2, and on the NIRCam configuration at 900^2 (seeds 40-47) the
+default trio (B-spline bases) for B = 1, 2, the v2 fast trio (fft32 /
+fft32 / refined) for B = 1, 2, 4 and the v2 contract (exact / exact /
+exact) for B = 1, 2 on one card, each pair's solution and difference bit
+for bit its single call, from stacks on the card and through
+batched_subtract from host stacks; per pair wall (median of 3) and device
+busy, launches a step (K5 once a pair's solve) and peak memory for each
+B; every K3, K1 and K2 launch of one batched step (B = 4 fast, 2 the
+others) held to its twin as phase 12c holds them, every K4, K5, K7 and K6
+launch of the contract and exact trios' to its twin bit for bit, each
+twice bit-equal, and each pair's share of it bit for bit the pair's own
+launch; one pair of the contract and exact trios held to their f64 paths
+(phases 6 and 7's bounds); the single step (the batched step of one pair,
+which the survey paths' groups of one pair a device run) against the
+batched step called on one pair, in alternating order; batched_subtract's
+memory bound (max_batch) on the card, and 3 pairs at a lowered bound of 2
+run as 2 batched steps, each pair bit for bit its single call.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after, and must have launched its kernels. The contract and the v2
@@ -255,7 +262,8 @@ and the int16 upload) alone, and prints K8's and K9's kernels line.
 
     python3 chip_smoke.py --batched
 
-builds the kernels and runs phase 14 (the batched fast and default steps)
+builds the kernels and runs phase 14 (the batched steps of every batched
+configuration; the v2 fast trio and the v2 contract for B = 1, 2, 4, 8)
 alone, and prints their launches as a "batched_kernels" line.
 
     python3 chip_smoke.py --stages OUT_DIR
@@ -5854,31 +5862,52 @@ BATCHED_KERNELS = [
     ("corr_window", "sfft_tpu_torch/csrc/corr_window.cuh", "sfft_tpu/core/greek.py:94"),
     ("fdiff_model", "sfft_tpu_torch/csrc/fdiff_model.cu", "sfft_tpu/core/fdiff.py:90"),
     ("slice_pair", "sfft_tpu_torch/csrc/slice_pair.cu", "sfft_tpu/core/pallas_slice.py:135"),
+    ("slice_triple", "sfft_tpu_torch/csrc/slice_triple.cu", "sfft_tpu/core/pallas_slice.py:214"),
     ("sliced_epilogue", "sfft_tpu_torch/csrc/sliced_epilogue.cu",
      "sfft_tpu/core/exact_fft.py:372"),
     ("pair_products", "sfft_tpu_torch/csrc/pair_products.cu", "sfft_tpu/core/exact_fft.py:963"),
     ("pair_model", "sfft_tpu_torch/csrc/pair_model.cu", "sfft_tpu/core/pexact.py:397"),
     ("pair_poly", "sfft_tpu_torch/csrc/pair_poly.cu", "sfft_tpu/core/pexact.py:71")]
-# the batch sizes of phase 14 (per trio where they differ: the contract
-# trio's, as far as max_batch allows), the seed of its first pair, the batch
-# whose kernel launches are held to their twins and to their per-pair
-# launches
+# the configurations of phase 14: (image, backends) with the image "N" (the
+# 4096^2 fast slice's shape: make_config(N, N, KERHW), poly2 / poly2) or
+# "V2" (the NIRCam configuration at V2_N^2: nircam_config); the batch sizes
+# (per configuration where they differ, each as far as max_batch allows; a
+# --batched run takes the v2 trios' larger batches too), the seed of the
+# first pair, the batch whose kernel launches are held to their twins and
+# to their per-pair launches
+BATCH_TRIOS = {"fast": ("N", FAST_CFG),
+               "default": ("N", dict(greek_backend="fft", fdiff_backend="fft", solver="lu")),
+               "contract": ("N", dict(greek_backend="pexact", fdiff_backend="pexact",
+                                      solver="transformed")),
+               "exact": ("N", EXACT_TRIO),
+               "bsp-default": ("V2", {}),
+               "v2-fast-fft32": ("V2", FAST_TRIO),
+               "v2-contract": ("V2", EXACT_TRIO)}
 BATCH_SIZES = (1, 2, 4, 8)
-BATCH_SIZES_OF = {"contract": (1, 2, 4)}
+BATCH_SIZES_OF = {"contract": (1, 2, 4), "exact": (1, 2), "bsp-default": (1, 2),
+                  "v2-fast-fft32": (1, 2, 4), "v2-contract": (1, 2)}
+BATCH_SIZES_HEAVY = {"v2-fast-fft32": (1, 2, 4, 8), "v2-contract": (1, 2, 4, 8)}
 BATCH_SEED = 40
-BATCH_TRIOS = {"fast": FAST_CFG, "default": dict(greek_backend="fft", fdiff_backend="fft",
-                                                  solver="lu"),
-               "contract": dict(greek_backend="pexact", fdiff_backend="pexact",
-                                solver="transformed")}
-BATCH_TWIN_B = {"fast": 4, "default": 2, "contract": 2}
+BATCH_TWIN_B = {"fast": 4, "default": 2, "contract": 2, "exact": 2, "bsp-default": 2,
+                "v2-fast-fft32": 2, "v2-contract": 2}
 # one set of the config's launches a batched step, whatever B (K2's counter
 # counts its two launches a call; K4 its slicing and its scale launches;
-# K6p all its modes, and the sub and add64 modes each)
+# K6p all its modes, and the sub and add64 modes each); the configurations
+# not listed launch what their single step launches (K5 once for each
+# pair's solve)
 BATCH_LAUNCHES = {"fast": {"moments": 2, "corr_window": 2, "fdiff_model": 2},
                   "default": {"corr_window": 3, "fdiff_model": 2},
                   "contract": {"moments": 2, "slice_pair": 83, "sliced_epilogue": 46,
                                "pair_products": 32, "pair_model": 1, "pair_poly": 3,
                                "pair_poly_sub": 2, "pair_poly_add64": 1}}
+
+
+def batch_cfg(name: str):
+    """The SFFTConfig of phase 14's configuration `name`."""
+    from sfft_tpu_torch import make_config
+
+    image, backends = BATCH_TRIOS[name]
+    return nircam_config(**backends) if image == "V2" else make_config(N, N, KERHW, **backends)
 
 
 def batched_twins(step, label):
@@ -5887,8 +5916,8 @@ def batched_twins(step, label):
     bounds), launched again twice (bit-equal), and each pair's share of it
     bit for bit that pair's own launch: K3 M[b] = W @ G[b], K1 the pair's
     segment of the list on its own planes, K2 the pair's model spectrum.
-    The contract trio's K4, K7, K6a, K6m and K6p launches are held as they
-    run (``exact_twins_inline``). These launches are not counted on the
+    The contract and exact trios' K4, K5, K7, K6a, K6m and K6p launches are
+    held as they run (``exact_twins_inline``). These launches are not counted on the
     path. Returns {kernel: [launches held, max error against the twin]}."""
     import torch
     from sfft_tpu_torch.core import fdiff, greek, moments, peel
@@ -6012,18 +6041,20 @@ def _k7_pair_share(P, plan, sd, b: int, B: int):
 
 @contextlib.contextmanager
 def exact_twins_inline(label):
-    """While the block runs, hold every K4, K7, K6a, K6m and K6p launch as it
-    runs (their operands are too large to keep for the whole step): the
-    launch again (bit-equal), its plain twin bit for bit, and, for a launch
-    over a batch of B pairs, each pair's share bit for bit the kernel on
-    that pair's own operands (K4 with its own global scale). Yields {kernel:
-    [launches held, 0.0]} (the twins are bit-exact)."""
+    """While the block runs, hold every K4, K5, K7, K6a, K6m and K6p launch
+    as it runs (their operands are too large to keep for the whole step):
+    the launch again (bit-equal), its plain twin bit for bit, and, for a
+    launch over a batch of B pairs, each pair's share bit for bit the
+    kernel on that pair's own operands (K4 with its own global scale; K5
+    runs in each pair's own solve). Yields {kernel: [launches held, 0.0]}
+    (the twins are bit-exact)."""
     import torch
-    from sfft_tpu_torch.core import exact_fft, pairs, slicing
+    from sfft_tpu_torch.core import exact_fft, pairs, slicing, solve
 
-    held = {k: [0, 0.0] for k in ("slice_pair", "sliced_epilogue", "pair_products",
-                                  "pair_model", "pair_poly")}
+    held = {k: [0, 0.0] for k in ("slice_pair", "slice_triple", "sliced_epilogue",
+                                  "pair_products", "pair_model", "pair_poly")}
     launch4, epi7 = slicing._launch_pairs, exact_fft.sliced_epilogue
+    rows5, vec5 = solve.slice_rows_f64, solve.slice_vec_f64
     k6 = {n: getattr(pairs, n) for n in ("pair_products", "pair_model", "pair_poly_sub",
                                          "pair_poly_add64")}
 
@@ -6047,6 +6078,24 @@ def exact_twins_inline(label):
                     assert torch.equal(sl[:, b], osl) and torch.equal(
                         sc[b], osc.expand_as(sc[b])), f"{label} K4: pair {b} differs"
         held["slice_pair"][0] += 1
+        return got
+
+    def k5_rows(A, d, nsl, out_cols=None):
+        got = rows5(A, d, nsl, out_cols)
+        assert eq(got, rows5(A, d, nsl, out_cols)), f"{label} K5: two launches differ"
+        assert eq(got, slicing.slice_rows_f64_plain(A, d, nsl, out_cols)), \
+            f"{label} K5: differs from its twin"
+        held["slice_triple"][0] += 1
+        return got
+
+    def k5_vec(x, nsl, out):
+        want, again = out.clone(), out.clone()
+        got = vec5(x, nsl, out)
+        assert eq(got, vec5(x, nsl, again)) and eq(out, again), \
+            f"{label} K5 (vector): two launches differ"
+        assert eq(got, slicing.slice_vec_f64_plain(x, nsl, want)) and eq(out, want), \
+            f"{label} K5 (vector): differs from its twin"
+        held["slice_triple"][0] += 1
         return got
 
     def k7(P, plan, sd):
@@ -6095,31 +6144,42 @@ def exact_twins_inline(label):
         return run
 
     slicing._launch_pairs, exact_fft.sliced_epilogue = k4, k7
+    solve.slice_rows_f64, solve.slice_vec_f64 = k5_rows, k5_vec
     for n in k6:
         setattr(pairs, n, k6_wrap(n))
     try:
         yield held
     finally:
         slicing._launch_pairs, exact_fft.sliced_epilogue = launch4, epi7
+        solve.slice_rows_f64, solve.slice_vec_f64 = rows5, vec5
         for n, fn in k6.items():
             setattr(pairs, n, fn)
 
 
-def phase_batched():
-    """Phase 14: the batched fast and default steps at 4096^2 (KerHW 8,
-    poly2 / poly2) for B = 1, 2, 4, 8 pairs on one card, and the contract
-    trio's (pexact / pexact / transformed) for B = 1, 2, 4 (each size as
-    far as ``max_batch`` allows; the sizes left out are logged): each
-    pair's solution and difference bit for bit its single call; per-pair
-    wall (median of 3 after a warm-up) and device busy (a warmed profile)
-    of the batched step on stacks already on the card, launches a step and
-    peak memory; the same batches through batched_subtract from host
-    stacks; every K3, K1 and K2 launch of one batched step held to its twin
-    and to its per-pair launches (``batched_twins``), and every K4, K7,
-    K6a, K6m and K6p launch of the contract's (``exact_twins_inline``); one
-    contract pair's difference held to the f64 fft tables solved by
-    'exact' (phase 6's bound). Returns (report, launches of the timed
-    steps)."""
+def phase_batched(heavy: bool = False):
+    """Phase 14: the batched steps of BATCH_TRIOS on one card: fast and
+    default at 4096^2 (KerHW 8, poly2 / poly2) for B = 1, 2, 4, 8 pairs, the
+    contract trio (pexact / pexact / transformed) for B = 1, 2, 4, the
+    polynomial exact trio at 4096^2 and the NIRCam configuration's default
+    trio (fft / fft / lu, B-spline) for B = 1, 2, its v2 fast trio (fft32 /
+    fft32 / refined) for B = 1, 2, 4 and its v2 contract (exact / exact /
+    exact, the K5 solve once a pair) for B = 1, 2 (`heavy`, the --batched
+    run: both v2 trios for B = 1, 2, 4, 8); each size as far as
+    ``max_batch`` allows (the sizes left out are logged): each pair's
+    solution and difference bit for bit its single call; per-pair wall
+    (median of 3 after a warm-up) and device busy (a warmed profile) of the
+    batched step on stacks already on the card, launches a step (one set
+    of the config's launches whatever B, K5 once a pair) and peak memory;
+    the same batches through batched_subtract from host stacks; every K3,
+    K1 and K2 launch of one batched step held to its twin and to its
+    per-pair launches (``batched_twins``), and every K4, K5, K7, K6a, K6m
+    and K6p launch of the contract and exact trios' (``exact_twins_inline``);
+    one pair of the contract and exact trios held to the f64 fft tables
+    solved by 'exact' (phase 6's bound; 1e-5 for the unpeeled exact trio,
+    whose own tables' floor sfft_tpu measured at 5.7e-6 there), one v2
+    contract pair to the f64 fft / fft / lu path of its configuration
+    (phase 7's bound). Returns
+    (report, launches of the timed steps)."""
     import torch
     from sfft_tpu_torch import make_config
     from sfft_tpu_torch.core.engine import solve_and_subtract_batched_fn, solve_and_subtract_fn
@@ -6128,33 +6188,49 @@ def phase_batched():
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    nmax = max(max(BATCH_SIZES), *(max(v) for v in BATCH_SIZES_OF.values()))
-    host = [make_pair(N, BATCH_SEED + k) for k in range(nmax)]
-    Ih, Jh = (np.stack([p[r] for p in host]) for r in range(2))
-    del host
-    I, J = (torch.as_tensor(a, device=dev) for a in (Ih, Jh))
-    log(f"phase 14 {nmax} pairs {N}^2 made and uploaded in {time.perf_counter() - t_start:.1f} s")
+    sizes_of = dict(BATCH_SIZES_OF, **(BATCH_SIZES_HEAVY if heavy else {}))
+    # the pairs of each image size, on the host and on the card
+    stacks = {}
+    for image in ("N", "V2"):
+        n = N if image == "N" else V2_N
+        nmax = max(max(sizes_of.get(name, BATCH_SIZES)) for name, (im, _) in BATCH_TRIOS.items()
+                   if im == image)
+        nmax = max(nmax, 3)
+        host = [make_pair(n, BATCH_SEED + k) for k in range(nmax)]
+        Ih, Jh = (np.stack([p[r] for p in host]) for r in range(2))
+        del host
+        stacks[image] = (Ih, Jh) + tuple(torch.as_tensor(a, device=dev) for a in (Ih, Jh))
+        log(f"phase 14 {nmax} pairs {n}^2 made and uploaded in "
+            f"{time.perf_counter() - t_start:.1f} s")
     report, launches = {}, {}
-    for name, trio in BATCH_TRIOS.items():
+    for name, (image, _) in BATCH_TRIOS.items():
         t_trio = time.perf_counter()
-        cfg = make_config(N, N, KERHW, **trio)
+        Ih, Jh, I, J = stacks[image]
+        n = I.shape[-1]
+        cfg = batch_cfg(name)
         step = solve_and_subtract_batched_fn(cfg)
         single = solve_and_subtract_fn(cfg)
+        # the exact engines share their spectra where the masked stacks are
+        # the unmasked ones: one stack object a role pair
+        shares = cfg.greek_backend in ("pexact", "exact")
         # the sizes this card's memory takes (max_batch), before any step
         torch.cuda.empty_cache()
         cap = pbatch.max_batch(cfg, dev)
-        wanted = BATCH_SIZES_OF.get(name, BATCH_SIZES)
+        wanted = sizes_of.get(name, BATCH_SIZES)
         sizes = [B for B in wanted if B <= cap]
-        log(f"phase 14 {name}: max_batch {cap} pairs at {N}^2 on this card; B run {sizes}"
+        log(f"phase 14 {name}: max_batch {cap} pairs at {n}^2 on this card; B run {sizes}"
             + (f"; left out (beyond max_batch) {[B for B in wanted if B > cap]}"
                if len(sizes) < len(wanted) else ""))
         # each single call with the masked planes the unmasked ones (one
-        # object a role, as PCP passes them: the contract trio shares its
-        # spectra then)
-        ones = []
+        # object a role, as PCP and BSP pass them: the exact engines share
+        # their spectra then); the launches of each pair's single step
+        ones, single_counts = [], []
         for k in range(max(max(sizes), 3)):
             Ik, Jk = I[k], J[k]
+            zero_kernel_counts()
             s1, d1 = single(Ik, Jk, Ik, Jk)
+            torch.cuda.synchronize()
+            single_counts.append(kernel_counts())
             ones.append((s1.cpu(), d1.cpu()))
         rows = {}
         for B in sizes:
@@ -6188,11 +6264,9 @@ def phase_batched():
             for _ in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                # the contract trio shares its spectra where the masked stacks
-                # are the unmasked ones: one stack object a role pair
                 hI, hJ = Ih[:B], Jh[:B]
-                out = batched_subtract(hI, hJ, *((hI, hJ) if name == "contract"
-                                                 else (Ih[:B], Jh[:B])), cfg, devices=[dev])
+                out = batched_subtract(hI, hJ, *((hI, hJ) if shares else (Ih[:B], Jh[:B])),
+                                       cfg, devices=[dev])
                 torch.cuda.synchronize()
                 hw.append(time.perf_counter() - t0)
                 for k in range(B):
@@ -6201,9 +6275,17 @@ def phase_batched():
                         f"phase 14 {name} B={B}: batched_subtract pair {k} differs"
                 del out
             per = {k: v / 3 for k, v in counts.items() if v}
+            if name in BATCH_LAUNCHES:
+                want = BATCH_LAUNCHES[name]
+            else:
+                # the single step's launches (the last single: static tables
+                # built), K5 once for each pair's solve
+                want = {k: v for k, v in single_counts[-1].items() if v and k != "slice_triple"}
+                k5 = sum(c["slice_triple"] for c in single_counts[:B])
+                if k5:
+                    want["slice_triple"] = k5
             if dev.type == "cuda":
-                assert per == BATCH_LAUNCHES[name], \
-                    f"phase 14 {name} B={B}: launches a step {per}, not {BATCH_LAUNCHES[name]}"
+                assert per == want, f"phase 14 {name} B={B}: launches a step {per}, not {want}"
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
             rows[B] = dict(wall_ms_per_pair=statistics.median(walls) * 1e3 / B,
@@ -6234,19 +6316,29 @@ def phase_batched():
         log(f"phase 14 {name}: single step {one_ms:.2f} ms, batched step of one pair "
             f"{b1_ms:.2f} ms (medians of 6, alternating; walls "
             f"{[round(t * 1e3, 1) for t in t_one]} / {[round(t * 1e3, 1) for t in t_b1]} ms)")
-        if name == "contract":
-            # phase 6's fidelity bound on one pair: the f64 fft tables solved
-            # by 'exact'
-            cfg64 = make_config(N, N, KERHW, greek_backend="fft", fdiff_backend="fft",
-                                solver="exact")
+        vs64 = None
+        if name in ("contract", "exact", "v2-contract"):
+            # the contract's bound 1e-6; the unpeeled exact trio at 4096^2
+            # sits at its own tables' pair-representation floor, amplified
+            # by the poly2 system (sfft_tpu measured 5.7e-6 / 2.5e-6 there,
+            # DESIGN.md): held to 1e-5
+            bound = 1e-5 if name == "exact" else 1e-6
+            if image == "V2":
+                # phase 7's bound: the f64 fft / fft / lu path of the
+                # configuration
+                cfg64, what = nircam_config(), "the f64 fft / fft / lu path"
+            else:
+                # phase 6's bound: the f64 fft tables solved by 'exact'
+                cfg64 = make_config(N, N, KERHW, greek_backend="fft", fdiff_backend="fft",
+                                    solver="exact")
+                what = "the f64 fft tables solved by 'exact'"
             s64, d64 = (t.cpu() for t in solve_and_subtract_fn(cfg64)(I0, J0, I0, J0))
             drms = float(torch.sqrt(torch.mean((ones[0][1] - d64) ** 2)))
             srel = float((ones[0][0] - s64).abs().max() / s64.abs().max())
-            assert drms < 1e-6 and srel <= 1e-6, \
-                f"phase 14 contract: RMS(diff - diff_f64) {drms:.3e}, solution {srel:.3e} of max"
-            log(f"phase 14 contract pair 0: RMS(diff - diff_f64) = {drms:.3e} (bound 1e-6), "
-                f"max|sol - sol_f64|/max|sol_f64| = {srel:.3e} (bound 1e-6; the f64 fft "
-                f"tables solved by 'exact')")
+            assert drms < bound and srel <= bound, \
+                f"phase 14 {name}: RMS(diff - diff_f64) {drms:.3e}, solution {srel:.3e} of max"
+            log(f"phase 14 {name} pair 0: RMS(diff - diff_f64) = {drms:.3e} (bound {bound:g}), "
+                f"max|sol - sol_f64|/max|sol_f64| = {srel:.3e} (bound {bound:g}; {what})")
             vs64 = dict(rms=drms, sol_rel=srel)
             del s64, d64
         # a batch beyond a lowered bound split into steps, bit for bit
@@ -6272,16 +6364,16 @@ def phase_batched():
         held = batched_twins(lambda: step(It, Jt, It, Jt),
                              f"phase 14 {name} B={twin_b}")
         log(f"phase 14 {name} B={twin_b}: every kernel launch of the batched step held to its "
-            f"twin (K4, K7, K6 bit for bit) and each pair's share bit for bit its own launch, "
-            f"two launches bit-equal: {held}")
+            f"twin (K4, K5, K7, K6 bit for bit) and each pair's share bit for bit its own "
+            f"launch, two launches bit-equal: {held}")
         report[name] = dict(rows=rows, twins=held, twin_batch=twin_b, single_ms=one_ms,
                             batched_one_ms=b1_ms, max_batch=cap, sizes=sizes,
                             s=time.perf_counter() - t_trio)
-        if name == "contract":
+        if vs64 is not None:
             report[name]["vs_f64"] = vs64
         log(f"phase 14 {name} done in {report[name]['s']:.1f} s")
         torch.cuda.empty_cache()
-    del I, J
+    del stacks, I, J
     torch.cuda.empty_cache()
     report["s"] = time.perf_counter() - t_start
     log(f"phase 14 done in {report['s']:.1f} s; launches {launches}")
@@ -6332,7 +6424,7 @@ def main():
         print(ok_line, flush=True)
         return 0
     if sys.argv[1:] == ["--batched"]:
-        batched, counts = phase_batched()
+        batched, counts = phase_batched(heavy=True)
         log(json.dumps({"batched": batched, "batched_launches": counts}))
         log(json.dumps({"batched_kernels": [dict(name=name, route="cuda", source=source,
                                                  replaces=replaces, launches=counts.get(name, 0))

@@ -55,10 +55,12 @@ def _normal_equations_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
     """Assemble the (NEQ, NEQ) normal-equation matrix and RHS vector for a
     masked pair — everything `_solve_impl` does short of the solve (reference
     LHMAT/RHb, sfft/sfftcore/SFFTSubtract.py:224-383). `shared`: the exact or
-    pexact plane spectra of (mI, mJ), when the caller has them. The peeled,
-    pexact and fft / fft32 backends with polynomial bases also take a batch
-    of pairs, mI and mJ (B, N0, N1), and give (B, NEQ, NEQ) and (B, NEQ),
-    each pair's bits those of its single call."""
+    pexact plane spectra of (mI, mJ), when the caller has them. The peeled
+    and pexact backends with polynomial bases and the fft / fft32 and exact
+    backends with any bases also take a batch of pairs, mI and mJ (B, N0,
+    N1), and give (B, NEQ, NEQ) and (B, NEQ), each pair's bits those of its
+    single call (the Tikhonov terms, one set for the config, add to every
+    pair's system)."""
     dt = torch_dtype(cfg.dtype)
     mI = mI.to(dt)
     mJ = mJ.to(dt)
@@ -123,25 +125,27 @@ def system_from_tables(cfg: SFFTConfig, out, extra, device):
                            reg_terms=regularization_terms_on(cfg, device, tables.Pbb.dtype))
 
 
-# the (greek, fdiff, solver) trios whose batch of pairs runs as one batched
-# step (``solve_and_subtract_batched_fn``): the fast mode, the default trio
-# and the contract trio (sfft_tpu's TPU default, with the transformed or the
-# exact solver), as sfft_tpu's jax.vmap runs any config
-BATCHED_TRIOS = (("peeled", "fft32", "refined"), ("fft", "fft", "lu"),
-                 ("pexact", "pexact", "transformed"), ("pexact", "pexact", "exact"))
+# the (greek, fdiff) backend pairs whose batch of pairs runs as one batched
+# step (``solve_and_subtract_batched_fn``), with any solver (the solve runs
+# pair by pair): the fast mode, the default and v2 fast pairs, the contract
+# pair (sfft_tpu's TPU default) and the any-basis exact pair (the v2
+# contract), as sfft_tpu's jax.vmap runs any config
+BATCHED_BACKENDS = (("peeled", "fft32"), ("fft", "fft"), ("fft32", "fft32"),
+                    ("pexact", "pexact"), ("exact", "exact"))
 
 
 def batched_step_supported(cfg: SFFTConfig) -> bool:
     """Whether a batch of pairs of this config runs as one batched step: the
-    fast mode (peeled / fft32 / refined), the default trio (fft / fft /
-    lu) and the contract trio (pexact / pexact / transformed or exact),
-    with polynomial bases in either scaling mode. Every other config
-    (exact, corr / conv, B-spline and v2, the piecewise peel) takes the
-    per-pair loop of parallel/batch.py."""
+    fast mode's backends (peeled / fft32) and the contract's (pexact /
+    pexact) with polynomial bases; the default (fft / fft), the v2 fast
+    (fft32 / fft32) and the exact (exact / exact: the v2 contract) backends
+    with any bases; any solver. Every other config (corr / conv, the
+    piecewise peel, pexact with B-spline bases) takes the per-pair loop of
+    parallel/batch.py."""
     from sfft_tpu_torch.core.peel import polynomial_bases
 
-    return ((cfg.greek_backend, cfg.fdiff_backend, cfg.solver) in BATCHED_TRIOS
-            and polynomial_bases(cfg))
+    return ((cfg.greek_backend, cfg.fdiff_backend) in BATCHED_BACKENDS
+            and (cfg.greek_backend not in ("peeled", "pexact") or polynomial_bases(cfg)))
 
 
 def normal_equations_fn(cfg: SFFTConfig):
@@ -155,9 +159,9 @@ def normal_equations_fn(cfg: SFFTConfig):
 
 
 def _solve_impl(cfg: SFFTConfig, mI: torch.Tensor, mJ: torch.Tensor,
-                plain: bool = False, shared=None) -> torch.Tensor:
+                plain: bool = False) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
-    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain, shared=shared)
+    lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain)
     return solve_system(cfg, lhs, rhs, plain=plain).to(dt)
 
 
@@ -181,11 +185,11 @@ def _subtract_impl(cfg: SFFTConfig, I: torch.Tensor, J: torch.Tensor,
 
 def solve_and_subtract_fn(cfg: SFFTConfig):
     """One solve+subtract step: solve on the masked pair (mI, mJ), apply to
-    the unmasked pair (I, J). Returns (solution, difference). With the
-    exact (or the pexact) backends for both tables and difference, the plane
-    spectra are computed once and shared when the masked and unmasked images
-    are the same tensors. A ``batched_step_supported`` config runs the
-    batched step on the batch of one pair."""
+    the unmasked pair (I, J). Returns (solution, difference). A
+    ``batched_step_supported`` config runs the batched step on the batch of
+    one pair (with the exact or the pexact backends for both tables and
+    difference, one set of plane spectra when the masked and unmasked
+    images are the same tensors); the others solve, then subtract."""
     if batched_step_supported(cfg):
         def one(I, J, mI, mJ, plain: bool = False):
             sol, diff = _batched_step(cfg, I[None], J[None], mI[None], mJ[None], plain,
@@ -193,25 +197,10 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
             return sol[0], diff[0]
 
         return one
-    both_exact = cfg.greek_backend == "exact" and cfg.fdiff_backend == "exact"
-    both_pexact = cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact"
 
     def step(I, J, mI, mJ, plain: bool = False):
-        shared = None
-        if both_exact:
-            from sfft_tpu_torch.core.greek import exact_plane_spectra
-
-            dt = torch_dtype(cfg.dtype)
-            shared = exact_plane_spectra(mI.to(dt), mJ.to(dt), cfg, plain=plain)
-        elif both_pexact:
-            from sfft_tpu_torch.core import pexact
-
-            shared = pexact.pexact_plane_spectra(mI, mJ, cfg, plain=plain)
-        sol = _solve_impl(cfg, mI, mJ, plain=plain, shared=shared)
-        same = (I is mI) and (J is mJ)
-        diff = _subtract_impl(cfg, I, J, sol, plain=plain,
-                              shared=shared if same else None)
-        return sol, diff
+        sol = _solve_impl(cfg, mI, mJ, plain=plain)
+        return sol, _subtract_impl(cfg, I, J, sol, plain=plain)
 
     return step
 
@@ -219,18 +208,40 @@ def solve_and_subtract_fn(cfg: SFFTConfig):
 def _batched_step(cfg: SFFTConfig, I, J, mI, mJ, plain: bool, same: bool = False):
     """The batched step's work on (B, N0, N1) tensors: the tables, the
     assembly and the difference for the batch, the solve pair by pair (a
-    batched LU changes a pair's bits, and each pair keeps its own fallback
-    decision). pexact: one PexactShared of the masked stacks for the batch,
-    which the difference reuses when they are the unmasked ones (`same`)."""
+    batched factorization changes a pair's bits, and each pair keeps its
+    own fallback decision and refinement stop). exact and pexact: one set
+    of plane spectra of the masked stacks for the batch (pexact's
+    PexactShared, greek.exact_plane_spectra), which the difference reuses
+    when they are the unmasked ones (`same`). The systems are let go
+    before the difference."""
     dt = torch_dtype(cfg.dtype)
     shared = None
     if cfg.greek_backend == "pexact" and cfg.fdiff_backend == "pexact":
         from sfft_tpu_torch.core import pexact
 
         shared = pexact.pexact_plane_spectra(mI, mJ, cfg, plain=plain)
+    elif cfg.greek_backend == "exact" and cfg.fdiff_backend == "exact":
+        from sfft_tpu_torch.core.greek import exact_plane_spectra
+
+        shared = exact_plane_spectra(mI.to(dt), mJ.to(dt), cfg, plain=plain)
     lhs, rhs = _normal_equations_impl(cfg, mI, mJ, plain=plain, shared=shared)
-    sol = torch.stack([solve_system(cfg, a, b, plain=plain).to(dt) for a, b in zip(lhs, rhs)])
+    sol = _aligned_rows([solve_system(cfg, a, b, plain=plain).to(dt) for a, b in zip(lhs, rhs)])
+    del lhs, rhs
     return sol, _subtract_impl(cfg, I, J, sol, plain=plain, shared=shared if same else None)
+
+
+def _aligned_rows(rows):
+    """The 1-D tensors `rows` as a (B, n) view whose rows each start on a
+    512-byte boundary, as a single call's own solution does (the caching
+    allocator's alignment): PyTorch's reductions pick their vector loads,
+    and with them the order of a sum, by a pointer's alignment, so a pair's
+    kernel sums over a view of its solution (the exact difference's,
+    pexact's smooth terms) keep their single call's bits only there. The
+    NIRCam system's 13226 f64 dofs would put every odd pair 16 bytes off a
+    32-byte boundary."""
+    n = rows[0].shape[-1]
+    per = 512 // rows[0].element_size()
+    return torch.nn.functional.pad(torch.stack(rows), (0, (-n) % per))[:, :n]
 
 
 def solve_and_subtract_batched_fn(cfg: SFFTConfig):
@@ -238,17 +249,20 @@ def solve_and_subtract_batched_fn(cfg: SFFTConfig):
     sfft_tpu's jax.vmap of ``solve_and_subtract_fn``: step(I, J, mI, mJ)
     with (B, N0, N1) tensors returns (solutions (B, NEQ), differences (B,
     N0, N1)), each pair's bits those of its single call. One set of the
-    config's kernel launches (K3, K1 and K2; the contract trio's K3, K4, K7,
-    K6a, K6m and K6p) and one pass of the table algebra and the assembly
-    for the batch; the library calls whose bits would change with the
-    batch's size (the solve, the rfft2 and irfft2, the products with long
-    contractions, the small einsums of pexact's smooth model) run pair by
-    pair. Only for
-    ``batched_step_supported`` configs (it raises for the others); the
+    config's kernel launches (K3, K1 and K2; the contract backends' K3, K4,
+    K7, K6a, K6m and K6p; the exact backends' K4, K7, K6a and K6m) and one pass of
+    the table algebra and the assembly for the batch; the library calls
+    whose bits would change with the batch's size (the solve, with K5 in
+    the large systems' refinement, the rfft2 and irfft2, the products with
+    long contractions, the small einsums of pexact's smooth model and the
+    exact difference's background) run pair by pair. Only for
+    ``batched_step_supported`` configs (it raises for the others): the
+    fast, default, v2 fast, contract and exact backends with any solver
+    (the v2 NIRCam configuration's contract and fast steps among them); the
     single step of those configs is this step on one pair."""
     if not batched_step_supported(cfg):
         raise ValueError(f"no batched step for greek {cfg.greek_backend!r}, fdiff "
-                         f"{cfg.fdiff_backend!r}, solver {cfg.solver!r} with these bases: "
+                         f"{cfg.fdiff_backend!r} with these bases: "
                          f"run its pairs one by one")
 
     def step(I, J, mI, mJ, plain: bool = False):

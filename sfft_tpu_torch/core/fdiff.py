@@ -453,9 +453,14 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
       * the inverse transform of the Hermitian half with the weight-2 fold:
         axis 0 first at half width, then the real-only axis-1 inverse;
       * the background term exactly in image space (separable U B V^T).
-    plain=True runs the plain twins of K4, K6 and K7."""
+    plain=True runs the plain twins of K4, K6 and K7. A batch (solution (B,
+    NEQ), I and J (B, N0, N1), or `shared` of such a batch) gives (B, N0,
+    N1): one set of K4 / K7 / K6 launches for the batch, the small sums and
+    the background's products pair by pair, each pair's bits those of its
+    single call."""
     from sfft_tpu_torch.core.exact_fft import _pmap, _swap, exact_dft_axis
     from sfft_tpu_torch.core.greek import exact_plane_spectra
+    from sfft_tpu_torch.core.peel import _each
 
     N0, N1, w0, w1 = cfg.N0, cfg.N1, cfg.w0, cfg.w1
     if shared is None:
@@ -463,23 +468,25 @@ def fdiff_exact(cfg: SFFTConfig, solution: torch.Tensor, I: torch.Tensor, J: tor
     _Jp, _SIp, SScp, sp = shared
     dev = sp.rh.device
     nss = len(SScp) if SScp is not None else 0
+    batch = solution.shape[0] if solution.dim() == 2 else 0
     a_ijab, b_pq = split_solution(cfg, solution.to(torch.float64))
 
     # --- kernel spectra K_ij = W0 @ A'_ij @ W1 (center-zeroed) -------------
-    a00 = a_ijab[:, w0, w1]
-    s_nc = a_ijab.sum(dim=(1, 2)) - a00
-    K = kernel_spectra(cfg, a_ijab, plain=plain)                          # (i, u, v)
+    a00 = a_ijab[..., w0, w1]
+    s_nc = _each(lambda a: a.sum(dim=(1, 2)), a_ijab, 3) - a00
+    K = kernel_spectra(cfg, a_ijab, plain=plain, batch=batch)            # (i, u, v)
 
     # --- model spectrum: compensated pair sum over ij, folded --------------
     FDw = pair_model_spectrum(cfg, sp, K, a00, s_nc, nss, plain=plain)
 
     # --- inverse transform of the Hermitian half ---------------------------
-    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, plain=plain)    # (N1h, N0)
-    y = exact_inverse_axis1(_pmap(zt, _swap), N1, plain=plain)
+    zt = exact_dft_axis(_pmap(FDw, _swap), N0, inverse=True, plain=plain,
+                        batch=batch)                                      # (N1h, N0)
+    y = exact_inverse_axis1(_pmap(zt, _swap), N1, plain=plain, batch=batch)
     D = (y.rh.to(torch.float64) + y.rl) / (N0 * N1)
 
     # --- background term, exactly, in image space --------------------------
-    return (D - background_model(cfg, b_pq, dev)).to(J.dtype)
+    return (D - _each(lambda b: background_model(cfg, b, dev), b_pq, 1)).to(J.dtype)
 
 
 def kernel_spectra(cfg: SFFTConfig, a_ijab: torch.Tensor, plain: bool = False,

@@ -815,21 +815,25 @@ def exact_bg_corr_pair(Ap, bg_spec, N0: int, N1: int, wx: int, wy: int,
                        plain: bool = False) -> torch.Tensor:
     """exact_bg_corr for a pair-represented real plane stack Ap (F, N0, N1):
     both contractions run through the sliced-integer exact products. Returns
-    (F, Fpq, R0, R1) f64."""
+    (F, Fpq, R0, R1) f64. Ap (B, F, N0, N1), a batch of pairs: (B, F, Fpq,
+    R0, R1), both products sliced under each pair's own global scale (K4's
+    per-pair mode), so each pair's bits are those of its single call."""
     from sfft_tpu_torch.core.exact_fft import CPair, _cmatmul_sliced
 
     exps = ref_basis_exponents(bg_spec)
     U, V = basis_1d_tables(bg_spec, N0, N1)
     F0, F1 = U.shape[1], V.shape[1]
     R0, R1 = 2 * wx + 1, 2 * wy + 1
+    lead = tuple(Ap.rh.shape[:-3])                                   # () or (B,)
+    batch = lead[0] if lead else 0
     Ur = Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 0))          # (N0, R0*F0)
     Vr = Static(_bg_roll_mat, (bg_spec, N0, N1, wx, wy, 1))          # (N1, R1*F1)
-    M1 = _cmatmul_sliced(Ap, Vr, plain=plain)                        # pair (F, N0, R1*F1)
+    M1 = _cmatmul_sliced(Ap, Vr, plain=plain, batch=batch)           # pair (F, N0, R1*F1)
     M1t = CPair(M1.rh.transpose(-1, -2), M1.rl.transpose(-1, -2), None, None)
-    M2 = _cmatmul_sliced(M1t, Ur, plain=plain)                       # pair (F, R1*F1, R0*F0)
-    M = (M2.rh.to(torch.float64) + M2.rl).reshape(-1, R1, F1, R0, F0)
-    out = torch.stack([M[:, :, int(j), :, int(i)] for (i, j) in exps], dim=1)
-    return out.permute(0, 1, 3, 2)                                   # (F, Fpq, R0, R1)
+    M2 = _cmatmul_sliced(M1t, Ur, plain=plain, batch=batch)          # pair (F, R1*F1, R0*F0)
+    M = (M2.rh.to(torch.float64) + M2.rl).reshape(lead + (-1, R1, F1, R0, F0))
+    out = torch.stack([M[..., int(j), :, int(i)] for (i, j) in exps], dim=-3)
+    return out.transpose(-1, -2)                                     # (F, Fpq, R0, R1)
 
 
 def _basis_factor(spec, N0: int, N1: int, axis: int, k: int) -> np.ndarray:
@@ -864,7 +868,10 @@ def exact_plane_spectra(I: torch.Tensor, J: torch.Tensor, cfg, plain: bool = Fal
 
     Returns (Jp, SIp, SScp, sp): image-domain pairs (Jp one plane, SIp list
     of Fij, SScp list or None) and the stacked half spectra CPair in plane
-    order [J] + SI (+ SSc)."""
+    order [J] + SI (+ SSc). I and J (B, N0, N1), a batch of pairs: every
+    plane keeps the pair axis (Jp and the list entries (B, N0, N1), sp (B,
+    planes, N0, N1h)), one set of K4 / K7 / K6a launches for the batch, each
+    pair's bits those of its single call."""
     from sfft_tpu_torch.core.exact_fft import (exact_sep_weighted_spectra, pair_from_f64,
                                                pair_sep_mul)
 
@@ -895,15 +902,19 @@ def greek_tables_exact(I: torch.Tensor, J: torch.Tensor, cfg, shared=None,
     included), and the background blocks are rolled-basis sliced moments.
 
     shared: the precomputed exact_plane_spectra(I, J, cfg), when the caller
-    has it. Returns (Comg, Cgam, Cthe, Cphi, Cdel[, (Pbs, Pss, Pgs, Pts)])."""
-    from sfft_tpu_torch.core.exact_fft import CPair, exact_corr_window, pair_stack
+    has it. Returns (Comg, Cgam, Cthe, Cphi, Cdel[, (Pbs, Pss, Pgs, Pts)]).
+    I and J (B, N0, N1) (or `shared` of such a batch): every table with a
+    leading pair axis (Cphi, the same for every pair, as a view), each
+    pair's bits those of its single call."""
+    from sfft_tpu_torch.core.exact_fft import _pmap, exact_corr_window, pair_stack
 
     N0, N1 = cfg.N0, cfg.N1
     if shared is None:
         shared = exact_plane_spectra(I, J, cfg, plain=plain)
     Jp, SIp, SScp, sp = shared
-    planes = {"SI": lambda: pair_stack(SIp), "SS": lambda: pair_stack(SScp),
-              "J": lambda: CPair(Jp.rh[None], Jp.rl[None], None, None)}
+    # the image-domain stacks (F, N0, N1), or (B, F, N0, N1) for a batch
+    planes = {"SI": lambda: pair_stack(SIp, dim=-3), "SS": lambda: pair_stack(SScp, dim=-3),
+              "J": lambda: _pmap(Jp, lambda v: v[..., None, :, :])}
 
     def window(ia, jb, wx, wy):
         return exact_corr_window(sp, sp, N0, N1, wx, wy, pairs=(ia, jb), plain=plain)
@@ -921,7 +932,8 @@ def exact_tables(cfg, Fij: int, Fs: int, dev, window, bg_corr):
     spectrum pairs (ia[c], jb[c]) in plane order [J] + SI (+ SSc), and
     bg_corr(name, wx, wy), the correlations (F, Fpq, 2wx+1, 2wy+1) f64 of
     the planes `name` ("SI", "SS" or "J") with the background planes. The
-    row-sharded step passes sums over row blocks."""
+    row-sharded step passes sums over row blocks. Correlations with a
+    leading pair axis (a batch) give every table that axis."""
     N0, N1 = cfg.N0, cfg.N1
     w0, w1 = cfg.w0, cfg.w1
     separate_varying = cfg.scaling_mode == "SEPARATE-VARYING"
@@ -939,30 +951,32 @@ def exact_tables(cfg, Fij: int, Fs: int, dev, window, bg_corr):
         ia_l += [gI.ravel(), su + 1 + Fij, np.arange(Fs) + 1 + Fij]
         jb_l += [gS.ravel(), sv + 1 + Fij, np.zeros(Fs, np.int64)]
     cc = window(np.concatenate(ia_l), np.concatenate(jb_l), 2 * w0, 2 * w1)
+    lead = tuple(cc.shape[:-3])          # () or (B,): the pair axis
     n_omg = len(iu)
     iu_t, ju_t = index(iu, dev), index(ju, dev)
-    Comg = torch.zeros((Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
-    Comg[iu_t, ju_t] = cc[:n_omg]
-    Comg[ju_t, iu_t] = torch.flip(cc[:n_omg], dims=(1, 2))
-    win = (slice(w0, 3 * w0 + 1), slice(w1, 3 * w1 + 1))
-    Cthe = cc[n_omg: n_omg + Fij][(slice(None),) + win]
+    Comg = torch.zeros(lead + (Fij, Fij, 4 * w0 + 1, 4 * w1 + 1), dtype=cc.dtype, device=dev)
+    Comg[..., iu_t, ju_t, :, :] = cc[..., :n_omg, :, :]
+    Comg[..., ju_t, iu_t, :, :] = torch.flip(cc[..., :n_omg, :, :], dims=(-2, -1))
+    win0, win1 = slice(w0, 3 * w0 + 1), slice(w1, 3 * w1 + 1)
+    Cthe = cc[..., n_omg: n_omg + Fij, win0, win1]
     Cgam = bg_corr("SI", w0, w1)
     Cphi = table(Static(bg_static_gram, (cfg.bg_basis, N0, N1)), dev, cc.dtype)
-    Cdel = bg_corr("J", 0, 0)[0, :, 0, 0]
+    Cphi = Cphi.expand(lead + tuple(Cphi.shape))
+    Cdel = bg_corr("J", 0, 0)[..., 0, :, 0, 0]
     if not separate_varying:
         return Comg, Cgam, Cthe, Cphi, Cdel
 
     o = n_omg + Fij
-    Pbs = cc[o: o + Fij * Fs][(slice(None),) + win].reshape(Fij, Fs, 2 * w0 + 1, 2 * w1 + 1)
+    Pbs = cc[..., o: o + Fij * Fs, win0, win1].reshape(lead + (Fij, Fs, 2 * w0 + 1, 2 * w1 + 1))
     o += Fij * Fs
     su_t, sv_t = index(su, dev), index(sv, dev)
-    pss_u = cc[o: o + len(su), 2 * w0, 2 * w1]
-    Pss = torch.zeros((Fs, Fs), dtype=cc.dtype, device=dev)
-    Pss[su_t, sv_t] = pss_u
-    Pss[sv_t, su_t] = pss_u
+    pss_u = cc[..., o: o + len(su), 2 * w0, 2 * w1]
+    Pss = torch.zeros(lead + (Fs, Fs), dtype=cc.dtype, device=dev)
+    Pss[..., su_t, sv_t] = pss_u
+    Pss[..., sv_t, su_t] = pss_u
     o += len(su)
-    Pts = cc[o: o + Fs, 2 * w0, 2 * w1]
-    Pgs = bg_corr("SS", 0, 0)[:, :, 0, 0]
+    Pts = cc[..., o: o + Fs, 2 * w0, 2 * w1]
+    Pgs = bg_corr("SS", 0, 0)[..., 0, 0]
     return Comg, Cgam, Cthe, Cphi, Cdel, _pad_scaling(Pbs, Pss, Pgs, Pts, cfg.Fij - Fs)
 
 

@@ -7,15 +7,17 @@ devices[k % len(devices)], and each device runs its pairs as batched
 steps (core/engine.solve_and_subtract_batched_fn: one set of the config's
 kernel launches and one pass of the table algebra for the step's pairs,
 each pair's bits those of its single call) where the config has one
-(core/engine.batched_step_supported: the fast mode peeled / fft32 /
-refined, the default trio fft / fft / lu and the contract trio pexact /
-pexact / transformed or exact, polynomial bases): one step for the
-device's pairs where its memory holds them, else steps of ``max_batch``
-pairs. The survey paths (parallel/scheduler.run_mesh_batched,
-parallel/multihost.process_local_batch) pass one pair a device, as
-sfft_tpu's do, and the batched step of one pair is the single step. Every
-other config (exact, corr / conv, B-spline and v2, the piecewise peel)
-runs its pairs one after another through the step of a single call
+(core/engine.batched_step_supported: the fast mode's backends peeled /
+fft32 and the contract's pexact / pexact with polynomial bases; the
+default fft / fft, the v2 fast fft32 / fft32 and the exact exact / exact
+backends with any bases, the v2 NIRCam configuration's among them; any
+solver): one step for the device's pairs where its memory holds them,
+else steps of ``max_batch`` pairs. The survey paths
+(parallel/scheduler.run_mesh_batched, parallel/multihost.process_local_batch)
+pass one pair a device, as sfft_tpu's do, and the batched step of one pair
+is the single step. Every other config (corr / conv, the piecewise peel,
+pexact with B-spline bases) runs its
+pairs one after another through the step of a single call
 (core/engine.solve_and_subtract_fn). Either way the
 upload of the next step's pairs (or the next pair) is issued on a
 side stream before the current step, so it overlaps that step; the step
@@ -29,9 +31,10 @@ batched step stacks a role's planes on the device in their layout where
 they share one (row- or column-major), row-major otherwise: the default
 trio gives the same bits on any layout, the peel's moment products read
 the masked planes in their layout, so a fast config whose masked planes
-mix layouts takes the per-pair loop; the contract trio's moment sets read
-the masked planes, and its difference the unmasked ones where they are
-other planes, so it takes the loop where any role mixes layouts.
+mix layouts takes the per-pair loop; the contract trio's moment sets and
+the exact trio's spectra read the masked planes, and their difference the
+unmasked ones where they are other planes, so they take the loop where any
+role mixes layouts.
 
 batched_subtract_packed is sfft_tpu's int16 upload of the fast survey
 path (utils/pack.py): the planes are quantized on the host, go up as int16
@@ -210,15 +213,30 @@ def batched_subtract_packed(I_stack, J_stack, mI_stack, mJ_stack, cfg: SFFTConfi
 # the peaks of chip_smoke.py's phase 14 on the card at 4096^2 (one pair's
 # step 5.44 GiB fast, 8.57 GiB default and 10.83 GiB contract, with 2 GiB
 # of the phase's own planes; each further pair 2.15, 4.02 and 8.63 GiB:
-# 137, 257 and 552 bytes a pixel), rounded up, with a pair's four f64
-# planes (32 bytes a pixel) added for the next step's upload
-_STEP_BYTES = {"peeled": (320, 192), "fft": (448, 320), "pexact": (64, 592)}
+# 137, 257 and 552 bytes a pixel; the exact trio 9.48 GiB, 607 bytes a
+# pixel) and on the NIRCam configuration at 900^2 (the v2 fast trio 2.93
+# GiB a further pair), less the systems' share below, rounded up, with a
+# pair's four f64 planes (32 bytes a pixel) added for the next step's
+# upload
+_STEP_BYTES = {"peeled": (320, 192), "fft": (448, 320), "fft32": (448, 464),
+               "pexact": (64, 592), "exact": (64, 640)}
+# and in bytes per entry of the (NEQ, NEQ) system: each pair's, in f64
+# tables (half that in the fft32 mode's f32 tables: the system holds about
+# four copies while the assembly builds, stacks and concatenates it; with
+# the 4096^2 peaks, fitted to the NIRCam configuration's 5.55 GiB (default
+# trio) and 5.64 GiB (exact trio) a further pair at NEQ 13226), and the
+# solve's own transient, once a step as the pairs solve one by one (the f64
+# copy of the tweaked system, K5's twelve int8 slices of it, its f32 hi
+# part and the f32 factor)
+_SYSTEM_BYTES = 34
+_SOLVE_BYTES = 32
 
 
 def max_batch(cfg: SFFTConfig, device) -> int:
     """The most pairs of `cfg` one batched step on `device` takes: as many
-    as its free memory holds by ``_STEP_BYTES`` (on a card the driver's
-    free memory and what PyTorch's allocator holds unused; on the CPU the
+    as its free memory holds by ``_STEP_BYTES`` and the systems' NEQ^2
+    terms (``_SYSTEM_BYTES``, ``_SOLVE_BYTES``; on a card the driver's free
+    memory and what PyTorch's allocator holds unused; on the CPU the
     available physical memory), at least one."""
     device = torch.device(device)
     if device.type == "cuda":
@@ -227,6 +245,9 @@ def max_batch(cfg: SFFTConfig, device) -> int:
     else:
         free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
     fixed, pair = (b * cfg.N0 * cfg.N1 for b in _STEP_BYTES[cfg.greek_backend])
+    system = cfg.NEQ ** 2
+    fixed += _SOLVE_BYTES * system
+    pair += _SYSTEM_BYTES * system // (2 if cfg.greek_backend == "fft32" else 1)
     return max(1, int((0.9 * free - fixed) // pair))
 
 
@@ -240,14 +261,14 @@ def _layout(p) -> str:
 
 def _batchable(cfg: SFFTConfig, stacks) -> bool:
     """Whether a batch (the stacks I, J, mI, mJ) runs as batched steps: a
-    ``batched_step_supported`` config, and for the backends whose moment
-    products read planes in their layout, planes of one layout a role: the
-    masked ones for the peel, all four for the contract trio (its
-    difference takes the moments of the unmasked planes where they are
-    other planes)."""
+    ``batched_step_supported`` config, and for the backends whose kernels
+    read planes in their layout, planes of one layout a role: the masked
+    ones for the peel, all four for the contract and exact backends (their
+    spectra read the masked planes, their difference the unmasked ones
+    where they are other planes)."""
     if not batched_step_supported(cfg):
         return False
-    roles = {"peeled": stacks[2:], "pexact": stacks}.get(cfg.greek_backend, ())
+    roles = {"peeled": stacks[2:], "pexact": stacks, "exact": stacks}.get(cfg.greek_backend, ())
     return all(len({_layout(p) for p in s}) == 1 and _layout(s[0]) for s in roles)
 
 

@@ -303,24 +303,32 @@ def test_packed_route_is_batched_subtract_on_the_dequantized_planes():
 
 
 def test_config_outside_the_slice_takes_the_loop():
-    """solver 'cho' (and any trio or basis outside BATCHED_TRIOS' polynomial
-    configs) runs its pairs one by one: no batched step, each pair its
-    single call. The contract trio (pexact / pexact with the transformed or
-    the exact solver, polynomial bases, either scaling mode) is inside;
-    pexact with any other solver is not."""
-    cfg = _cfg(dict(solver="cho"))
+    """corr / conv (and any backend pair outside BATCHED_BACKENDS, or the
+    peel and pexact with B-spline bases) runs its pairs one by one: no
+    batched step, each pair its single call. The solver does not decide:
+    the contract backends (pexact / pexact, polynomial bases, either
+    scaling mode) and the default, v2 fast and exact backends (any bases)
+    are inside with every solver; pexact tables with the exact difference
+    and corr / conv are not."""
+    cfg = _cfg(dict(greek_backend="corr", fdiff_backend="conv"))
     assert not tengine.batched_step_supported(cfg)
     bsp = dataclasses.replace(_cfg(FAST), kernel_basis=BasisSpec("bspline", 1, (28.5,), (24.5,)))
     assert not tengine.batched_step_supported(bsp)
-    for solver in ("transformed", "exact", "lu", "cho", "refined", "host", "blocked_cho"):
+    solvers = ("transformed", "exact", "lu", "cho", "refined", "host", "blocked_cho")
+    for solver in solvers:
         for separate in (False, True):
             pex = _cfg(dict(greek_backend="pexact", fdiff_backend="pexact", solver=solver),
                        separate)
-            assert tengine.batched_step_supported(pex) == (solver in ("transformed", "exact"))
-    for trio in (dict(greek_backend="exact", fdiff_backend="exact", solver="exact"),
-                 dict(greek_backend="pexact", fdiff_backend="exact", solver="exact"),
-                 dict(greek_backend="corr", fdiff_backend="conv", solver="exact")):
-        assert not tengine.batched_step_supported(_cfg(trio))
+            assert tengine.batched_step_supported(pex), (solver, separate)
+    for (greek, fd), inside in ((("exact", "exact"), True), (("fft32", "fft32"), True),
+                                (("fft", "fft"), True), (("pexact", "exact"), False),
+                                (("corr", "conv"), False)):
+        for solver in ("exact", "lu", "cho", "refined"):
+            trio = dict(greek_backend=greek, fdiff_backend=fd, solver=solver)
+            assert tengine.batched_step_supported(_cfg(trio)) == inside, trio
+            bspline = dataclasses.replace(
+                _cfg(trio), kernel_basis=BasisSpec("bspline", 1, (28.5,), (24.5,)))
+            assert tengine.batched_step_supported(bspline) == inside, trio
     pbsp = dataclasses.replace(_cfg(dict(greek_backend="pexact", fdiff_backend="pexact",
                                          solver="transformed")),
                                kernel_basis=BasisSpec("bspline", 1, (28.5,), (24.5,)))
